@@ -19,6 +19,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running kernel/scale tests; skipped unless --runslow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc (the PyTorch port's kernels); "
+        "skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
