@@ -3,11 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version on the card, drives the main path
-(``ServeEngine.generate`` on the full-width ``stlt_base`` model with random
-weights from a seeded generator) and checks that it ran through the kernels,
-checks chunked prefill and card-vs-CPU agreement, then times the kernels.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+holds each against its plain PyTorch version on the card: K1 (the STLT
+scan) and K2 (the flash relevance readout, both modes, with masked nodes, a
+padded key tail and an all-masked row). Then it drives the two main paths
+with random weights from a seeded generator and checks that each ran
+through its kernel: ``ServeEngine.generate`` on the full-width
+``stlt_base`` model (K1), and ``lm_loss`` forward and backward on the same
+model with ``mixer="stlt_relevance"`` (K2). It checks chunked prefill and
+card-vs-CPU agreement on both models, then times the kernels, their plain
+versions and the library yardstick, and profiles one ``generate`` and one
+relevance forward.
 
 Output ends with three lines: the card's name and power limit (from
 ``nvidia-smi``), a JSON ``{"kernels": [...]}`` line, and the JSON result
@@ -27,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 
@@ -41,7 +48,25 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
 LOGIT_TOL = 1e-3
-
+# K2 vs its plain version. The kernel builds the pole powers by repeated
+# multiplication, the plain version in closed form (exp(p log|lambda|),
+# cos(p theta)), so scores differ by ~1e-7 of their size. At the real scale
+# (unit-variance x, |lambda| up to e^(-1/32)) the scores reach the thousands
+# and the softmax is near one-hot, so z moves by up to ~1e-3 |v|: elementwise
+# 2e-3 + 2e-3 |z|, the JAX package's own tiled-vs-materialized tolerance.
+K2_TOL = 2e-3
+# With x scaled so the largest score is O(1), the softmax is smooth and the
+# error is the scores' rounding times |v|: 2e-4 of (1 + max |z|).
+K2_UNIT_TOL = 2e-4
+# relevance logits, card vs CPU. At random init the relevance scores reach
+# the thousands, so the model amplifies fp32 rounding: a relative change e
+# in a score moves it by e|R|, and the near-one-hot softmax passes that on.
+# K2 builds L by the one-step recurrence, the plain version by closed-form
+# powers inside tiles: both are fp32-exact to a few ulps, but not the same
+# ulps. So: logits within 5e-2 at a logit scale of ~2, and at least 99% of
+# positions with the same argmax. A CPU rerun at another tile (summation
+# order only) is printed beside it as the floor of the spread.
+REL_LOGIT_TOL = 5e-2
 
 def log(msg: str):
     print(msg, flush=True)
@@ -83,6 +108,73 @@ def k1_bound(BH, N, d, C, S, valid):
             flops, nbytes)
 
 
+def k2_inputs(dev, BH, N, dh, S, seed, adversarial: bool, x_scale: float = 1.0):
+    """K2's inputs at stlt-base's poles (sigma log-spaced over [1e-3, 1] plus
+    the 1/32 window, omega in [0, pi/4]). ``adversarial`` zeroes every fifth
+    node mask, pads the last 37 keys of row 1 and masks all keys of row 2;
+    otherwise the masks are soft and every key is valid, as on the main
+    path."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = x_scale * torch.randn(BH, N, dh, generator=g, device=dev)
+    v = torch.randn(BH, N, dh, generator=g, device=dev)
+    sig = torch.logspace(-3, 0, S, device=dev)
+    lm = -(sig + 1 / 32.0).repeat(BH, 1) * (1 + 0.01 * torch.randn(
+        BH, S, generator=g, device=dev))
+    th = -(np.pi / 4) * torch.rand(BH, S, generator=g, device=dev)
+    mk = 0.2 + 0.8 * torch.rand(BH, S, generator=g, device=dev)
+    km = torch.ones(BH, N, device=dev)
+    if adversarial:
+        mk[:, ::5] = 0.0
+        km[1, N - 37:] = 0.0
+        km[2] = 0.0
+    return x, v, lm, th, mk, km
+
+
+def k2_coefficients(k2, x, lm, th, km, causal):
+    """L re/im [BH, N, S, dh] through the plain version's tile operators."""
+    T = 128
+    BH, N, dh = x.shape
+    xp, _, _ = k2._pad_tiles(x, x, km, T)
+    ops = k2._flash_ops(xp, lm, th, T, bidirectional=not causal)
+    zero = torch.zeros_like(ops["hc_re"][:, 0])
+    tiles = [k2._reconstruct(xp[:, c * T:(c + 1) * T], ops, ops["hc_re"][:, c],
+                             ops["hc_im"][:, c],
+                             zero if causal else ops["gc_re"][:, c],
+                             zero if causal else ops["gc_im"][:, c], not causal)
+             for c in range(xp.shape[1] // T)]
+    return (torch.cat([t[0] for t in tiles], 1)[:, :N],
+            torch.cat([t[1] for t in tiles], 1)[:, :N])
+
+
+def k2_max_score(k2, x, lm, th, mk, km, causal):
+    """max_n R[n, n] = sum_k mk_k |L[n, k]|^2 / sqrt(S), the largest score
+    (R[n, m] <= sqrt(R[n, n] R[m, m]) for mk >= 0)."""
+    l_re, l_im = k2_coefficients(k2, x, lm, th, km, causal)
+    S = lm.shape[-1]
+    diag = (mk[:, None, :, None] * (l_re ** 2 + l_im ** 2)).sum((-1, -2))
+    return float(diag.max()) / S ** 0.5
+
+
+def k2_bound(mk, km, dh, causal):
+    """(bound_ms, bound_by, flops, bytes) of one K2 call on these inputs:
+    per (query, valid key) pair, 2 * 2 * dh flops for each node whose mask
+    is not 0 (the kernel skips the others) and 2 * dh for P.v; bytes: x, v
+    read, z written, and the [BH, S] / [BH, N] side inputs."""
+    BH, N = km.shape
+    S = mk.shape[-1]
+    valid = (km > 0).double()
+    if causal:   # keys m <= n: sum_n (valid keys in [0, n])
+        pairs = valid.cumsum(-1).sum(-1)
+    else:
+        pairs = valid.sum(-1) * N
+    active = (mk != 0).double().sum(-1)
+    flops = float((pairs * (4.0 * dh * active + 2.0 * dh)).sum())
+    nbytes = 4 * (3 * BH * N * dh + 3 * BH * S + BH * N)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -90,6 +182,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.stlt_base import CONFIG
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import relevance_flash as k2
     from repro_torch.kernels import stlt_scan as k1
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
@@ -138,16 +231,50 @@ def main() -> int:
     if not torch.equal(got[1][valid == 0], args[8][valid == 0]):
         raise AssertionError("K1: valid == 0 rows must return h0 exactly")
 
+    # 2b. K2 vs its plain version at the relevance path's shapes ---------------
+    k2_err = 0.0
+    for scale_name in ("real", "unit"):
+        for causal in (True, False):
+            xs = 1.0
+            if scale_name == "unit":   # x scaled so the largest score is ~1
+                a = k2_inputs(dev, BH, N, dh, S, 2, adversarial=True)
+                xs = k2_max_score(k2, a[0], a[2], a[3], a[4], a[5], causal) ** -0.5
+            a = k2_inputs(dev, BH, N, dh, S, 2, adversarial=True, x_scale=xs)
+            got = k2.relevance_flash_kernel(*a, causal=causal)
+            want = k2.relevance_flash_reference(*a, tile=C, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            top = k2_max_score(k2, a[0], a[2], a[3], a[4], a[5], causal)
+            zmax = float(want.abs().max())
+            if scale_name == "real":
+                k2_err = max(k2_err, err)
+                excess = float(((got - want).abs() - K2_TOL * want.abs()).max())
+                ok = excess <= K2_TOL
+                tol = f"|err| <= {K2_TOL} + {K2_TOL}|z|"
+            else:
+                ok = err <= K2_UNIT_TOL * (1.0 + zmax)
+                tol = f"{K2_UNIT_TOL} * (1 + {zmax:.3f})"
+            log(f"[2b K2 vs plain] {scale_name} scale, causal={causal}: max score "
+                f"{top:.4g}, max abs err {err:.3e} (max |z| {zmax:.3f}; tol {tol})")
+            if not ok:
+                raise AssertionError(f"K2 disagrees with its plain version "
+                                     f"({scale_name}, causal={causal}): {err}")
+            if not torch.equal(got[2], torch.zeros_like(got[2])):
+                raise AssertionError("K2: the all-masked row must return exactly 0")
+            if not torch.isfinite(got).all():
+                raise AssertionError("K2 returned non-finite values")
+
     # 3. the main path: full-width stlt-base generate --------------------------
     params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     engine = ServeEngine(params, cfg, max_len=N + NEW, device=dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(B, N))
-    k1.stlt_scan_kernel.launches = 0
+    k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
     t0 = time.time()
     tokens = engine.generate(prompts, NEW)
     torch.cuda.synchronize()
     first_wall = time.time() - t0
-    launches = {"stlt_scan": k1.stlt_scan_kernel.launches}
+    launches = {"stlt_scan": k1.stlt_scan_kernel.launches,
+                "relevance_flash": k2.relevance_flash_kernel.launches}
     log(f"[3 generate] {B} x {N} prompt tokens, {NEW} new: {first_wall:.3f} s "
         f"(first call), kernel launches {launches}")
     if launches["stlt_scan"] != cfg.num_layers:
@@ -215,6 +342,86 @@ def main() -> int:
         if not (err <= LOGIT_TOL and torch.isfinite(lg_gpu).all()):
             raise AssertionError(f"card and CPU prefill disagree: {err}")
 
+    # 7. the relevance path: full-width lm_loss forward and backward -------------
+    rcfg = dataclasses.replace(cfg, mixer="stlt_relevance")
+    rparams = T.init_lm(rcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.from_numpy(prompts).to(dev)
+    rbatch = {"inputs": toks, "labels": torch.roll(toks, -1, dims=1)}
+    k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
+    t0 = time.time()
+    with torch.no_grad():
+        loss, _ = T.lm_loss(rparams, rcfg, rbatch, deterministic=True)
+    torch.cuda.synchronize()
+    rel_first = time.time() - t0
+    rel_launches = {"stlt_scan": k1.stlt_scan_kernel.launches,
+                    "relevance_flash": k2.relevance_flash_kernel.launches}
+    log(f"[7 relevance lm_loss] {B} x {N} tokens, forward {rel_first:.3f} s (first "
+        f"call), loss {float(loss):.4f}, kernel launches {rel_launches}")
+    if rel_launches != {"stlt_scan": 0, "relevance_flash": rcfg.num_layers}:
+        raise AssertionError(f"expected {rcfg.num_layers} K2 launches per forward, "
+                             f"got {rel_launches}")
+    if not torch.isfinite(loss):
+        raise AssertionError(f"relevance loss is not finite: {loss}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    start.record()
+    with torch.no_grad():
+        T.lm_loss(rparams, rcfg, rbatch, deterministic=True)
+    end.record()
+    torch.cuda.synchronize()
+    rel_wall_ms, rel_event_ms = 1e3 * (time.time() - t0), start.elapsed_time(end)
+    log(f"[7 relevance lm_loss] one forward: wall {rel_wall_ms:.3f} ms, CUDA events "
+        f"{rel_event_ms:.3f} ms")
+    leaves = []
+    for layer in rparams["layers"]:
+        for sub in (layer["stlt"]["nodes"], layer["stlt"], layer["ffn"]):
+            leaves += [t for t in sub.values() if isinstance(t, torch.Tensor)]
+    leaves.append(rparams["embed"]["embed"])
+    for t in leaves:
+        t.requires_grad_(True)
+    bwd_walls = []
+    for _ in range(2):   # the first call pays one-time costs
+        t0 = time.time()
+        loss, _ = T.lm_loss(rparams, rcfg, rbatch, deterministic=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        bwd_walls.append(time.time() - t0)
+    got = [g for g in grads if g is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"[7 relevance lm_loss] forward + backward {bwd_walls[0]:.3f} s (first call), "
+        f"{bwd_walls[1]:.3f} s (second): {len(got)} of "
+        f"{len(leaves)} grads (the node mixers u are unused in relevance mode), "
+        f"all finite {finite}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not finite or len(got) < len(leaves) - 2 * rcfg.num_layers:
+        raise AssertionError("relevance backward: missing or non-finite grads")
+    for t in leaves:
+        t.requires_grad_(False)
+    del grads, got, loss
+
+    # 8. relevance logits, the card vs the CPU (plain version) ------------------
+    with torch.no_grad():
+        n8 = 256
+        toks8 = torch.from_numpy(prompts[:2, :n8])
+        lg_gpu, _ = T.apply_lm(rparams, rcfg, toks8.to(dev))
+        cpu_params = tree_map(torch.Tensor.cpu, rparams)
+        lg_cpu, _ = T.apply_lm(cpu_params, rcfg, toks8)
+        lg_cpu64, _ = T.apply_lm(cpu_params, dataclasses.replace(rcfg, stlt_chunk=64),
+                                 toks8)
+        for name, other in (("card vs cpu", lg_gpu.cpu()), ("cpu tile 64 vs 128", lg_cpu64)):
+            diff = (other - lg_cpu).abs().amax(-1)                # [2, n8]
+            agree = float((other.argmax(-1) == lg_cpu.argmax(-1)).double().mean())
+            log(f"[8 relevance {name}] apply_lm logits at B=2, N={n8}: max abs err "
+                f"{float(diff.max()):.3e}, median {float(diff.median()):.3e} (logit "
+                f"scale {float(lg_cpu.abs().max()):.3f}), argmax agreement "
+                f"{100 * agree:.2f}%")
+        err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+        agree = float((lg_gpu.cpu().argmax(-1) == lg_cpu.argmax(-1)).double().mean())
+        if not (err <= REL_LOGIT_TOL and agree >= 0.99 and torch.isfinite(lg_gpu).all()):
+            raise AssertionError(f"card and CPU relevance logits disagree: max {err}, "
+                                 f"argmax agreement {agree}")
+
     # 6. timing -------------------------------------------------------------------
     k1_ms = time_cuda(lambda: k1.stlt_scan_kernel(*args, chunk=C), iters=50)
     plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*args, chunk=C), iters=10)
@@ -238,7 +445,48 @@ def main() -> int:
     log(f"[6 timing] generate {B} x ({N} prompt + {NEW} new): {wall:.4f} s, "
         f"{B * NEW / wall:.1f} new tok/s, {B * (N + NEW) / wall:.1f} tok/s in all; "
         f"prefill {prefill_ms:.3f} ms, decode step {step_ms:.3f} ms (batch {B})")
-    profile_generate(engine, prompts, NEW)
+    profile(lambda: engine.generate(prompts, NEW), "generate")
+
+    # K2 at the relevance path's shapes and data (soft node masks, no padding)
+    a = k2_inputs(dev, BH, N, dh, S, 3, adversarial=False)
+    k2_ms = time_cuda(lambda: k2.relevance_flash_kernel(*a, causal=True), iters=10)
+    k2_plain_ms = time_cuda(lambda: k2.relevance_flash_reference(*a, tile=C, causal=True),
+                            iters=3)
+    k2_bound_ms, k2_bound_by, k2_flops, k2_bytes = k2_bound(a[4], a[5], dh, causal=True)
+    # the library yardstick: one scaled_dot_product_attention call on the
+    # materialized coefficients (Re(a conj b) = a_re b_re + a_im b_im), q =
+    # [mk L_re | mk L_im], k = [L_re | L_im], [BH, N, 2 S dh]; building L is
+    # not timed. The port never calls it.
+    with torch.no_grad():
+        l_re, l_im = k2_coefficients(k2, a[0], a[2], a[3], a[5], causal=True)
+        mkb = a[4][:, None, :, None]
+        q = torch.cat([(mkb * l_re).flatten(2), (mkb * l_im).flatten(2)], -1)
+        kk = torch.cat([l_re.flatten(2), l_im.flatten(2)], -1)
+        del l_re, l_im
+        mask = torch.tril(torch.ones(N, N, dtype=torch.bool, device=dev))[None] \
+            & (a[5] > 0)[:, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, kk, a[1], attn_mask=mask, scale=S ** -0.5)
+        lib_err = float((sdpa() - k2.relevance_flash_kernel(*a, causal=True)).abs().max())
+        library_ms = time_cuda(sdpa, iters=5)
+        del q, kk, mask
+    log(f"[6 timing] K2 (causal) at BH={BH} N={N} dh={dh} S={S}: {k2_ms:.4f} ms, "
+        f"plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_bound_by}; "
+        f"{k2_flops / 1e9:.3f} GFLOP, {k2_bytes / 1e6:.3f} MB), SDPA on materialized "
+        f"L {library_ms:.4f} ms (max abs diff to K2 {lib_err:.3e})")
+    k2_bidir_ms = time_cuda(lambda: k2.relevance_flash_kernel(*a, causal=False), iters=5)
+    log(f"[6 timing] K2 (bidirectional) on the same inputs: {k2_bidir_ms:.4f} ms, bound "
+        f"{k2_bound(a[4], a[5], dh, causal=False)[0]:.4f} ms")
+    log(f"[6 timing] relevance lm_loss forward {rel_event_ms:.3f} ms (events): "
+        f"6 x K2 = {100 * 6 * k2_ms / rel_event_ms:.1f}% of it")
+    with torch.no_grad():
+        profile(lambda: T.lm_loss(rparams, rcfg, rbatch, deterministic=True),
+                "relevance forward")
+    ins = [t.clone().requires_grad_(True) for t in a[:5]]
+    dz = torch.randn_like(a[0])
+    profile(lambda: torch.autograd.grad(
+        k2.relevance_flash(*ins[:4], masks=ins[4], kmask=a[5]), ins, dz),
+        "one K2 forward + backward (backward: autograd through the plain version)")
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -251,23 +499,29 @@ def main() -> int:
         "replaces": "src/repro/kernels/stlt_scan.py:67",
         "launches": launches["stlt_scan"], "max_abs_err": k1_err,
         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "relevance_flash", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
+        "replaces": "src/repro/kernels/relevance_flash.py:207",
+        "launches": rel_launches["relevance_flash"], "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+        "bound_by": k2_bound_by, "library_ms": library_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def profile_generate(engine, prompts, new_tokens: int, top: int = 8):
-    """Device time by kernel over one ``generate``, and the device's busy
+def profile(fn, label: str, top: int = 8):
+    """Device time by kernel over one call of ``fn``, and the device's busy
     share of the wall (kernel time summed, overlaps ignored)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with torch_profile(activities=acts) as prof:
         t0 = time.time()
-        engine.generate(prompts, new_tokens)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
     # kernel rows only: an aten op's row repeats the device time of the
@@ -277,11 +531,11 @@ def profile_generate(engine, prompts, new_tokens: int, top: int = 8):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"[6 profile] generate wall {wall_ms:.2f} ms (profiled), device busy "
+    log(f"[6 profile] {label} wall {wall_ms:.2f} ms (profiled), device busy "
         f"{busy:.2f} ms = {100 * busy / wall_ms:.1f}% of wall, "
         f"{sum(r[2] for r in rows)} kernel launches")
     for key, ms, count in rows[:top]:
-        log(f"[6 profile]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+        log(f"[6 profile]   {ms:9.3f} ms  {count:6d}x  {100 * ms / busy:5.1f}%  {key[:80]}")
 
 
 if __name__ == "__main__":

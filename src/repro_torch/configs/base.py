@@ -49,6 +49,9 @@ class ModelConfig:
     stlt_engine: str = "chunked"
     stlt_chunk: int = 128
     stlt_init_T: float = 32.0
+    stlt_learnable_sigma: bool = True     # Table-4 ablation switches
+    stlt_learnable_omega: bool = True
+    stlt_learnable_T: bool = True
     stlt_zero_omega: bool = False
     stlt_mask_reg: float = 1e-3
     stlt_hard_eval: bool = False
@@ -90,6 +93,9 @@ class ModelConfig:
             engine=self.stlt_engine,
             gate=self.stlt_gate,
             init_T=self.stlt_init_T,
+            learnable_sigma=self.stlt_learnable_sigma,
+            learnable_omega=self.stlt_learnable_omega,
+            learnable_T=self.stlt_learnable_T,
             zero_omega=self.stlt_zero_omega,
             adaptive=AdaptiveConfig(enabled=self.stlt_adaptive,
                                     lambda_mask=self.stlt_mask_reg,

@@ -40,14 +40,23 @@ def init_nodes(generator: torch.Generator, num_heads: int, num_nodes: int, *,
         "u_re": u[0], "u_im": u[1]}.items()}
 
 
-def node_poles(params: dict, delta: float = 1.0, fold_window: bool = True):
+def node_poles(params: dict, delta: float = 1.0, fold_window: bool = True, *,
+               learnable_sigma: bool = True, learnable_omega: bool = True,
+               learnable_T: bool = True):
     """(log_mag, theta, sigma, T): log_mag/theta/sigma [H, S], T [H].
 
-    The JAX version's learnability switches (Table-4 ablations) only stop
-    gradients; the port takes no gradients yet, so it has none."""
-    sigma = EPS_SIGMA + softplus(params["sigma_hat"])
-    T = T_MIN + softplus(params["T_hat"])
+    A parameter whose ``learnable_*`` switch is off (the paper's Table-4
+    ablations) is detached, so it gets no gradient."""
+    sigma_hat, omega, T_hat = params["sigma_hat"], params["omega"], params["T_hat"]
+    if not learnable_sigma:
+        sigma_hat = sigma_hat.detach()
+    if not learnable_omega:
+        omega = omega.detach()
+    if not learnable_T:
+        T_hat = T_hat.detach()
+    sigma = EPS_SIGMA + softplus(sigma_hat)
+    T = T_MIN + softplus(T_hat)
     sigma_eff = sigma + (1.0 / T)[:, None] if fold_window else sigma
     log_mag = -sigma_eff * delta
-    theta = -params["omega"] * delta
+    theta = -omega * delta
     return log_mag, theta, sigma, T

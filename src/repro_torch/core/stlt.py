@@ -1,15 +1,32 @@
-"""The learnable STLT layer, causal exponential-window factorized readout:
+"""The learnable STLT layer. Two readouts, as in the JAX package:
 
-    v   = x W_v                                  (per head)
-    L_k = windowed Laplace scan of v at node k   (streaming recurrence)
-    z   = Re(sum_k m_k u_k L_k) W_o
+* ``mode="factorized"`` (causal, exponential window):
 
-The scan always goes through ``kernels/ops.stlt_scan`` (the Hopper kernel on
-the card, its plain version on the CPU): the JAX engines ``chunked``,
-``chunked_fused`` and ``pallas`` compute the same function, so all three
-engine names take that path. The hann window, the bidirectional transform,
-the relevance readout and the ``associative``/``sequential`` engines are
-not ported yet and raise ``NotImplementedError``.
+      v   = x W_v                                  (per head)
+      L_k = windowed Laplace scan of v at node k   (streaming recurrence)
+      z   = Re(sum_k m_k u_k L_k) W_o
+
+  The scan always goes through ``kernels/ops.stlt_scan`` (K1 on the card,
+  its plain version on the CPU): the JAX engines ``chunked``,
+  ``chunked_fused`` and ``pallas`` compute the same function, so all three
+  engine names take that path.
+* ``mode="relevance"`` (the paper's figure, causal or bidirectional):
+
+      R[n,m] = Re(sum_k m_k L[n,k] . conj(L[m,k])) / sqrt(S)
+      z      = softmax(R + causal mask + pad mask) (x W_v) W_o
+
+  with L the transform of the per-head layer inputs. Every engine name
+  takes ``kernels/relevance_flash.relevance_flash`` (K2 on the card, its
+  plain version on the CPU); in the JAX package only ``pallas`` does and
+  the others materialize [N, N]. ``_relevance_materialized`` is kept as the
+  small-N oracle the tests use; nothing on the main path calls it. The
+  relevance readout has no streaming state: ``stlt_prefill``,
+  ``init_stlt_state`` and ``apply_stlt_step`` refuse it, as the JAX package
+  asserts.
+
+The hann window and the bidirectional factorized transform, and the
+``associative``/``sequential`` engines of the factorized readout, are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +41,7 @@ from repro_torch.core import adaptive as adaptive_lib
 from repro_torch.core import nodes as nodes_lib
 from repro_torch.core import scan as scan_lib
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.relevance_flash import relevance_flash
 from repro_torch.utils import lecun_normal
 
 SCAN_ENGINES = ("chunked", "chunked_fused", "pallas")
@@ -46,6 +64,9 @@ class STLTConfig:
     sigma_min: float = 1e-3
     sigma_max: float = 1.0
     omega_max: float = math.pi / 4
+    learnable_sigma: bool = True
+    learnable_omega: bool = True
+    learnable_T: bool = True
     zero_omega: bool = False
     adaptive: adaptive_lib.AdaptiveConfig = adaptive_lib.AdaptiveConfig()
     param_dtype: Any = torch.float32
@@ -56,7 +77,14 @@ class STLTConfig:
         return self.d_model // self.num_heads
 
 
-def _check_ported(cfg: STLTConfig):
+def _check_ported(cfg: STLTConfig, streaming: bool = False):
+    """Raise for what the port does not run. ``streaming`` marks the
+    prefill/decode entry points, which need the factorized readout."""
+    if cfg.mode == "relevance":
+        if streaming:
+            raise ValueError("the relevance readout has no streaming state: "
+                             "prefill and decode need mode='factorized'")
+        return
     if cfg.mode != "factorized":
         raise NotImplementedError(f"STLT mode {cfg.mode!r} is not ported yet")
     if cfg.window != "exponential":
@@ -92,8 +120,12 @@ def init_stlt(generator: torch.Generator, cfg: STLTConfig, device=None) -> dict:
 
 
 def _poles(params: dict, cfg: STLTConfig):
-    return nodes_lib.node_poles(params["nodes"], delta=cfg.delta,
-                                fold_window=(cfg.window == "exponential"))
+    return nodes_lib.node_poles(
+        params["nodes"], delta=cfg.delta,
+        fold_window=(cfg.window == "exponential"),
+        learnable_sigma=cfg.learnable_sigma,
+        learnable_omega=cfg.learnable_omega and not cfg.zero_omega,
+        learnable_T=cfg.learnable_T)
 
 
 def _split_heads(x: torch.Tensor, H: int) -> torch.Tensor:
@@ -165,6 +197,71 @@ def _readout(params: dict, cfg: STLTConfig, x, z):
     return z @ params["w_o"]
 
 
+def _relevance_readout(cfg: STLTConfig, x, v, log_mag, theta, masks,
+                       pad_mask=None):
+    """The relevance readout through ``relevance_flash`` (the JAX package's
+    ``_relevance_flash_readout``, taken here for every engine name).
+
+    x [B, N, d] the (normed) layer inputs, transformed per head; v
+    [B, H, N, dh] the values; masks [B, H, S] or None, folded on the query
+    side; pad_mask [B, N] (True = real token) zeroes padded inputs before
+    the transform and removes padded keys from the softmax. Outputs at
+    padded query positions are garbage by contract."""
+    B, H, N, dh = v.shape
+    S = cfg.num_nodes
+    xh = _split_heads(x, H).reshape(B * H, N, dh).float()
+    lm, th = log_mag.repeat(B, 1), theta.repeat(B, 1)   # [B*H, S], H fastest
+    mk = None if masks is None else masks.reshape(B * H, S)
+    km = None if pad_mask is None else pad_mask.repeat_interleave(H, dim=0)
+    z = relevance_flash(xh, v.reshape(B * H, N, dh), lm, th, masks=mk,
+                        kmask=km, causal=not cfg.bidirectional, tile=cfg.chunk)
+    return z.reshape(B, H, N, dh).to(v.dtype)
+
+
+def _complex_scan(lam, x, reverse: bool = False):
+    """L[t] = lam * L[t-1] + x[t] (or from the end), one step at a time:
+    lam [BH, S] complex, x [BH, N, dh] -> L [BH, N, S, dh] complex."""
+    N = x.shape[1]
+    a = lam[:, :, None]
+    h = torch.zeros(x.shape[0], lam.shape[1], x.shape[2], dtype=lam.dtype,
+                    device=x.device)
+    out = [None] * N
+    for t in (range(N - 1, -1, -1) if reverse else range(N)):
+        h = a * h + x[:, t, None, :]
+        out[t] = h
+    return torch.stack(out, dim=1)
+
+
+def _relevance_materialized(cfg: STLTConfig, x, v, log_mag, theta, masks,
+                            pad_mask=None):
+    """Materialized relevance readout, the small-N oracle: the full
+    [B, H, N, N] relevance matrix and [B*H, N, S, dh] complex coefficients
+    (a plain complex scan; the port has no ``scan_associative``)."""
+    B, H, N, dh = v.shape
+    S = cfg.num_nodes
+    xh = _split_heads(x, H)
+    if pad_mask is not None:
+        xh = torch.where(pad_mask[:, None, :, None], xh, 0.0)
+    lam = torch.exp(torch.complex(log_mag, theta)).repeat(B, 1)   # [B*H, S]
+    xc = xh.reshape(B * H, N, dh).to(lam.dtype)
+    L = _complex_scan(lam, xc)
+    if cfg.bidirectional:
+        L = L + _complex_scan(lam, xc, reverse=True) - xc[:, :, None, :]
+    L = L.reshape(B, H, N, S, dh)
+    Lw = L if masks is None else L * masks[:, :, None, :, None]
+    R = torch.einsum("bhnkd,bhmkd->bhnm", Lw, L.conj()).real / math.sqrt(S)
+    valid = torch.ones((1, 1, N, N), dtype=torch.bool, device=x.device)
+    if not cfg.bidirectional:
+        valid = torch.tril(valid)
+    if pad_mask is not None:
+        valid = valid & pad_mask[:, None, None, :]
+    Rm = torch.where(valid, R, -1e30)
+    p = torch.exp(Rm - Rm.amax(-1, keepdim=True).detach()) * valid
+    l = p.sum(-1, keepdim=True)
+    A = torch.where(l > 0, p / torch.where(l > 0, l, 1.0), 0.0)
+    return torch.einsum("bhnm,bhmd->bhnd", A, v)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -192,8 +289,11 @@ def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
             generator=generator, pad_mask=pad_mask)
     log_mag, theta, sigma, T = _poles(params, cfg)
     v = _split_heads(x @ params["w_v"], cfg.num_heads)
-    u_re, u_im = _masked_u(params, masks)
-    z = _scan(v, log_mag, theta, u_re, u_im, cfg)
+    if cfg.mode == "relevance":
+        z = _relevance_readout(cfg, x, v, log_mag, theta, masks, pad_mask)
+    else:
+        u_re, u_im = _masked_u(params, masks)
+        z = _scan(v, log_mag, theta, u_re, u_im, cfg)
     y = _readout(params, cfg, x, z)
     reg = adaptive_lib.regularization(sigma, params["nodes"]["omega"], masks, acfg)
     return y, {"reg": reg, "s_eff": s_eff, "masks": masks, "T": T, "sigma": sigma}
@@ -213,7 +313,7 @@ def stlt_prefill(params: dict, cfg: STLTConfig, x: torch.Tensor,
     this chunk's valid tokens; ``node_cap`` [B] further keeps each row's
     top-``node_cap[b]`` nodes.
     """
-    _check_ported(cfg)
+    _check_ported(cfg, streaming=True)
     B, N, d = x.shape
     log_mag, theta, _, _ = _poles(params, cfg)
     v = _split_heads(x @ params["w_v"], cfg.num_heads)
@@ -255,7 +355,7 @@ def init_stlt_state(cfg: STLTConfig, batch: int, dtype=torch.float32,
                     device=None) -> dict:
     """O(S*d) streaming state; adaptive configs also carry the running input
     sum ``asum`` [batch, d_model] and count ``acnt`` [batch]."""
-    _check_ported(cfg)
+    _check_ported(cfg, streaming=True)
     H, S, dh = cfg.num_heads, cfg.num_nodes, cfg.head_dim
     st = {"h_re": torch.zeros((batch, H, S, dh), dtype=dtype, device=device),
           "h_im": torch.zeros((batch, H, S, dh), dtype=dtype, device=device)}
@@ -272,7 +372,7 @@ def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
     With adaptive masks the deterministic mask is recomputed every step from
     the running input mean (updated here to include x_t); ``node_cap`` [B]
     keeps each row's top-k nodes (cap == S rows run unmasked)."""
-    _check_ported(cfg)
+    _check_ported(cfg, streaming=True)
     B, d = x_t.shape
     H = cfg.num_heads
     v_t = (x_t @ params["w_v"]).reshape(B, H, cfg.head_dim)

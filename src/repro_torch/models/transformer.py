@@ -8,7 +8,11 @@ package stacks runs of equal blocks on a leading axis when
 ``execution_plan``. Decode states follow suit: ``{"layers": [one state per
 layer], "pos": [B] int32}``.
 
-Only STLT blocks are ported; other block types raise NotImplementedError.
+Only STLT blocks are ported: ``stlt`` (factorized) and ``stlt_rel`` (the
+relevance readout, ``mixer="stlt_relevance"``). Other block types raise
+NotImplementedError. A relevance block has no streaming state, so
+``init_decode_state``, ``prefill``, ``prefill_chunk`` and ``decode_step``
+raise ValueError on such a model, as the JAX package asserts.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.utils import default_generator, resolve_device, trunc_normal
 
 AUX_KEYS = ("reg", "s_eff")
-_PORTED_BLOCKS = ("stlt",)
+_PORTED_BLOCKS = ("stlt", "stlt_rel")
 
 
 def _check_block(btype: str):
@@ -139,7 +143,8 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
             deterministic: bool = False,
             generator: Optional[torch.Generator] = None, tau=None):
     """batch: {"inputs": [B, N], "labels": [B, N], optional "mask"}.
-    Forward and eval only: the port has no backward yet."""
+    Differentiable through relevance blocks (K2's autograd Function); the
+    factorized scan has no backward on the card yet."""
     logits, aux = apply_lm(params, cfg, batch["inputs"],
                            deterministic=deterministic, generator=generator,
                            tau=tau)

@@ -1,21 +1,30 @@
-"""K1 on the card: the Hopper kernel against its plain PyTorch version.
+"""K1 and K2 on the card: the Hopper kernels against their plain PyTorch
+versions.
 
 These tests need a CUDA device and ``nvcc`` (they build the kernel from
 ``src/repro_torch/kernels/csrc``); elsewhere they skip. Run them on an H100
 with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where JAX is not installed.
 
-Tolerance: the kernel and the plain version both accumulate in fp32 (TF32
-off) but sum in different orders, over up to C + 2S = 256 terms per output
-and nc chunk steps of the carry; 2e-4 relative to the output's scale bounds
-that rounding.
+Tolerances. K1: the kernel and the plain version both accumulate in fp32
+(TF32 off) but sum in different orders, over up to C + 2S = 256 terms per
+output and nc chunk steps of the carry; 2e-4 relative to the output's scale
+bounds that rounding. K2: the kernel builds the pole powers by repeated
+multiplication and the plain version in closed form, so the scores differ
+by ~1e-7 of their size; with scores in the thousands (|lambda| near
+e^(-1/32)) the softmax is near one-hot and that moves z by up to ~1e-3 x
+|v|, so K2 is held elementwise within 2e-3 + 2e-3 |z|, the JAX package's
+own tiled-vs-materialized tolerance; gradients within 2e-3 of the largest
+entry, for the same reason.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import stlt as stlt_lib  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import relevance_flash as k2  # noqa: E402
 from repro_torch.kernels import stlt_scan as k1  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +109,99 @@ def test_kernel_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         k1.stlt_scan_kernel(*args, chunk=8)
     assert np.isfinite(k1.stlt_scan_kernel(*args, chunk=16)[0].cpu().numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# K2, the flash relevance readout
+# ---------------------------------------------------------------------------
+
+
+def _k2_inputs(dev, BH, N, d, S, seed=0):
+    """stlt-base-like poles (|lambda| <= e^(-1/32)), node masks with zeros,
+    a padded key tail on row 1 and an all-masked row 2 (when BH > 2)."""
+    g = torch.Generator().manual_seed(seed)
+    x, v = (torch.randn(BH, N, d, generator=g) for _ in range(2))
+    sig = torch.logspace(-3, 0, S)
+    lm = -(sig + 1 / 32) * (1 + 0.01 * torch.randn(BH, S, generator=g))
+    th = -0.785 * torch.rand(BH, S, generator=g)
+    mk = torch.rand(BH, S, generator=g)
+    mk[:, ::3] = 0.0
+    km = torch.ones(BH, N)
+    if BH > 1:
+        km[1, N - N // 3:] = 0.0
+    if BH > 2:
+        km[2] = 0.0
+    return [t.to(dev) for t in (x, v, lm, th, mk, km)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,N,d,S", [
+    (3, 40, 16, 8),          # one partial block
+    (3, 129, 20, 5),         # d not a multiple of 16, N one past a block
+    (4, 300, 7, 3),          # odd d, ragged last block
+    (32, 1000, 64, 64),      # stlt-base at batch 4
+])
+def test_k2_matches_plain_version(dev, causal, BH, N, d, S):
+    args = _k2_inputs(dev, BH, N, d, S)
+    got = k2.relevance_flash_kernel(*args, causal=causal)
+    want = k2.relevance_flash_reference(*args, tile=128, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))   # all keys masked
+
+
+def test_k2_dispatch_launches_the_kernel_once(dev):
+    args = _k2_inputs(dev, 8, 200, 64, 16)
+    before = k2.relevance_flash_kernel.launches
+    z = k2.relevance_flash(*args[:4], masks=args[4], kmask=args[5])
+    assert k2.relevance_flash_kernel.launches == before + 1
+    zc = k2.relevance_flash(*(t.cpu() for t in args[:4]), masks=args[4].cpu(),
+                            kmask=args[5].cpu())
+    torch.testing.assert_close(z.cpu(), zc, rtol=2e-3, atol=2e-3)
+    cfg = stlt_lib.STLTConfig(d_model=64, num_heads=4, num_nodes=8, chunk=16,
+                              mode="relevance")
+    params = stlt_lib.init_stlt(torch.Generator(device=dev).manual_seed(0), cfg,
+                                device=dev)
+    before = k2.relevance_flash_kernel.launches
+    y, _ = stlt_lib.apply_stlt(params, cfg, torch.randn(2, 50, 64, device=dev))
+    assert k2.relevance_flash_kernel.launches == before + 1
+    assert torch.isfinite(y).all()
+
+
+def test_k2_wrapper_checks_its_inputs(dev):
+    args = _k2_inputs(dev, 2, 40, 16, 4)
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)  # strided x
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.relevance_flash_kernel(*bad, causal=True)
+    bad = list(args)
+    bad[1] = args[1].double()
+    with pytest.raises(ValueError, match="dtype"):
+        k2.relevance_flash_kernel(*bad, causal=True)
+    bad = list(args)
+    bad[4] = args[4][:, :3].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        k2.relevance_flash_kernel(*bad, causal=True)
+    wide = _k2_inputs(dev, 2, 40, 72, 4)
+    with pytest.raises(ValueError, match="dh"):
+        k2.relevance_flash_kernel(*wide, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.relevance_flash_kernel(*(t.cpu() for t in args), causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k2_autograd_grads_on_the_card_match_the_cpu(dev, causal):
+    """The autograd Function on the card (forward: K2) and on the CPU
+    (forward: the plain version); both backwards recompute through the plain
+    version."""
+    args = _k2_inputs(dev, 3, 150, 16, 8, seed=1)
+    dz = torch.randn(3, 150, 16, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        ins = [t.to(where).clone().requires_grad_(True) for t in args[:5]]
+        z = k2.relevance_flash(*ins[:4], masks=ins[4], kmask=args[5].to(where),
+                               causal=causal, tile=64)
+        grads.append(torch.autograd.grad(z, ins, dz.to(where)))
+    for a, b in zip(*grads):
+        scale = float(b.abs().max()) + 1e-12
+        torch.testing.assert_close(a.cpu() / scale, b / scale, rtol=0, atol=2e-3)

@@ -10,6 +10,7 @@ which runs all three through ``ops.stlt_scan``. Tolerances: atol 1e-5 on
 layer outputs and carries (fp32 sums of O(1) terms), 1e-6 on elementwise
 layers.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -172,13 +173,30 @@ def test_init_stlt_layout_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(window="hann"), dict(bidirectional=True),
-                                dict(mode="relevance"), dict(engine="associative"),
+                                dict(engine="associative"),
                                 dict(engine="sequential")])
 def test_unported_stlt_variants_raise(kw):
     _, cfg_t = _cfgs(**kw)
     pt = t_stlt.init_stlt(torch.Generator().manual_seed(0), cfg_t)
     with pytest.raises(NotImplementedError):
         t_stlt.apply_stlt(pt, cfg_t, torch.zeros(1, 4, D))
+
+
+@pytest.mark.parametrize("entry", ["stlt_prefill", "init_stlt_state",
+                                   "apply_stlt_step"])
+def test_streaming_entry_points_refuse_relevance_mode(entry):
+    """The relevance readout has no streaming state: prefill, state init
+    and decode refuse it, as the JAX package asserts."""
+    cfg_f = _cfgs()[1]
+    cfg_r = dataclasses.replace(cfg_f, mode="relevance")
+    pt = t_stlt.init_stlt(torch.Generator().manual_seed(0), cfg_r)
+    x = torch.zeros(1, 4, D)
+    calls = {"stlt_prefill": lambda: t_stlt.stlt_prefill(pt, cfg_r, x),
+             "init_stlt_state": lambda: t_stlt.init_stlt_state(cfg_r, 1),
+             "apply_stlt_step": lambda: t_stlt.apply_stlt_step(
+                 pt, cfg_r, x[:, 0], t_stlt.init_stlt_state(cfg_f, 1))}
+    with pytest.raises(ValueError, match="streaming"):
+        calls[entry]()
 
 
 # ---------------------------------------------------------------------------
