@@ -6,14 +6,19 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 holds each against its plain PyTorch version on the card: K1 (the STLT
 scan) and K2 (the flash relevance readout, both modes, with masked nodes, a
-padded key tail and an all-masked row). Then it drives the two main paths
+padded key tail and an all-masked row, at the real score scale and with x
+scaled so the largest score is 1 or 30, also against the plain version run
+in float64), and reads how the tensor cores round K2's 3xTF32 score
+sums. Then it drives the two main paths
 with random weights from a seeded generator and checks that each ran
 through its kernel: ``ServeEngine.generate`` on the full-width
 ``stlt_base`` model (K1), and ``lm_loss`` forward and backward on the same
 model with ``mixer="stlt_relevance"`` (K2). It checks chunked prefill and
-card-vs-CPU agreement on both models, then times the kernels, their plain
-versions and the library yardstick, and profiles one ``generate`` and one
-relevance forward.
+card-vs-CPU agreement on both models, then times the kernels (K2 also
+without its host work, at batch 1 and at N = 8192, beside its fp32 and
+3xTF32 tensor-core bounds),
+their plain versions and the library yardstick, and profiles one
+``generate`` and one relevance forward.
 
 Output ends with three lines: the card's name and power limit (from
 ``nvidia-smi``), a JSON ``{"kernels": [...]}`` line, and the JSON result
@@ -38,8 +43,11 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
-# tensor cores and HBM3 bandwidth — K1 runs fp32 FMA by design (no TF32).
+# tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth. K1 runs fp32 FMA
+# by design (no TF32); K2 runs its score contraction as 3xTF32 on the tensor
+# cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # K1 vs its plain version on the card: both fp32, summed in different
@@ -48,15 +56,20 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
 LOGIT_TOL = 1e-3
-# K2 vs its plain version. The kernel builds the pole powers by repeated
-# multiplication, the plain version in closed form (exp(p log|lambda|),
-# cos(p theta)), so scores differ by ~1e-7 of their size. At the real scale
+# K2 vs its plain version (and vs the plain version in float64). The kernel
+# builds the pole powers by repeated multiplication, the plain version in
+# closed form (exp(p log|lambda|), cos(p theta)), so scores differ by ~1e-7
+# of their size; its 3xTF32 products are close to fp32's, but the tensor
+# cores truncate as they accumulate, so its scores err by 25-31x fp32's
+# rounding (phase 2c), ~2e-5 of |z| at O(1) scores. At the real scale
 # (unit-variance x, |lambda| up to e^(-1/32)) the scores reach the thousands
 # and the softmax is near one-hot, so z moves by up to ~1e-3 |v|: elementwise
 # 2e-3 + 2e-3 |z|, the JAX package's own tiled-vs-materialized tolerance.
 K2_TOL = 2e-3
-# With x scaled so the largest score is O(1), the softmax is smooth and the
-# error is the scores' rounding times |v|: 2e-4 of (1 + max |z|).
+# With x scaled so the largest score is O(1), or 30 (mid scale: neither
+# one-hot nor flat), the softmax is smooth and the error is the scores'
+# rounding times |v|: 2e-4 of (1 + max |z|). One TF32 product per pair
+# misses this at the mid scale (tests/test_torch_k2_precision.py).
 K2_UNIT_TOL = 2e-4
 # relevance logits, card vs CPU. At random init the relevance scores reach
 # the thousands, so the model amplifies fp32 rounding: a relative change e
@@ -156,10 +169,14 @@ def k2_max_score(k2, x, lm, th, mk, km, causal):
 
 
 def k2_bound(mk, km, dh, causal):
-    """(bound_ms, bound_by, flops, bytes) of one K2 call on these inputs:
-    per (query, valid key) pair, 2 * 2 * dh flops for each node whose mask
-    is not 0 (the kernel skips the others) and 2 * dh for P.v; bytes: x, v
-    read, z written, and the [BH, S] / [BH, N] side inputs."""
+    """(bound_ms, fp32_bound_ms, bound_by, flops, bytes) of one K2 call on
+    these inputs: per (query, valid key) pair, 2 * 2 * dh flops for each node
+    whose mask is not 0 (the kernel skips the others) and 2 * dh for P.v;
+    bytes: x, v read, z written, and the [BH, S] / [BH, N] side inputs.
+    ``bound_ms`` is the least time for the work as the kernel does it: the
+    score contraction and P.v both as 3xTF32 on the tensor cores (three TF32
+    products for each fp32 one, at the TF32 peak), or the bytes if they take
+    longer; ``fp32_bound_ms`` the same with every flop as fp32 FMA."""
     BH, N = km.shape
     S = mk.shape[-1]
     valid = (km > 0).double()
@@ -168,11 +185,61 @@ def k2_bound(mk, km, dh, causal):
     else:
         pairs = valid.sum(-1) * N
     active = (mk != 0).double().sum(-1)
-    flops = float((pairs * (4.0 * dh * active + 2.0 * dh)).sum())
+    score = float((pairs * 4.0 * dh * active).sum())
+    pv = float((pairs * 2.0 * dh).sum())
     nbytes = 4 * (3 * BH * N * dh + 3 * BH * S + BH * N)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    t_tc = 3 * (score + pv) / PEAK_TF32_FLOPS
+    t_fp32 = (score + pv) / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_tc, t_bytes), 1e3 * max(t_fp32, t_bytes),
+            "operations" if t_tc >= t_bytes else "bytes", score + pv, nbytes)
+
+
+def tc_accumulation(k2, a, scale_name):
+    """Scores of row 0 of K2's inputs ``a`` (causal coefficients, the
+    operands K2 contracts) against float64: fp32 FMA, and K2's 3xTF32 split
+    summed once in IEEE fp32 (CUDA cores) and once on the tensor cores (a
+    TF32 GEMM of the same TF32-exact operands and products). Their
+    difference is the tensor cores' own accumulation; the share of scores
+    whose magnitude shrank shows its rounding direction (a half under
+    round-to-nearest)."""
+    x, _, lm, th, mk, km = (t[:1] for t in a)
+    l_re, l_im = k2_coefficients(k2, x, lm, th, km, causal=True)
+    k = torch.cat([l_re, l_im], -1)[0].flatten(1)                # [N, 2 S dh]
+    q = (mk[0][:, None] * torch.cat([l_re, l_im], -1)[0]).flatten(1)
+    exact = q.double() @ k.double().T
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def split(t):
+        hi = ((bits(t) + 0x1000) & -0x2000).view(torch.float32)   # nearest (add, mask)
+        return hi, (bits(t - hi) & -0x2000).view(torch.float32)  # lo as the cores read it
+
+    (qh, ql), (kh, kl) = split(q), split(k)
+    a3, b3 = torch.cat([ql, qh, qh], -1), torch.cat([kh, kl, kh], -1)
+    out = {"fp32 FMA": q @ k.T, "3xTF32 in IEEE fp32": a3 @ b3.T}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out["3xTF32 on the tensor cores"] = a3 @ b3.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    parts = []
+    for name, r in out.items():
+        err = (r.double() - exact).abs().max()
+        shrank = ((r.double().abs() < exact.abs()).double().mean())
+        parts.append(f"{name} {float(err):.3e} ({100 * float(shrank):.1f}% shrank)")
+    log(f"[2c score accumulation] {scale_name} scale, row 0, scores to "
+        f"{float(exact.abs().max()) / lm.shape[-1] ** 0.5:.4g}: max abs err of "
+        f"the unscaled scores against float64: " + ", ".join(parts))
+
+
+def k2_kernel_alone(k2, a, causal):
+    """A closure that launches K2's kernel on inputs ``a`` with the wrapper's
+    host work (input checks, carries) done once up front: the kernel's own
+    time. Not counted as a launch of the wrapper."""
+    tensors, sizes = k2._kernel_args(*a, causal=causal)
+    return lambda: k2._launch(tensors, sizes)
 
 
 def main() -> int:
@@ -233,32 +300,44 @@ def main() -> int:
 
     # 2b. K2 vs its plain version at the relevance path's shapes ---------------
     k2_err = 0.0
-    for scale_name in ("real", "unit"):
+    for scale_name, target in (("real", None), ("unit", 1.0), ("mid", 30.0)):
         for causal in (True, False):
             xs = 1.0
-            if scale_name == "unit":   # x scaled so the largest score is ~1
+            if target is not None:   # x scaled so the largest score is ~target
                 a = k2_inputs(dev, BH, N, dh, S, 2, adversarial=True)
-                xs = k2_max_score(k2, a[0], a[2], a[3], a[4], a[5], causal) ** -0.5
+                top = k2_max_score(k2, a[0], a[2], a[3], a[4], a[5], causal)
+                xs = (target / top) ** 0.5
             a = k2_inputs(dev, BH, N, dh, S, 2, adversarial=True, x_scale=xs)
             got = k2.relevance_flash_kernel(*a, causal=causal)
             want = k2.relevance_flash_reference(*a, tile=C, causal=causal)
+            # the plain version in float64: how far each fp32 version is
+            # from the exact function
+            exact = k2.relevance_flash_reference(*(t.double() for t in a[:5]), a[5],
+                                                 tile=C, causal=causal,
+                                                 dtype=torch.float64).float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             top = k2_max_score(k2, a[0], a[2], a[3], a[4], a[5], causal)
             zmax = float(want.abs().max())
+
+            def within(ref):
+                if scale_name == "real":
+                    return float(((got - ref).abs() - K2_TOL * ref.abs()).max()) <= K2_TOL
+                return float((got - ref).abs().max()) <= K2_UNIT_TOL * (1.0 + zmax)
             if scale_name == "real":
                 k2_err = max(k2_err, err)
-                excess = float(((got - want).abs() - K2_TOL * want.abs()).max())
-                ok = excess <= K2_TOL
                 tol = f"|err| <= {K2_TOL} + {K2_TOL}|z|"
             else:
-                ok = err <= K2_UNIT_TOL * (1.0 + zmax)
                 tol = f"{K2_UNIT_TOL} * (1 + {zmax:.3f})"
             log(f"[2b K2 vs plain] {scale_name} scale, causal={causal}: max score "
-                f"{top:.4g}, max abs err {err:.3e} (max |z| {zmax:.3f}; tol {tol})")
-            if not ok:
-                raise AssertionError(f"K2 disagrees with its plain version "
-                                     f"({scale_name}, causal={causal}): {err}")
+                f"{top:.4g}, max abs err {err:.3e} (max |z| {zmax:.3f}; tol {tol}); "
+                f"against float64: K2 {float((got - exact).abs().max()):.3e}, plain "
+                f"version {float((want - exact).abs().max()):.3e}")
+            if not (within(want) and within(exact)):
+                raise AssertionError(f"K2 disagrees with its plain version or the "
+                                     f"float64 one ({scale_name}, causal={causal}): {err}")
+            if causal:
+                tc_accumulation(k2, a, scale_name)
             if not torch.equal(got[2], torch.zeros_like(got[2])):
                 raise AssertionError("K2: the all-masked row must return exactly 0")
             if not torch.isfinite(got).all():
@@ -452,7 +531,8 @@ def main() -> int:
     k2_ms = time_cuda(lambda: k2.relevance_flash_kernel(*a, causal=True), iters=10)
     k2_plain_ms = time_cuda(lambda: k2.relevance_flash_reference(*a, tile=C, causal=True),
                             iters=3)
-    k2_bound_ms, k2_bound_by, k2_flops, k2_bytes = k2_bound(a[4], a[5], dh, causal=True)
+    k2_bound_ms, k2_fp32_ms, k2_bound_by, k2_flops, k2_bytes = k2_bound(a[4], a[5], dh,
+                                                                        causal=True)
     # the library yardstick: one scaled_dot_product_attention call on the
     # materialized coefficients (Re(a conj b) = a_re b_re + a_im b_im), q =
     # [mk L_re | mk L_im], k = [L_re | L_im], [BH, N, 2 S dh]; building L is
@@ -471,12 +551,26 @@ def main() -> int:
         library_ms = time_cuda(sdpa, iters=5)
         del q, kk, mask
     log(f"[6 timing] K2 (causal) at BH={BH} N={N} dh={dh} S={S}: {k2_ms:.4f} ms, "
-        f"plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_bound_by}; "
-        f"{k2_flops / 1e9:.3f} GFLOP, {k2_bytes / 1e6:.3f} MB), SDPA on materialized "
-        f"L {library_ms:.4f} ms (max abs diff to K2 {lib_err:.3e})")
+        f"plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms 3xTF32 tensor cores / "
+        f"{k2_fp32_ms:.4f} ms fp32 FMA ({k2_bound_by}; {k2_flops / 1e9:.3f} GFLOP, "
+        f"{k2_bytes / 1e6:.3f} MB), SDPA on materialized L {library_ms:.4f} ms (max abs "
+        f"diff to K2 {lib_err:.3e})")
     k2_bidir_ms = time_cuda(lambda: k2.relevance_flash_kernel(*a, causal=False), iters=5)
+    tc_ms, fp32_ms = k2_bound(a[4], a[5], dh, causal=False)[:2]
     log(f"[6 timing] K2 (bidirectional) on the same inputs: {k2_bidir_ms:.4f} ms, bound "
-        f"{k2_bound(a[4], a[5], dh, causal=False)[0]:.4f} ms")
+        f"{tc_ms:.4f} ms 3xTF32 tensor cores / {fp32_ms:.4f} ms fp32 FMA")
+    alone = [time_cuda(k2_kernel_alone(k2, a, c), iters=10) for c in (True, False)]
+    log(f"[6 timing] K2 kernel alone (the wrapper's host carries made up front) at "
+        f"BH={BH}: causal {alone[0]:.4f} ms, bidirectional {alone[1]:.4f} ms")
+    for bh_t, n_t in ((8, N), (8, 8192)):   # batch 1, and a long row
+        b = k2_inputs(dev, bh_t, n_t, dh, S, 4, adversarial=False)
+        ms = time_cuda(lambda: k2.relevance_flash_kernel(*b, causal=True), iters=3)
+        alone = time_cuda(k2_kernel_alone(k2, b, True), iters=3)
+        tc_ms, fp32_ms = k2_bound(b[4], b[5], dh, causal=True)[:2]
+        log(f"[6 timing] K2 (causal) at BH={bh_t} N={n_t}: {ms:.4f} ms (kernel alone "
+            f"{alone:.4f} ms), bound {tc_ms:.4f} ms 3xTF32 tensor cores / {fp32_ms:.4f} "
+            f"ms fp32 FMA")
+        del b
     log(f"[6 timing] relevance lm_loss forward {rel_event_ms:.3f} ms (events): "
         f"6 x K2 = {100 * 6 * k2_ms / rel_event_ms:.1f}% of it")
     with torch.no_grad():
@@ -505,7 +599,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/relevance_flash.py:207",
         "launches": rel_launches["relevance_flash"], "max_abs_err": k2_err,
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-        "bound_by": k2_bound_by, "library_ms": library_ms}]}))
+        "bound_fp32_ms": k2_fp32_ms, "bound_by": k2_bound_by,
+        "library_ms": library_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

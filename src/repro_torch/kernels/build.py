@@ -39,7 +39,9 @@ def build_kernels(echo: bool = False) -> dict:
     """Compile every kernel library that is not built yet; returns
     {name: library path}. ``echo`` prints nvcc's output (with ``-Xptxas -v``
     that is each kernel's registers and shared memory). Raises with the
-    compiler's output if any build fails."""
+    compiler's output if any build fails, or if ptxas reports that it had to
+    serialize a kernel's wgmma instructions (warning C7512), a silent 2x
+    slowdown of a warp-specialized kernel."""
     BUILD_DIR.mkdir(exist_ok=True)
     paths, procs = {}, {}
     for name, source in SOURCES.items():
@@ -56,6 +58,10 @@ def build_kernels(echo: bool = False) -> dict:
         out, _ = proc.communicate()
         if proc.returncode:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        if "C7512" in out:
+            errors.append(f"{name}: ptxas serialized the wgmma instructions (C7512); "
+                          f"the kernel relies on their running asynchronously\n{out}")
             continue
         os.replace(tmp, lib)
         if echo:

@@ -20,10 +20,13 @@ row returns 0, not NaN.
   recompute-per-tile backward. Causal mode skips key tiles above the
   diagonal; every score there is masked, so skipping them changes nothing.
 * ``relevance_flash_kernel`` launches ``csrc/relevance_flash.cu`` (CUDA
-  tensors only) after computing the tile-boundary carries on the host at
-  the kernel's own stride of ``KERNEL_BLOCK`` rows; it counts its launches
-  in ``relevance_flash_kernel.launches``. The kernel replaces the JAX
-  package's Pallas kernel ``repro/kernels/relevance_flash.py::_flash_body``.
+  tensors only) after computing the tile-boundary carries on the host every
+  ``KERNEL_CARRY`` rows, where the kernel's recurrence segments start; it
+  counts its launches in ``relevance_flash_kernel.launches``. The kernel
+  replaces the JAX package's Pallas kernel
+  ``repro/kernels/relevance_flash.py::_flash_body``: warp-specialized, the
+  recurrence in two producer warpgroups and the score contraction as
+  3xTF32 ``wgmma`` in a consumer warpgroup (its header has the design).
 * ``relevance_flash`` is the public entry: a CUDA tensor runs the kernel
   (or raises), a CPU tensor the plain version; both sit inside
   ``_RelFlash``, whose backward is autograd through the plain version. The
@@ -43,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.scan import _chunk_powers
 
 NEG = -1e30           # finite -inf stand-in: exp underflows to exact 0
-KERNEL_BLOCK = 128    # the CUDA kernel's query/key block (rows)
+KERNEL_BLOCK = 64     # the CUDA kernel's query/key block (rows)
+KERNEL_CARRY = 32     # rows between the tile carries the kernel reads
 KERNEL_MAX_DH = 64    # the kernel keeps at most 64 feature columns per row
 _SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
 _launch_fn = None
@@ -61,34 +65,40 @@ def _tile_carries(x, pw_re, pw_im, tile: int, bidirectional: bool):
     Returns hc re/im [BH, nt, S, dh], the forward carry at each tile START
     (h_0 = 0, h_c = L[c*tile - 1]), and when bidirectional gc re/im, the
     reverse carry at each tile END (g_c = sum_{m >= (c+1)T} lambda^(m-(c+1)T)
-    x[m]), else None. One operator step per tile, as the JAX package's host
-    scan."""
+    x[m]), else None. Each tile's own sum comes from one batched product
+    with the powers; the carries are their prefix over tiles under the decay
+    lambda^T, a scan taken by doubling (log2(nt) steps), so the number of
+    launches barely grows with N."""
     BH, Np, dh = x.shape
     T = tile
     nt = Np // T
-    S = pw_re.shape[-1]
     xt = x.reshape(BH, nt, T, dh)
     idx = torch.arange(T, device=x.device)
-    dec_re, dec_im = pw_re[:, T, :, None], pw_im[:, T, :, None]   # [BH, S, 1]
+    dec = torch.complex(pw_re[:, T], pw_im[:, T])[:, None, :, None]  # [BH, 1, S, 1]
 
-    def scan(pre_re, pre_im, order):
-        r = i = torch.zeros((BH, S, dh), dtype=x.dtype, device=x.device)
-        out_re, out_im = [None] * nt, [None] * nt
-        for c in order:
-            out_re[c], out_im[c] = r, i
-            xc = xt[:, c]
-            r, i = (pre_re @ xc + dec_re * r - dec_im * i,
-                    pre_im @ xc + dec_re * i + dec_im * r)
-        return torch.stack(out_re, 1), torch.stack(out_im, 1)
+    def scan(pre_re, pre_im, reverse: bool):
+        # u_c = sum_j pre[j] x[cT + j], [BH, nt, S, dh]; reversed, tile c
+        # becomes nt - 1 - c and the tile-end carries are a forward scan
+        u = torch.complex(pre_re[:, None] @ xt, pre_im[:, None] @ xt)
+        if reverse:
+            u = u.flip(1)
+        a, k = dec, 1            # inclusive prefix: H_c = sum_{c' <= c} dec^(c-c') u_c'
+        while k < nt:
+            u = torch.cat([u[:, :k], torch.addcmul(u[:, k:], a, u[:, :-k])], 1)
+            a, k = a * a, 2 * k
+        h = torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], 1)  # the carry into c
+        if reverse:
+            h = h.flip(1)
+        return h.real.contiguous(), h.imag.contiguous()
 
     # forward: h' = sum_j lambda^(T-1-j) x[j] + lambda^T h
     hc = scan(pw_re[:, T - 1 - idx].transpose(1, 2),
-              pw_im[:, T - 1 - idx].transpose(1, 2), range(nt))
+              pw_im[:, T - 1 - idx].transpose(1, 2), reverse=False)
     if not bidirectional:
         return hc, None
     # reverse: g' = sum_j lambda^j x[j] + lambda^T g, tiles last to first
     gc = scan(pw_re[:, idx].transpose(1, 2), pw_im[:, idx].transpose(1, 2),
-              range(nt - 1, -1, -1))
+              reverse=True)
     return hc, gc
 
 
@@ -163,26 +173,26 @@ def _pad_tiles(x, v, kmask, tile: int):
 
 
 def relevance_flash_reference(x, v, log_mag, theta, mk, km, *, tile: int,
-                              causal: bool):
+                              causal: bool, dtype: torch.dtype = torch.float32):
     """The plain version of K2: x, v [BH, N, dh]; log_mag, theta, mk [BH, S];
-    km [BH, N] or None -> z [BH, N, dh] fp32. Tiled online softmax with the
-    JAX reference's operators and accumulation order; under autograd each
-    query tile is checkpointed, so the backward recomputes per tile and
+    km [BH, N] or None -> z [BH, N, dh] in ``dtype`` (fp32; float64 gives a
+    yardstick for the fp32 versions' rounding). Tiled online softmax with
+    the JAX reference's operators and accumulation order; under autograd
+    each query tile is checkpointed, so the backward recomputes per tile and
     never holds [N, N]."""
     BH, N, dh = x.shape
     S = log_mag.shape[-1]
     T = tile
-    f32 = torch.float32
-    x, v, km = _pad_tiles(x.to(f32), v.to(f32), km, T)
+    x, v, km = _pad_tiles(x.to(dtype), v.to(dtype), km, T)
     nt = x.shape[1] // T
     bidir = not causal
-    ops = _flash_ops(x, log_mag.to(f32), theta.to(f32), T, bidirectional=bidir)
-    zero = torch.zeros((BH, S, dh), dtype=f32, device=x.device)
+    ops = _flash_ops(x, log_mag.to(dtype), theta.to(dtype), T, bidirectional=bidir)
+    zero = torch.zeros((BH, S, dh), dtype=dtype, device=x.device)
     xt, vt = x.reshape(BH, nt, T, dh), v.reshape(BH, nt, T, dh)
     kmt = km.reshape(BH, nt, T)
     hre, him = ops["hc_re"], ops["hc_im"]
     gre, gim = (ops["gc_re"], ops["gc_im"]) if bidir else (None, None)
-    mkf = mk.to(f32)[:, None, :, None]
+    mkf = mk.to(dtype)[:, None, :, None]
     scale = 1.0 / math.sqrt(S)
     ar = torch.arange(T, device=x.device)
 
@@ -194,9 +204,9 @@ def relevance_flash_reference(x, v, log_mag, theta, mk, km, *, tile: int,
                                     carry(gre, qi), carry(gim, qi), bidir)
         q_re = (ql_re * mkf).reshape(BH, T, S * dh)
         q_im = (ql_im * mkf).reshape(BH, T, S * dh)
-        m = torch.full((BH, T), NEG, dtype=f32, device=x.device)
-        l = torch.zeros((BH, T), dtype=f32, device=x.device)
-        acc = torch.zeros((BH, T, dh), dtype=f32, device=x.device)
+        m = torch.full((BH, T), NEG, dtype=dtype, device=x.device)
+        l = torch.zeros((BH, T), dtype=dtype, device=x.device)
+        acc = torch.zeros((BH, T, dh), dtype=dtype, device=x.device)
         for ki in range(qi + 1 if causal else nt):
             kl_re, kl_im = _reconstruct(xt[:, ki], ops, hre[:, ki], him[:, ki],
                                         carry(gre, ki), carry(gim, ki), bidir)
@@ -238,6 +248,14 @@ def _load():
         lib = ctypes.CDLL(str(build.build_kernels()["relevance_flash"]))
         lib.relevance_flash_smem_bytes.argtypes = []
         lib.relevance_flash_smem_bytes.restype = ctypes.c_size_t
+        for name in ("relevance_flash_block", "relevance_flash_carry_stride"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        got = (lib.relevance_flash_block(), lib.relevance_flash_carry_stride())
+        if got != (KERNEL_BLOCK, KERNEL_CARRY):
+            raise RuntimeError(f"K2 blocks by {got[0]} rows with carries every "
+                               f"{got[1]}; the wrapper expects {KERNEL_BLOCK} and "
+                               f"{KERNEL_CARRY}")
         fn = lib.relevance_flash_launch
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -258,15 +276,10 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def relevance_flash_kernel(x, v, log_mag, theta, mk, km, *, causal: bool):
-    """Launch K2 on the current CUDA stream.
-
-    x, v [BH, N, dh] with dh <= 64; log_mag, theta, mk [BH, S]; km [BH, N]
-    key validity; all fp32 and contiguous on one CUDA device. Masked keys of
-    x are zeroed here, and the tile-boundary carries are computed here on the
-    host at the kernel's block of ``KERNEL_BLOCK`` rows (x is padded to that
-    block for the carries only; the kernel reads rows past N as zeros).
-    Returns z [BH, N, dh] fp32."""
+def _kernel_args(x, v, log_mag, theta, mk, km, causal: bool):
+    """K2's launch arguments: (tensors, sizes) after checking the inputs,
+    zeroing x's masked keys and computing the host carries; the last tensor
+    is z, allocated here."""
     if x.device.type != "cuda":
         raise ValueError(f"relevance_flash_kernel needs CUDA tensors, got {x.device}")
     BH, N, dh = x.shape
@@ -283,26 +296,43 @@ def relevance_flash_kernel(x, v, log_mag, theta, mk, km, *, causal: bool):
                            ("log_mag", log_mag, (BH, S)), ("theta", theta, (BH, S)),
                            ("mk", mk, (BH, S)), ("km", km, (BH, N))):
         _check(name, t, shape, dev)
+    xk = x * km[:, :, None]
+    pw_re, pw_im = _chunk_powers(log_mag, theta, KERNEL_CARRY)
+    (hre, him), gc = _tile_carries(F.pad(xk, (0, 0, 0, nt * T - N)), pw_re, pw_im,
+                                   KERNEL_CARRY, bidirectional=not causal)
+    gre, gim = gc if gc is not None else (hre, him)   # not read when causal
+    z = torch.empty((BH, N, dh), dtype=torch.float32, device=dev)
+    carries = [t.contiguous() for t in (hre, him, gre, gim)]
+    return (xk, v, log_mag, theta, mk, km, *carries, z), (BH, N, S, dh, int(causal))
+
+
+def _launch(tensors, sizes):
+    """Launch K2 on the current stream with ``_kernel_args``' output."""
     launch, smem_bytes = _load()
     if smem_bytes() > _SMEM_LIMIT:
         raise ValueError(f"K2 needs {smem_bytes()} bytes of shared memory "
                          f"(limit {_SMEM_LIMIT})")
-    xk = x * km[:, :, None]
-    pw_re, pw_im = _chunk_powers(log_mag, theta, T)
-    (hre, him), gc = _tile_carries(F.pad(xk, (0, 0, 0, nt * T - N)), pw_re, pw_im,
-                                   T, bidirectional=not causal)
-    gre, gim = gc if gc is not None else (hre, him)   # not read when causal
-    z = torch.empty((BH, N, dh), dtype=torch.float32, device=dev)
-    carries = [t.contiguous() for t in (hre, him, gre, gim)]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(*(t.data_ptr() for t in (xk, v, log_mag, theta, mk, km,
-                                               *carries, z)),
-                     BH, N, S, dh, int(causal), stream)
+        err = launch(*(t.data_ptr() for t in tensors), *sizes, stream)
     if err:
         raise RuntimeError(f"relevance_flash kernel launch failed: CUDA error {err}")
+
+
+def relevance_flash_kernel(x, v, log_mag, theta, mk, km, *, causal: bool):
+    """Launch K2 on the current CUDA stream.
+
+    x, v [BH, N, dh] with dh <= 64; log_mag, theta, mk [BH, S]; km [BH, N]
+    key validity; all fp32 and contiguous on one CUDA device. Masked keys of
+    x are zeroed here, and the tile-boundary carries are computed here on the
+    host every ``KERNEL_CARRY`` rows, where the kernel's recurrence segments
+    start (x is padded to the kernel's block of ``KERNEL_BLOCK`` rows for the
+    carries only; the kernel reads rows past N as zeros).
+    Returns z [BH, N, dh] fp32."""
+    tensors, sizes = _kernel_args(x, v, log_mag, theta, mk, km, causal)
+    _launch(tensors, sizes)
     relevance_flash_kernel.launches += 1
-    return z
+    return tensors[-1]
 
 
 relevance_flash_kernel.launches = 0

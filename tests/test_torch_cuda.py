@@ -17,6 +17,9 @@ e^(-1/32)) the softmax is near one-hot and that moves z by up to ~1e-3 x
 own tiled-vs-materialized tolerance; gradients within 2e-3 of the largest
 entry, for the same reason.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -29,6 +32,11 @@ from repro_torch.kernels import stlt_scan as k1  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 RTOL_SCALE = 2e-4
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -140,6 +148,8 @@ def _k2_inputs(dev, BH, N, d, S, seed=0):
     (3, 129, 20, 5),         # d not a multiple of 16, N one past a block
     (4, 300, 7, 3),          # odd d, ragged last block
     (32, 1000, 64, 64),      # stlt-base at batch 4
+    (8, 1000, 64, 64),       # stlt-base at batch 1
+    (2, 4099, 64, 64),       # long, ragged past every block size
 ])
 def test_k2_matches_plain_version(dev, causal, BH, N, d, S):
     args = _k2_inputs(dev, BH, N, d, S)
@@ -147,7 +157,25 @@ def test_k2_matches_plain_version(dev, causal, BH, N, d, S):
     want = k2.relevance_flash_reference(*args, tile=128, causal=causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
-    assert torch.equal(got[2], torch.zeros_like(got[2]))   # all keys masked
+    if BH > 2:
+        assert torch.equal(got[2], torch.zeros_like(got[2]))   # all keys masked
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("max_score", [1.0, 30.0])
+def test_k2_matches_plain_version_where_the_softmax_is_smooth(dev, causal, max_score):
+    """x scaled so the largest score is 1 or 30: the softmax is neither
+    one-hot nor flat, so z shows the scores' rounding (chip_smoke.py's
+    K2_UNIT_TOL of (1 + max |z|))."""
+    args = _k2_inputs(dev, 8, 1000, 64, 64)
+    top = chip_smoke.k2_max_score(k2, args[0], args[2], args[3], args[4], args[5],
+                                  causal)
+    args[0] = args[0] * (max_score / top) ** 0.5
+    got = k2.relevance_flash_kernel(*args, causal=causal)
+    want = k2.relevance_flash_reference(*args, tile=128, causal=causal)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= chip_smoke.K2_UNIT_TOL * (1 + float(want.abs().max())), err
 
 
 def test_k2_dispatch_launches_the_kernel_once(dev):
