@@ -5,20 +5,22 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 holds each against its plain PyTorch version on the card: K1 (the STLT
-scan) and K2 (the flash relevance readout, both modes, with masked nodes, a
-padded key tail and an all-masked row, at the real score scale and with x
-scaled so the largest score is 1 or 30, also against the plain version run
-in float64), and reads how the tensor cores round K2's 3xTF32 score
-sums. Then it drives the two main paths
+scan, at batch 4, at batch 1 and over a 131,072-token row) and K2 (the
+flash relevance readout, both modes, with masked nodes, a padded key tail
+and an all-masked row, at the real score scale and with x scaled so the
+largest score is 1 or 30, also against the plain version run in float64),
+and reads how the tensor cores round K2's 3xTF32 score sums. Then it drives the two main paths
 with random weights from a seeded generator and checks that each ran
 through its kernel: ``ServeEngine.generate`` on the full-width
 ``stlt_base`` model (K1), and ``lm_loss`` forward and backward on the same
 model with ``mixer="stlt_relevance"`` (K2). It checks chunked prefill and
-card-vs-CPU agreement on both models, then times the kernels (K2 also
-without its host work, at batch 1 and at N = 8192, beside its fp32 and
-3xTF32 tensor-core bounds),
-their plain versions and the library yardstick, and profiles one
-``generate`` and one relevance forward.
+card-vs-CPU agreement on both models, then times the kernels (each also
+without its host work; K1 at batch 4, batch 1 and 1 x 131,072 tokens, K2 at
+batch 1 and at N = 8192; each beside its fp32 and 3xTF32 tensor-core
+bounds), their plain versions and the library yardstick, times a batch-1
+prefill of a 131,072-token prompt, and profiles it, one ``generate`` and
+one relevance forward. ``tools/ab_port.py`` compares two trees of the
+port on one card.
 
 Output ends with three lines: the card's name and power limit (from
 ``nvidia-smi``), a JSON ``{"kernels": [...]}`` line, and the JSON result
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -43,16 +46,21 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
-# tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth. K1 runs fp32 FMA
-# by design (no TF32); K2 runs its score contraction as 3xTF32 on the tensor
-# cores.
+# tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth. K1 and K2
+# run their products as 3xTF32 on the tensor cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# K1 vs its plain version on the card: both fp32, summed in different
-# orders over up to C + 2S terms per output and nc carry steps.
+# K1 vs its plain version on the card: the kernel's products are 3xTF32
+# (about fp32's rounding, but the tensor cores truncate as they sum, over
+# 3 (C + 2S)/8 = 96 k-steps an output), the plain version's fp32, summed in
+# different orders over up to C + 2S terms per output and nc carry steps.
 K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
+# K1's shapes: stlt-base's rows (8 heads) at batch 4 and batch 1 over the
+# main path's 1000 tokens, and batch 1 over a 131,072-token prompt.
+K1_SHAPES = ((32, 1000), (8, 1000), (8, 131072))
+LONG_N = 131072
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
 LOGIT_TOL = 1e-3
@@ -99,26 +107,146 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls: int) -> dict:
+    """Kernel time on the device per call of ``fn``, by kernel name: the
+    profiler's device time over ``calls`` calls (gaps between kernels
+    excluded), over ``calls``. A profile that recorded no kernel (the
+    profiler's first session in a process can miss them) is taken again
+    once; if that is empty too, so is the result."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total / 1e3 / calls
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if rows:
+            break
+    return rows
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    found = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
+    return found.group(1) if found else key[:40]
+
+
 def k1_bound(BH, N, d, C, S, valid):
-    """(bound_ms, bound_by, flops, bytes) of one K1 call: the larger of the
-    fp32 operations this call's data needs over the fp32 peak and the bytes
-    it must move (inputs read once, outputs written once) over HBM."""
+    """(bound_ms, bound_fp32_ms, bound_by, flops, bytes) of one K1 call on
+    this call's data. ``bound_ms`` is the least time for the work as the
+    kernel does it: its products as 3xTF32 on the tensor cores (three TF32
+    products for each fp32 one, at the TF32 peak) and the carries' decay at
+    the fp32 rate, or the bytes it must move (inputs read once, outputs
+    written once) over HBM if they take longer; ``bound_by`` names which.
+    ``bound_fp32_ms`` is the same with every flop as fp32 FMA."""
     nc = -(-N // C)
     n_local = np.arange(N) % C
     # z row n: the lower-triangular Toeplitz row (n mod C + 1 taps) plus the
     # carry injection A h_re + B h_im (2S taps), d columns, 2 flops a tap
-    flops = BH * d * 2.0 * float((n_local + 1 + 2 * S).sum())
+    prods = BH * d * 2.0 * float((n_local + 1 + 2 * S).sum())
     # carry into chunks 1..nc-1: [Pre; Pim] X_c (2S x C) and the decay
-    flops += BH * (nc - 1) * d * (2.0 * 2 * S * C + 8 * S)
+    prods += BH * (nc - 1) * d * 2.0 * 2 * S * C
+    decay = BH * (nc - 1) * d * 8.0 * S
     # the gated snapshot: 2S x r taps with r the live in-chunk offset
     q = valid.astype(np.int64)
     r = np.where(q > 0, q - np.maximum(q - 1, 0) // C * C, 0)
-    flops += float((d * (2.0 * 2 * S * r + 8 * S)).sum())
+    prods += float((d * 2.0 * 2 * S * r).sum())
+    decay += float((d * 8.0 * S * (q > 0)).sum())
+    flops = prods + decay
     nbytes = 4 * BH * (2 * N * d + 4 * S * d) + 4 * BH * (C * C + 6 * C * S + 4 * S) \
         + 4 * BH * nc
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    t_tc = 3 * prods / PEAK_TF32_FLOPS + decay / PEAK_FP32_FLOPS
+    t_fp32, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_tc, t_bytes), 1e3 * max(t_fp32, t_bytes),
+            "operations" if t_tc >= t_bytes else "bytes", flops, nbytes)
+
+
+def k1_case(k1, ops, dev, BH, N, C, S, d, seed):
+    """K1's inputs at random poles (|lambda| in [e^-0.502, e^-0.002], angles in
+    [-pi/4, pi/4]), h0 != 0 and per-row valid cycling 0, 1, C, N: returns
+    (the kernel's arguments, valid as numpy, the raw inputs of
+    ``ops.stlt_scan``: x, log_mag, theta, u_re, u_im, h0_re, h0_im, valid)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(BH, N, d, generator=g, device=dev)
+    lm = -(0.002 + 0.5 * torch.rand(BH, S, generator=g, device=dev))
+    th = (torch.pi / 2) * torch.rand(BH, S, generator=g, device=dev) - torch.pi / 4
+    ur, ui = (torch.randn(BH, S, generator=g, device=dev) / S for _ in range(2))
+    h0r, h0i = (torch.randn(BH, S, d, generator=g, device=dev) for _ in range(2))
+    valid_np = np.array([(0, 1, C, N)[i % 4] for i in range(BH)], np.int32)
+    valid = torch.from_numpy(valid_np).to(dev)
+    gf, A, Bm, pre, pim, dec = ops._filter_ops(lm, th, ur, ui, C)
+    nc = -(-N // C)
+    spre, spim, sdec, gate = ops._snapshot_ops(lm, th, valid, N, C, nc)
+    args = [gate] + [t.contiguous() for t in (x, ops._toeplitz(gf), A, Bm, pre, pim,
+                                              dec, h0r, h0i, spre, spim, sdec)]
+    return args, valid_np, (x, lm, th, ur, ui, h0r, h0i, valid)
+
+
+def k1_kernel_alone(k1, args, C):
+    """A closure that launches K1's kernels on ``args`` with the wrapper's
+    host work (input checks, allocations) done once up front: the kernel's
+    own time. Not counted as a launch of the wrapper."""
+    tensors, sizes = k1._kernel_args(*args, chunk=C)
+    return lambda: k1._launch(tensors, sizes)
+
+
+def k1_timings(k1, ops, dev, C, S, d):
+    """K1 at each of ``K1_SHAPES``: the kernel alone, the wrapper's call and
+    the whole ``ops.stlt_scan`` call (host operators included), by CUDA
+    events, and the kernel's device time (profiler, launch gaps excluded),
+    beside its bounds. Returns {(BH, N): row}."""
+    out = {}
+    for BH, N in K1_SHAPES:
+        args, valid_np, raw = k1_case(k1, ops, dev, BH, N, C, S, d, seed=5)
+        iters = 50 if N <= 1000 else 5
+        x, lm, th, ur, ui, h0r, h0i, valid = raw
+        alone = k1_kernel_alone(k1, args, C)
+        kernels = device_ms(alone, 10)
+        row = {
+            "alone": time_cuda(alone, iters),
+            "device": sum(kernels.values()) if kernels else None,
+            "call": time_cuda(lambda: k1.stlt_scan_kernel(*args, chunk=C), iters),
+            "scan": time_cuda(lambda: ops.stlt_scan(
+                x, lm, th, ur, ui, chunk=C, h0_re=h0r, h0_im=h0i, valid=valid,
+                return_state=True), iters)}
+        bound_ms, fp32_ms, bound_by, flops, nbytes = k1_bound(BH, N, d, C, S, valid_np)
+        row.update(bound=bound_ms, bound_fp32=fp32_ms, bound_by=bound_by)
+        device = "not measured" if kernels == {} else f"{row['device']:.4f} ms"
+        log(f"[6 timing] K1 at BH={BH} N={N}: kernel alone {row['alone']:.4f} ms "
+            f"(device time {device}), call {row['call']:.4f} ms, "
+            f"ops.stlt_scan {row['scan']:.4f} ms; bound {bound_ms:.4f} ms 3xTF32 "
+            f"tensor cores ({bound_by}) / {fp32_ms:.4f} ms fp32 FMA "
+            f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        log("[6 timing]   device time by kernel: " + ", ".join(
+            f"{kernel_name(k)} {v:.4f} ms" for k, v in kernels.items()))
+        out[(BH, N)] = row
+        del args, raw
+    return out
+
+
+def long_prefill(T, cfg, params, dev, scan_ms, k1_counter):
+    """A batch-1 prefill of a LONG_N-token prompt by CUDA events, 6 x K1's
+    ``ops.stlt_scan`` time at that shape (``scan_ms``) as a share of it, and
+    one profile of it. Checks one K1 launch per layer and finite logits."""
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(1, LONG_N))).to(dev)
+    with torch.no_grad():
+        k1_counter.launches = 0
+        logits, _ = T.prefill(params, cfg, toks, LONG_N)
+        torch.cuda.synchronize()
+        if k1_counter.launches != cfg.num_layers or not torch.isfinite(logits).all():
+            raise AssertionError(f"long prefill: {k1_counter.launches} K1 launches, "
+                                 f"finite logits {bool(torch.isfinite(logits).all())}")
+        ms = time_cuda(lambda: T.prefill(params, cfg, toks, LONG_N), iters=3, warmup=1)
+        log(f"[6 timing] prefill 1 x {LONG_N} tokens: {ms:.3f} ms (events); "
+            f"{cfg.num_layers} x K1 ({scan_ms:.4f} ms an ops.stlt_scan call) = "
+            f"{100 * cfg.num_layers * scan_ms / ms:.1f}% of it")
+        profile(lambda: T.prefill(params, cfg, toks, LONG_N), f"prefill 1 x {LONG_N}")
 
 
 def k2_inputs(dev, BH, N, dh, S, seed, adversarial: bool, x_scale: float = 1.0):
@@ -242,10 +370,13 @@ def k2_kernel_alone(k2, a, causal):
     return lambda: k2._launch(tensors, sizes)
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.stlt_base import CONFIG
     from repro_torch.kernels import build, ops
@@ -268,35 +399,29 @@ def main() -> int:
     build.build_kernels(echo=True)
     log(f"[1 build] kernels built in {time.time() - t0:.1f} s")
 
-    # 2. K1 vs its plain version at the main path's shapes ----------------------
-    g = torch.Generator(device=dev).manual_seed(1)
+    # 2. K1 vs its plain version at the main path's shapes, at batch 1 and
+    # over a long row -----------------------------------------------------------
     BH = B * H
-    x = torch.randn(BH, N, dh, generator=g, device=dev)
-    lm = -(0.002 + 0.5 * torch.rand(BH, S, generator=g, device=dev))
-    th = (torch.pi / 2) * torch.rand(BH, S, generator=g, device=dev) - torch.pi / 4
-    ur, ui = (torch.randn(BH, S, generator=g, device=dev) / S for _ in range(2))
-    h0r, h0i = (torch.randn(BH, S, dh, generator=g, device=dev) for _ in range(2))
-    valid_np = np.array([(0, 1, C, N)[i % 4] for i in range(BH)], np.int32)
-    valid = torch.from_numpy(valid_np).to(dev)
-    gf, A, Bm, pre, pim, dec = ops._filter_ops(lm, th, ur, ui, C)
-    nc = -(-N // C)
-    spre, spim, sdec, gate = ops._snapshot_ops(lm, th, valid, N, C, nc)
-    args = [gate] + [t.contiguous() for t in (x, ops._toeplitz(gf), A, Bm, pre, pim,
-                                              dec, h0r, h0i, spre, spim, sdec)]
-    got = k1.stlt_scan_kernel(*args, chunk=C)
-    want = k1.stlt_scan_reference(*args, chunk=C)
-    torch.cuda.synchronize()
     k1_err = 0.0
-    for name, a, b in zip(("z", "h_re", "h_im"), got, want):
-        err = float((a - b).abs().max())
-        scale = 1.0 + float(b.abs().max())
-        k1_err = max(k1_err, err)
-        log(f"[2 K1 vs plain] {name}: max abs err {err:.3e} (scale {scale:.3e})")
-        if not err <= K1_TOL * scale:
-            raise AssertionError(f"K1 {name} disagrees with its plain version: "
-                                 f"{err} > {K1_TOL} * {scale}")
-    if not torch.equal(got[1][valid == 0], args[8][valid == 0]):
-        raise AssertionError("K1: valid == 0 rows must return h0 exactly")
+    for bh_t, n_t in K1_SHAPES:
+        args, _, _ = k1_case(k1, ops, dev, bh_t, n_t, C, S, dh, seed=1)
+        got = k1.stlt_scan_kernel(*args, chunk=C)
+        want = k1.stlt_scan_reference(*args, chunk=C)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("z", "h_re", "h_im"), got, want):
+            err = float((a - b).abs().max())
+            scale = 1.0 + float(b.abs().max())
+            k1_err = max(k1_err, err)
+            log(f"[2 K1 vs plain] BH={bh_t} N={n_t} {name}: max abs err {err:.3e} "
+                f"(scale {scale:.3e})")
+            if not err <= K1_TOL * scale:
+                raise AssertionError(f"K1 {name} at BH={bh_t} N={n_t} disagrees with its "
+                                     f"plain version: {err} > {K1_TOL} * {scale}")
+        idle = torch.from_numpy(np.arange(bh_t) % 4 == 0).to(dev)   # valid == 0
+        if not (torch.equal(got[1][idle], args[8][idle])
+                and torch.equal(got[2][idle], args[9][idle])):
+            raise AssertionError("K1: valid == 0 rows must return h0 exactly")
+        del args, got, want
 
     # 2b. K2 vs its plain version at the relevance path's shapes ---------------
     k2_err = 0.0
@@ -502,12 +627,14 @@ def main() -> int:
                                  f"argmax agreement {agree}")
 
     # 6. timing -------------------------------------------------------------------
-    k1_ms = time_cuda(lambda: k1.stlt_scan_kernel(*args, chunk=C), iters=50)
-    plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*args, chunk=C), iters=10)
-    bound_ms, bound_by, flops, nbytes = k1_bound(BH, N, dh, C, S, valid_np)
-    log(f"[6 timing] K1 at BH={BH} N={N} d={dh} S={S} C={C}: {k1_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    k1_rows = k1_timings(k1, ops, dev, C, S, dh)
+    main_args, _, _ = k1_case(k1, ops, dev, BH, N, C, S, dh, seed=5)
+    k1_ms = k1_rows[(BH, N)]["call"]
+    plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*main_args, chunk=C), iters=10)
+    log(f"[6 timing] K1 plain version at BH={BH} N={N}: {plain_ms:.4f} ms")
+    del main_args
+    long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N)]["scan"],
+                 k1.stlt_scan_kernel)
     with torch.no_grad():
         tok = torch.from_numpy(prompts).to(dev)
         prefill_ms = time_cuda(lambda: T.prefill(engine.params, cfg, tok, N), iters=5)
@@ -592,8 +719,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/stlt_scan.cu",
         "replaces": "src/repro/kernels/stlt_scan.py:67",
         "launches": launches["stlt_scan"], "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "ms": k1_ms, "alone_ms": k1_rows[(BH, N)]["alone"],
+        "device_ms": k1_rows[(BH, N)]["device"], "plain_ms": plain_ms,
+        # bound_ms is the 3xTF32 tensor-core bound (bound_tc_ms names it
+        # too), bound_fp32_ms the bound with every flop as fp32 FMA, as K2's
+        "bound_ms": k1_rows[(BH, N)]["bound"], "bound_tc_ms": k1_rows[(BH, N)]["bound"],
+        "bound_fp32_ms": k1_rows[(BH, N)]["bound_fp32"],
+        "bound_by": k1_rows[(BH, N)]["bound_by"], "library_ms": None}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",
@@ -634,4 +766,4 @@ def profile(fn, label: str, top: int = 8):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,9 +13,15 @@ state, and rows whose gate never fires (valid == 0) return h0. The
 operators come from ``ops.py``. The kernel is ``csrc/stlt_scan.cu``; it
 replaces the JAX package's Pallas kernel ``repro/kernels/stlt_scan.py::_kernel``.
 
-``stlt_scan_kernel`` launches the kernel (CUDA tensors only) and counts its
-launches in ``stlt_scan_kernel.launches``; ``stlt_scan_reference`` does the
-same chunk algebra with torch matmuls on any device.
+``stlt_scan_kernel`` launches the kernel (CUDA tensors only) and counts one
+launch per call in ``stlt_scan_kernel.launches``. A call issues four CUDA
+launches on the current stream: the operators packed into the kernel's mma
+fragment order, the chunks' carry contributions (and the snapshot's
+product), the carry recurrence across chunks, and the readout. The host
+only checks the inputs and allocates the outputs and one scratch buffer. A
+row's gate fires in one chunk at most, as ``ops._snapshot_ops`` builds it.
+``stlt_scan_reference`` does the same chunk algebra with torch matmuls, one
+chunk at a time, on any device.
 """
 from __future__ import annotations
 
@@ -34,12 +40,14 @@ def _load():
         from repro_torch.kernels import build
 
         lib = ctypes.CDLL(str(build.build_kernels()["stlt_scan"]))
-        lib.stlt_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.stlt_scan_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.stlt_scan_smem_bytes.restype = ctypes.c_size_t
+        lib.stlt_scan_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.stlt_scan_scratch_bytes.restype = ctypes.c_size_t
         fn = lib.stlt_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _launch_fn = (fn, lib.stlt_scan_smem_bytes)
+        _launch_fn = (fn, lib.stlt_scan_smem_bytes, lib.stlt_scan_scratch_bytes)
     return _launch_fn
 
 
@@ -56,15 +64,11 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def stlt_scan_kernel(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
-                     spre, spim, sdec, *, chunk: int):
-    """Launch K1 on the current CUDA stream.
-
-    gate [BH, nc] int32 (nc = ceil(N / chunk)); x [BH, N, d]; m [BH, C, C];
-    a, b [BH, C, S]; pre, pim, spre, spim [BH, S, C]; dec, sdec [BH, 2, S];
-    h0_re, h0_im [BH, S, d]; all fp32 and contiguous on one CUDA device.
-    Returns (z [BH, N, d], h_re, h_im [BH, S, d]) fp32.
-    """
+def _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec,
+                 chunk: int):
+    """K1's launch arguments: (tensors, sizes) after checking the inputs; the
+    scratch buffer (packed operators, carries) and the outputs (the last
+    three tensors: z, h_re, h_im) are allocated here."""
     if x.device.type != "cuda":
         raise ValueError(f"stlt_scan_kernel needs CUDA tensors, got {x.device}")
     BH, N, d = x.shape
@@ -84,22 +88,43 @@ def stlt_scan_kernel(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
             ("sdec", sdec, (BH, 2, S))):
         _check(name, t, shape, f32, dev)
     _check("gate", gate, (BH, nc), torch.int32, dev)
-    launch, smem_bytes = _load()
-    if smem_bytes(C, S) > _SMEM_LIMIT:
-        raise ValueError(f"K1 at chunk={C}, nodes={S} needs {smem_bytes(C, S)} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    _, smem_bytes, scratch_bytes = _load()
+    smem = smem_bytes(C, S)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K1 at chunk={C}, nodes={S} needs {smem} bytes of shared "
+                         f"memory (limit {_SMEM_LIMIT})")
+    scratch = torch.empty(scratch_bytes(BH, N, d, C, S) // 4, dtype=f32, device=dev)
     z = torch.empty((BH, N, d), dtype=f32, device=dev)
     h_re = torch.empty((BH, S, d), dtype=f32, device=dev)
     h_im = torch.empty((BH, S, d), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
+    return ((gate, x, m, a, b, pre, pim, spre, spim, dec, h0_re, h0_im, sdec, scratch,
+             z, h_re, h_im), (BH, N, d, C, S))
+
+
+def _launch(tensors, sizes):
+    """Launch K1 on the current stream with ``_kernel_args``' output."""
+    launch = _load()[0]
+    with torch.cuda.device(tensors[1].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(*(t.data_ptr() for t in (
-            gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec,
-            z, h_re, h_im)), BH, N, d, C, S, stream)
+        err = launch(*(t.data_ptr() for t in tensors), *sizes, stream)
     if err:
         raise RuntimeError(f"stlt_scan kernel launch failed: CUDA error {err}")
+
+
+def stlt_scan_kernel(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
+                     spre, spim, sdec, *, chunk: int):
+    """Launch K1 on the current CUDA stream.
+
+    gate [BH, nc] int32 (nc = ceil(N / chunk)); x [BH, N, d]; m [BH, C, C];
+    a, b [BH, C, S]; pre, pim, spre, spim [BH, S, C]; dec, sdec [BH, 2, S];
+    h0_re, h0_im [BH, S, d]; all fp32 and contiguous on one CUDA device.
+    Returns (z [BH, N, d], h_re, h_im [BH, S, d]) fp32. One call is four
+    CUDA launches, counted as one."""
+    tensors, sizes = _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
+                                  spre, spim, sdec, chunk)
+    _launch(tensors, sizes)
     stlt_scan_kernel.launches += 1
-    return z, h_re, h_im
+    return tensors[-3:]
 
 
 stlt_scan_kernel.launches = 0

@@ -41,6 +41,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.scan import _chunk_powers  # noqa: E402
 from repro_torch.kernels import relevance_flash as t_rf  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -73,19 +74,28 @@ def _mm3(a, b):
     return torch.cat([al, ah, ah], -1) @ torch.cat([bh, bl, bh], -1).T
 
 
+def _trunc64(t):
+    """float64 -> the fp32 value toward zero, kept in float64: clear the 29
+    mantissa bits that fp32 lacks."""
+    return (t.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
 def _mm3_truncating(a, b):
     """a @ b.T as the tensor cores sum K2's 3xTF32 products: exact products,
     each k-step of 8 (lo.hi, hi.lo, hi.hi in turn) added to the fp32
-    accumulator and the sum truncated toward zero."""
+    accumulator and the sum truncated toward zero. Batched over leading
+    dimensions (a [..., M, K], b [..., N, K])."""
     (ah, al), (bh, bl) = _split(a), _split(b)
-    acc = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float64)
-    for k in range(0, a.shape[1], 8):
-        for x, y in ((al, bh), (ah, bl), (ah, bh)):
-            exact = acc + x[:, k:k + 8].double() @ y[:, k:k + 8].double().T
-            f = exact.float()
-            bits = f.view(torch.int32)     # one ulp toward zero where rounding went up
-            acc = torch.where(f.double().abs() > exact.abs(), (bits - 1).view(torch.float32),
-                              f).double()
+    K = a.shape[-1]
+
+    def steps(t):          # [..., R, K] -> [K/8, ..., R, 8], one k-step each
+        return torch.stack(t.double().split(8, -1))
+
+    pairs = [(steps(x), steps(y).transpose(-1, -2)) for x, y in ((al, bh), (ah, bl), (ah, bh))]
+    acc = 0.0
+    for k in range(K // 8):
+        for x, y in pairs:
+            acc = _trunc64(acc + x[k] @ y[k])
     return acc.float()
 
 

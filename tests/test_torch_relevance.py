@@ -36,6 +36,7 @@ from repro_torch.core import adaptive as t_adaptive  # noqa: E402
 from repro_torch.core import stlt as t_stlt  # noqa: E402
 from repro_torch.kernels import relevance_flash as t_rf  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-5          # same tiled algorithm on both sides
 LAYER_ATOL = 2e-4    # against the JAX package's materialized readout

@@ -26,6 +26,7 @@ from repro_torch.core import nodes as t_nodes  # noqa: E402
 from repro_torch.core import scan as t_scan  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import stlt_scan as t_k1  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 3e-5
 
