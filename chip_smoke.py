@@ -9,12 +9,18 @@ scan, at batch 4, at batch 1 and over a 131,072-token row) and K2 (the
 flash relevance readout, both modes, with masked nodes, a padded key tail
 and an all-masked row, at the real score scale and with x scaled so the
 largest score is 1 or 30, also against the plain version run in float64),
-and reads how the tensor cores round K2's 3xTF32 score sums. Then it drives the two main paths
-with random weights from a seeded generator and checks that each ran
+and reads how the tensor cores round K2's 3xTF32 score sums. Phase T1
+holds the scan's VJP on the card (K1 forward, K1 anti-causal for dx, the
+analytic pole/mixer grads) against float64 autograd through the plain
+version, both directions, at N = 1000 and 1037. Then it drives the main
+paths with random weights from a seeded generator and checks that each ran
 through its kernel: ``ServeEngine.generate`` on the full-width
-``stlt_base`` model (K1), and ``lm_loss`` forward and backward on the same
-model with ``mixer="stlt_relevance"`` (K2). It checks chunked prefill and
-card-vs-CPU agreement on both models, then times the kernels (each also
+``stlt_base`` model (K1), ``lm_loss`` forward and backward on the same
+model with ``mixer="stlt_relevance"`` (K2), and (phase T2) training of
+``stlt_base``: step 0 on the card against the CPU (loss and every grad
+leaf), then 5 AdamW steps (12 K1 launches a step), timed and profiled. It
+checks chunked prefill and card-vs-CPU agreement on both models, then
+times the kernels (each also
 without its host work; K1 at batch 4, batch 1 and 1 x 131,072 tokens, K2 at
 batch 1 and at N = 8192; each beside its fp32 and 3xTF32 tensor-core
 bounds), their plain versions and the library yardstick, times a batch-1
@@ -88,6 +94,12 @@ K2_UNIT_TOL = 2e-4
 # positions with the same argmax. A CPU rerun at another tile (summation
 # order only) is printed beside it as the floor of the spread.
 REL_LOGIT_TOL = 5e-2
+# full-width training, step 0, card vs CPU from the same weights, batch and
+# mask draws: fp32 everywhere but K1's 3xTF32 products (~1e-6 of the scale,
+# phase 2) and summation order; loss and ce relative, each grad leaf
+# ||g_card - g_cpu|| / ||g_cpu||.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 
 def log(msg: str):
     print(msg, flush=True)
@@ -107,27 +119,31 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls: int) -> dict:
+def device_ms(fn, calls: int, launches: int = 0) -> dict:
     """Kernel time on the device per call of ``fn``, by kernel name: the
     profiler's device time over ``calls`` calls (gaps between kernels
-    excluded), over ``calls``. A profile that recorded no kernel (the
-    profiler's first session in a process can miss them) is taken again
-    once; if that is empty too, so is the result."""
+    excluded), over ``calls``. A profile is whole when it recorded each of
+    its kernels a multiple of ``calls`` times and, with ``launches``,
+    ``launches`` kernels a call. The profiler can miss kernels (its first
+    session in a process may record none, a later one only some of the
+    calls), so a profile that is not whole is taken again, up to three
+    takes; if none is whole, the result is empty."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(3):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        rows = {e.key: e.self_device_time_total / 1e3 / calls
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
-        if rows:
-            break
-    return rows
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = [e.count for e in events]
+        if (events and all(c % calls == 0 for c in counts)
+                and (not launches or sum(counts) == launches * calls)):
+            return {e.key: e.self_device_time_total / 1e3 / calls for e in events}
+    return {}
 
 
 def kernel_name(key: str) -> str:
@@ -206,7 +222,7 @@ def k1_timings(k1, ops, dev, C, S, d):
         iters = 50 if N <= 1000 else 5
         x, lm, th, ur, ui, h0r, h0i, valid = raw
         alone = k1_kernel_alone(k1, args, C)
-        kernels = device_ms(alone, 10)
+        kernels = device_ms(alone, 10, launches=4)   # pack, carry_in, carry_scan, readout
         row = {
             "alone": time_cuda(alone, iters),
             "device": sum(kernels.values()) if kernels else None,
@@ -370,6 +386,218 @@ def k2_kernel_alone(k2, a, causal):
     return lambda: k2._launch(tensors, sizes)
 
 
+def vjp_case(dev, B, H, N, S, d, C, seed):
+    """The training scan's inputs at stlt-base's poles: nodes from
+    ``init_nodes`` (H heads, repeated over B rows, H fastest), mixers u
+    masked per row by random masks in (0, 1), x and dz normal. Returns
+    (x, log_mag, theta, u_re, u_im, dz) with B*H rows."""
+    from repro_torch.core import nodes as nodes_lib
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nodes = nodes_lib.init_nodes(g, H, S, device=dev)
+    lm, th, _, _ = nodes_lib.node_poles(nodes)
+    masks = torch.rand(B, H, S, generator=g, device=dev)
+    ur = (nodes["u_re"][None] * masks).reshape(B * H, S)
+    ui = (nodes["u_im"][None] * masks).reshape(B * H, S)
+    x = torch.randn(B * H, N, d, generator=g, device=dev)
+    dz = torch.randn(B * H, N, d, generator=g, device=dev)
+    return x, lm.repeat(B, 1), th.repeat(B, 1), ur, ui, dz
+
+
+def scan_vjp_check(k1, ops, dev, B, H, N, S, d, C, reverse) -> float:
+    """Phase T1: ``ops._StltScan`` on the card (K1 forward, K1 anti-causal
+    for dx, analytic pole/mixer grads) against torch autograd through the
+    plain version in float64 on the card. Asserts two K1 launches and each
+    grad within K1_TOL of (1 + its largest entry); returns the largest
+    error over the scale."""
+    x, lm, th, ur, ui, dz = vjp_case(dev, B, H, N, S, d, C, seed=11)
+    ins = [t.clone().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+    k1.stlt_scan_kernel.launches = 0
+    z = ops.stlt_scan(*ins, chunk=C, reverse=reverse)
+    got = torch.autograd.grad(z, ins, dz)
+    torch.cuda.synchronize()
+    if k1.stlt_scan_kernel.launches != 2:
+        raise AssertionError(f"T1: {k1.stlt_scan_kernel.launches} K1 launches per "
+                             f"forward + backward, expected 2")
+    ref = [t.double().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+    z64 = ops._pass(ref[0], ops._operators(*ref[1:], C), C, reverse,
+                    k1.stlt_scan_reference)[0]
+    want = torch.autograd.grad(z64, ref, dz.double())
+    worst = 0.0
+    parts = []
+    for name, a, b in zip(("z", "dx", "dlog_mag", "dtheta", "du_re", "du_im"),
+                          (z.detach(), *got), (z64.detach(), *want)):
+        err = float((a.double() - b).abs().max())
+        scale = 1.0 + float(b.abs().max())
+        worst = max(worst, err / scale)
+        parts.append(f"{name} {err:.3e} (scale {scale:.3e})")
+        if not err <= K1_TOL * scale:
+            raise AssertionError(f"T1: {name} at N={N}, reverse={reverse}: {err} > "
+                                 f"{K1_TOL} * {scale}")
+    log(f"[T1 scan VJP] BH={B * H} N={N} reverse={reverse}: " + ", ".join(parts)
+        + f"; worst {worst:.3e} of the scale (gate {K1_TOL})")
+    return worst
+
+
+ANNOTATIONS = ("stlt_scan.param_grads",)   # ops._StltScan's record_function
+K1_KERNEL = re.compile(r"\bk1_(pack|carry_in|carry_scan|readout)\b")
+
+
+def train_profile(fn, k1_calls: int) -> dict:
+    """One profiled train step: the device's busy share of the wall (kernel
+    time summed; the ``ops`` annotations' GPU spans excluded), K1's device
+    time split into its forward and its dx calls (K1's kernels in launch
+    order: the first ``k1_calls`` x 4 are the forward's), the analytic
+    param grads' device time and host time (its annotation), and the fp32
+    GEMMs' device time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events()
+               if e.device_type == cuda and e.name not in ANNOTATIONS]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    k1_events = sorted((e for e in kernels if K1_KERNEL.search(e.name)),
+                       key=lambda e: e.time_range.start)
+    launches = 4 * k1_calls
+    if len(k1_events) != 2 * launches:
+        raise AssertionError(f"train profile: {len(k1_events)} K1 kernels, expected "
+                             f"{2 * launches}")
+    k1_fwd = sum(e.time_range.elapsed_us() for e in k1_events[:launches]) / 1e3
+    k1_dx = sum(e.time_range.elapsed_us() for e in k1_events[launches:]) / 1e3
+    grads = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name == "stlt_scan.param_grads"]
+    pg_dev = sum(e.device_time_total for e in grads) / 1e3
+    pg_host = sum(e.cpu_time_total for e in grads) / 1e3
+    gemm = sum(e.time_range.elapsed_us() for e in kernels if "gemm" in e.name.lower()) / 1e3
+    out = {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms,
+           "k1_fwd_ms": k1_fwd, "k1_dx_ms": k1_dx, "param_grads_ms": pg_dev,
+           "param_grads_host_ms": pg_host, "gemm_ms": gemm, "launches": len(kernels)}
+    log(f"[T2 profile] one step: wall {wall_ms:.2f} ms (profiled), device busy "
+        f"{busy:.2f} ms = {100 * busy / wall_ms:.1f}% of wall, {len(kernels)} kernel "
+        f"launches; K1 forward {k1_fwd:.4f} ms ({k1_calls} calls, "
+        f"{k1_fwd / k1_calls:.4f} ms each), K1 dx {k1_dx:.4f} ms "
+        f"({k1_dx / k1_calls:.4f} ms each), together {100 * (k1_fwd + k1_dx) / busy:.1f}% "
+        f"of device time; analytic param grads {pg_dev:.3f} ms of device time "
+        f"({100 * pg_dev / busy:.1f}%), {pg_host:.2f} ms of host time "
+        f"({100 * pg_host / wall_ms:.1f}% of the wall); fp32 GEMMs {gemm:.3f} ms "
+        f"({100 * gemm / busy:.1f}%)")
+    rows = {}
+    for e in kernels:
+        r = rows.setdefault(kernel_name(e.name), [0.0, 0])
+        r[0] += e.time_range.elapsed_us() / 1e3
+        r[1] += 1
+    for name, (ms, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[T2 profile]   {ms:9.3f} ms  {count:6d}x  {100 * ms / busy:5.1f}%  {name[:70]}")
+    return out
+
+
+def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
+    """Phase T2: full-width training. Step 0 on the card against the port on
+    the CPU from the same weights, batch and mask draws (loss, ce, every
+    grad leaf; every leaf's grad finite and non-zero), then 5 AdamW steps on
+    the card (12 K1 launches a step), timed by CUDA events, and one more
+    step profiled."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.adaptive import anneal_tau
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.utils import tree_flatten_with_paths, tree_map
+
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5, seed=0)
+    H, S = cfg.num_heads, cfg.stlt_nodes
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def batch(step, where):
+        return {k: torch.from_numpy(v).to(where)
+                for k, v in lm_batch_stream(0, step, B, N, cfg.vocab).items()}
+
+    g = torch.Generator().manual_seed(1)
+    draws = [torch.rand(B, H, S, generator=g) * (1 - 2e-6) + 1e-6
+             for _ in range(cfg.num_layers)]
+    tau = anneal_tau(0, tcfg.total_steps)
+    k1.stlt_scan_kernel.launches = 0
+    t0 = time.time()
+    loss_g, m_g, g_card = train.loss_and_grads(params, cfg, batch(0, dev), tau=tau,
+                                               draws=[u.to(dev) for u in draws])
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    if k1.stlt_scan_kernel.launches != 2 * cfg.num_layers:
+        raise AssertionError(f"T2: {k1.stlt_scan_kernel.launches} K1 launches in a "
+                             f"forward + backward, expected {2 * cfg.num_layers}")
+    t0 = time.time()
+    loss_c, m_c, g_cpu = train.loss_and_grads(tree_map(torch.Tensor.cpu, params), cfg,
+                                              batch(0, "cpu"), tau=tau, draws=draws)
+    cpu_s = time.time() - t0
+    rel = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k])) for k in ("loss", "ce")}
+    log(f"[T2 step 0] card {first:.2f} s (first call), CPU {cpu_s:.2f} s: loss "
+        f"{float(loss_g):.6f} vs {float(loss_c):.6f}, ce {float(m_g['ce']):.6f} vs "
+        f"{float(m_c['ce']):.6f} (relative {rel['loss']:.2e}, {rel['ce']:.2e}; gate "
+        f"{TRAIN_LOSS_TOL})")
+    if not max(rel.values()) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"T2: card and CPU loss disagree: {rel}")
+    worst, n_leaves = ("", 0.0), 0
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(g_card),
+                                 tree_flatten_with_paths(g_cpu)):
+        a = a.cpu()
+        nb = float(torch.linalg.vector_norm(b.double()))
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0 and nb > 0):
+            raise AssertionError(f"T2: grad of {path} is not finite or is zero on the "
+                                 f"card (or on the CPU)")
+        r = float(torch.linalg.vector_norm((a - b).double())) / nb
+        n_leaves += 1
+        if r > worst[1]:
+            worst = (path, r)
+        if not r <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"T2: grad of {path}: card vs CPU relative {r} > "
+                                 f"{TRAIN_GRAD_TOL}")
+    log(f"[T2 step 0] {n_leaves} grad leaves, all finite and non-zero on both; worst "
+        f"||g_card - g_cpu|| / ||g_cpu|| {worst[1]:.3e} ({worst[0]}; gate {TRAIN_GRAD_TOL})")
+    del g_card, g_cpu
+
+    opt, step_fn = train.make_step(cfg, tcfg)
+    opt_state = opt.init(params)
+    ev_ms, walls, losses, counts = [], [], [], []
+    for step in range(tcfg.total_steps):
+        b = batch(step, dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = k1.stlt_scan_kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        params, opt_state, metrics = step_fn(params, opt_state, b, step)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.time() - t0))
+        ev_ms.append(start.elapsed_time(end))
+        n = k1.stlt_scan_kernel.launches - before
+        counts.append(n)
+        losses.append(float(metrics["loss"]))
+        log(f"[T2 train] step {step}: loss {losses[-1]:.6f} ce {float(metrics['ce']):.6f} "
+            f"grad_norm {float(metrics['grad_norm']):.4f} s_eff "
+            f"{float(metrics['s_eff']):.2f}; {ev_ms[-1]:.3f} ms (events), "
+            f"{walls[-1]:.3f} ms (wall), {n} K1 launches")
+        if n != 2 * cfg.num_layers or not np.isfinite(losses[-1]):
+            raise AssertionError(f"T2 step {step}: {n} K1 launches, loss {losses[-1]}")
+    med = float(np.median(ev_ms[1:]))
+    log(f"[T2 train] {B} x {N} tokens a step: median step {med:.3f} ms by CUDA events "
+        f"over steps 1-4 ({[round(t, 3) for t in ev_ms[1:]]}), wall "
+        f"{float(np.median(walls[1:])):.3f} ms; {B * N / (med / 1e3):.1f} training "
+        f"tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    b = batch(tcfg.total_steps, dev)
+    prof = train_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps),
+                         cfg.num_layers)
+    # K1's launches in the last timed step, as counted (every step's count
+    # was checked above)
+    return {"step_ms": med, "tok_s": B * N / (med / 1e3), "losses": losses,
+            "launches_per_step": counts[-1], **prof}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -382,6 +610,7 @@ def main(argv) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import relevance_flash as k2
     from repro_torch.kernels import stlt_scan as k1
+    from repro_torch.launch import train
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
     from repro_torch.utils import tree_map
@@ -467,6 +696,11 @@ def main(argv) -> int:
                 raise AssertionError("K2: the all-masked row must return exactly 0")
             if not torch.isfinite(got).all():
                 raise AssertionError("K2 returned non-finite values")
+
+    # T1. the scan's VJP on the card: K1 forward and anti-causal (dx), the
+    # analytic pole/mixer grads, against float64 autograd -----------------------
+    vjp_err = max(scan_vjp_check(k1, ops, dev, B, H, n_t, S, dh, C, rev)
+                  for n_t in (N, N + 37) for rev in (False, True))
 
     # 3. the main path: full-width stlt-base generate --------------------------
     params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -626,8 +860,30 @@ def main(argv) -> int:
             raise AssertionError(f"card and CPU relevance logits disagree: max {err}, "
                                  f"argmax agreement {agree}")
 
+    del cpu_params
+    # T2. the training path: full-width stlt-base, AdamW steps on the card ----------
+    tr = train_phase(T, train, k1, cfg, dev, B, N)
+
     # 6. timing -------------------------------------------------------------------
     k1_rows = k1_timings(k1, ops, dev, C, S, dh)
+    # K1 in the training call (no carry, no snapshot): the forward pass and the
+    # anti-causal dx pass (host flips included) at the step's shape
+    x, lm, th, ur, ui, dz = vjp_case(dev, B, H, N, S, dh, C, seed=12)
+    operators = ops._operators(lm, th, ur, ui, C)
+    fwd_pass = lambda: ops._pass(x, operators, C, False, k1.stlt_scan_kernel)  # noqa: E731
+    dx_pass = lambda: ops._pass(dz, operators, C, True, k1.stlt_scan_kernel)  # noqa: E731
+    train_k1 = {"fwd_ms": time_cuda(fwd_pass, 50), "dx_ms": time_cuda(dx_pass, 50)}
+    dx_kernels = device_ms(dx_pass, 10)
+    train_k1["dx_device_ms"] = sum(v for k, v in dx_kernels.items()
+                                   if K1_KERNEL.search(k)) if dx_kernels else None
+    train_k1["bound"], _, train_k1["bound_by"] = k1_bound(
+        BH, N, dh, C, S, np.zeros(BH, np.int32))[:3]
+    log(f"[6 timing] K1 training passes at BH={BH} N={N}: forward {train_k1['fwd_ms']:.4f} "
+        f"ms, dx (flip, K1, flip) {train_k1['dx_ms']:.4f} ms by events; dx K1 device "
+        f"time {train_k1['dx_device_ms']} ms; bound {train_k1['bound']:.4f} ms "
+        f"({train_k1['bound_by']}); device time by kernel: " + ", ".join(
+            f"{kernel_name(k)} {v:.4f} ms" for k, v in dx_kernels.items()))
+    del x, dz, operators
     main_args, _, _ = k1_case(k1, ops, dev, BH, N, C, S, dh, seed=5)
     k1_ms = k1_rows[(BH, N)]["call"]
     plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*main_args, chunk=C), iters=10)
@@ -725,7 +981,14 @@ def main(argv) -> int:
         # too), bound_fp32_ms the bound with every flop as fp32 FMA, as K2's
         "bound_ms": k1_rows[(BH, N)]["bound"], "bound_tc_ms": k1_rows[(BH, N)]["bound"],
         "bound_fp32_ms": k1_rows[(BH, N)]["bound_fp32"],
-        "bound_by": k1_rows[(BH, N)]["bound_by"], "library_ms": None}, {
+        "bound_by": k1_rows[(BH, N)]["bound_by"], "library_ms": None,
+        # the training path: K1 launches per train step (6 causal + 6
+        # anti-causal), the dx pass's time and its bound (no snapshot), the
+        # scan VJP's worst error over the scale (phase T1)
+        "launches_per_train_step": tr["launches_per_step"],
+        "train_fwd_ms": train_k1["fwd_ms"], "dx_ms": train_k1["dx_ms"],
+        "dx_device_ms": train_k1["dx_device_ms"], "dx_bound_ms": train_k1["bound"],
+        "vjp_max_err_over_scale": vjp_err}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

@@ -1,3 +1,14 @@
-from repro_torch.configs.base import DTYPES, ModelConfig
+from repro_torch.configs import stlt_base
+from repro_torch.configs.base import DTYPES, ModelConfig, TrainConfig
 
-__all__ = ["DTYPES", "ModelConfig"]
+ARCHS = {"stlt-base": stlt_base.CONFIG}
+
+
+def get_config(arch: str) -> ModelConfig:
+    """A ported architecture's config by its id (the JAX package's ids)."""
+    if arch not in ARCHS:
+        raise NotImplementedError(f"arch {arch!r} is not ported (ported: {sorted(ARCHS)})")
+    return ARCHS[arch]
+
+
+__all__ = ["ARCHS", "DTYPES", "ModelConfig", "TrainConfig", "get_config"]

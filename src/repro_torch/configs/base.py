@@ -1,5 +1,6 @@
-"""Model configuration for the PyTorch port: the ``ModelConfig`` fields the
-STLT serving path reads, ``stlt_config()``, and the dtype-string map.
+"""Model and training configuration for the PyTorch port: the
+``ModelConfig`` fields the STLT paths read, ``stlt_config()``, the
+``TrainConfig`` of the trainer, and the dtype-string map.
 
 This is the port's own copy of ``repro/configs/base.py`` (the port imports
 nothing of the JAX package). Field names and defaults match the JAX
@@ -59,6 +60,7 @@ class ModelConfig:
     scan_layers: bool = True         # JAX param layout only (see convert.py)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    optimizer: str = "adamw"         # adamw (adafactor is not ported)
 
     @property
     def dh(self) -> int:
@@ -122,3 +124,22 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and mask-temperature settings of the trainer
+    (``launch/train.py``), with the JAX package's field names and defaults
+    (its gradient accumulation, label smoothing and gradient compression are
+    not ported)."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.98
+    grad_clip: float = 1.0
+    schedule: str = "cosine"          # cosine | linear | constant
+    seed: int = 0
+    adaptive_tau_start: float = 1.0   # paper: anneal 1.0 -> 0.1 over 40%
+    adaptive_tau_end: float = 0.1

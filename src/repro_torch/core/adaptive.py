@@ -3,12 +3,14 @@
 Importance scores from a pooled summary of the layer input,
 ``alpha = sigmoid(W_alpha pool(X) + b_alpha)``, relaxed to masks
 ``m_k = sigmoid((logit_k + g_k) / tau)`` with logistic noise ``g`` in
-training and ``g = 0`` at eval/serve (optionally hard-thresholded).
+training and ``g = 0`` at eval/serve (optionally hard-thresholded). The
+trainer anneals tau (``anneal_tau``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.utils import trunc_normal
@@ -52,13 +54,16 @@ def masks_from_pooled(params: dict, pooled: torch.Tensor, cfg: AdaptiveConfig,
 
 def node_masks(params: dict, x: torch.Tensor, cfg: AdaptiveConfig, *,
                deterministic: bool = True,
-               generator: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None,
                pad_mask: Optional[torch.Tensor] = None):
     """Masks m [B, H, S] and S_eff [B] for layer input x [B, N, d].
 
-    The stochastic path draws its logistic noise from ``generator``; it
-    cannot reproduce ``jax.random``'s bits, so only the deterministic path
-    is held to the JAX package."""
+    The stochastic path (``deterministic=False``) turns uniform draws u in
+    (1e-6, 1 - 1e-6), ``draws`` [B, H, S], into logistic noise
+    log(u) - log1p(-u) (the trainer draws them; the tests feed the JAX
+    package's ``jax.random.uniform`` bits in, so the masks are held to its
+    own). Without draws the noise is 0, as the JAX package does without a
+    key."""
     if pad_mask is not None:
         pm = pad_mask.to(x.dtype)
         pooled = (x * pm[..., None]).sum(-2) / pm.sum(-1, keepdim=True).clamp_min(1.0)
@@ -68,12 +73,7 @@ def node_masks(params: dict, x: torch.Tensor, cfg: AdaptiveConfig, *,
         m = masks_from_pooled(params, pooled, cfg, dtype=x.dtype)
     else:
         logits = _logits(params, pooled)
-        if generator is None:
-            noise = 0.0
-        else:
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device) * (1.0 - 2e-6) + 1e-6
-            noise = torch.log(u) - torch.log1p(-u)
+        noise = 0.0 if draws is None else torch.log(draws) - torch.log1p(-draws)
         m = torch.sigmoid((logits + noise) / cfg.tau)
     s_eff = m.sum(dim=(-1, -2)) / m.shape[-2]
     return m, s_eff
@@ -94,6 +94,12 @@ def node_rank(imp: torch.Tensor) -> torch.Tensor:
     gt = (imp[..., None, :] > imp[..., :, None]).to(torch.int32)
     tie = (imp[..., None, :] == imp[..., :, None]) & (idx[None, :] < idx[:, None])
     return (gt + tie.to(torch.int32)).sum(-1)
+
+
+def top_m_mask(imp: torch.Tensor, m: int, dtype=torch.float32) -> torch.Tensor:
+    """One-hot keep-mask of the m most important nodes (index-tie-broken):
+    exactly m survivors per row even under full ties."""
+    return (node_rank(imp) < m).to(dtype)
 
 
 def node_cap_mask(imp: torch.Tensor, cap: torch.Tensor,
@@ -125,3 +131,13 @@ def regularization(sigma: torch.Tensor, omega: torch.Tensor,
         dsig ** 2 * m_sorted[..., 1:] * m_sorted[..., :-1])
     r_mask = cfg.lambda_mask * torch.sum(m_mean)
     return r_omega + r_sigma + r_mask
+
+
+def anneal_tau(step: int, total_steps: int, tau_start: float = 1.0,
+               tau_end: float = 0.1) -> float:
+    """Paper §4: anneal the temperature from 1.0 to 0.1 over the first 40% of
+    training. In float32, as the JAX package computes it, so the two give
+    the same value."""
+    f32 = np.float32
+    t = np.clip(f32(step) / f32(max(1, int(total_steps * 0.4))), f32(0), f32(1))
+    return float(f32(tau_start) + f32(tau_end - tau_start) * t)

@@ -269,10 +269,15 @@ def _relevance_materialized(cfg: STLTConfig, x, v, log_mag, theta, masks,
 
 def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
                deterministic: bool = True,
-               generator: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None,
                tau: Optional[float] = None,
                pad_mask: Optional[torch.Tensor] = None):
     """Full-sequence STLT block. x: [B, N, d_model] -> (y, aux dict).
+
+    With ``deterministic=False`` the adaptive masks take logistic noise from
+    the uniform ``draws`` [B, H, S] (``adaptive.node_masks``; none without
+    them). Differentiable: the factorized scan is
+    ``ops._StltScan``, the relevance readout K2's autograd Function.
 
     aux: {"reg": scalar (Reg) loss, "s_eff": [B], "masks": [B,H,S] | None,
     "T": [H], "sigma": [H, S]}.
@@ -286,7 +291,7 @@ def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
     if acfg.enabled:
         masks, s_eff = adaptive_lib.node_masks(
             params["adaptive"], x, acfg, deterministic=deterministic,
-            generator=generator, pad_mask=pad_mask)
+            draws=draws, pad_mask=pad_mask)
     log_mag, theta, sigma, T = _poles(params, cfg)
     v = _split_heads(x @ params["w_v"], cfg.num_heads)
     if cfg.mode == "relevance":

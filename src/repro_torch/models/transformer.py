@@ -16,7 +16,7 @@ raise ValueError on such a model, as the JAX package asserts.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -25,7 +25,7 @@ from repro_torch.core import stlt as stlt_lib
 from repro_torch.models import layers as L
 from repro_torch.utils import default_generator, resolve_device, trunc_normal
 
-AUX_KEYS = ("reg", "s_eff")
+AUX_KEYS = ("reg", "aux_loss", "router_z", "s_eff")
 _PORTED_BLOCKS = ("stlt", "stlt_rel")
 
 
@@ -109,30 +109,35 @@ def _block_ffn(params, cfg: ModelConfig, x):
 
 
 def apply_block(params: dict, cfg: ModelConfig, block_type: str, x, *,
-                deterministic: bool = True,
-                generator: Optional[torch.Generator] = None, tau=None):
+                deterministic: bool = True, draws=None, tau=None):
     _check_block(block_type)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
     mixed, sa = stlt_lib.apply_stlt(params["stlt"], cfg.stlt_config(), h,
-                                    deterministic=deterministic,
-                                    generator=generator, tau=tau)
-    aux = {"reg": sa["reg"].float(), "s_eff": sa["s_eff"].mean().float()}
+                                    deterministic=deterministic, draws=draws,
+                                    tau=tau)
+    zero = torch.zeros((), device=x.device)
+    aux = {"reg": sa["reg"].float(), "aux_loss": zero, "router_z": zero,
+           "s_eff": sa["s_eff"].mean().float()}
     return _block_ffn(params, cfg, x + mixed.to(x.dtype)), aux
 
 
 def apply_lm(params: dict, cfg: ModelConfig, inputs, *,
              deterministic: bool = True,
-             generator: Optional[torch.Generator] = None, tau=None):
+             draws: Optional[Sequence[torch.Tensor]] = None, tau=None):
     """Forward pass. inputs: int tokens [B, N] (or embeddings [B, N, d]).
-    Returns (logits [B, N, V], aux). The stochastic adaptive masks
-    (``deterministic=False``) draw from ``generator``, seed 0 when None."""
+    Returns (logits [B, N, V], aux).
+
+    The stochastic adaptive masks (``deterministic=False``) take layer i's
+    uniform draws [B, H, S] from ``draws[i]`` when given (one per layer, in
+    layer order); without draws their noise is 0."""
     x = _with_pe(cfg, _embed(params, cfg, inputs))
-    if not deterministic and generator is None:
-        generator = default_generator(x.device)
+    btypes = cfg.block_types()
+    if draws is not None and len(draws) != len(btypes):
+        raise ValueError(f"expected {len(btypes)} layers of draws, got {len(draws)}")
     total = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
-    for btype, p in zip(cfg.block_types(), params["layers"]):
+    for li, (btype, p) in enumerate(zip(btypes, params["layers"])):
         x, aux = apply_block(p, cfg, btype, x, deterministic=deterministic,
-                             generator=generator, tau=tau)
+                             draws=None if draws is None else draws[li], tau=tau)
         total = {k: total[k] + aux[k] for k in AUX_KEYS}
     n_stlt = sum(bt in ("stlt", "stlt_rel") for bt in cfg.block_types())
     total["s_eff"] = total["s_eff"] / max(1, n_stlt)
@@ -141,15 +146,16 @@ def apply_lm(params: dict, cfg: ModelConfig, inputs, *,
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
             deterministic: bool = False,
-            generator: Optional[torch.Generator] = None, tau=None):
+            draws: Optional[Sequence[torch.Tensor]] = None, tau=None):
     """batch: {"inputs": [B, N], "labels": [B, N], optional "mask"}.
-    Differentiable through relevance blocks (K2's autograd Function); the
-    factorized scan has no backward on the card yet."""
+    Differentiable on both devices: factorized blocks through the scan's
+    autograd Function (K1 forward and anti-causal on the card), relevance
+    blocks through K2's. ``aux_loss`` and ``router_z`` are 0 for STLT blocks
+    and enter the loss as in the JAX package."""
     logits, aux = apply_lm(params, cfg, batch["inputs"],
-                           deterministic=deterministic, generator=generator,
-                           tau=tau)
+                           deterministic=deterministic, draws=draws, tau=tau)
     ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
-    loss = ce + aux["reg"]
+    loss = ce + aux["reg"] + aux["aux_loss"] + aux["router_z"]
     return loss, {"loss": loss, "ce": ce, **aux}
 
 

@@ -28,14 +28,39 @@ def default_generator(device: torch.device, seed: int = 0) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of nested dicts/lists/tuples (lists and
-    tuples come back as lists)."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of nested dicts/lists/tuples, and to the
+    matching leaves of ``rest`` (trees of the same structure) beside it;
+    lists and tuples come back as lists."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_flatten_with_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs in ``tree_map``'s order, paths joined by "/" as the
+    JAX package names them (``layers/0/stlt/nodes/u_re``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [pair for k, v in items
+            for pair in tree_flatten_with_paths(v, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_flatten_with_paths(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` in ``tree_map``'s
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
