@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 holds each against its plain PyTorch version on the card: K1 (the STLT
-scan, at batch 4, at batch 1 and over a 131,072-token row) and K2 (the
+scan, at batch 4, at batch 1, over a 131,072-token row and at serve's two
+admission shapes, 1 and 4 rows of 512 tokens) and K2 (the
 flash relevance readout, both modes, with masked nodes, a padded key tail
 and an all-masked row, at the real score scale and with x scaled so the
 largest score is 1 or 30, also against the plain version run in float64),
@@ -18,10 +19,15 @@ through its kernel: ``ServeEngine.generate`` on the full-width
 ``stlt_base`` model (K1), ``lm_loss`` forward and backward on the same
 model with ``mixer="stlt_relevance"`` (K2), and (phase T2) training of
 ``stlt_base``: step 0 on the card against the CPU (loss and every grad
-leaf), then 5 AdamW steps (12 K1 launches a step), timed and profiled. It
+leaf), then 5 AdamW steps (12 K1 launches a step), timed and profiled.
+Phase S serves 12 requests of 100-3000 prompt tokens through
+``ServeEngine.serve`` (4 slots, chunked admission at 512 tokens through K1,
+a warmed 512-token system prompt in the prefix cache): each stream against
+its request run alone, K1 launches against the admission dispatches, the
+cache hits, wave mode; timed and profiled. It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
-without its host work; K1 at batch 4, batch 1 and 1 x 131,072 tokens, K2 at
+without its host work; K1 at each of its phase 2 shapes, K2 at
 batch 1 and at N = 8192; each beside its fp32 and 3xTF32 tensor-core
 bounds), their plain versions and the library yardstick, times a batch-1
 prefill of a 131,072-token prompt, and profiles it, one ``generate`` and
@@ -64,8 +70,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # different orders over up to C + 2S terms per output and nc carry steps.
 K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # K1's shapes: stlt-base's rows (8 heads) at batch 4 and batch 1 over the
-# main path's 1000 tokens, and batch 1 over a 131,072-token prompt.
-K1_SHAPES = ((32, 1000), (8, 1000), (8, 131072))
+# main path's 1000 tokens, batch 1 over a 131,072-token prompt, serve's two
+# admission shapes, [1, chunk] and [slots, chunk] at chunk 512, 4 slots, and
+# the largest of phase S's wave prefills, 4 prompts padded to 3000 tokens.
+K1_SHAPES = ((32, 1000), (8, 1000), (8, 131072), (8, 512), (32, 512), (32, 3000))
 LONG_N = 131072
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
@@ -598,6 +606,262 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
             "launches_per_step": counts[-1], **prof}
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# Phase S's requests: (own prompt tokens, behind the shared 512-token system
+# prompt?, max_new_tokens, serve_nodes, arrival tick). Prompts of 100-3000
+# tokens, four of them one chunk or less; four co-pend at tick 0; one
+# prefill-only request; two decode at 16 nodes; five share the system
+# prompt, one of them is nothing else (a full-prompt cache hit).
+SERVE_CHUNK, SERVE_SLOTS, SERVE_SYS = 512, 4, 512
+SERVE_SPEC = ((2488, True, 48, None, 0), (300, False, 32, None, 0),
+              (1500, False, 64, 16, 0), (100, False, 16, None, 0),
+              (2000, False, 1, None, 2), (450, True, 24, None, 3),
+              (900, True, 40, 16, 5), (2900, False, 8, None, 8),
+              (180, False, 64, None, 12), (1200, True, 32, None, 20),
+              (700, False, 16, None, 30), (0, True, 20, None, 40))
+
+
+def serve_requests(cfg, Request):
+    """Phase S's system prompt and requests, made from seed 2."""
+    rng = np.random.default_rng(2)
+    sys_prompt = rng.integers(0, cfg.vocab, SERVE_SYS).astype(np.int32)
+    reqs = []
+    for i, (n, shared, new, nodes, _) in enumerate(SERVE_SPEC):
+        own = rng.integers(0, cfg.vocab, n).astype(np.int32)
+        prompt = np.concatenate([sys_prompt, own]) if shared else own
+        reqs.append(Request(prompt, new, id=i, serve_nodes=nodes))
+    return sys_prompt, reqs
+
+
+def near_tie(row, tok: int, what: str) -> int:
+    """1 when served token ``tok`` is not the argmax of the reference logits
+    ``row`` but within LOGIT_TOL of its max logit (a near tie that summation
+    order may break either way), 0 when it is the argmax; raises otherwise."""
+    best = int(row.argmax())
+    if best == tok:
+        return 0
+    gap = float(row[best] - row[tok])
+    if not gap < LOGIT_TOL:
+        raise AssertionError(f"{what}: served token {tok}, reference argmax {best}, "
+                             f"logit gap {gap}")
+    return 1
+
+
+def alone_stream_check(T, cfg, params, dev, req, stream) -> int:
+    """Request ``req`` run alone: its prompt folded at [1, SERVE_CHUNK]
+    (padded, per-row valid) from token 0, so its chunk boundaries are the
+    engine's, then ``decode_step`` at its node budget, fed the engine's own
+    tokens, each held to the alone run's logits by ``near_tie``. Returns the
+    number of near ties."""
+    state = T.init_decode_state(cfg, 1, 0, device=dev)
+    prompt = req.prompt
+    for off in range(0, len(prompt), SERVE_CHUNK):
+        n = min(SERVE_CHUNK, len(prompt) - off)
+        buf = np.zeros((1, SERVE_CHUNK), np.int64)
+        buf[0, :n] = prompt[off:off + n]
+        logits, state = T.prefill_chunk(params, cfg, torch.from_numpy(buf).to(dev), state,
+                                        valid_len=torch.tensor([n], device=dev))
+    cap = torch.tensor([req.serve_nodes or cfg.stlt_nodes], dtype=torch.int32, device=dev)
+    ties = 0
+    for step, tok in enumerate(stream):
+        ties += near_tie(logits[0], int(tok), f"S (a): request {req.id} step {step}")
+        if step + 1 < len(stream):
+            logits, state = T.decode_step(params, cfg, torch.tensor([int(tok)], device=dev),
+                                          state, node_cap=cap)
+    return ties
+
+
+def wave_stream_check(T, cfg, params, dev, reqs, arrivals, served, stats):
+    """Wave mode's streams against each wave run again as the engine runs it:
+    ``prefill`` of the wave's prompts left-padded to its longest, then
+    uncapped ``decode_step`` over the whole wave, each row fed its own served
+    tokens and held to the rerun's logits by ``near_tie``. A wave is the
+    requests admitted at one tick, at most SERVE_SLOTS of them in arrival
+    order. Returns (the waves' padded lengths, the number of near ties)."""
+    waves = []
+    for i in sorted(range(len(reqs)), key=lambda i: arrivals[i]):
+        r = reqs[i]
+        if (waves and len(waves[-1]) < SERVE_SLOTS
+                and stats[waves[-1][-1].id]["admit"] == stats[r.id]["admit"]):
+            waves[-1].append(r)
+        else:
+            waves.append([r])
+    ties = 0
+    for wave in waves:
+        plen = max(len(r.prompt) for r in wave)
+        buf = np.zeros((len(wave), plen), np.int64)
+        for b, r in enumerate(wave):
+            buf[b, plen - len(r.prompt):] = r.prompt
+        logits, state = T.prefill(params, cfg, torch.from_numpy(buf).to(dev), 0)
+        steps = max(len(served[r.id]) for r in wave)
+        for step in range(steps):
+            tok = np.zeros(len(wave), np.int64)
+            for b, r in enumerate(wave):
+                stream = served[r.id]
+                if step < len(stream):
+                    ties += near_tie(logits[b], int(stream[step]),
+                                     f"S (d): wave request {r.id} step {step}")
+                tok[b] = stream[min(step, len(stream) - 1)]
+            if step + 1 < steps:
+                logits, state = T.decode_step(params, cfg, torch.from_numpy(tok).to(dev),
+                                              state)
+    return [max(len(r.prompt) for r in w) for w in waves], ties
+
+
+def serve_profile(fn, ticks: int, k1_calls: int) -> dict:
+    """One profiled call of ``fn`` (a serve, or a decode step): its wall,
+    the device's busy share (kernel time summed over the wall), kernel
+    launches per decode tick, and K1's share of device time. The profiler
+    can drop kernels, so a profile whose K1 kernels are not 4 x ``k1_calls``
+    (or that recorded none) is taken again, up to three takes; None when no
+    take is whole."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.time() - t0)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels and sum(bool(K1_KERNEL.search(e.name)) for e in kernels) == 4 * k1_calls:
+            break
+    else:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    k1_ms = sum(e.time_range.elapsed_us() for e in kernels if K1_KERNEL.search(e.name)) / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms,
+            "launches": len(kernels), "launches_per_tick": len(kernels) / max(ticks, 1),
+            "k1_ms": k1_ms, "k1_share": k1_ms / busy if busy else 0.0}
+
+
+def serve_phase(T, k1, cfg, params, dev) -> dict:
+    """Phase S: continuous ``serve`` of full-width stlt-base with a slot
+    pool, two-shape masked chunked admission through K1 and the prefix
+    cache; checks (a) each stream against the request run alone, (b) K1
+    launches == layers x admission dispatches, (c) cache hits, (d) wave
+    mode: its streams against each wave rerun, its K1 launches == layers x
+    its prefills; then times both modes and profiles one continuous serve."""
+    from repro_torch.serving import PrefixCache, Request, ServeEngine
+
+    smi = smi_line()
+    sys_prompt, reqs = serve_requests(cfg, Request)
+    arrivals = [s[4] for s in SERVE_SPEC]
+    shared = [s[1] for s in SERVE_SPEC]
+    eng = ServeEngine(params, cfg, prefill_chunk=SERVE_CHUNK, device=dev)
+
+    def continuous():
+        eng.prefix_cache = PrefixCache()
+        eng.warm_prefix(sys_prompt)
+        torch.cuda.synchronize()
+        k1.stlt_scan_kernel.launches = 0
+        t0 = time.time()
+        out = eng.serve(reqs, slots=SERVE_SLOTS, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    continuous()   # first call: one-time costs
+    (res, stats), wall = continuous()
+    launches = k1.stlt_scan_kernel.launches
+    dispatches = dict(eng.serve_stats)
+    n_tok = sum(len(v) for v in res.values())
+    if launches == 0 or launches != cfg.num_layers * dispatches["admission_dispatches"]:
+        raise AssertionError(f"S (b): {launches} K1 launches for "
+                             f"{dispatches['admission_dispatches']} admission dispatches")
+    for r in reqs:
+        if len(res[r.id]) != r.max_new_tokens or not ((res[r.id] >= 0)
+                                                      & (res[r.id] < cfg.vocab)).all():
+            raise AssertionError(f"S: request {r.id} gave {res[r.id]}")
+    cached = [stats[r.id]["cached_tokens"] for r in reqs]
+    if any((c != SERVE_SYS) if s else c for c, s in zip(cached, shared)):
+        raise AssertionError(f"S (c): cached tokens {cached}, shared {shared}")
+    with torch.no_grad():
+        ties = sum(alone_stream_check(T, cfg, params, dev, r, res[r.id]) for r in reqs)
+    ttft_ticks = [stats[r.id]["live"] - stats[r.id]["arrival"] for r in reqs]
+    ttft_ms = [1e3 * (stats[r.id]["token_walls"][0] - stats[r.id]["arrival_wall"])
+               for r in reqs]
+    gaps = [1e3 * (b - a) for r in reqs
+            for a, b in zip(stats[r.id]["token_walls"], stats[r.id]["token_walls"][1:])]
+    out = {"wall_s": wall, "tok_s": n_tok / wall, "tokens": n_tok, "ties": ties,
+           "k1_launches": launches, **dispatches,
+           "ttft_ticks": np.percentile(ttft_ticks, [50, 99]).tolist(),
+           "ttft_ms": np.percentile(ttft_ms, [50, 99]).tolist(),
+           "gap_ms": np.percentile(gaps, [50, 99]).tolist()}
+    log(f"[S serve] {len(reqs)} requests, prompts {min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, {SERVE_SLOTS} slots, chunk "
+        f"{SERVE_CHUNK}: (a) every stream equals its request run alone ({ties} near-tie "
+        f"steps within {LOGIT_TOL}); (b) {launches} K1 launches = {cfg.num_layers} layers "
+        f"x {dispatches['admission_dispatches']} admission dispatches; (c) cached tokens "
+        f"{cached}; {dispatches['decode_dispatches']} decode ticks [{smi}]")
+    log(f"[S serve] continuous: wall {wall:.3f} s, {n_tok} tokens, {out['tok_s']:.1f} "
+        f"generated tok/s; TTFT p50/p99 {out['ttft_ticks'][0]:.1f}/{out['ttft_ticks'][1]:.1f} "
+        f"ticks, {out['ttft_ms'][0]:.2f}/{out['ttft_ms'][1]:.2f} ms; inter-token gap "
+        f"p50/p99 {out['gap_ms'][0]:.3f}/{out['gap_ms'][1]:.3f} ms [{smi}]")
+
+    eng.prefix_cache = None
+    torch.cuda.synchronize()
+    k1.stlt_scan_kernel.launches = 0
+    t0 = time.time()
+    wave, wave_stats = eng.serve(reqs, slots=SERVE_SLOTS, arrivals=arrivals, mode="wave",
+                                 return_stats=True)
+    torch.cuda.synchronize()
+    out["wave_wall_s"] = time.time() - t0
+    wave_launches = k1.stlt_scan_kernel.launches
+    wave_dispatches = dict(eng.serve_stats)
+    if any(len(wave[r.id]) != r.max_new_tokens for r in reqs):
+        raise AssertionError("S (d): wave mode did not serve every request in full")
+    with torch.no_grad():
+        wave_lens, wave_ties = wave_stream_check(T, cfg, params, dev, reqs, arrivals,
+                                                 wave, wave_stats)
+    if (len(wave_lens) != wave_dispatches["admission_dispatches"]
+            or wave_launches != cfg.num_layers * len(wave_lens)):
+        raise AssertionError(f"S (d): {wave_launches} K1 launches for "
+                             f"{wave_dispatches['admission_dispatches']} wave prefills, "
+                             f"{len(wave_lens)} waves")
+    out.update(wave_tok_s=n_tok / out["wave_wall_s"], wave_k1_launches=wave_launches,
+               wave_ties=wave_ties, wave_prompt_lens=wave_lens, wave_dispatches=wave_dispatches)
+    log(f"[S serve] (d) wave mode: {len(wave_lens)} waves padded to {wave_lens} tokens, "
+        f"every stream equals its wave run again ({wave_ties} near-tie steps within "
+        f"{LOGIT_TOL}); {wave_launches} K1 launches = {cfg.num_layers} layers x "
+        f"{len(wave_lens)} wave prefills; wall {out['wave_wall_s']:.3f} s, "
+        f"{out['wave_tok_s']:.1f} generated tok/s, {wave_dispatches} [{smi}]")
+
+    # K1 calls in the profiled serve: its admission dispatches and
+    # warm_prefix's one chunk, a call per layer each
+    prof = serve_profile(continuous, dispatches["decode_dispatches"],
+                         cfg.num_layers * (dispatches["admission_dispatches"] + 1))
+    out["profile"] = prof
+    with torch.no_grad():
+        st = T.init_decode_state(cfg, SERVE_SLOTS, 0, device=dev)
+        caps = torch.full((SERVE_SLOTS,), cfg.stlt_nodes, dtype=torch.int32, device=dev)
+        tok = torch.zeros(SERVE_SLOTS, dtype=torch.int64, device=dev)
+        for key, cap in (("capped", caps), ("uncapped", None)):
+            step = serve_profile(lambda: T.decode_step(params, cfg, tok, st, node_cap=cap),
+                                 1, 0)
+            out[f"{key}_step_launches"] = step and step["launches"]
+    if prof is None:
+        log(f"[S profile] one continuous serve: not measured (every profile dropped "
+            f"kernels) [{smi}]")
+    else:
+        log(f"[S profile] one continuous serve (warm_prefix included): wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.2f} ms = "
+            f"{100 * prof['busy']:.1f}% of wall, {prof['launches']} kernel launches = "
+            f"{prof['launches_per_tick']:.1f} per decode tick (admission included); K1 "
+            f"{prof['k1_ms']:.3f} ms = {100 * prof['k1_share']:.1f}% of device time [{smi}]")
+    log(f"[S profile] one decode_step at batch {SERVE_SLOTS}: {out['capped_step_launches']} "
+        f"launches with node caps (continuous mode), {out['uncapped_step_launches']} "
+        f"without (wave mode) [{smi}]")
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -964,12 +1228,14 @@ def main(argv) -> int:
     profile(lambda: torch.autograd.grad(
         k2.relevance_flash(*ins[:4], masks=ins[4], kmask=a[5]), ins, dz),
         "one K2 forward + backward (backward: autograd through the plain version)")
+
+    # S. the serving path: continuous serve with chunked admission through K1
+    # and the prefix cache, against each request run alone; wave mode. Last,
+    # so that its long profile cannot disturb the kernel timings' profiles.
+    srv = serve_phase(T, k1, cfg, engine.params, dev)
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi)
+    print(smi_line())
     print(json.dumps({"kernels": [{
         "name": "stlt_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stlt_scan.cu",
@@ -986,6 +1252,11 @@ def main(argv) -> int:
         # anti-causal), the dx pass's time and its bound (no snapshot), the
         # scan VJP's worst error over the scale (phase T1)
         "launches_per_train_step": tr["launches_per_step"],
+        # phase S: K1 launches in one continuous serve (layers x admission
+        # dispatches)
+        "launches_per_serve": srv["k1_launches"],
+        # and in the wave-mode serve of the same requests (layers x waves)
+        "launches_per_wave_serve": srv["wave_k1_launches"],
         "train_fwd_ms": train_k1["fwd_ms"], "dx_ms": train_k1["dx_ms"],
         "dx_device_ms": train_k1["dx_device_ms"], "dx_bound_ms": train_k1["bound"],
         "vjp_max_err_over_scale": vjp_err}, {

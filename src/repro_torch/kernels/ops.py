@@ -125,13 +125,11 @@ def _pass(x, operators, chunk: int, reverse: bool, run, h0=None, snapshot=None):
     ``_snapshot_ops`` takes the carry at each row's gated token; without it
     the gate never fires, the snapshot operators are unread (the carry
     operators stand in for them) and h_re/h_im are h0. ``reverse`` runs the
-    pass anti-causally (no carry or snapshot). Differentiable by autograd
-    when ``run`` is the plain version."""
+    pass anti-causally, on x flipped on the token axis: a snapshot then
+    counts tokens from the end. Differentiable by autograd when ``run`` is
+    the plain version."""
     BH, N, d = x.shape
     M, A, B, pre, pim, dec = operators
-    if reverse and (h0 is not None or snapshot is not None):
-        raise ValueError("carry resume / per-row valid snapshots are forward-only "
-                         "(decoders are causal)")
     if reverse:
         x = x.flip(1)
     if h0 is None:
@@ -279,7 +277,12 @@ def stlt_scan(
     (h_re, h_im) [BH, S, d] fp32: the carry after ``valid[row]`` tokens.
     The training call (no h0, valid or state) is differentiable through
     ``_StltScan``; the stateful serving call is not differentiated. Carry
-    resume and snapshots are forward-only, as the JAX package asserts."""
+    resume and per-row valid snapshots are forward-only, as the JAX package
+    asserts; ``reverse`` with ``return_state`` returns the anti-causal
+    carry after all N tokens (the snapshot at N of the flipped pass)."""
+    if reverse and (h0_re is not None or valid is not None):
+        raise ValueError("carry resume / per-row valid snapshots are forward-only "
+                         "(decoders are causal)")
     stateful = return_state or h0_re is not None or valid is not None
     if not stateful:
         return _StltScan.apply(x, log_mag, theta, u_re, u_im, chunk, reverse)

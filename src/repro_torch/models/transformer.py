@@ -6,7 +6,8 @@ difference: ``params["layers"]`` always holds one dict per layer. The JAX
 package stacks runs of equal blocks on a leading axis when
 ``scan_layers=True``; ``convert.from_jax_params`` unstacks them along
 ``execution_plan``. Decode states follow suit: ``{"layers": [one state per
-layer], "pos": [B] int32}``.
+layer], "pos": [B] int32}``; a state of ``n_slots`` rows is the serving
+engine's slot pool (``insert_slot``, ``extract_slot``, ``reset_slot``).
 
 Only STLT blocks are ported: ``stlt`` (factorized) and ``stlt_rel`` (the
 relevance readout, ``mixer="stlt_relevance"``). Other block types raise
@@ -263,3 +264,45 @@ def decode_step(params: dict, cfg: ModelConfig, token_t, state: dict,
         x_t, st = _block_step(p, cfg, btype, x_t, st, node_cap=node_cap)
         new_states.append(st)
     return _head(params, cfg, x_t), {"layers": new_states, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# slot pool (continuous-batching serving)
+# ---------------------------------------------------------------------------
+#
+# A decode state built by init_decode_state(cfg, batch=n_slots, ...) is a
+# POOL: every leaf has the slot on axis 0 (the port keeps one state per
+# layer, never a stacked run). prefill_chunk and decode_step return new
+# tensors and never write their input state, so the pool is the one object
+# written in place, by insert_slot and reset_slot.
+
+
+def insert_slot(pool: dict, state: dict, slot: int, cfg: ModelConfig) -> dict:
+    """Copy a batch-1 decode state into row ``slot`` of ``pool``, in place;
+    returns ``pool``. ``state`` is only read."""
+    del cfg
+    for pl, sl in zip(pool["layers"], state["layers"]):
+        for k, t in pl.items():
+            t[slot].copy_(sl[k][0])
+    pool["pos"][slot].copy_(state["pos"][0])
+    return pool
+
+
+def extract_slot(pool: dict, slot: int, cfg: ModelConfig) -> dict:
+    """The batch-1 decode state of row ``slot``: a COPY, so a later write into
+    the pool (an insert, a reset) never changes what the caller holds (a
+    prefix-cache entry, a state about to be promoted)."""
+    del cfg
+    return {"layers": [{k: t[slot:slot + 1].clone() for k, t in pl.items()}
+                       for pl in pool["layers"]],
+            "pos": pool["pos"][slot:slot + 1].clone()}
+
+
+def reset_slot(pool: dict, slot: int, cfg: ModelConfig, max_len: int,
+               template: Optional[dict] = None) -> dict:
+    """Return row ``slot`` to the pristine init state, in place: a copy of
+    ``template`` (a batch-1 ``init_decode_state``, made here when None),
+    which is only read."""
+    if template is None:
+        template = init_decode_state(cfg, 1, max_len, device=pool["pos"].device)
+    return insert_slot(pool, template, slot, cfg)

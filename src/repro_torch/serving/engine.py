@@ -1,42 +1,225 @@
-"""``ServeEngine.generate``: prefill a batch of prompts, then decode.
+"""Slot-level continuous-batching serve engine, the port of the JAX
+package's ``serving/engine.py`` on one device.
 
-The prefill runs K1 once per layer (``transformer.prefill``); each decode
-step is plain torch (``transformer.decode_step``), as in the JAX package.
-Continuous ``serve``, the prefix cache, speculative decoding and SLO
-degradation are not ported yet.
+The engine owns a pool of ``slots`` decode rows whose O(S*d) STLT states
+live in ONE batched decode state (``transformer.init_decode_state(cfg,
+batch=slots)``); every per-sequence position is a [slots] vector, so
+co-resident rows sit at different depths. Three operations drive it:
+``transformer.insert_slot`` (splice a prefilled batch-1 state into a free
+row), ``reset_slot`` (return a released row to the pristine state) and
+``decode_step`` (one batched token step for the WHOLE pool). The host-side
+:class:`Scheduler` tracks which row holds which request; a finished
+request's row is refilled from the queue while the others keep decoding.
+
+Admission runs K1 (the Hopper STLT scan) once per layer per dispatch, by
+one of three routes:
+
+* monolithic (``prefill_chunk=0``): ``transformer.prefill`` of the whole
+  prompt (``prefill_chunk`` from a cached prefix's state);
+* coalesced (default): prompts are folded ``prefill_chunk`` tokens per tick
+  through ``transformer.prefill_chunk`` with a carried state and a per-row
+  ``valid_len``, every co-pending admission in ONE masked dispatch, at two
+  shapes only: ``[1, chunk]`` for a lone pending row (also ``warm_prefix``'s
+  shape) and ``[slots, chunk]`` over a second slot pool, the prefill pool,
+  when several are pending. The prefill pool is dropped once it drains;
+* one request per tick (``coalesce=False``): batch-1 chunks, the tail at
+  its natural length.
+
+A :class:`PrefixCache` snapshots the streaming state at chunk boundaries and
+at full prompts, keyed by prompt-prefix hash, so requests sharing a system
+prompt skip its prefill; ``warm_prefix`` pre-populates it.
+
+``serve(mode="wave")`` keeps the admission-wave baseline (a whole wave
+drains before the next is admitted). Time is counted in ticks: one batched
+decode step is one tick, the unit of ``arrivals`` and of the latency stats.
+Sampled requests draw Gumbel noise per ``(rng_seed, request id, token
+index)`` (``sampler.GumbelStreams``), so a request's stream is the same in
+both modes.
+
+Not ported: speculative decoding and SLO degradation (``spec_k``,
+``slo_degrade``; ROADMAP Queue 1 item 3), and the sharded and disaggregated
+engines (item 7).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.serving.sampler import sample_token
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.sampler import (GumbelStreams, advance_slots, gumbel,
+                                         sample_slot_tokens)
 from repro_torch.utils import default_generator, resolve_device, tree_map
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray          # [L] int32
+    max_new_tokens: int
+    id: int = 0
+    temperature: Optional[float] = None  # None -> engine default
+    # per-request STLT node budget for decode (None -> engine default ->
+    # full S); mixed budgets ride ONE dispatch (the cap is a [B] argument)
+    serve_nodes: Optional[int] = None
+
+
+class Scheduler:
+    """Host-side slot bookkeeping: which request occupies which row, how
+    many tokens it has emitted, and when it arrived / was admitted.
+
+    A row is free, ``pending`` (mid chunked prefill, not decoding yet) or
+    ``live`` (decoding). Per-request stats record ``prompt_tokens``, the
+    ``prefilled_tokens`` actually computed, the ``cached_tokens`` skipped by
+    a prefix-cache hit, the ticks of ``arrival``, ``admit``, ``live`` (the
+    first token) and ``finish``, and the wall-clock stamp of every token."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self.req = [None] * n_slots          # row -> Request | None
+        self.live = np.zeros(n_slots, bool)
+        self.pending = np.zeros(n_slots, bool)
+        self.emitted = np.zeros(n_slots, np.int64)
+        self.budgets = np.zeros(n_slots, np.int64)
+        self.stats: dict[int, dict] = {}
+
+    def free_slots(self):
+        return [s for s in range(self.n_slots)
+                if not (self.live[s] or self.pending[s])]
+
+    def hold(self, slot: int, req: Request, arrival: int, tick: int,
+             prompt_tokens: int = 0, cached_tokens: int = 0):
+        """Assign the row for chunked prefill (occupied but not decoding)."""
+        self.req[slot] = req
+        self.pending[slot] = True
+        self.emitted[slot] = 0
+        self.budgets[slot] = req.max_new_tokens
+        self.stats[req.id] = {
+            "arrival": arrival, "admit": tick, "live": None, "finish": None,
+            "n_tokens": 0, "prompt_tokens": prompt_tokens,
+            "prefilled_tokens": prompt_tokens - cached_tokens,
+            "cached_tokens": cached_tokens,
+            # inter-token gaps show decode stalls that ticks cannot (a
+            # monolithic prefill spends any wall time inside one tick)
+            "token_walls": [],
+        }
+
+    def activate(self, slot: int, tick: int):
+        """Prefill finished: the row starts decoding."""
+        self.pending[slot] = False
+        self.live[slot] = True
+        self.stats[self.req[slot].id]["live"] = tick
+
+    def bind(self, slot: int, req: Request, arrival: int, tick: int,
+             prompt_tokens: int = 0, cached_tokens: int = 0):
+        """Single-shot admission: prefill completed within this tick."""
+        self.hold(slot, req, arrival, tick, prompt_tokens, cached_tokens)
+        self.activate(slot, tick)
+
+    def release(self, slot: int, tick: int):
+        req = self.req[slot]
+        self.stats[req.id]["finish"] = tick
+        self.stats[req.id]["n_tokens"] = int(self.emitted[slot])
+        self.req[slot] = None
+        self.live[slot] = False
+        self.pending[slot] = False
+
+
+class _Host:
+    """The serving state of the device: its admission queue, its Scheduler
+    over the slot rows and its in-flight chunked prefills."""
+
+    def __init__(self, n_slots: int):
+        self.sched = Scheduler(n_slots)
+        self.queue: list = []                # (arrival, Request), FIFO
+        self.pending: dict[int, dict] = {}   # row -> in-flight prefill
+
+
+class _ServeRun:
+    """Mutable state of one continuous serve run, threaded through the tick
+    phases (``_serve_start`` -> ``_serve_tick``* -> ``_serve_finish``)."""
+
+    def __init__(self, host: _Host, queue, chunk_size, coalesce, prompt_len,
+                 draws, temperature: float):
+        self.host = host
+        self.B = host.sched.n_slots
+        self.queue = queue               # (arrival, Request), arrival-sorted
+        self.results: dict[int, list[int]] = {}
+        # the decode pool is built at the first promote, the prefill pool
+        # at the first coalesced admission (and dropped when it drains)
+        self.pool = None
+        self.prefill_pool = None
+        self.tok = np.zeros(self.B, np.int32)
+        self.temps = np.full(self.B, temperature, np.float32)
+        self.draws = draws
+        self.tick = 0
+        self.chunk_size = chunk_size
+        self.coalesce = coalesce
+        self.prompt_len = prompt_len
+        # request id -> wall clock when it reached the queue (TTFT in time)
+        self.arrival_walls: dict[int, float] = {}
+
+    def active(self):
+        host = self.host
+        return bool(self.queue or host.queue or host.pending
+                    or host.sched.live.any())
 
 
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, max_len: int = 4096,
-                 temperature: float = 0.0, top_k: int = 0,
-                 serve_nodes: Optional[int] = None, device=None):
+                 temperature: float = 0.0, eos_id: int = -1, top_k: int = 0,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: Optional[PrefixCache] = None,
+                 serve_nodes: Optional[int] = None, spec_k: int = 0,
+                 slo_degrade: tuple = (),
+                 noise: Optional[Callable] = None, device=None):
         """``params`` from ``transformer.init_lm`` or
         ``convert.from_jax_params``; they are moved to ``device`` (CUDA
-        unless the caller names another). ``serve_nodes`` caps every
-        decode step's STLT node budget (None -> full S)."""
+        unless the caller names another).
+
+        ``prefill_chunk``: admit prompts this many tokens per tick,
+        interleaved with decode (None/0 -> monolithic admission).
+        ``prefix_cache``: reuse post-prefix states across requests sharing a
+        prompt prefix (full-prompt states are stored after every prefill,
+        chunk-boundary states where they extend a cached prefix).
+        ``serve_nodes``: default STLT node budget of decode steps (None ->
+        full S); a :class:`Request` may override it. Prefill always runs at
+        full S. ``noise(rng_seed)`` returns the sampled rows' Gumbel draws,
+        ``draws(request_id, token_index) -> [vocab]`` (default
+        ``sampler.GumbelStreams`` on ``device``)."""
+        if spec_k:
+            raise NotImplementedError(
+                "speculative decoding (spec_k > 0) is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        if slo_degrade:
+            raise NotImplementedError(
+                "SLO node-budget degradation (slo_degrade) is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
         self.temperature = temperature
+        self.eos_id = eos_id
         self.top_k = top_k
+        self.prefill_chunk = prefill_chunk or 0
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0 (got {prefill_chunk})")
         S = cfg.stlt_nodes
         if serve_nodes is not None and not 1 <= serve_nodes <= S:
             raise ValueError(f"serve_nodes must be in [1, {S}] (got {serve_nodes})")
         self.serve_nodes = serve_nodes
+        self.prefix_cache = prefix_cache
+        self.noise = noise or (lambda seed: GumbelStreams(seed, cfg.vocab, self.device))
         self.params = tree_map(lambda t: t.to(self.device), params)
+        self._fresh1 = None   # pristine batch-1 state (``_fresh_template``)
+        # dispatch counts of the last serve call (reset at its start)
+        self.serve_stats: dict = {}
 
+    # ------------------------------------------------------------------ simple
     @torch.no_grad()
     def generate(self, prompts, max_new_tokens: int,
                  generator: Optional[torch.Generator] = None,
@@ -53,15 +236,460 @@ class ServeEngine:
         if generator is None:
             generator = default_generator(self.device)
         tokens = torch.as_tensor(np.asarray(prompts), device=self.device)
-        caps = torch.full((tokens.shape[0],), level if level is not None else S,
+        B = tokens.shape[0]
+        caps = torch.full((B,), level if level is not None else S,
                           dtype=torch.int32, device=self.device)
+        temps = torch.full((B,), self.temperature, device=self.device)
+
+        def sample(logits):
+            noise = (gumbel(logits.shape, generator, self.device)
+                     if self.temperature > 0 else None)
+            return sample_slot_tokens(logits, noise, temps, self.top_k)
+
         logits, state = T.prefill(self.params, self.cfg, tokens, self.max_len)
-        tok = sample_token(logits, generator, self.temperature, self.top_k)
+        tok = sample(logits)
         outs = [tok]
         for _ in range(max_new_tokens - 1):
             logits, state = T.decode_step(self.params, self.cfg, tok, state,
                                           node_cap=caps)
-            tok = sample_token(logits, generator, self.temperature, self.top_k)
+            tok = sample(logits)
             outs.append(tok)
         return torch.stack(outs, dim=1).cpu().numpy()
 
+    # ------------------------------------------------------- continuous batching
+    @torch.no_grad()
+    def serve(self, requests: list, slots: int = 4,
+              prompt_len: Optional[int] = None, mode: str = "continuous",
+              arrivals=None, rng_seed: int = 0, return_stats: bool = False,
+              coalesce: bool = True):
+        """Serve a request list. Returns {request_id: np.ndarray tokens}
+        (plus a per-request stats dict when ``return_stats``).
+
+        Admission follows the engine's ``prefill_chunk`` (0: monolithic).
+        ``coalesce=False`` admits one request
+        per tick per pending row (batch-1 chunks, natural-length tails).
+        mode="continuous": per-row admission; mode="wave": admit up to
+        ``slots`` requests, drain them all, then admit the next wave.
+        ``arrivals`` (ticks, aligned with ``requests``) gates admission;
+        requests are admitted in arrival order. With ``prompt_len`` prompts
+        are left-padded to that length (the padding enters the state);
+        without it each is prefilled at its natural length. Sampled
+        requests draw from per-request streams (``noise``), identical
+        across modes."""
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1 (got {slots})")
+        if mode == "wave":
+            return self._serve_wave(requests, slots, prompt_len, arrivals,
+                                    rng_seed, return_stats)
+        if mode != "continuous":
+            raise ValueError(f"unknown serve mode {mode!r}")
+        return self._serve_continuous(requests, slots, prompt_len, arrivals,
+                                      rng_seed, return_stats, coalesce)
+
+    def _padded(self, prompt: np.ndarray, prompt_len: Optional[int]):
+        prompt = np.asarray(prompt, np.int32)
+        if prompt_len is None or len(prompt) == prompt_len:
+            return prompt
+        if len(prompt) > prompt_len:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens exceeds prompt_len={prompt_len}")
+        out = np.zeros(prompt_len, np.int32)
+        out[prompt_len - len(prompt):] = prompt  # left-pad
+        return out
+
+    def _queue(self, requests, arrivals, prompt_len=None):
+        """Validate the whole request set up front (ids, budgets, node caps,
+        lengths, arrivals), so a bad request fails before any device work,
+        then return (arrival, request) pairs in arrival order. (STLT states
+        are O(S*d), so ``max_len`` bounds no request.)"""
+        ids = [r.id for r in requests]
+        if len(set(ids)) != len(ids):
+            raise ValueError(
+                "duplicate request ids (results/stats are keyed by id and "
+                f"noise streams are derived from it): {sorted(ids)}")
+        S = self.cfg.stlt_nodes
+        for r in requests:
+            if r.max_new_tokens < 1:
+                raise ValueError(
+                    f"request {r.id}: max_new_tokens must be >= 1 "
+                    f"(got {r.max_new_tokens})")
+            if r.serve_nodes is not None and not 1 <= r.serve_nodes <= S:
+                raise ValueError(
+                    f"request {r.id}: serve_nodes must be in [1, {S}] "
+                    f"(got {r.serve_nodes})")
+            n_prompt = len(np.asarray(r.prompt))
+            if prompt_len is not None and n_prompt > prompt_len:
+                raise ValueError(
+                    f"request {r.id}: prompt of {n_prompt} tokens exceeds "
+                    f"prompt_len={prompt_len}")
+        arrivals = [0] * len(requests) if arrivals is None else list(arrivals)
+        if len(arrivals) != len(requests):
+            raise ValueError(
+                f"arrivals has {len(arrivals)} entries for {len(requests)} requests")
+        order = sorted(range(len(requests)), key=lambda i: arrivals[i])
+        return [(int(arrivals[i]), requests[i]) for i in order]
+
+    # ----------------------------------------------------------- prefix cache
+    def _lookup_prefix(self, prompt: np.ndarray):
+        """(resume offset, state-or-None, logits-or-None) for ``prompt``."""
+        if self.prefix_cache is None:
+            return 0, None, None
+        entry = self.prefix_cache.lookup(prompt)
+        if entry is None:
+            return 0, None, None
+        return entry.n_tokens, entry.state, entry.logits
+
+    def _cache_insert(self, prompt: np.ndarray, n: int, state, logits,
+                      pinned: bool = False):
+        if self.prefix_cache is not None and n > 0:
+            self.prefix_cache.insert(prompt[:n], state, logits, pinned=pinned)
+
+    @torch.no_grad()
+    def warm_prefix(self, prompt, chunk: Optional[int] = None):
+        """Prefill ``prompt`` (e.g. a shared system prompt) into the prefix
+        cache without serving a request: snapshots the state at every chunk
+        boundary and at the full length, PINNED against eviction. The tail
+        is masked-prefilled at the padded [1, chunk] shape, so the EXACT
+        length is always registered. Returns the number of tokens prefilled
+        (0 on a full cache hit)."""
+        if self.prefix_cache is None:
+            raise ValueError("warm_prefix requires a prefix_cache")
+        prompt = np.asarray(prompt, np.int32)
+        chunk = chunk or self.prefill_chunk or len(prompt)
+        if chunk < 1:
+            raise ValueError(f"warm_prefix needs a non-empty prompt (chunk={chunk})")
+        offset, state, logits = self._lookup_prefix(prompt)
+        if offset == len(prompt):
+            return 0
+        if state is None:
+            state = self._fresh_template()
+        done = offset
+        while done < len(prompt):
+            n = min(chunk, len(prompt) - done)
+            buf = np.zeros((1, chunk), np.int32)
+            buf[0, :n] = prompt[done:done + n]
+            logits, state = self._run_prefill_chunk(buf, state, [n])
+            done += n
+            self._cache_insert(prompt, done, state, logits, pinned=True)
+        return len(prompt) - offset
+
+    # ---------------------------------------------------------- dispatches
+    def _fresh_template(self):
+        """Pristine batch-1 decode state, shared and never written: seeds
+        fresh prefills and resets rows."""
+        if self._fresh1 is None:
+            self._fresh1 = T.init_decode_state(self.cfg, 1, self.max_len,
+                                               device=self.device)
+        return self._fresh1
+
+    def _tokens(self, toks) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
+
+    def _count(self, key: str):
+        self.serve_stats[key] = self.serve_stats.get(key, 0) + 1
+
+    def _run_prefill(self, toks):
+        """Monolithic admission dispatch: one K1 call per layer."""
+        self._count("admission_dispatches")
+        return T.prefill(self.params, self.cfg, self._tokens(toks), self.max_len)
+
+    def _run_prefill_chunk(self, toks, state, valid=None):
+        """Chunk admission dispatch ([1 or slots, chunk], per-row ``valid``;
+        or a batch-1 natural-length chunk): one K1 call per layer."""
+        self._count("admission_dispatches")
+        return T.prefill_chunk(
+            self.params, self.cfg, self._tokens(toks), state,
+            valid_len=None if valid is None else self._tokens(valid))
+
+    def _run_decode(self, tok, pool, caps=None):
+        self._count("decode_dispatches")
+        if caps is not None:
+            caps = self._tokens(caps)
+        return T.decode_step(self.params, self.cfg, self._tokens(tok), pool,
+                             node_cap=caps)
+
+    def _sample(self, draws, logits, rows, temps) -> np.ndarray:
+        """Tokens [B] (numpy) from logits [B, V]: greedy rows by argmax,
+        sampled rows by argmax(logits / T + their Gumbel draw). ``rows[b]``
+        is (request id, token index) of a live row, None for the others."""
+        temps = np.asarray(temps, np.float32)
+        hot = [b for b, r in enumerate(rows) if r is not None and temps[b] > 0]
+        noise = None
+        if hot:
+            noise = torch.zeros(logits.shape, dtype=torch.float32, device=self.device)
+            for b in hot:
+                noise[b] = torch.as_tensor(draws(*rows[b]), dtype=torch.float32,
+                                           device=self.device)
+        tok = sample_slot_tokens(logits, noise,
+                                 torch.as_tensor(temps, device=self.device),
+                                 self.top_k)
+        return tok.cpu().numpy()
+
+    def _row_caps(self, sched: Scheduler) -> np.ndarray:
+        """Per-row node budgets [B] of a decode tick: request override ->
+        engine default -> full S. Free and pending rows get full S."""
+        S = self.cfg.stlt_nodes
+        caps = np.full(sched.n_slots, S, np.int32)
+        for local in np.flatnonzero(sched.live):
+            req = sched.req[local]
+            base = req.serve_nodes if req.serve_nodes is not None else self.serve_nodes
+            caps[local] = S if base is None else base
+        return caps
+
+    def _cache_tick(self, n: int):
+        """Advance the prefix cache's TTL clock by ``n`` scheduler ticks."""
+        if self.prefix_cache is not None and n > 0:
+            self.prefix_cache.tick(n)
+
+    # ------------------------------------------------------------- continuous
+    def _serve_continuous(self, requests, slots, prompt_len, arrivals,
+                          rng_seed, return_stats, coalesce=True):
+        """The serve tick body: per tick, in order, route arrivals ->
+        admission -> at most one masked prefill dispatch -> one decode step
+        -> release/reset finished rows."""
+        run = self._serve_start(requests, slots, prompt_len, arrivals,
+                                rng_seed, coalesce)
+        while run.active():
+            self._serve_tick(run)
+        return self._serve_finish(run, return_stats)
+
+    def _serve_start(self, requests, slots, prompt_len, arrivals, rng_seed,
+                     coalesce) -> _ServeRun:
+        queue = self._queue(requests, arrivals, prompt_len)
+        self.serve_stats = {"admission_dispatches": 0, "decode_dispatches": 0}
+        return _ServeRun(_Host(slots), queue, self.prefill_chunk, coalesce, prompt_len,
+                         self.noise(rng_seed), self.temperature)
+
+    def _ensure_pool(self, run: _ServeRun):
+        if run.pool is None:
+            run.pool = T.init_decode_state(self.cfg, run.B, self.max_len,
+                                           device=self.device)
+        return run.pool
+
+    def _reset(self, pool, slot: int):
+        return T.reset_slot(pool, slot, self.cfg, self.max_len,
+                            template=self._fresh_template())
+
+    def _promote(self, run: _ServeRun, local: int, ent: dict, logits1, st1):
+        """Prefill complete: sample the first token, splice the state into
+        the decode pool and go live (or finish, for a one-token request)."""
+        sched = run.host.sched
+        req = ent["req"]
+        temp = self.temperature if req.temperature is None else req.temperature
+        t0 = int(self._sample(run.draws, logits1, [(req.id, 0)], [temp])[0])
+        run.pool = T.insert_slot(self._ensure_pool(run), st1, local, self.cfg)
+        run.tok[local] = t0
+        run.temps[local] = temp
+        sched.activate(local, run.tick)
+        run.results[req.id] = [t0]
+        sched.stats[req.id]["token_walls"].append(time.perf_counter())
+        sched.emitted[local] = 1
+        if sched.emitted[local] >= sched.budgets[local] or t0 == self.eos_id:
+            sched.release(local, run.tick)   # prefill-only request
+            run.pool = self._reset(run.pool, local)
+
+    def _tick_admission(self, run: _ServeRun):
+        """Admission phase of one tick: fill free rows from the queue, then
+        advance every pending chunked prefill with at most one masked
+        dispatch. Completed prefills promote within the same tick."""
+        cfg = self.cfg
+        host, B = run.host, run.B
+        sched = host.sched
+        chunk_size, coalesce = run.chunk_size, run.coalesce
+        for local in sched.free_slots():
+            if not host.queue:
+                break
+            arrival, req = host.queue.pop(0)
+            prompt = self._padded(req.prompt, run.prompt_len)
+            offset, pstate, plogits = self._lookup_prefix(prompt)
+            # per-request boundary snapshots are cached only where they
+            # EXTEND a cached prefix (a unique prompt's boundaries would
+            # churn the LRU); warm_prefix covers first-contact prompts
+            ent = {"req": req, "prompt": prompt, "done": offset,
+                   "resumed": offset > 0}
+            sched.hold(local, req, arrival, run.tick,
+                       prompt_tokens=len(prompt), cached_tokens=offset)
+            sched.stats[req.id]["arrival_wall"] = run.arrival_walls[req.id]
+            if offset == len(prompt):
+                # full-prompt hit: the stored last-token logits stand in
+                # for the skipped prefill
+                self._promote(run, local, ent, plogits, pstate)
+            elif chunk_size and coalesce:
+                if run.prefill_pool is None:
+                    run.prefill_pool = T.init_decode_state(cfg, B, self.max_len,
+                                                           device=self.device)
+                T.insert_slot(run.prefill_pool,
+                              self._fresh_template() if pstate is None else pstate,
+                              local, cfg)
+                host.pending[local] = ent
+            elif chunk_size:
+                ent["state"] = self._fresh_template() if pstate is None else pstate
+                host.pending[local] = ent
+            else:  # monolithic
+                if pstate is None:
+                    logits1, st1 = self._run_prefill(prompt[None])
+                else:
+                    logits1, st1 = self._run_prefill_chunk(prompt[None, offset:], pstate)
+                self._cache_insert(prompt, len(prompt), st1, logits1)
+                self._promote(run, local, ent, logits1, st1)
+
+        # mixed step: ONE masked chunk dispatch advances every pending
+        # admission, at [1, chunk] for a lone pending row, else [B, chunk]
+        if len(host.pending) == 1 and coalesce and B > 1:
+            (local, ent), = host.pending.items()
+            n = min(chunk_size, len(ent["prompt"]) - ent["done"])
+            buf = np.zeros((1, chunk_size), np.int32)
+            buf[0, :n] = ent["prompt"][ent["done"]:ent["done"] + n]
+            st1 = T.extract_slot(run.prefill_pool, local, cfg)
+            logits1, st1 = self._run_prefill_chunk(buf, st1, [n])
+            ent["done"] += n
+            finished = ent["done"] == len(ent["prompt"])
+            if ent["resumed"] or finished:
+                self._cache_insert(ent["prompt"], ent["done"], st1, logits1)
+            if finished:
+                del host.pending[local]
+                self._promote(run, local, ent, logits1, st1)
+            else:
+                T.insert_slot(run.prefill_pool, st1, local, cfg)
+        elif host.pending and coalesce:
+            chunk_tok = np.zeros((B, chunk_size), np.int32)
+            valid = np.zeros((B,), np.int32)
+            for local, ent in host.pending.items():
+                n = min(chunk_size, len(ent["prompt"]) - ent["done"])
+                chunk_tok[local, :n] = ent["prompt"][ent["done"]:ent["done"] + n]
+                valid[local] = n
+            logits_all, run.prefill_pool = self._run_prefill_chunk(
+                chunk_tok, run.prefill_pool, valid)
+            for local in list(host.pending):
+                ent = host.pending[local]
+                ent["done"] += int(valid[local])
+                finished = ent["done"] == len(ent["prompt"])
+                if ent["resumed"] or finished:
+                    st1 = T.extract_slot(run.prefill_pool, local, cfg)
+                    logits1 = logits_all[local:local + 1].clone()
+                    self._cache_insert(ent["prompt"], ent["done"], st1, logits1)
+                if finished:
+                    del host.pending[local]
+                    self._promote(run, local, ent, logits1, st1)
+        elif host.pending:  # one batch-1 chunk per pending row
+            for local in list(host.pending):
+                ent = host.pending[local]
+                n = min(chunk_size, len(ent["prompt"]) - ent["done"])
+                logits1, ent["state"] = self._run_prefill_chunk(
+                    ent["prompt"][None, ent["done"]:ent["done"] + n], ent["state"])
+                ent["done"] += n
+                finished = ent["done"] == len(ent["prompt"])
+                if ent["resumed"] or finished:
+                    self._cache_insert(ent["prompt"], ent["done"], ent["state"],
+                                       logits1)
+                if finished:
+                    del host.pending[local]
+                    self._promote(run, local, ent, logits1, ent["state"])
+
+        # drop the prefill pool once every admission has drained; the next
+        # chunked admission rebuilds it
+        if run.prefill_pool is not None and not host.pending:
+            run.prefill_pool = None
+
+    def _tick_decode(self, run: _ServeRun):
+        """Decode phase of one tick: one batched decode step over the pool,
+        one host sync for the sampled tokens, then release/reset finished
+        rows."""
+        sched = run.host.sched
+        if sched.live.any():
+            logits, run.pool = self._run_decode(run.tok, run.pool,
+                                                self._row_caps(sched))
+            rows = [(sched.req[b].id, int(sched.emitted[b])) if sched.live[b] else None
+                    for b in range(run.B)]
+            nxt = self._sample(run.draws, logits, rows, run.temps)
+            run.tick += 1
+            now = time.perf_counter()
+            new_live, new_emitted = advance_slots(
+                nxt, sched.live, sched.emitted, sched.budgets, self.eos_id)
+            for local in np.flatnonzero(sched.live):
+                rid = sched.req[local].id
+                run.results[rid].append(int(nxt[local]))
+                sched.stats[rid]["token_walls"].append(now)
+            sched.emitted = new_emitted
+            for local in np.flatnonzero(sched.live & ~new_live):
+                sched.release(local, run.tick)
+                run.pool = self._reset(run.pool, local)
+            run.tok = nxt
+        elif run.host.pending:
+            run.tick += 1  # prefill-only tick (nothing decoding yet)
+
+    def _serve_tick(self, run: _ServeRun):
+        """One scheduler tick: idle fast-forward -> route arrivals ->
+        admission -> decode -> cache TTL clock."""
+        host = run.host
+        tick_was = run.tick
+        if (not host.sched.live.any() and not host.pending and not host.queue
+                and run.queue and run.queue[0][0] > run.tick):
+            run.tick = run.queue[0][0]  # idle: fast-forward to the next arrival
+            # sweep the TTL clock across the jump BEFORE this tick's lookups
+            self._cache_tick(run.tick - tick_was)
+            tick_was = run.tick
+        now = time.perf_counter()
+        while run.queue and run.queue[0][0] <= run.tick:
+            arrival, req = run.queue.pop(0)
+            run.arrival_walls[req.id] = now
+            host.queue.append((arrival, req))
+        self._tick_admission(run)
+        self._tick_decode(run)
+        self._cache_tick(run.tick - tick_was)
+
+    def _serve_finish(self, run: _ServeRun, return_stats):
+        out = {rid: np.array(toks, np.int32) for rid, toks in run.results.items()}
+        return (out, run.host.sched.stats) if return_stats else out
+
+    # ------------------------------------------------------------- wave
+    @torch.no_grad()
+    def _serve_wave(self, requests, slots, prompt_len, arrivals, rng_seed,
+                    return_stats):
+        """Admission-wave baseline: a whole wave drains before any queued
+        request is admitted. Waves are rectangular: prompts are left-padded
+        to the wave's longest (or ``prompt_len``) and prefilled in one
+        monolithic dispatch; decode runs every row at full S. Sampling draws
+        from the same per-request streams as continuous mode."""
+        results: dict[int, list[int]] = {}
+        stats: dict[int, dict] = {}
+        queue = self._queue(requests, arrivals, prompt_len)
+        self.serve_stats = {"admission_dispatches": 0, "decode_dispatches": 0}
+        draws = self.noise(rng_seed)
+        tick = 0
+        while queue:
+            if queue[0][0] > tick:
+                tick = queue[0][0]
+            wave = []
+            while queue and queue[0][0] <= tick and len(wave) < slots:
+                wave.append(queue.pop(0))
+            sched = Scheduler(len(wave))
+            plen = prompt_len or max(len(r.prompt) for _, r in wave)
+            prompts = np.stack([self._padded(r.prompt, plen) for _, r in wave])
+            temps = np.array([self.temperature if r.temperature is None
+                              else r.temperature for _, r in wave], np.float32)
+            logits, state = self._run_prefill(prompts)
+            tok = self._sample(draws, logits, [(r.id, 0) for _, r in wave], temps)
+            for i, (arrival, r) in enumerate(wave):
+                sched.bind(i, r, arrival, tick, prompt_tokens=len(r.prompt))
+                results[r.id] = []
+            while sched.live.any():
+                new_live, new_emitted = advance_slots(
+                    tok, sched.live, sched.emitted, sched.budgets, self.eos_id)
+                now = time.perf_counter()
+                for i in np.flatnonzero(sched.live):
+                    results[sched.req[i].id].append(int(tok[i]))
+                    sched.stats[sched.req[i].id]["token_walls"].append(now)
+                sched.emitted = new_emitted
+                for i in np.flatnonzero(sched.live & ~new_live):
+                    sched.release(i, tick)
+                if not sched.live.any():
+                    break
+                logits, state = self._run_decode(tok, state)
+                rows = [(sched.req[i].id, int(sched.emitted[i])) if sched.live[i]
+                        else None for i in range(len(wave))]
+                tok = self._sample(draws, logits, rows, temps)
+                tick += 1
+            stats.update(sched.stats)
+        out = {rid: np.array(toks, np.int32) for rid, toks in results.items()}
+        return (out, stats) if return_stats else out

@@ -1,6 +1,7 @@
 """K1 and K2 on the card: the Hopper kernels against their plain PyTorch
-versions, and the scan's VJP (K1 forward and anti-causal) against float64
-autograd through the plain version.
+versions, the scan's VJP (K1 forward and anti-causal) against float64
+autograd through the plain version, and continuous serve on the card
+against the same serve on the CPU.
 
 These tests need a CUDA device and ``nvcc`` (they build the kernel from
 ``src/repro_torch/kernels/csrc``); elsewhere they skip. Run them on an H100
@@ -83,6 +84,7 @@ def _assert_close(got, want):
     (32, 1000, 64, 64, 128),  # stlt-base at batch 4, N not a multiple of C
     (8, 1000, 64, 64, 128),   # stlt-base at batch 1
     (8, 131072, 64, 64, 128),  # a 131,072-token prompt at batch 1
+    (32, 512, 64, 64, 128),   # serve's [slots, chunk] admission, 4 slots
     (3, 70, 72, 8, 16),      # d past one 64-column block
     (3, 50, 7, 4, 8),        # odd d, the smallest chunk and node count
 ])
@@ -173,6 +175,54 @@ def test_factorized_lm_loss_gives_every_leaf_a_grad_on_the_card(dev):
     assert k1.stlt_scan_kernel.launches == before + 2 * cfg.num_layers
     for path, g in tree_flatten_with_paths(grads):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, path
+
+
+def test_reverse_scan_returns_its_carry_on_the_card(dev):
+    """``reverse=True, return_state=True``: z and the anti-causal carry
+    after all N tokens, K1 on the card against the plain version on the
+    CPU, one launch."""
+    x, lm, th, ur, ui, _, _, _ = _operands(dev, 8, 300, 64, 64, 128, seed=5)
+    before = k1.stlt_scan_kernel.launches
+    z, (h_re, h_im) = ops.stlt_scan(x, lm, th, ur, ui, chunk=128, reverse=True,
+                                    return_state=True)
+    assert k1.stlt_scan_kernel.launches == before + 1
+    zc, (hrc, hic) = ops.stlt_scan(*(t.cpu() for t in (x, lm, th, ur, ui)), chunk=128,
+                                   reverse=True, return_state=True)
+    for a, b in ((z, zc), (h_re, hrc), (h_im, hic)):
+        _assert_close(a.cpu(), b)
+
+
+def test_serve_on_the_card_matches_the_cpu(dev):
+    """Continuous serve of a reduced stlt-base (staggered arrivals, mixed
+    node budgets, coalesced chunked admission, a warmed prefix): the same
+    streams on the card as on the CPU from the same weights, and K1 launched
+    once per layer per admission dispatch, as phase S of chip_smoke.py."""
+    from repro_torch.configs.stlt_base import CONFIG
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import PrefixCache, Request, ServeEngine
+
+    cfg = CONFIG.reduced(num_layers=2)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    reqs = [Request(np.concatenate([sys_prompt if i % 2 else sys_prompt[:0],
+                                    rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+                    m, id=i, serve_nodes=c)
+            for i, (n, m, c) in enumerate([(40, 5, None), (9, 1, None), (21, 6, 3),
+                                           (50, 4, None), (16, 7, 5)])]
+    results = []
+    for where in ("cpu", dev):
+        eng = ServeEngine(params, cfg, prefill_chunk=16, prefix_cache=PrefixCache(),
+                          device=where)
+        eng.warm_prefix(sys_prompt)
+        before = k1.stlt_scan_kernel.launches
+        results.append(eng.serve(reqs, slots=3, arrivals=[0, 0, 1, 4, 4]))
+        torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches - before == (
+        cfg.num_layers * eng.serve_stats["admission_dispatches"]) > 0
+    for r in reqs:
+        np.testing.assert_array_equal(results[1][r.id], results[0][r.id])
+        assert len(results[1][r.id]) == r.max_new_tokens
 
 
 # ---------------------------------------------------------------------------

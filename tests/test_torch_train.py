@@ -115,10 +115,31 @@ def test_reverse_scan_matches_jax(N, chunk):
 
 def test_reverse_is_refused_with_carry_state():
     x, lm, th, ur, ui, _ = map(torch.from_numpy, _scan_inputs(0, 2, 16, 8, 8))
-    for kw in (dict(return_state=True), dict(valid=torch.tensor([3, 16])),
+    for kw in (dict(valid=torch.tensor([3, 16])),
                dict(h0_re=torch.zeros(2, 8, 8), h0_im=torch.zeros(2, 8, 8))):
         with pytest.raises(ValueError, match="forward-only"):
             t_ops.stlt_scan(x, lm, th, ur, ui, chunk=8, reverse=True, **kw)
+
+
+@pytest.mark.parametrize("N,chunk", [(48, 16), (37, 16)])
+def test_reverse_return_state_matches_jax(N, chunk):
+    """reverse=True with return_state: z and the anti-causal carry after all
+    N tokens against the JAX package's, within 1e-5 of each output's scale
+    (fp32)."""
+    x, lm, th, ur, ui, _ = _scan_inputs(N + 1, 3, N, 16, 8)
+    zj, (hrj, hij) = jax.jit(functools.partial(
+        j_ops.stlt_scan, chunk=chunk, reverse=True, return_state=True,
+        use_kernel=False))(*map(jnp.asarray, (x, lm, th, ur, ui)))
+    zt, (hrt, hit) = t_ops.stlt_scan(*map(torch.from_numpy, (x, lm, th, ur, ui)),
+                                     chunk=chunk, reverse=True, return_state=True)
+    for got, want in ((zt, zj), (hrt, hrj), (hit, hij)):
+        assert _rel_err(got, want) <= REL_F32
+    # the carry folds every token, the first one included
+    x2 = x.copy()
+    x2[:, 0] += 1.0
+    _, (hr2, _) = t_ops.stlt_scan(*map(torch.from_numpy, (x2, lm, th, ur, ui)),
+                                  chunk=chunk, reverse=True, return_state=True)
+    assert not torch.allclose(hr2, hrt)
 
 
 # ---------------------------------------------------------------------------
@@ -449,9 +470,9 @@ def _models(scan_layers: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _j_make_step():
+def _j_make_step(scan_layers: bool):
     """The JAX package's (opt, jitted step_fn), shared so it compiles once."""
-    return j_train.make_step(_models(False)[0], JTrainConfig(**TCFG))
+    return j_train.make_step(_models(scan_layers)[0], JTrainConfig(**TCFG))
 
 
 def _port_tree(tree, tcfg):
@@ -494,8 +515,9 @@ def test_loss_and_every_grad_leaf_match_jax(scan_layers):
         assert rel <= GRAD_REL, (path, rel)
 
 
-@pytest.mark.parametrize("steps", [1, 3])
-def test_train_steps_match_jax_make_step(steps):
+@pytest.mark.parametrize("scan_layers,steps", [(False, 1), (False, 3), (True, 1), (True, 3)],
+                         ids=["1", "3", "scan_layers-1", "scan_layers-3"])
+def test_train_steps_match_jax_make_step(scan_layers, steps):
     """``make_step``'s step_fn against ``repro.launch.train.make_step``'s
     over 1 and 3 steps (warmup 1, so lr is 0 at step 0 and the first step
     moves no weight; AdamW's moments then carry the grads): loss, ce, reg,
@@ -504,9 +526,11 @@ def test_train_steps_match_jax_make_step(steps):
     moves a weight by about lr * sign(g), so a grad entry at rounding level
     can flip sign between the frameworks and move that weight by up to
     2 lr a step: the params are held within 2 lr per moving step, and all
-    but 0.1% of their entries within 1e-6."""
-    jcfg, tcfg, tree = _models(False)
-    jopt, jstep = _j_make_step()
+    but 0.1% of their entries within 1e-6. Both layouts: unstacked, and
+    stacked (``scan_layers=True``, stlt-base's own, whose FFN biases the
+    JAX package's ``ndim`` test decays)."""
+    jcfg, tcfg, tree = _models(scan_layers)
+    jopt, jstep = _j_make_step(scan_layers)
     topt, tstep = t_train.make_step(tcfg, TrainConfig(**TCFG))
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
     tp = _port_tree(tree, tcfg)
