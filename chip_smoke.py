@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 holds each against its plain PyTorch version on the card: K1 (the STLT
-scan, at batch 4, at batch 1, over a 131,072-token row and at serve's two
-admission shapes, 1 and 4 rows of 512 tokens) and K2 (the
+scan, at batch 4, at batch 1, over a 131,072-token row, at serve's two
+admission shapes, 1 and 4 rows of 512 tokens, and at SmolLM-360M-stlt's
+S = 32 admission and verify shapes) and K2 (the
 flash relevance readout, both modes, with masked nodes, a padded key tail
 and an all-masked row, at the real score scale and with x scaled so the
 largest score is 1 or 30, also against the plain version run in float64),
@@ -24,7 +25,13 @@ Phase S serves 12 requests of 100-3000 prompt tokens through
 ``ServeEngine.serve`` (4 slots, chunked admission at 512 tokens through K1,
 a warmed 512-token system prompt in the prefix cache): each stream against
 its request run alone, K1 launches against the admission dispatches, the
-cache hits, wave mode; timed and profiled. It
+cache hits, wave mode; timed and profiled. Phase P serves full-width
+SmolLM-360M-stlt in bf16 (8 requests, 4 slots): plain, speculative with
+the n-gram and the node-subset draft and the adaptive window, and the SLO
+node ladder; each stream against its request run alone under the near-tie
+rule at a bf16 tolerance it measures, verify against plain decode
+dispatches, K1 launches against the dispatches that call it, the ladder's
+steps; timed, one serve profiled. It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
 without its host work; K1 at each of its phase 2 shapes, K2 at
@@ -69,11 +76,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # 3 (C + 2S)/8 = 96 k-steps an output), the plain version's fp32, summed in
 # different orders over up to C + 2S terms per output and nc carry steps.
 K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
-# K1's shapes: stlt-base's rows (8 heads) at batch 4 and batch 1 over the
-# main path's 1000 tokens, batch 1 over a 131,072-token prompt, serve's two
-# admission shapes, [1, chunk] and [slots, chunk] at chunk 512, 4 slots, and
-# the largest of phase S's wave prefills, 4 prompts padded to 3000 tokens.
-K1_SHAPES = ((32, 1000), (8, 1000), (8, 131072), (8, 512), (32, 512), (32, 3000))
+# K1's shapes (rows, tokens, nodes): stlt-base's rows (8 heads, S = 64) at
+# batch 4 and batch 1 over the main path's 1000 tokens, batch 1 over a
+# 131,072-token prompt, serve's two admission shapes, [1, chunk] and
+# [slots, chunk] at chunk 512, 4 slots, and the largest of phase S's wave
+# prefills, 4 prompts padded to 3000 tokens; then phase P's SmolLM-360M-stlt
+# rows (15 heads, S = 32): [1, 512] (admission, the node draft's prompt
+# prefill) and [4, 512] (admission), and [4, k + 1] = 60 x 5, the verify
+# window resumed from h0 and the node draft's commit with per-row valid.
+K1_SHAPES = ((32, 1000, 64), (8, 1000, 64), (8, 131072, 64), (8, 512, 64),
+             (32, 512, 64), (32, 3000, 64), (15, 512, 32), (60, 512, 32), (60, 5, 32))
+K1_VERIFY = (60, 5, 32)
 LONG_N = 131072
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
@@ -182,7 +195,11 @@ def k1_bound(BH, N, d, C, S, valid):
     prods += float((d * 2.0 * 2 * S * r).sum())
     decay += float((d * 8.0 * S * (q > 0)).sum())
     flops = prods + decay
-    nbytes = 4 * BH * (2 * N * d + 4 * S * d) + 4 * BH * (C * C + 6 * C * S + 4 * S) \
+    # operators: M [C, C], A, B [C, S], Pre, Pim, Spre, Spim [S, C], decays;
+    # a window shorter than a chunk (verify, commit) needs only their first
+    # c = min(C, N) rows or columns
+    c = min(C, N)
+    nbytes = 4 * BH * (2 * N * d + 4 * S * d) + 4 * BH * (c * c + 6 * c * S + 4 * S) \
         + 4 * BH * nc
     t_tc = 3 * prods / PEAK_TF32_FLOPS + decay / PEAK_FP32_FLOPS
     t_fp32, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -192,7 +209,7 @@ def k1_bound(BH, N, d, C, S, valid):
 
 def k1_case(k1, ops, dev, BH, N, C, S, d, seed):
     """K1's inputs at random poles (|lambda| in [e^-0.502, e^-0.002], angles in
-    [-pi/4, pi/4]), h0 != 0 and per-row valid cycling 0, 1, C, N: returns
+    [-pi/4, pi/4]), h0 != 0 and per-row valid cycling 0, 1, min(C, N), N: returns
     (the kernel's arguments, valid as numpy, the raw inputs of
     ``ops.stlt_scan``: x, log_mag, theta, u_re, u_im, h0_re, h0_im, valid)."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -201,7 +218,7 @@ def k1_case(k1, ops, dev, BH, N, C, S, d, seed):
     th = (torch.pi / 2) * torch.rand(BH, S, generator=g, device=dev) - torch.pi / 4
     ur, ui = (torch.randn(BH, S, generator=g, device=dev) / S for _ in range(2))
     h0r, h0i = (torch.randn(BH, S, d, generator=g, device=dev) for _ in range(2))
-    valid_np = np.array([(0, 1, C, N)[i % 4] for i in range(BH)], np.int32)
+    valid_np = np.array([(0, 1, min(C, N), N)[i % 4] for i in range(BH)], np.int32)
     valid = torch.from_numpy(valid_np).to(dev)
     gf, A, Bm, pre, pim, dec = ops._filter_ops(lm, th, ur, ui, C)
     nc = -(-N // C)
@@ -219,13 +236,13 @@ def k1_kernel_alone(k1, args, C):
     return lambda: k1._launch(tensors, sizes)
 
 
-def k1_timings(k1, ops, dev, C, S, d):
+def k1_timings(k1, ops, dev, C, d):
     """K1 at each of ``K1_SHAPES``: the kernel alone, the wrapper's call and
     the whole ``ops.stlt_scan`` call (host operators included), by CUDA
     events, and the kernel's device time (profiler, launch gaps excluded),
-    beside its bounds. Returns {(BH, N): row}."""
+    beside its bounds. Returns {(BH, N, S): row}."""
     out = {}
-    for BH, N in K1_SHAPES:
+    for BH, N, S in K1_SHAPES:
         args, valid_np, raw = k1_case(k1, ops, dev, BH, N, C, S, d, seed=5)
         iters = 50 if N <= 1000 else 5
         x, lm, th, ur, ui, h0r, h0i, valid = raw
@@ -241,14 +258,14 @@ def k1_timings(k1, ops, dev, C, S, d):
         bound_ms, fp32_ms, bound_by, flops, nbytes = k1_bound(BH, N, d, C, S, valid_np)
         row.update(bound=bound_ms, bound_fp32=fp32_ms, bound_by=bound_by)
         device = "not measured" if kernels == {} else f"{row['device']:.4f} ms"
-        log(f"[6 timing] K1 at BH={BH} N={N}: kernel alone {row['alone']:.4f} ms "
+        log(f"[6 timing] K1 at BH={BH} N={N} S={S}: kernel alone {row['alone']:.4f} ms "
             f"(device time {device}), call {row['call']:.4f} ms, "
             f"ops.stlt_scan {row['scan']:.4f} ms; bound {bound_ms:.4f} ms 3xTF32 "
             f"tensor cores ({bound_by}) / {fp32_ms:.4f} ms fp32 FMA "
             f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
         log("[6 timing]   device time by kernel: " + ", ".join(
             f"{kernel_name(k)} {v:.4f} ms" for k, v in kernels.items()))
-        out[(BH, N)] = row
+        out[(BH, N, S)] = row
         del args, raw
     return out
 
@@ -639,34 +656,40 @@ def serve_requests(cfg, Request):
     return sys_prompt, reqs
 
 
-def near_tie(row, tok: int, what: str) -> int:
+def near_tie(row, tok: int, what: str, tol: float = LOGIT_TOL) -> int:
     """1 when served token ``tok`` is not the argmax of the reference logits
-    ``row`` but within LOGIT_TOL of its max logit (a near tie that summation
+    ``row`` but within ``tol`` of its max logit (a near tie that summation
     order may break either way), 0 when it is the argmax; raises otherwise."""
     best = int(row.argmax())
     if best == tok:
         return 0
     gap = float(row[best] - row[tok])
-    if not gap < LOGIT_TOL:
+    if not gap < tol:
         raise AssertionError(f"{what}: served token {tok}, reference argmax {best}, "
                              f"logit gap {gap}")
     return 1
 
 
-def alone_stream_check(T, cfg, params, dev, req, stream) -> int:
-    """Request ``req`` run alone: its prompt folded at [1, SERVE_CHUNK]
+def prompt_alone(T, cfg, params, dev, prompt, chunk: int):
+    """(last logits, state) of ``prompt`` run alone, folded at [1, chunk]
     (padded, per-row valid) from token 0, so its chunk boundaries are the
-    engine's, then ``decode_step`` at its node budget, fed the engine's own
-    tokens, each held to the alone run's logits by ``near_tie``. Returns the
-    number of near ties."""
+    engine's."""
     state = T.init_decode_state(cfg, 1, 0, device=dev)
-    prompt = req.prompt
-    for off in range(0, len(prompt), SERVE_CHUNK):
-        n = min(SERVE_CHUNK, len(prompt) - off)
-        buf = np.zeros((1, SERVE_CHUNK), np.int64)
+    for off in range(0, len(prompt), chunk):
+        n = min(chunk, len(prompt) - off)
+        buf = np.zeros((1, chunk), np.int64)
         buf[0, :n] = prompt[off:off + n]
         logits, state = T.prefill_chunk(params, cfg, torch.from_numpy(buf).to(dev), state,
                                         valid_len=torch.tensor([n], device=dev))
+    return logits, state
+
+
+def alone_stream_check(T, cfg, params, dev, req, stream) -> int:
+    """Request ``req`` run alone (``prompt_alone`` at SERVE_CHUNK), then
+    ``decode_step`` at its node budget, fed the engine's own tokens, each
+    held to the alone run's logits by ``near_tie``. Returns the number of
+    near ties."""
+    logits, state = prompt_alone(T, cfg, params, dev, req.prompt, SERVE_CHUNK)
     cap = torch.tensor([req.serve_nodes or cfg.stlt_nodes], dtype=torch.int32, device=dev)
     ties = 0
     for step, tok in enumerate(stream):
@@ -717,7 +740,9 @@ def wave_stream_check(T, cfg, params, dev, reqs, arrivals, served, stats):
 def serve_profile(fn, ticks: int, k1_calls: int) -> dict:
     """One profiled call of ``fn`` (a serve, or a decode step): its wall,
     the device's busy share (kernel time summed over the wall), kernel
-    launches per decode tick, and K1's share of device time. The profiler
+    launches per decode tick, and K1's share of device time. Only the
+    device's kernels are recorded (host events would cost minutes to read
+    back on a serve of hundreds of thousands of launches). The profiler
     can drop kernels, so a profile whose K1 kernels are not 4 x ``k1_calls``
     (or that recorded none) is taken again, up to three takes; None when no
     take is whole."""
@@ -725,7 +750,7 @@ def serve_profile(fn, ticks: int, k1_calls: int) -> dict:
 
     for _ in range(3):
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
@@ -862,6 +887,260 @@ def serve_phase(T, k1, cfg, params, dev) -> dict:
     return out
 
 
+# Phase P: SmolLM-360M's STLT variant at full width (32 layers, d_model 960,
+# 15 heads, S = 32 fixed nodes, bf16 activations; the matrices cast to bf16
+# as the serve CLI casts them, the nodes and norms fp32) served with
+# speculative decoding and the SLO node ladder. Requests: (prompt
+# tokens, built by repeating a 16-token motif?, max_new_tokens, arrival
+# tick); 8 greedy requests on 4 slots, admission chunk 512.
+P_CHUNK, P_SLOTS, P_K, P_DRAFT_NODES = 512, 4, 4, 8
+P_LADDER, P_QUEUE_DEPTH = (16, 8, 4), 2
+P_SPEC = ((1024, True, 48, 0), (200, False, 32, 0), (64, True, 16, 0),
+          (700, False, 24, 1), (512, True, 40, 3), (96, False, 16, 6),
+          (900, True, 32, 9), (300, False, 48, 12))
+# The largest chunk-form vs recurrent-form logit gap phase P accepts as
+# bf16 rounding, and its near-tie tolerance, twice that (a token chosen by
+# one form trails the other's argmax by at most twice their gap): a served
+# token may trail the alone run's argmax only by less than P_TIE_TOL. Set
+# from the H100's readings (PERF.md, phase P): the gap read 0.0309 with fp32
+# matrices and 0.0391 with the bf16 matrices phase P serves, the largest
+# served-vs-argmax gap 0.0313; the cap is 1.6 x the gap read.
+P_GAP_CAP = 0.0625
+P_TIE_TOL = 2 * P_GAP_CAP
+P_RUNS = (("plain", {}),
+          ("ngram", dict(spec_k=P_K, spec_draft="ngram")),
+          ("nodes", dict(spec_k=P_K, spec_draft="nodes", spec_draft_nodes=P_DRAFT_NODES)),
+          ("ngram_adaptive", dict(spec_k=P_K, spec_draft="ngram", spec_adaptive=True)),
+          ("slo", dict(slo_degrade=P_LADDER, slo_queue_depth=P_QUEUE_DEPTH)))
+
+
+def spec_requests(cfg, Request):
+    """Phase P's requests, made from seed 3: half of the prompts repeat a
+    motif (prompt lookup finds continuations there), half are random."""
+    rng = np.random.default_rng(3)
+    reqs = []
+    for i, (n, motif, new, _) in enumerate(P_SPEC):
+        if motif:
+            prompt = np.tile(rng.integers(0, cfg.vocab, 16), -(-n // 16))[:n]
+        else:
+            prompt = rng.integers(0, cfg.vocab, n)
+        reqs.append(Request(prompt.astype(np.int32), new, id=i))
+    return reqs
+
+
+def k1_dispatches(serve_stats: dict) -> int:
+    """The dispatches of a serve that call K1 once per layer: admission,
+    verify and the node draft's prompt prefills and commits."""
+    return (serve_stats["admission_dispatches"] + serve_stats.get("verify_dispatches", 0)
+            + serve_stats.get("draft_prefill_dispatches", 0))
+
+
+def serve_metrics(res, stats, reqs, wall) -> dict:
+    """Wall, generated tok/s, TTFT (first token's wall minus the arrival
+    wall) and inter-token gap percentiles of one serve."""
+    n_tok = sum(len(v) for v in res.values())
+    ttft = [1e3 * (stats[r.id]["token_walls"][0] - stats[r.id]["arrival_wall"]) for r in reqs]
+    gaps = [1e3 * (b - a) for r in reqs
+            for a, b in zip(stats[r.id]["token_walls"], stats[r.id]["token_walls"][1:])]
+    return {"wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+            "ttft_ms": np.percentile(ttft, [50, 99]).tolist(),
+            "gap_ms": np.percentile(gaps, [50, 99]).tolist()}
+
+
+def teacher_forced(T, cfg, params, dev, state, logits, stream, window=None, caps=None):
+    """Stream ``stream`` fed to ``decode_step`` from a post-prompt ``state``
+    whose last logits are ``logits``, step i at node budget ``caps[i]``
+    (uncapped without ``caps``): per step (the reference argmax, the
+    reference's max logit minus the served token's). With ``window``, every
+    ``window`` steps the same window also goes through ``prefill_chunk``
+    (the chunk form verify uses) from the state it started at; returns the
+    largest logit gap between the two forms too."""
+    rows, gap, start = [], 0.0, None
+    for step, tok in enumerate(stream):
+        rows.append((int(logits[0].argmax()), float(logits[0].max() - logits[0, int(tok)])))
+        if step + 1 == len(stream):
+            break
+        if window and step % window == 0:
+            start = (step, state)
+        cap = None if caps is None else torch.tensor([caps[step]], dtype=torch.int32,
+                                                     device=dev)
+        logits, state = T.decode_step(params, cfg, torch.tensor([int(tok)], device=dev), state,
+                                      node_cap=cap)
+        if start is not None and step - start[0] == window - 1:
+            toks = torch.tensor([[int(t) for t in stream[start[0]:step + 1]]], device=dev)
+            chunk_lg, _ = T.prefill_chunk(params, cfg, toks, start[1])
+            gap = max(gap, float((chunk_lg - logits).abs().max()))
+            start = None
+    return rows, gap
+
+
+def spec_phase(T, k1, cfg, dev, k1_rows) -> dict:
+    """Phase P: continuous serve of full-width SmolLM-360M-stlt (bf16) in
+    five modes (plain, n-gram draft, node draft, adaptive n-gram, the SLO
+    ladder), its matrices cast to bf16 as the serve CLI casts them. Checks
+    (a) every stream against each request run alone, teacher-forced (the
+    SLO run's at the node budget the ladder gave each of its decode ticks),
+    under the near-tie rule at P_TIE_TOL, with the largest chunk-form vs
+    recurrent-form logit gap along the plain streams, which it reads and
+    prints, at most P_GAP_CAP; (b) spec runs make fewer target decode-phase
+    dispatches (verify) than plain decode and the n-gram run accepts
+    tokens; (c) K1 launches = layers x (admission + verify + draft
+    prefill/commit dispatches) in every run; (d) the SLO run breaches its queue depth,
+    steps down and all the way back up, and serves every budget. Times each
+    run and profiles the n-gram serve (device kernels only)."""
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.utils import cast_params_for_compute
+
+    smi = smi_line()
+    params = cast_params_for_compute(
+        T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
+    reqs = spec_requests(cfg, Request)
+    arrivals = [s[3] for s in P_SPEC]
+    L = cfg.num_layers
+    engines = {name: ServeEngine(params, cfg, prefill_chunk=P_CHUNK, device=dev, **kw)
+               for name, kw in P_RUNS}
+    # the node budget of each of a request's decode ticks in the SLO run
+    slo_caps, row_caps = {}, engines["slo"]._row_caps
+
+    def logged_caps(sched):
+        caps = row_caps(sched)
+        for local in np.flatnonzero(sched.live):
+            slo_caps.setdefault(sched.req[local].id, []).append(int(caps[local]))
+        return caps
+    engines["slo"]._row_caps = logged_caps
+
+    def serve(name):
+        eng = engines[name]
+        torch.cuda.synchronize()
+        k1.stlt_scan_kernel.launches = 0
+        t0 = time.time()
+        res, stats = eng.serve(reqs, slots=P_SLOTS, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        return res, stats, time.time() - t0, k1.stlt_scan_kernel.launches
+
+    t_phase = time.time()
+    serve("plain")   # first call: one-time costs
+    runs = {}
+    for name, _ in P_RUNS:
+        res, stats, wall, launches = serve(name)
+        eng = engines[name]
+        ss = dict(eng.serve_stats)
+        if launches == 0 or launches != L * k1_dispatches(ss):
+            raise AssertionError(f"P (c) {name}: {launches} K1 launches for {ss}")
+        for r in reqs:
+            if len(res[r.id]) != r.max_new_tokens or not ((res[r.id] >= 0)
+                                                          & (res[r.id] < cfg.vocab)).all():
+                raise AssertionError(f"P {name}: request {r.id} gave {res[r.id]}")
+        runs[name] = {"res": res, "k1_launches": launches, "serve_stats": ss,
+                      "spec_stats": dict(eng.spec_stats), "node_stats": dict(eng.node_stats),
+                      **serve_metrics(res, stats, reqs, wall)}
+        log(f"[P serve] {name}: wall {wall:.3f} s, {runs[name]['tokens']} tokens, "
+            f"{runs[name]['tok_s']:.1f} generated tok/s; TTFT p50/p99 "
+            f"{runs[name]['ttft_ms'][0]:.2f}/{runs[name]['ttft_ms'][1]:.2f} ms; inter-token "
+            f"gap p50/p99 {runs[name]['gap_ms'][0]:.3f}/{runs[name]['gap_ms'][1]:.3f} ms; "
+            f"{launches} K1 launches = {L} layers x {k1_dispatches(ss)} dispatches; {ss} "
+            f"[{smi}]")
+        if name != "plain" and name != "slo":
+            log(f"[P serve] {name} spec_stats {runs[name]['spec_stats']}")
+    log(f"[P serve] slo node_stats {runs['slo']['node_stats']}")
+
+    # (b) fewer target decode-phase dispatches; the n-gram draft is accepted
+    plain_ticks = runs["plain"]["serve_stats"]["decode_dispatches"]
+    for name in ("ngram", "nodes", "ngram_adaptive"):
+        ss = runs[name]["serve_stats"]
+        if not (ss["decode_dispatches"] == 0 and 0 < ss["verify_dispatches"] < plain_ticks):
+            raise AssertionError(f"P (b) {name}: {ss} against {plain_ticks} plain decode "
+                                 "dispatches")
+    if not runs["ngram"]["spec_stats"]["accepted"] > 0:
+        raise AssertionError(f"P (b): the n-gram draft accepted nothing: "
+                             f"{runs['ngram']['spec_stats']}")
+    # (d) the SLO ladder
+    ns = runs["slo"]["node_stats"]
+    if not (ns["queue_breaches"] > 0 and ns["degrade_steps"] >= 1
+            and ns["restore_steps"] == ns["degrade_steps"]
+            and ns["min_nodes"] < cfg.stlt_nodes):
+        raise AssertionError(f"P (d): node_stats {ns}")
+
+    log(f"[P time] the serves: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    # (a) streams against each request run alone, teacher-forced
+    window = P_K + 1
+    checks, gap = {}, 0.0
+    with torch.no_grad():
+        for r in reqs:
+            stream = runs["slo"]["res"][r.id]
+            if len(slo_caps.get(r.id, [])) != len(stream) - 1:
+                raise AssertionError(f"P (a) slo: request {r.id}: {len(stream)} tokens, "
+                                     f"node budgets of {len(slo_caps.get(r.id, []))} "
+                                     "decode ticks")
+            logits, state = prompt_alone(T, cfg, params, dev, r.prompt, P_CHUNK)
+            for name, _ in P_RUNS:
+                rows, g = teacher_forced(
+                    T, cfg, params, dev, state, logits, runs[name]["res"][r.id],
+                    window if name == "plain" else None,
+                    slo_caps[r.id] if name == "slo" else None)
+                checks[(name, r.id)] = rows
+                gap = max(gap, g)
+    log(f"[P serve] (a) the largest chunk-form vs recurrent-form logit gap over every "
+        f"{window}-token window of the plain streams: {gap:.6g} (cap {P_GAP_CAP}) [{smi}]")
+    if not gap <= P_GAP_CAP:
+        raise AssertionError(f"P (a): chunk-form vs recurrent-form logit gap {gap} "
+                             f"> {P_GAP_CAP}")
+    tol = P_TIE_TOL
+    ties = {name: 0 for name, _ in P_RUNS}
+    tie_gap = {name: 0.0 for name, _ in P_RUNS}
+    for (name, rid), rows in checks.items():
+        for step, ((best, d), tok) in enumerate(zip(rows, runs[name]["res"][rid])):
+            if best != int(tok):
+                if not d < tol:
+                    raise AssertionError(f"P (a) {name}: request {rid} step {step}: served "
+                                         f"{int(tok)}, alone argmax {best}, logit gap {d} "
+                                         f">= {tol}")
+                ties[name] += 1
+                tie_gap[name] = max(tie_gap[name], d)
+    same = {name: all(np.array_equal(runs[name]["res"][r.id], runs["plain"]["res"][r.id])
+                      for r in reqs) for name in ties}
+    log(f"[P serve] (a) every stream equals its request run alone (the SLO run's at "
+        f"the ladder's node budgets) within the bf16 tolerance {tol:.4g}; near-tie "
+        f"steps {ties}, the largest served-vs-argmax logit gap among them {tie_gap}; "
+        f"stream equal to plain {same}; (b) target decode-phase dispatches: "
+        f"plain {plain_ticks}, " + ", ".join(
+            f"{n} {runs[n]['serve_stats']['verify_dispatches']}"
+            for n in ("ngram", "nodes", "ngram_adaptive")) + f" [{smi}]")
+
+    log(f"[P time] the alone checks: {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    # the n-gram serve, profiled (kernels only); K1 at the verify shape
+    ngram_ss = runs["ngram"]["serve_stats"]
+    prof = serve_profile(lambda: serve("ngram"), ngram_ss["verify_dispatches"],
+                         L * k1_dispatches(ngram_ss))
+    log(f"[P time] the profile: {time.time() - t_phase:.1f} s")
+    vrow = k1_rows[K1_VERIFY]
+    from repro_torch.kernels import ops
+    vargs, _, _ = k1_case(k1, ops, dev, K1_VERIFY[0], K1_VERIFY[1], cfg.stlt_chunk,
+                          K1_VERIFY[2], cfg.dh, seed=5)
+    vrow["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*vargs, chunk=cfg.stlt_chunk),
+                              iters=20)
+    if prof is None:
+        log(f"[P profile] n-gram spec serve: not measured (every profile dropped kernels) "
+            f"[{smi}]")
+    else:
+        log(f"[P profile] n-gram spec serve: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.2f} ms = {100 * prof['busy']:.1f}% of wall, "
+            f"{prof['launches']} kernel launches = {prof['launches_per_tick']:.1f} per "
+            f"verify tick; K1 {prof['k1_ms']:.3f} ms = {100 * prof['k1_share']:.1f}% of "
+            f"device time [{smi}]")
+    device = "not measured" if vrow["device"] is None else f"{vrow['device']:.4f} ms"
+    log(f"[P K1] at the verify shape {K1_VERIFY[0]} x {K1_VERIFY[1]} (S={K1_VERIFY[2]}): "
+        f"ops.stlt_scan {vrow['scan']:.4f} ms (host operators + launch), K1 device time "
+        f"{device}, kernel alone {vrow['alone']:.4f} ms, plain version "
+        f"{vrow['plain']:.4f} ms, bound {vrow['bound']:.5f} ms ({vrow['bound_by']}) [{smi}]")
+    for name in runs:
+        del runs[name]["res"]
+    return {"runs": runs, "profile": prof, "tol": tol, "gap": gap, "ties": ties,
+            "tie_gap": tie_gap, "same": same}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -870,6 +1149,7 @@ def main(argv) -> int:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.configs.stlt_base import CONFIG
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import relevance_flash as k2
@@ -896,8 +1176,8 @@ def main(argv) -> int:
     # over a long row -----------------------------------------------------------
     BH = B * H
     k1_err = 0.0
-    for bh_t, n_t in K1_SHAPES:
-        args, _, _ = k1_case(k1, ops, dev, bh_t, n_t, C, S, dh, seed=1)
+    for bh_t, n_t, s_t in K1_SHAPES:
+        args, _, _ = k1_case(k1, ops, dev, bh_t, n_t, C, s_t, dh, seed=1)
         got = k1.stlt_scan_kernel(*args, chunk=C)
         want = k1.stlt_scan_reference(*args, chunk=C)
         torch.cuda.synchronize()
@@ -905,7 +1185,7 @@ def main(argv) -> int:
             err = float((a - b).abs().max())
             scale = 1.0 + float(b.abs().max())
             k1_err = max(k1_err, err)
-            log(f"[2 K1 vs plain] BH={bh_t} N={n_t} {name}: max abs err {err:.3e} "
+            log(f"[2 K1 vs plain] BH={bh_t} N={n_t} S={s_t} {name}: max abs err {err:.3e} "
                 f"(scale {scale:.3e})")
             if not err <= K1_TOL * scale:
                 raise AssertionError(f"K1 {name} at BH={bh_t} N={n_t} disagrees with its "
@@ -1129,7 +1409,7 @@ def main(argv) -> int:
     tr = train_phase(T, train, k1, cfg, dev, B, N)
 
     # 6. timing -------------------------------------------------------------------
-    k1_rows = k1_timings(k1, ops, dev, C, S, dh)
+    k1_rows = k1_timings(k1, ops, dev, C, dh)
     # K1 in the training call (no carry, no snapshot): the forward pass and the
     # anti-causal dx pass (host flips included) at the step's shape
     x, lm, th, ur, ui, dz = vjp_case(dev, B, H, N, S, dh, C, seed=12)
@@ -1149,11 +1429,12 @@ def main(argv) -> int:
             f"{kernel_name(k)} {v:.4f} ms" for k, v in dx_kernels.items()))
     del x, dz, operators
     main_args, _, _ = k1_case(k1, ops, dev, BH, N, C, S, dh, seed=5)
-    k1_ms = k1_rows[(BH, N)]["call"]
+    main_row = k1_rows[(BH, N, S)]
+    k1_ms = main_row["call"]
     plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*main_args, chunk=C), iters=10)
     log(f"[6 timing] K1 plain version at BH={BH} N={N}: {plain_ms:.4f} ms")
     del main_args
-    long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N)]["scan"],
+    long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S)]["scan"],
                  k1.stlt_scan_kernel)
     with torch.no_grad():
         tok = torch.from_numpy(prompts).to(dev)
@@ -1233,6 +1514,12 @@ def main(argv) -> int:
     # and the prefix cache, against each request run alone; wave mode. Last,
     # so that its long profile cannot disturb the kernel timings' profiles.
     srv = serve_phase(T, k1, cfg, engine.params, dev)
+    del engine, params, rparams
+    torch.cuda.empty_cache()
+
+    # P. SmolLM-360M's STLT variant in bf16: speculative decoding and the SLO
+    # node ladder through K1 at S = 32
+    spec = spec_phase(T, k1, get_config("smollm-360m", "stlt"), dev, k1_rows)
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     print(smi_line())
@@ -1241,13 +1528,13 @@ def main(argv) -> int:
         "source": "src/repro_torch/kernels/csrc/stlt_scan.cu",
         "replaces": "src/repro/kernels/stlt_scan.py:67",
         "launches": launches["stlt_scan"], "max_abs_err": k1_err,
-        "ms": k1_ms, "alone_ms": k1_rows[(BH, N)]["alone"],
-        "device_ms": k1_rows[(BH, N)]["device"], "plain_ms": plain_ms,
+        "ms": k1_ms, "alone_ms": main_row["alone"],
+        "device_ms": main_row["device"], "plain_ms": plain_ms,
         # bound_ms is the 3xTF32 tensor-core bound (bound_tc_ms names it
         # too), bound_fp32_ms the bound with every flop as fp32 FMA, as K2's
-        "bound_ms": k1_rows[(BH, N)]["bound"], "bound_tc_ms": k1_rows[(BH, N)]["bound"],
-        "bound_fp32_ms": k1_rows[(BH, N)]["bound_fp32"],
-        "bound_by": k1_rows[(BH, N)]["bound_by"], "library_ms": None,
+        "bound_ms": main_row["bound"], "bound_tc_ms": main_row["bound"],
+        "bound_fp32_ms": main_row["bound_fp32"],
+        "bound_by": main_row["bound_by"], "library_ms": None,
         # the training path: K1 launches per train step (6 causal + 6
         # anti-causal), the dx pass's time and its bound (no snapshot), the
         # scan VJP's worst error over the scale (phase T1)
@@ -1257,6 +1544,17 @@ def main(argv) -> int:
         "launches_per_serve": srv["k1_launches"],
         # and in the wave-mode serve of the same requests (layers x waves)
         "launches_per_wave_serve": srv["wave_k1_launches"],
+        # phase P (SmolLM-360M-stlt, bf16, S = 32): K1 launches in the
+        # node-draft spec serve and in the n-gram one (layers x (admission
+        # + verify + draft prefill/commit dispatches)); K1 at the verify
+        # shape: device time, ops.stlt_scan's time, its bound
+        "launches_per_spec_serve": spec["runs"]["nodes"]["k1_launches"],
+        "launches_per_ngram_spec_serve": spec["runs"]["ngram"]["k1_launches"],
+        "verify_shape": list(K1_VERIFY), "verify_device_ms": k1_rows[K1_VERIFY]["device"],
+        "verify_alone_ms": k1_rows[K1_VERIFY]["alone"],
+        "verify_scan_ms": k1_rows[K1_VERIFY]["scan"],
+        "verify_plain_ms": k1_rows[K1_VERIFY]["plain"],
+        "verify_bound_ms": k1_rows[K1_VERIFY]["bound"],
         "train_fwd_ms": train_k1["fwd_ms"], "dx_ms": train_k1["dx_ms"],
         "dx_device_ms": train_k1["dx_device_ms"], "dx_bound_ms": train_k1["bound"],
         "vjp_max_err_over_scale": vjp_err}, {

@@ -70,6 +70,17 @@ def stlt_carry_snapshot(x_star, h_start_re, h_start_im, log_mag, theta, q,
     return h_re, h_im
 
 
+def stlt_window_state(x, h0_re, h0_im, log_mag, theta, q):
+    """Carry after the first ``q[b]`` tokens of a short window ``x``
+    [batch, L, d] resumed from ``h0``: the speculative-decode rollback. The
+    window is one chunk, so its chunk-start carry is ``h0`` and the state at
+    the accepted length is one closed-form snapshot; tokens at and past
+    ``q[b]`` never touch it. ``q == 0`` rows give h0 (up to the exact
+    lambda^0 = 1 products)."""
+    return stlt_carry_snapshot(x, h0_re, h0_im, log_mag, theta, q,
+                               chunk=x.shape[-2])
+
+
 def stlt_decode_step(x_t, h_re, h_im, log_mag, theta, u_re, u_im):
     """Single-token streaming update: O(S*d) state and work.
 

@@ -42,6 +42,7 @@ from repro_torch.core import nodes as nodes_lib
 from repro_torch.core import scan as scan_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.relevance_flash import relevance_flash
+from repro_torch.models.layers import matmul
 from repro_torch.utils import lecun_normal
 
 SCAN_ENGINES = ("chunked", "chunked_fused", "pallas")
@@ -193,8 +194,8 @@ def _scan(v, log_mag, theta, u_re, u_im, cfg: STLTConfig, state=None,
 def _readout(params: dict, cfg: STLTConfig, x, z):
     z = _merge_heads(z)
     if cfg.gate:
-        z = z * F.silu(x @ params["w_g"])
-    return z @ params["w_o"]
+        z = z * F.silu(matmul(x, params["w_g"]))
+    return matmul(z, params["w_o"])
 
 
 def _relevance_readout(cfg: STLTConfig, x, v, log_mag, theta, masks,
@@ -293,7 +294,7 @@ def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
             params["adaptive"], x, acfg, deterministic=deterministic,
             draws=draws, pad_mask=pad_mask)
     log_mag, theta, sigma, T = _poles(params, cfg)
-    v = _split_heads(x @ params["w_v"], cfg.num_heads)
+    v = _split_heads(matmul(x, params["w_v"]), cfg.num_heads)
     if cfg.mode == "relevance":
         z = _relevance_readout(cfg, x, v, log_mag, theta, masks, pad_mask)
     else:
@@ -321,7 +322,7 @@ def stlt_prefill(params: dict, cfg: STLTConfig, x: torch.Tensor,
     _check_ported(cfg, streaming=True)
     B, N, d = x.shape
     log_mag, theta, _, _ = _poles(params, cfg)
-    v = _split_heads(x @ params["w_v"], cfg.num_heads)
+    v = _split_heads(matmul(x, params["w_v"]), cfg.num_heads)
     live = None
     if valid is not None:
         if state is None:
@@ -370,6 +371,41 @@ def init_stlt_state(cfg: STLTConfig, batch: int, dtype=torch.float32,
     return st
 
 
+def stlt_state_at(params: dict, cfg: STLTConfig, x: torch.Tensor, state: dict,
+                  q: torch.Tensor) -> dict:
+    """Streaming state after the first ``q[b]`` tokens of window ``x``
+    [B, N, d], resumed from ``state``: the speculative-decode rollback. No
+    outputs and no scan: the carry is the closed-form snapshot of the window
+    as one chunk (``scan.stlt_window_state``), so a rejected draft suffix
+    (positions >= q[b]) never enters it. Adaptive configs add the accepted
+    prefix to the running input sum ``asum``/``acnt``, as q[b] decode steps
+    would."""
+    _check_ported(cfg, streaming=True)
+    B, N, d = x.shape
+    H, S, dh = cfg.num_heads, cfg.num_nodes, cfg.head_dim
+    if state is None:
+        state = init_stlt_state(cfg, B, device=x.device)
+    q = torch.as_tensor(q, dtype=torch.int32, device=x.device)
+    v = _split_heads(matmul(x, params["w_v"]), H)
+    sum_state = {}
+    if cfg.adaptive.enabled:
+        live = torch.arange(N, device=x.device)[None, :] < q[:, None]
+        csum = torch.where(live[..., None], x, 0).sum(-2, dtype=torch.float32)
+        asum = (state["asum"] if "asum" in state
+                else torch.zeros((B, d), device=x.device))
+        acnt = (state["acnt"] if "acnt" in state
+                else torch.zeros((B,), device=x.device))
+        sum_state = {"asum": asum + csum, "acnt": acnt + q.to(torch.float32)}
+    log_mag, theta, _, _ = _poles(params, cfg)
+    h_re, h_im = scan_lib.stlt_window_state(
+        v.reshape(B * H, N, dh).float(),
+        state["h_re"].reshape(B * H, S, dh).float(),
+        state["h_im"].reshape(B * H, S, dh).float(),
+        log_mag.repeat(B, 1), theta.repeat(B, 1), q.repeat_interleave(H))
+    return {"h_re": h_re.reshape(B, H, S, dh), "h_im": h_im.reshape(B, H, S, dh),
+            **sum_state}
+
+
 def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
                     state: dict, node_cap: Optional[torch.Tensor] = None):
     """One decode step. x_t: [B, d_model] -> (y_t [B, d_model], new state).
@@ -380,7 +416,7 @@ def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
     _check_ported(cfg, streaming=True)
     B, d = x_t.shape
     H = cfg.num_heads
-    v_t = (x_t @ params["w_v"]).reshape(B, H, cfg.head_dim)
+    v_t = matmul(x_t, params["w_v"]).reshape(B, H, cfg.head_dim)
     log_mag, theta, _, _ = _poles(params, cfg)
 
     acfg = cfg.adaptive
@@ -404,5 +440,5 @@ def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
         v_t, state["h_re"], state["h_im"], log_mag, theta, u_re, u_im)
     z = z.reshape(B, d)
     if cfg.gate:
-        z = z * F.silu(x_t @ params["w_g"])
-    return z @ params["w_o"], {"h_re": h_re, "h_im": h_im, **sum_state}
+        z = z * F.silu(matmul(x_t, params["w_g"]))
+    return matmul(z, params["w_o"]), {"h_re": h_re, "h_im": h_im, **sum_state}

@@ -2,7 +2,9 @@
 
 Numerics follow the JAX package, where the two frameworks' defaults differ:
 ``jax.nn.gelu`` is the tanh approximation, ``jnp.var`` is the population
-variance, and the sinusoidal PE puts sin in even and cos in odd columns.
+variance, the sinusoidal PE puts sin in even and cos in odd columns, and a
+product of a bf16 activation and an fp32 parameter runs in fp32 (JAX
+promotes it; ``torch.matmul`` refuses mixed types), see ``matmul``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.utils import lecun_normal
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``torch.promote_types`` of the two, as JAX types it: a
+    bf16 activation times an fp32 parameter is an fp32 product."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def init_layernorm(d: int, dtype=torch.float32, device=None):
@@ -55,7 +64,7 @@ def embed(params, tokens):
 
 def unembed(params, x):
     """Tied read-out: logits = x @ embed.T."""
-    return x @ params["embed"].T
+    return matmul(x, params["embed"].T)
 
 
 def sinusoidal_pe(n: int, d: int, offset=0, dtype=torch.float32, device=None):
@@ -86,9 +95,10 @@ def init_ffn(generator, d: int, d_ff: int, act: str = "swiglu",
 
 def ffn(params, x, act: str = "swiglu"):
     if act == "swiglu":
-        return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
-    h = F.gelu(x @ params["w1"] + params["b1"], approximate="tanh")
-    return h @ params["w2"] + params["b2"]
+        return matmul(F.silu(matmul(x, params["w1"])) * matmul(x, params["w3"]),
+                      params["w2"])
+    h = F.gelu(matmul(x, params["w1"]) + params["b1"], approximate="tanh")
+    return matmul(h, params["w2"]) + params["b2"]
 
 
 def cross_entropy(logits, labels, mask: Optional[torch.Tensor] = None):

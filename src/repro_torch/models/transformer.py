@@ -8,6 +8,10 @@ package stacks runs of equal blocks on a leading axis when
 ``execution_plan``. Decode states follow suit: ``{"layers": [one state per
 layer], "pos": [B] int32}``; a state of ``n_slots`` rows is the serving
 engine's slot pool (``insert_slot``, ``extract_slot``, ``reset_slot``).
+``spec_verify`` scores a speculative draft window and rolls each row's
+state to its accepted length. Activations run in ``cfg.dtype`` over
+parameters in ``cfg.param_dtype``, products promoted as JAX promotes them
+(``layers.matmul``): a bf16 model's logits come out fp32.
 
 Only STLT blocks are ported: ``stlt`` (factorized) and ``stlt_rel`` (the
 relevance readout, ``mixer="stlt_relevance"``). Other block types raise
@@ -240,6 +244,57 @@ def prefill_chunk(params: dict, cfg: ModelConfig, inputs, state: dict,
         return _head(params, cfg, x[:, -1]), {"layers": new_states, "pos": pos + N}
     logits = _logits_at(params, cfg, x, torch.clamp(valid - 1, min=0))
     return logits, {"layers": new_states, "pos": pos + valid}
+
+
+def _block_state_at(params, cfg: ModelConfig, btype: str, x, state, q):
+    """One block's state after the first ``q[b]`` tokens of its input window
+    x [B, L, d], the rollback half of ``spec_verify``: the closed-form
+    carry snapshot (``stlt.stlt_state_at``), no outputs. ``q == 0`` rows
+    keep their old state exactly (a per-row select)."""
+    _check_block(btype)
+    h = L.apply_norm(cfg.norm, params["norm1"], x)
+    new = stlt_lib.stlt_state_at(params["stlt"], cfg.stlt_config(), h, state, q)
+    keep = q > 0
+    return {k: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)),
+                           n.to(state[k].dtype), state[k])
+            for k, n in new.items()}
+
+
+def spec_verify(params: dict, cfg: ModelConfig, inputs, state: dict, valid_len,
+                node_cap: Optional[torch.Tensor] = None):
+    """Speculative verify, accept and rollback in one dispatch.
+
+    ``inputs`` [B, L] is, per live row, [last emitted token, d_1 .. d_k]
+    (L = k + 1); ``valid_len`` [B] is 1 + the draft tokens to consider, 0
+    for rows that must stay exact no-ops. Returns (greedy [B, L], commit
+    [B], new state): ``greedy[b, j]`` is the argmax after
+    ``inputs[b, :j+1]``; ``commit[b]`` = 1 + the longest run of draft tokens
+    equal to the greedy continuation, clamped to ``valid_len[b]`` (0 for
+    no-op rows); the new state has consumed exactly ``commit[b]`` tokens.
+
+    Pass 1 scores all L positions through every block (one scan call per
+    layer, resumed from the carried state, under ``node_cap``) and keeps no
+    state; pass 2 reads each layer's carry at ``commit`` from the block
+    inputs pass 1 saw (``_block_state_at``). The result is new tensors: the
+    input state is only read."""
+    pos = state["pos"]
+    x = _embed(params, cfg, inputs)
+    valid = torch.as_tensor(valid_len, dtype=torch.int32, device=x.device)
+    x = _with_pe(cfg, x, offset=pos)
+    xs_saved = []
+    for btype, p, st in zip(cfg.block_types(), params["layers"], state["layers"]):
+        xs_saved.append(x)
+        x, _ = _block_prefill_chunk(p, cfg, btype, x, st, node_cap=node_cap)
+    greedy = torch.argmax(_head(params, cfg, x), dim=-1).to(torch.int32)
+    toks = torch.as_tensor(inputs, device=x.device)
+    match = (toks[:, 1:] == greedy[:, :-1]).to(torch.int32)
+    accepted = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+    commit = torch.where(valid > 0, torch.minimum(accepted + 1, valid),
+                         torch.zeros_like(valid))
+    new_states = [_block_state_at(p, cfg, btype, xs, st, commit)
+                  for btype, p, st, xs in zip(cfg.block_types(), params["layers"],
+                                              state["layers"], xs_saved)]
+    return greedy, commit, {"layers": new_states, "pos": pos + commit}
 
 
 def _block_step(params, cfg: ModelConfig, btype: str, x_t, state, node_cap=None):

@@ -36,9 +36,16 @@ Sampled requests draw Gumbel noise per ``(rng_seed, request id, token
 index)`` (``sampler.GumbelStreams``), so a request's stream is the same in
 both modes.
 
-Not ported: speculative decoding and SLO degradation (``spec_k``,
-``slo_degrade``; ROADMAP Queue 1 item 3), and the sharded and disaggregated
-engines (item 7).
+Speculative decoding (``spec_k``, greedy only): each decode tick drafts k
+tokens per live row (``serving/speculative.py``: the n-gram draft or the
+node-subset draft) and scores them in ONE ``transformer.spec_verify``
+dispatch (one K1 call per layer); the stream is the plain greedy stream.
+The SLO ladder (``slo_degrade``) steps every live row's node budget down
+on a breach and back up after ``slo_recovery_ticks`` healthy ticks.
+``serve_stats`` counts every dispatch by kind; ``spec_stats`` and
+``node_stats`` describe the last serve's drafts and ladder.
+
+Not ported: the sharded and disaggregated engines (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.serving import speculative
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import (GumbelStreams, advance_slots, gumbel,
                                          sample_slot_tokens)
@@ -153,6 +161,8 @@ class _ServeRun:
         # at the first coalesced admission (and dropped when it drains)
         self.pool = None
         self.prefill_pool = None
+        self.spec = None          # the draft (speculative serving)
+        self.spec_adapt = None    # its AdaptiveK (spec_adaptive)
         self.tok = np.zeros(self.B, np.int32)
         self.temps = np.full(self.B, temperature, np.float32)
         self.draws = draws
@@ -175,7 +185,11 @@ class ServeEngine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[PrefixCache] = None,
                  serve_nodes: Optional[int] = None, spec_k: int = 0,
-                 slo_degrade: tuple = (),
+                 spec_draft: str = "ngram", spec_draft_nodes: int = 4,
+                 spec_adaptive: bool = False, spec_accept_floor: float = 0.4,
+                 spec_adapt_window: int = 8, spec_adapt_recovery: int = 4,
+                 slo_gap_ms: float = 0.0, slo_queue_depth: int = 0,
+                 slo_degrade: tuple = (), slo_recovery_ticks: int = 8,
                  noise: Optional[Callable] = None, device=None):
         """``params`` from ``transformer.init_lm`` or
         ``convert.from_jax_params``; they are moved to ``device`` (CUDA
@@ -190,15 +204,76 @@ class ServeEngine:
         full S); a :class:`Request` may override it. Prefill always runs at
         full S. ``noise(rng_seed)`` returns the sampled rows' Gumbel draws,
         ``draws(request_id, token_index) -> [vocab]`` (default
-        ``sampler.GumbelStreams`` on ``device``)."""
-        if spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+        ``sampler.GumbelStreams`` on ``device``).
+
+        ``spec_k`` >= 1: speculative decoding in continuous serve (greedy
+        only; refused on adaptive-mask configs, whose verify would pool one
+        mask per window where decode pools one per token). ``spec_draft``
+        "ngram" (prompt lookup, no dispatches) or "nodes" (the model with
+        each head's readout cut to its top ``spec_draft_nodes`` nodes).
+        ``spec_adaptive``: a slot whose accept rate over the last
+        ``spec_adapt_window`` drafted tokens falls below
+        ``spec_accept_floor`` halves its verified window, and doubles it
+        back after ``spec_adapt_recovery`` healthy rounds.
+
+        ``slo_degrade``: a descending ladder of node budgets, e.g.
+        ``(16, 8, 4)``; a decode tick whose wall gap exceeds ``slo_gap_ms``
+        (when > 0) or after whose admission ``slo_queue_depth`` or more
+        requests still queue (when > 0) steps one level down, and
+        ``slo_recovery_ticks`` healthy ticks step one level up. Every block
+        of a servable port model is an STLT block, so the JAX package's
+        "requires an STLT mixer" refusals cannot arise here."""
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0 (got {spec_k})")
+        if spec_draft not in ("ngram", "nodes"):
+            raise ValueError(f"unknown spec_draft {spec_draft!r} "
+                             "(expected 'ngram' or 'nodes')")
+        if spec_adaptive and spec_k < 2:
+            raise ValueError(
+                "spec_adaptive needs spec_k >= 2 (a 1-token window has no "
+                f"room to shrink; got spec_k={spec_k})")
+        if not 0.0 < spec_accept_floor <= 1.0:
+            raise ValueError(
+                f"spec_accept_floor must be in (0, 1] (got {spec_accept_floor})")
+        if spec_adapt_window < 1 or spec_adapt_recovery < 1:
+            raise ValueError(
+                "spec_adapt_window and spec_adapt_recovery must be >= 1 "
+                f"(got {spec_adapt_window}, {spec_adapt_recovery})")
+        if spec_k and cfg.stlt_adaptive:
+            raise ValueError(
+                "speculative decoding is incompatible with adaptive node "
+                "masks (stlt_adaptive=True): verify pools one mask per "
+                "window, decode pools one per token")
+        self.spec_k = spec_k
+        self.spec_draft = spec_draft
+        self.spec_draft_nodes = spec_draft_nodes
+        self.spec_adaptive = spec_adaptive
+        self.spec_accept_floor = spec_accept_floor
+        self.spec_adapt_window = spec_adapt_window
+        self.spec_adapt_recovery = spec_adapt_recovery
+        S = cfg.stlt_nodes
+        slo_degrade = tuple(int(m) for m in (slo_degrade or ()))
         if slo_degrade:
-            raise NotImplementedError(
-                "SLO node-budget degradation (slo_degrade) is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+            if not (slo_gap_ms > 0 or slo_queue_depth > 0):
+                raise ValueError(
+                    "slo_degrade needs a trigger: set slo_gap_ms and/or "
+                    "slo_queue_depth")
+            for m in slo_degrade:
+                if not 1 <= m <= S:
+                    raise ValueError(
+                        f"slo_degrade levels must be in [1, {S}] "
+                        f"(got {slo_degrade})")
+        if slo_recovery_ticks < 1:
+            raise ValueError(
+                f"slo_recovery_ticks must be >= 1 (got {slo_recovery_ticks})")
+        self.slo_gap_ms = slo_gap_ms
+        self.slo_queue_depth = slo_queue_depth
+        self.slo_degrade = slo_degrade
+        self.slo_recovery_ticks = slo_recovery_ticks
+        # the ladder's state: _slo_level indexes slo_degrade (-1: full S)
+        self._slo_level = -1
+        self._slo_streak = 0
+        self._slo_last_wall: Optional[float] = None
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
@@ -208,7 +283,6 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk or 0
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0 (got {prefill_chunk})")
-        S = cfg.stlt_nodes
         if serve_nodes is not None and not 1 <= serve_nodes <= S:
             raise ValueError(f"serve_nodes must be in [1, {S}] (got {serve_nodes})")
         self.serve_nodes = serve_nodes
@@ -216,8 +290,11 @@ class ServeEngine:
         self.noise = noise or (lambda seed: GumbelStreams(seed, cfg.vocab, self.device))
         self.params = tree_map(lambda t: t.to(self.device), params)
         self._fresh1 = None   # pristine batch-1 state (``_fresh_template``)
-        # dispatch counts of the last serve call (reset at its start)
+        # dispatch counts, draft/accept counts and the node ladder's
+        # trajectory of the last serve call (reset at its start)
         self.serve_stats: dict = {}
+        self.spec_stats: dict = {}
+        self.node_stats: dict = {}
 
     # ------------------------------------------------------------------ simple
     @torch.no_grad()
@@ -393,20 +470,34 @@ class ServeEngine:
         self._count("admission_dispatches")
         return T.prefill(self.params, self.cfg, self._tokens(toks), self.max_len)
 
-    def _run_prefill_chunk(self, toks, state, valid=None):
+    def _run_prefill_chunk(self, toks, state, valid=None, params=None,
+                           key: str = "admission_dispatches"):
         """Chunk admission dispatch ([1 or slots, chunk], per-row ``valid``;
-        or a batch-1 natural-length chunk): one K1 call per layer."""
-        self._count("admission_dispatches")
+        or a batch-1 natural-length chunk): one K1 call per layer. The node
+        draft passes its own ``params`` and counts under its own ``key``."""
+        self._count(key)
         return T.prefill_chunk(
-            self.params, self.cfg, self._tokens(toks), state,
+            self.params if params is None else params, self.cfg,
+            self._tokens(toks), state,
             valid_len=None if valid is None else self._tokens(valid))
 
-    def _run_decode(self, tok, pool, caps=None):
-        self._count("decode_dispatches")
+    def _run_decode(self, tok, pool, caps=None, params=None,
+                    key: str = "decode_dispatches"):
+        """One decode step over the pool (no K1 call)."""
+        self._count(key)
         if caps is not None:
             caps = self._tokens(caps)
-        return T.decode_step(self.params, self.cfg, self._tokens(tok), pool,
-                             node_cap=caps)
+        return T.decode_step(self.params if params is None else params, self.cfg,
+                             self._tokens(tok), pool, node_cap=caps)
+
+    def _run_verify(self, toks, valid, pool, caps):
+        """ONE spec_verify dispatch over the pool ([slots, k + 1]): one K1
+        call per layer. Returns (greedy, commit) as numpy and the new pool."""
+        self._count("verify_dispatches")
+        greedy, commit, pool = T.spec_verify(
+            self.params, self.cfg, self._tokens(toks), pool, self._tokens(valid),
+            node_cap=self._tokens(caps))
+        return greedy.cpu().numpy(), commit.cpu().numpy(), pool
 
     def _sample(self, draws, logits, rows, temps) -> np.ndarray:
         """Tokens [B] (numpy) from logits [B, V]: greedy rows by argmax,
@@ -427,14 +518,57 @@ class ServeEngine:
 
     def _row_caps(self, sched: Scheduler) -> np.ndarray:
         """Per-row node budgets [B] of a decode tick: request override ->
-        engine default -> full S. Free and pending rows get full S."""
+        engine default -> full S, clamped by the SLO ladder's current level.
+        Free and pending rows get full S."""
         S = self.cfg.stlt_nodes
         caps = np.full(sched.n_slots, S, np.int32)
+        ladder_cap = self.slo_degrade[self._slo_level] if self._slo_level >= 0 else S
         for local in np.flatnonzero(sched.live):
             req = sched.req[local]
             base = req.serve_nodes if req.serve_nodes is not None else self.serve_nodes
-            caps[local] = S if base is None else base
+            base = S if base is None else base
+            caps[local] = max(1, min(base, ladder_cap, S))
         return caps
+
+    def _slo_update(self, host: _Host, gap_ms: Optional[float]):
+        """One step of the degrade/restore ladder after a tick: a breach
+        (the decode tick's wall gap, or the queue depth after admission)
+        steps one level down and resets the healthy streak;
+        ``slo_recovery_ticks`` healthy ticks in a row step one level up."""
+        if not self.slo_degrade:
+            return
+        ns = self.node_stats
+        gap_breach = bool(self.slo_gap_ms > 0 and gap_ms is not None
+                          and gap_ms > self.slo_gap_ms)
+        queue_breach = bool(self.slo_queue_depth > 0
+                            and len(host.queue) >= self.slo_queue_depth)
+        if gap_breach:
+            ns["gap_breaches"] += 1
+        if queue_breach:
+            ns["queue_breaches"] += 1
+        if gap_breach or queue_breach:
+            if self._slo_level < len(self.slo_degrade) - 1:
+                self._slo_level += 1
+                ns["degrade_steps"] += 1
+            self._slo_streak = 0
+        else:
+            self._slo_streak += 1
+            if self._slo_level >= 0 and self._slo_streak >= self.slo_recovery_ticks:
+                self._slo_level -= 1
+                ns["restore_steps"] += 1
+                self._slo_streak = 0
+        if self._slo_level >= 0:
+            ns["ticks_degraded"] += 1
+            ns["min_nodes"] = min(ns["min_nodes"],
+                                  int(self.slo_degrade[self._slo_level]))
+
+    def _make_draft(self, n_slots: int):
+        if not self.spec_k:
+            return None
+        if self.spec_draft == "nodes":
+            return speculative.NodeDraft(self, self.spec_k, n_slots,
+                                         self.spec_draft_nodes)
+        return speculative.NGramDraft(self.spec_k, n_slots)
 
     def _cache_tick(self, n: int):
         """Advance the prefix cache's TTL clock by ``n`` scheduler ticks."""
@@ -456,9 +590,41 @@ class ServeEngine:
     def _serve_start(self, requests, slots, prompt_len, arrivals, rng_seed,
                      coalesce) -> _ServeRun:
         queue = self._queue(requests, arrivals, prompt_len)
+        if self.spec_k:
+            if self.temperature and self.temperature > 0:
+                raise ValueError(
+                    "speculative decoding is greedy-only: the accept rule "
+                    f"compares argmax tokens (temperature={self.temperature})")
+            for _, r in queue:
+                if r.temperature:
+                    raise ValueError(
+                        f"request {r.id}: speculative decoding is greedy-only "
+                        f"(temperature={r.temperature})")
+        run = _ServeRun(_Host(slots), queue, self.prefill_chunk, coalesce, prompt_len,
+                        self.noise(rng_seed), self.temperature)
         self.serve_stats = {"admission_dispatches": 0, "decode_dispatches": 0}
-        return _ServeRun(_Host(slots), queue, self.prefill_chunk, coalesce, prompt_len,
-                         self.noise(rng_seed), self.temperature)
+        run.spec = self._make_draft(run.B)
+        if run.spec is not None:
+            self.serve_stats["verify_dispatches"] = 0
+            if self.spec_draft == "nodes":
+                self.serve_stats.update(draft_prefill_dispatches=0,
+                                        draft_decode_dispatches=0)
+            if self.spec_adaptive:
+                run.spec_adapt = speculative.AdaptiveK(
+                    self.spec_k, run.B, floor=self.spec_accept_floor,
+                    window=self.spec_adapt_window,
+                    recovery=self.spec_adapt_recovery)
+        self.spec_stats = {"verify_calls": 0, "drafted": 0, "accepted": 0,
+                           "emitted": 0, "k": self.spec_k}
+        self._slo_level = -1
+        self._slo_streak = 0
+        self._slo_last_wall = None
+        self.node_stats = {"degrade_steps": 0, "restore_steps": 0,
+                           "ticks_degraded": 0, "gap_breaches": 0,
+                           "queue_breaches": 0,
+                           "min_nodes": int(self.cfg.stlt_nodes),
+                           "ladder": list(self.slo_degrade)}
+        return run
 
     def _ensure_pool(self, run: _ServeRun):
         if run.pool is None:
@@ -487,6 +653,10 @@ class ServeEngine:
         if sched.emitted[local] >= sched.budgets[local] or t0 == self.eos_id:
             sched.release(local, run.tick)   # prefill-only request
             run.pool = self._reset(run.pool, local)
+        elif run.spec is not None:
+            run.spec.on_promote(local, ent["prompt"], t0)
+            if run.spec_adapt is not None:
+                run.spec_adapt.reset(local)
 
     def _tick_admission(self, run: _ServeRun):
         """Admission phase of one tick: fill free rows from the queue, then
@@ -591,12 +761,16 @@ class ServeEngine:
         if run.prefill_pool is not None and not host.pending:
             run.prefill_pool = None
 
-    def _tick_decode(self, run: _ServeRun):
-        """Decode phase of one tick: one batched decode step over the pool,
-        one host sync for the sampled tokens, then release/reset finished
-        rows."""
+    def _tick_decode(self, run: _ServeRun) -> bool:
+        """Decode phase of one tick: one batched decode step over the pool
+        (or, with ``spec_k``, one draft-verify round), one host sync for the
+        tokens, then release/reset finished rows. Returns whether a decode
+        dispatch ran."""
         sched = run.host.sched
-        if sched.live.any():
+        decoded = bool(sched.live.any())
+        if decoded and run.spec is not None:
+            self._spec_tick(run, self._row_caps(sched))
+        elif decoded:
             logits, run.pool = self._run_decode(run.tok, run.pool,
                                                 self._row_caps(sched))
             rows = [(sched.req[b].id, int(sched.emitted[b])) if sched.live[b] else None
@@ -617,10 +791,59 @@ class ServeEngine:
             run.tok = nxt
         elif run.host.pending:
             run.tick += 1  # prefill-only tick (nothing decoding yet)
+        return decoded
+
+    def _spec_tick(self, run: _ServeRun, caps: np.ndarray):
+        """One draft-verify-accept round: draft k tokens per live row, score
+        the window in ONE ``spec_verify`` dispatch, emit every accepted
+        token plus the model's bonus token, and keep each row's state at
+        exactly its committed length. A row's verified window is capped by
+        its remaining budget and, with ``spec_adaptive``, by 1 + its
+        current k (data, not shape: the dispatch is always [slots, k + 1])."""
+        sched = run.host.sched
+        spec, adapt = run.spec, run.spec_adapt
+        L = self.spec_k + 1
+        inputs = np.zeros((run.B, L), np.int32)
+        inputs[:, 0] = run.tok
+        inputs[:, 1:] = spec.propose(run.tok, sched.live)
+        valid = np.zeros(run.B, np.int32)
+        for local in np.flatnonzero(sched.live):
+            remaining = int(sched.budgets[local] - sched.emitted[local])
+            win = L if adapt is None else min(L, 1 + adapt.k_for(local))
+            valid[local] = min(win, remaining)
+        greedy, commit, run.pool = self._run_verify(inputs, valid, run.pool, caps)
+        run.tick += 1
+        now = time.perf_counter()
+        ss = self.spec_stats
+        ss["verify_calls"] += 1
+        for local in np.flatnonzero(sched.live):
+            rid = sched.req[local].id
+            ss["drafted"] += int(valid[local]) - 1
+            ss["accepted"] += int(commit[local]) - 1
+            if adapt is not None and valid[local] > 1:
+                adapt.observe(local, int(valid[local]) - 1, int(commit[local]) - 1)
+            emitted_now = []
+            for t in greedy[local, :commit[local]]:
+                emitted_now.append(int(t))
+                if int(t) == self.eos_id:
+                    break   # tokens past EOS are never emitted
+            run.results[rid].extend(emitted_now)
+            sched.stats[rid]["token_walls"].extend([now] * len(emitted_now))
+            sched.emitted[local] += len(emitted_now)
+            ss["emitted"] += len(emitted_now)
+            if (sched.emitted[local] >= sched.budgets[local]
+                    or emitted_now[-1] == self.eos_id):
+                sched.release(local, run.tick)
+                run.pool = self._reset(run.pool, local)
+            else:
+                run.tok[local] = emitted_now[-1]
+                spec.on_emit(local, emitted_now)
+        # the node draft rolls its pool forward by the committed tokens
+        spec.commit(inputs, commit)
 
     def _serve_tick(self, run: _ServeRun):
         """One scheduler tick: idle fast-forward -> route arrivals ->
-        admission -> decode -> cache TTL clock."""
+        admission -> decode -> SLO ladder -> cache TTL clock."""
         host = run.host
         tick_was = run.tick
         if (not host.sched.live.any() and not host.pending and not host.queue
@@ -635,11 +858,21 @@ class ServeEngine:
             run.arrival_walls[req.id] = now
             host.queue.append((arrival, req))
         self._tick_admission(run)
-        self._tick_decode(run)
+        decoded = self._tick_decode(run)
+        if self.slo_degrade:
+            gap_ms = None
+            if decoded:
+                now_slo = time.perf_counter()
+                if self._slo_last_wall is not None:
+                    gap_ms = (now_slo - self._slo_last_wall) * 1e3
+                self._slo_last_wall = now_slo
+            self._slo_update(host, gap_ms)
         self._cache_tick(run.tick - tick_was)
 
     def _serve_finish(self, run: _ServeRun, return_stats):
         out = {rid: np.array(toks, np.int32) for rid, toks in run.results.items()}
+        if run.spec_adapt is not None:
+            self.spec_stats.update(run.spec_adapt.stats())
         return (out, run.host.sched.stats) if return_stats else out
 
     # ------------------------------------------------------------- wave

@@ -63,6 +63,19 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def cast_params_for_compute(tree, dtype: torch.dtype, min_size: int = 65536):
+    """The JAX package's mixed-precision policy: the FLOP-carrying matrices
+    (ndim >= 2, more than ``min_size`` elements, floating) in ``dtype``;
+    small and 1-D params (norm scales, biases, the Laplace nodes) stay fp32,
+    since the poles' precision sets long half-lives. Returns a new tree."""
+    def cast(x):
+        if (isinstance(x, torch.Tensor) and x.ndim >= 2 and x.numel() > min_size
+                and x.is_floating_point()):
+            return x.to(dtype)
+        return x
+    return tree_map(cast, tree)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     return F.softplus(x)
 

@@ -87,6 +87,9 @@ def _assert_close(got, want):
     (32, 512, 64, 64, 128),   # serve's [slots, chunk] admission, 4 slots
     (3, 70, 72, 8, 16),      # d past one 64-column block
     (3, 50, 7, 4, 8),        # odd d, the smallest chunk and node count
+    (15, 512, 64, 32, 128),  # SmolLM-360M-stlt (15 heads, S = 32): [1, 512]
+    (60, 512, 64, 32, 128),  # ... [4, 512] admission
+    (60, 5, 64, 32, 128),    # ... the node draft's commit at [4, k + 1]
 ])
 def test_kernel_matches_plain_version(dev, BH, N, d, S, C):
     args = _k1_args(*_operands(dev, BH, N, d, S, C), C)
@@ -110,6 +113,30 @@ def test_ops_dispatch_launches_the_kernel_once(dev):
                                 return_state=True)
     _assert_close(z.cpu(), zc)
     _assert_close(h_re.cpu(), hc)
+
+
+@pytest.mark.parametrize("with_valid", [False, True], ids=["verify", "commit"])
+def test_scan_at_the_spec_shapes_matches_the_cpu(dev, with_valid):
+    """``ops.stlt_scan`` at SmolLM-360M-stlt's speculative shapes, 4 slots x
+    15 heads = 60 rows of k + 1 = 5 tokens (less than one 128-token chunk)
+    resumed from h0: the verify window (every row's carry at N) and the
+    node draft's commit (per-row valid, 0 included); one launch, and the
+    card agrees with the plain version on the CPU."""
+    x, lm, th, ur, ui, h0r, h0i, valid = _operands(dev, 60, 5, 64, 32, 128)
+    valid = valid if with_valid else None
+    before = k1.stlt_scan_kernel.launches
+    z, (h_re, h_im) = ops.stlt_scan(x, lm, th, ur, ui, chunk=128, h0_re=h0r, h0_im=h0i,
+                                    valid=valid, return_state=True)
+    assert k1.stlt_scan_kernel.launches == before + 1
+    cpu = [t.cpu() for t in (x, lm, th, ur, ui, h0r, h0i)]
+    zc, (hrc, hic) = ops.stlt_scan(*cpu[:5], chunk=128, h0_re=cpu[5], h0_im=cpu[6],
+                                   valid=None if valid is None else valid.cpu(),
+                                   return_state=True)
+    for a, b in ((z, zc), (h_re, hrc), (h_im, hic)):
+        _assert_close(a.cpu(), b)
+    if with_valid:   # valid == 0 rows return h0 bit for bit
+        idle = (valid == 0).nonzero()[:, 0]
+        assert torch.equal(h_re[idle], h0r[idle]) and torch.equal(h_im[idle], h0i[idle])
 
 
 def test_kernel_wrapper_checks_its_inputs(dev):
@@ -223,6 +250,49 @@ def test_serve_on_the_card_matches_the_cpu(dev):
     for r in reqs:
         np.testing.assert_array_equal(results[1][r.id], results[0][r.id])
         assert len(results[1][r.id]) == r.max_new_tokens
+
+
+def test_full_width_spec_verify_on_the_card_matches_the_cpu(dev):
+    """One ``spec_verify`` of full-width SmolLM-360M-stlt (32 layers, d_model
+    960, S = 32) over 4 slots with k = 4, from a prefilled state, with
+    drafts that follow the model's greedy continuation fully, for one
+    token, not at all, and an idle row: the card (K1, one launch per layer)
+    against the same call on the CPU. In fp32 activations, so that the two
+    differ only by summation order and greedy and commit are exact; bf16's
+    rounding flips are phase P's near-tie rule in chip_smoke.py."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(get_config("smollm-360m", "stlt"), dtype="float32")
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
+    _, state = T.prefill(params, cfg, prompts, 0)
+    L = 5
+    inputs = torch.from_numpy(rng.integers(0, cfg.vocab, (4, L))).to(torch.int32)
+    inputs[:, 0] = prompts[:, -1].to(torch.int32)
+    full = torch.full((4,), L, dtype=torch.int32)
+    for _ in range(L - 1):   # drafts = the greedy continuation
+        greedy, _, _ = T.spec_verify(params, cfg, inputs, state, full)
+        inputs[:, 1:] = greedy[:, :-1]
+    inputs[1, 2:] = (inputs[1, 2:] + 1) % cfg.vocab
+    inputs[2, 1:] = (inputs[2, 1:] + 1) % cfg.vocab
+    valid = torch.tensor([L, L, L, 0], dtype=torch.int32)
+    want = T.spec_verify(params, cfg, inputs, state, valid)
+    before = k1.stlt_scan_kernel.launches
+    got = T.spec_verify(tree_map(lambda t: t.to(dev), params), cfg, inputs.to(dev),
+                        tree_map(lambda t: t.to(dev), state), valid.to(dev))
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches - before == cfg.num_layers
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert want[1].tolist() == [L, 2, 1, 0]
+    assert torch.equal(got[2]["pos"].cpu(), want[2]["pos"])
+    for lg, lw in zip(got[2]["layers"], want[2]["layers"]):
+        for k in lw:
+            _assert_close(lg[k].cpu(), lw[k])
 
 
 # ---------------------------------------------------------------------------

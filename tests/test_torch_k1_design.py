@@ -189,6 +189,23 @@ def test_k1_bound_is_the_tensor_core_bound(BH, N):
     assert fp32 == max(1e3 * flops / chip_smoke.PEAK_FP32_FLOPS, t_bytes)
 
 
+@pytest.mark.parametrize("N", [5, 127, 128, 1000])
+def test_k1_bound_reads_only_the_window_of_each_operator(N):
+    """The bytes of one K1 call: x in, z out, h0 and the carries in and out,
+    and of each operator only what a window of N tokens reads, its first
+    min(C, N) rows or columns (a verify window of k + 1 tokens reads
+    M[:k+1, :k+1], not the whole chunk)."""
+    BH, d, s = 60, 64, 32
+    valid = np.array([(0, 1, min(C, N), N)[i % 4] for i in range(BH)], np.int32)
+    nbytes = chip_smoke.k1_bound(BH, N, d, C, s, valid)[4]
+    c, nc = min(C, N), -(-N // C)
+    x_z_carries = 4 * BH * (2 * N * d + 4 * s * d)
+    operators = 4 * BH * (c * c + 2 * c * s + 2 * s * c + 2 * s * c + 4 * s)
+    assert nbytes == x_z_carries + operators + 4 * BH * nc
+    if N < C:
+        assert nbytes < chip_smoke.k1_bound(BH, C, d, C, s, valid)[4]
+
+
 @pytest.mark.parametrize("N", [37, 64])
 def test_k1_bound_counts_the_operators_nonzero_products(N):
     """``k1_bound``'s flops are the products with an operator entry that is

@@ -430,18 +430,36 @@ def test_request_checks_raise_as_jax(model, jeng):
         ServeEngine(tparams, tcfg, serve_nodes=0, device="cpu")
     with pytest.raises(ValueError, match="warm_prefix requires a prefix_cache"):
         eng.warm_prefix(p)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ServeEngine(tparams, tcfg, spec_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ServeEngine(tparams, tcfg, slo_degrade=(4, 2), device="cpu")
+    # speculative decoding and the SLO ladder: refused as the JAX engine
+    # refuses them (stlt-base's node masks are adaptive; a ladder needs a
+    # trigger)
+    jcfg, jparams = model[0], model[2]
+    for kw, match in ((dict(spec_k=2), "incompatible with adaptive node masks"),
+                      (dict(slo_degrade=(4, 2)), "slo_degrade needs a trigger")):
+        with pytest.raises(ValueError, match=match):
+            JServeEngine(jparams, jcfg, **kw)
+        with pytest.raises(ValueError, match=match):
+            ServeEngine(tparams, tcfg, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("mode", ["continuous", "wave"])
-def test_serve_cli_runs_on_the_cpu(capsys, mode):
-    t_serve_cli.main(["--arch", "stlt-base", "--reduced", "--device", "cpu",
-                      "--requests", "5", "--slots", "2", "--max-new", "4",
-                      "--prefill-chunk", "16", "--system-prompt-len", "20",
-                      "--mode", mode])
+SPEC_CLI = ["--arch", "smollm-360m", "--variant", "stlt", "--spec-k", "3",
+            "--spec-draft", "nodes", "--slo-degrade", "4,2", "--slo-queue-depth", "2"]
+
+
+@pytest.mark.parametrize("mode,extra", [("continuous", []), ("wave", []),
+                                        ("continuous", SPEC_CLI)],
+                         ids=["continuous", "wave", "spec"])
+def test_serve_cli_runs_on_the_cpu(capsys, mode, extra):
+    """The CLI on the CPU; the spec case serves SmolLM-360M's STLT variant
+    (bf16) with the node draft and the SLO ladder."""
+    arch = [] if extra else ["--arch", "stlt-base"]
+    t_serve_cli.main(arch + ["--reduced", "--device", "cpu",
+                             "--requests", "5", "--slots", "2", "--max-new", "4",
+                             "--prefill-chunk", "16", "--system-prompt-len", "20",
+                             "--mode", mode] + extra)
     out = capsys.readouterr().out
     assert out.count("  req ") == 5 and f"[serve] mode={mode}: 5 requests, 20 tokens" in out
     assert ("prefilled" in out) == (mode == "continuous")
+    if extra:
+        assert "[serve] spec: {'verify_calls': " in out and "[serve] slo: " in out
+        assert "'verify_dispatches'" in out and "'draft_prefill_dispatches'" in out

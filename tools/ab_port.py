@@ -85,9 +85,9 @@ def measure(tree: Tree, dev, prompts, long_toks) -> dict:
     """One turn of ``tree``: {quantity: value}, in ms (generate in s)."""
     tree.activate()
     cfg, T, ops, k1 = tree.cfg, tree.T, tree.ops, tree.k1
-    C, S, d = cfg.stlt_chunk, cfg.stlt_nodes, cfg.dh
+    C, d = cfg.stlt_chunk, cfg.dh
     out = {}
-    for BH, n in cs.K1_SHAPES:
+    for BH, n, S in cs.K1_SHAPES:
         args, _, raw = cs.k1_case(k1, ops, dev, BH, n, C, S, d, seed=5)
         x, lm, th, ur, ui, h0r, h0i, valid = raw
         iters = 50 if n <= 1000 else 5
@@ -96,9 +96,9 @@ def measure(tree: Tree, dev, prompts, long_toks) -> dict:
             k1.stlt_scan_kernel(*args, chunk=C)
 
         kernels = cs.device_ms(call, 10)
-        out[f"K1 {BH}x{n} device ms"] = sum(kernels.values()) if kernels else float("nan")
-        out[f"K1 {BH}x{n} call ms"] = cs.time_cuda(call, iters)
-        out[f"K1 {BH}x{n} ops.stlt_scan ms"] = cs.time_cuda(lambda: ops.stlt_scan(
+        out[f"K1 {BH}x{n} S={S} device ms"] = sum(kernels.values()) if kernels else float("nan")
+        out[f"K1 {BH}x{n} S={S} call ms"] = cs.time_cuda(call, iters)
+        out[f"K1 {BH}x{n} S={S} ops.stlt_scan ms"] = cs.time_cuda(lambda: ops.stlt_scan(
             x, lm, th, ur, ui, chunk=C, h0_re=h0r, h0_im=h0i, valid=valid,
             return_state=True), iters)
         del args, raw
@@ -107,7 +107,7 @@ def measure(tree: Tree, dev, prompts, long_toks) -> dict:
         out["prefill 4x1000 ms"] = cs.time_cuda(
             lambda: T.prefill(tree.params, cfg, tok, N), iters=5)
         _, st = T.prefill(tree.params, cfg, tok, N)
-        caps = torch.full((B,), S, dtype=torch.int32, device=dev)
+        caps = torch.full((B,), cfg.stlt_nodes, dtype=torch.int32, device=dev)
         out["decode step ms"] = cs.time_cuda(
             lambda: T.decode_step(tree.params, cfg, tok[:, -1], st, node_cap=caps),
             iters=20)
