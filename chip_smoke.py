@@ -7,20 +7,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 holds each against its plain PyTorch version on the card: K1 (the STLT
 scan, at batch 4, at batch 1, over a 131,072-token row, at serve's two
 admission shapes, 1 and 4 rows of 512 tokens, and at SmolLM-360M-stlt's
-S = 32 admission and verify shapes) and K2 (the
+S = 32 admission and verify shapes and its 8 x 15 x 1024 train shape) and K2 (the
 flash relevance readout, both modes, with masked nodes, a padded key tail
 and an all-masked row, at the real score scale and with x scaled so the
 largest score is 1 or 30, also against the plain version run in float64),
 and reads how the tensor cores round K2's 3xTF32 score sums. Phase T1
 holds the scan's VJP on the card (K1 forward, K1 anti-causal for dx, the
 analytic pole/mixer grads) against float64 autograd through the plain
-version, both directions, at N = 1000 and 1037. Then it drives the main
+version, both directions, at N = 1000 and 1037 and at SmolLM-360M-stlt's
+train shape. Then it drives the main
 paths with random weights from a seeded generator and checks that each ran
 through its kernel: ``ServeEngine.generate`` on the full-width
 ``stlt_base`` model (K1), ``lm_loss`` forward and backward on the same
 model with ``mixer="stlt_relevance"`` (K2), and (phase T2) training of
 ``stlt_base``: step 0 on the card against the CPU (loss and every grad
-leaf), then 5 AdamW steps (12 K1 launches a step), timed and profiled.
+leaf), then 5 AdamW steps (18 K1 launches a step: forward, remat recompute
+and dx in each of 6 layers), timed and profiled.
 Phase S serves 12 requests of 100-3000 prompt tokens through
 ``ServeEngine.serve`` (4 slots, chunked admission at 512 tokens through K1,
 a warmed 512-token system prompt in the prefix cache): each stream against
@@ -31,7 +33,14 @@ the n-gram and the node-subset draft and the adaptive window, and the SLO
 node ladder; each stream against its request run alone under the near-tie
 rule at a bf16 tolerance it measures, verify against plain decode
 dispatches, K1 launches against the dispatches that call it, the ladder's
-steps; timed, one serve profiled. It
+steps; timed, one serve profiled. Phase T3 trains full-width
+SmolLM-360M-stlt in bf16 (fp32 masters, remat) at 8 x 1024 tokens a step:
+step 0 with remat against remat off and against fp32 compute (loss and
+every grad leaf), 5 AdamW steps (96 K1 launches each), timed, the peak
+memory with remat full, dots and off, one step profiled; then the
+paper-small preset through the training CLI with a checkpoint directory,
+a run stopped after its checkpoint and resumed, against two straight runs.
+It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
 without its host work; K1 at each of its phase 2 shapes, K2 at
@@ -84,9 +93,13 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # rows (15 heads, S = 32): [1, 512] (admission, the node draft's prompt
 # prefill) and [4, 512] (admission), and [4, k + 1] = 60 x 5, the verify
 # window resumed from h0 and the node draft's commit with per-row valid.
+# Last, phase T3's training rows: SmolLM-360M-stlt at batch 8 x 1024 tokens
+# (8 x 15 heads, S = 32), forward, remat recompute and the anti-causal dx.
 K1_SHAPES = ((32, 1000, 64), (8, 1000, 64), (8, 131072, 64), (8, 512, 64),
-             (32, 512, 64), (32, 3000, 64), (15, 512, 32), (60, 512, 32), (60, 5, 32))
+             (32, 512, 64), (32, 3000, 64), (15, 512, 32), (60, 512, 32), (60, 5, 32),
+             (120, 1024, 32))
 K1_VERIFY = (60, 5, 32)
+K1_TRAIN = (120, 1024, 32)
 LONG_N = 131072
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
@@ -121,6 +134,22 @@ REL_LOGIT_TOL = 5e-2
 # ||g_card - g_cpu|| / ||g_cpu||.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# Phase T3 (SmolLM-360M-stlt, bf16, 8 x 1024). Remat on vs off, step 0 on
+# the card: remat reruns the same kernels on the same inputs, so only the
+# param grads' atomic sums (scatter_add_) may come out in another order:
+# TRAIN_LOSS_TOL and TRAIN_GRAD_TOL again. bf16 compute vs fp32 compute from
+# the same fp32 masters: loss relative, each grad leaf ||g_bf16 - g_fp32|| /
+# ||g_fp32||. Set from tools/phase_t3_gaps.py's reading on an H100 (PERF.md,
+# phase T3): loss 3.0e-6 (an average over 8192 tokens), worst leaf 0.043
+# (layers/0/stlt/nodes/u_re); the loss gate is a quarter of a bf16 ulp
+# (2^-8), the grad gate 3.5x the reading.
+T3_B, T3_N = 8, 1024
+T3_BF16_LOSS_TOL = 1e-3
+T3_BF16_GRAD_TOL = 0.15
+# paper-small through the CLI: a run resumed at step 3 of 6 against an
+# uninterrupted one, as far apart as two uninterrupted runs (max abs over
+# params and moments) twice over, plus this (absolute; weights are O(1))
+RESUME_ATOL = 1e-6
 
 def log(msg: str):
     print(msg, flush=True)
@@ -468,12 +497,22 @@ ANNOTATIONS = ("stlt_scan.param_grads",)   # ops._StltScan's record_function
 K1_KERNEL = re.compile(r"\bk1_(pack|carry_in|carry_scan|readout)\b")
 
 
-def train_profile(fn, k1_calls: int) -> dict:
+GEMM_KERNELS = ("gemm", "nvjet")   # cuBLAS's fp32 (xmma gemm) and bf16 (nvjet) kernels
+
+
+def k1_calls_per_step(cfg) -> int:
+    """K1 calls in one forward + backward: each layer's forward, its remat
+    recompute in backward when ``cfg.remat`` is set, and its dx."""
+    return (3 if cfg.remat else 2) * cfg.num_layers
+
+
+def train_profile(fn, cfg, tag: str) -> dict:
     """One profiled train step: the device's busy share of the wall (kernel
     time summed; the ``ops`` annotations' GPU spans excluded), K1's device
-    time split into its forward and its dx calls (K1's kernels in launch
-    order: the first ``k1_calls`` x 4 are the forward's), the analytic
-    param grads' device time and host time (its annotation), and the fp32
+    time split into its forward, remat recompute and dx calls by launch
+    order (the first L calls are the forward's; then each layer's backward
+    makes its recompute and its dx call, last layer first), the analytic
+    param grads' device time and host time (its annotation), and the
     GEMMs' device time."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -489,37 +528,44 @@ def train_profile(fn, k1_calls: int) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     k1_events = sorted((e for e in kernels if K1_KERNEL.search(e.name)),
                        key=lambda e: e.time_range.start)
-    launches = 4 * k1_calls
-    if len(k1_events) != 2 * launches:
-        raise AssertionError(f"train profile: {len(k1_events)} K1 kernels, expected "
-                             f"{2 * launches}")
-    k1_fwd = sum(e.time_range.elapsed_us() for e in k1_events[:launches]) / 1e3
-    k1_dx = sum(e.time_range.elapsed_us() for e in k1_events[launches:]) / 1e3
+    L, per = cfg.num_layers, 4                       # 4 kernels a K1 call
+    if len(k1_events) != per * k1_calls_per_step(cfg):
+        raise AssertionError(f"{tag} profile: {len(k1_events)} K1 kernels, expected "
+                             f"{per * k1_calls_per_step(cfg)}")
+    ms = [e.time_range.elapsed_us() / 1e3 for e in k1_events]
+    k1_fwd, bwd = sum(ms[:per * L]), ms[per * L:]
+    if cfg.remat:     # per layer: [recompute: 4 kernels][dx: 4 kernels]
+        k1_re = sum(t for i, t in enumerate(bwd) if i % (2 * per) < per)
+        k1_dx = sum(bwd) - k1_re
+    else:
+        k1_re, k1_dx = 0.0, sum(bwd)
     grads = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CPU
              and e.name == "stlt_scan.param_grads"]
     pg_dev = sum(e.device_time_total for e in grads) / 1e3
     pg_host = sum(e.cpu_time_total for e in grads) / 1e3
-    gemm = sum(e.time_range.elapsed_us() for e in kernels if "gemm" in e.name.lower()) / 1e3
+    gemm = sum(e.time_range.elapsed_us() for e in kernels
+               if any(k in e.name.lower() for k in GEMM_KERNELS)) / 1e3
+    k1_all = k1_fwd + k1_re + k1_dx
     out = {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms,
-           "k1_fwd_ms": k1_fwd, "k1_dx_ms": k1_dx, "param_grads_ms": pg_dev,
+           "k1_fwd_ms": k1_fwd, "k1_recompute_ms": k1_re, "k1_dx_ms": k1_dx,
+           "k1_share": k1_all / busy, "param_grads_ms": pg_dev,
            "param_grads_host_ms": pg_host, "gemm_ms": gemm, "launches": len(kernels)}
-    log(f"[T2 profile] one step: wall {wall_ms:.2f} ms (profiled), device busy "
+    log(f"[{tag} profile] one step: wall {wall_ms:.2f} ms (profiled), device busy "
         f"{busy:.2f} ms = {100 * busy / wall_ms:.1f}% of wall, {len(kernels)} kernel "
-        f"launches; K1 forward {k1_fwd:.4f} ms ({k1_calls} calls, "
-        f"{k1_fwd / k1_calls:.4f} ms each), K1 dx {k1_dx:.4f} ms "
-        f"({k1_dx / k1_calls:.4f} ms each), together {100 * (k1_fwd + k1_dx) / busy:.1f}% "
-        f"of device time; analytic param grads {pg_dev:.3f} ms of device time "
-        f"({100 * pg_dev / busy:.1f}%), {pg_host:.2f} ms of host time "
-        f"({100 * pg_host / wall_ms:.1f}% of the wall); fp32 GEMMs {gemm:.3f} ms "
+        f"launches; K1 forward {k1_fwd:.4f} ms ({L} calls, {k1_fwd / L:.4f} ms each), "
+        f"remat recompute {k1_re:.4f} ms, dx {k1_dx:.4f} ms ({k1_dx / L:.4f} ms each), "
+        f"together {100 * k1_all / busy:.1f}% of device time; analytic param grads "
+        f"{pg_dev:.3f} ms of device time ({100 * pg_dev / busy:.1f}%), {pg_host:.2f} ms "
+        f"of host time ({100 * pg_host / wall_ms:.1f}% of the wall); GEMMs {gemm:.3f} ms "
         f"({100 * gemm / busy:.1f}%)")
     rows = {}
     for e in kernels:
         r = rows.setdefault(kernel_name(e.name), [0.0, 0])
         r[0] += e.time_range.elapsed_us() / 1e3
         r[1] += 1
-    for name, (ms, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[T2 profile]   {ms:9.3f} ms  {count:6d}x  {100 * ms / busy:5.1f}%  {name[:70]}")
+    for name, (t, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[{tag} profile]   {t:9.3f} ms  {count:6d}x  {100 * t / busy:5.1f}%  {name[:70]}")
     return out
 
 
@@ -527,12 +573,12 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
     """Phase T2: full-width training. Step 0 on the card against the port on
     the CPU from the same weights, batch and mask draws (loss, ce, every
     grad leaf; every leaf's grad finite and non-zero), then 5 AdamW steps on
-    the card (12 K1 launches a step), timed by CUDA events, and one more
-    step profiled."""
+    the card (18 K1 launches a step: stlt-base keeps remat on), timed by
+    CUDA events, and one more step profiled."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.adaptive import anneal_tau
     from repro_torch.data import lm_batch_stream
-    from repro_torch.utils import tree_flatten_with_paths, tree_map
+    from repro_torch.utils import tree_map
 
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5, seed=0)
     H, S = cfg.num_heads, cfg.stlt_nodes
@@ -552,9 +598,9 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
                                                draws=[u.to(dev) for u in draws])
     torch.cuda.synchronize()
     first = time.time() - t0
-    if k1.stlt_scan_kernel.launches != 2 * cfg.num_layers:
+    if k1.stlt_scan_kernel.launches != k1_calls_per_step(cfg):
         raise AssertionError(f"T2: {k1.stlt_scan_kernel.launches} K1 launches in a "
-                             f"forward + backward, expected {2 * cfg.num_layers}")
+                             f"forward + backward, expected {k1_calls_per_step(cfg)}")
     t0 = time.time()
     loss_c, m_c, g_cpu = train.loss_and_grads(tree_map(torch.Tensor.cpu, params), cfg,
                                               batch(0, "cpu"), tau=tau, draws=draws)
@@ -566,23 +612,13 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
         f"{TRAIN_LOSS_TOL})")
     if not max(rel.values()) <= TRAIN_LOSS_TOL:
         raise AssertionError(f"T2: card and CPU loss disagree: {rel}")
-    worst, n_leaves = ("", 0.0), 0
-    for (path, a), (_, b) in zip(tree_flatten_with_paths(g_card),
-                                 tree_flatten_with_paths(g_cpu)):
-        a = a.cpu()
-        nb = float(torch.linalg.vector_norm(b.double()))
-        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0 and nb > 0):
-            raise AssertionError(f"T2: grad of {path} is not finite or is zero on the "
-                                 f"card (or on the CPU)")
-        r = float(torch.linalg.vector_norm((a - b).double())) / nb
-        n_leaves += 1
-        if r > worst[1]:
-            worst = (path, r)
-        if not r <= TRAIN_GRAD_TOL:
-            raise AssertionError(f"T2: grad of {path}: card vs CPU relative {r} > "
-                                 f"{TRAIN_GRAD_TOL}")
+    path, worst, n_leaves = grad_gaps(tree_map(torch.Tensor.cpu, g_card), g_cpu,
+                                      "T2 card vs CPU")
     log(f"[T2 step 0] {n_leaves} grad leaves, all finite and non-zero on both; worst "
-        f"||g_card - g_cpu|| / ||g_cpu|| {worst[1]:.3e} ({worst[0]}; gate {TRAIN_GRAD_TOL})")
+        f"||g_card - g_cpu|| / ||g_cpu|| {worst:.3e} ({path}; gate {TRAIN_GRAD_TOL})")
+    if not worst <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"T2: grad of {path}: card vs CPU relative {worst} > "
+                             f"{TRAIN_GRAD_TOL}")
     del g_card, g_cpu
 
     opt, step_fn = train.make_step(cfg, tcfg)
@@ -607,7 +643,7 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
             f"grad_norm {float(metrics['grad_norm']):.4f} s_eff "
             f"{float(metrics['s_eff']):.2f}; {ev_ms[-1]:.3f} ms (events), "
             f"{walls[-1]:.3f} ms (wall), {n} K1 launches")
-        if n != 2 * cfg.num_layers or not np.isfinite(losses[-1]):
+        if n != k1_calls_per_step(cfg) or not np.isfinite(losses[-1]):
             raise AssertionError(f"T2 step {step}: {n} K1 launches, loss {losses[-1]}")
     med = float(np.median(ev_ms[1:]))
     log(f"[T2 train] {B} x {N} tokens a step: median step {med:.3f} ms by CUDA events "
@@ -616,11 +652,211 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
         f"tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     b = batch(tcfg.total_steps, dev)
     prof = train_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps),
-                         cfg.num_layers)
+                         cfg, "T2")
     # K1's launches in the last timed step, as counted (every step's count
     # was checked above)
     return {"step_ms": med, "tok_s": B * N / (med / 1e3), "losses": losses,
             "launches_per_step": counts[-1], **prof}
+
+
+def grad_gaps(a: dict, b: dict, what: str) -> tuple:
+    """(worst leaf, worst ||a - b|| / ||b||, leaves) over two grad trees;
+    raises if a leaf of either is not finite or is zero."""
+    from repro_torch.utils import tree_flatten_with_paths
+
+    worst, n = ("", 0.0), 0
+    for (path, x), (_, y) in zip(tree_flatten_with_paths(a), tree_flatten_with_paths(b)):
+        for t in (x, y):
+            if not (bool(torch.isfinite(t).all()) and float(t.abs().max()) > 0):
+                raise AssertionError(f"{what}: grad of {path} is not finite or is zero")
+        r = float(torch.linalg.vector_norm((x - y).double())
+                  / torch.linalg.vector_norm(y.double()))
+        n += 1
+        if r >= worst[1]:
+            worst = (path, r)
+    return worst[0], worst[1], n
+
+
+def smollm_train_phase(T, train, k1, cfg, dev, B, N) -> dict:
+    """Phase T3: SmolLM-360M-stlt trained in bf16 (fp32 masters, the
+    matrices cast inside the loss, remat on) at B x N tokens a step through
+    K1. Step 0 with remat against remat off (K1 launches 3L and 2L), and
+    against fp32 compute from the same masters: loss and every grad leaf,
+    finite and non-zero, within the stated tolerances. Then 5 AdamW steps,
+    timed by CUDA events (3L K1 launches each), one step's peak memory with
+    remat full, dots and off, and one profiled step."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_batch_stream
+
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5, seed=0)
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def batch(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in lm_batch_stream(0, step, B, N, cfg.vocab).items()}
+
+    b0 = batch(0)
+    runs = {}
+    # the first call pays one-time costs (and a CPU rehearsal's first bf16
+    # products may round differently), so it is not compared
+    for name, c in (("first call", cfg), ("remat", cfg),
+                    ("no remat", dataclasses.replace(cfg, remat=False)),
+                    ("fp32 compute", dataclasses.replace(cfg, dtype="float32"))):
+        k1.stlt_scan_kernel.launches = 0
+        t0 = time.time()
+        loss, metrics, grads = train.loss_and_grads(params, c, b0, tau=1.0)
+        torch.cuda.synchronize()
+        n = k1.stlt_scan_kernel.launches
+        log(f"[T3 step 0] {name}: loss {float(loss):.6f}, {time.time() - t0:.2f} s, "
+            f"{n} K1 launches")
+        if n != k1_calls_per_step(c) or not torch.isfinite(loss):
+            raise AssertionError(f"T3 {name}: {n} K1 launches (expected "
+                                 f"{k1_calls_per_step(c)}), loss {float(loss)}")
+        runs[name] = (float(loss), grads)
+    gaps = {}
+    for name, ref, loss_tol, grad_tol in (
+            ("no remat", "remat", TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
+            ("fp32 compute", "remat", T3_BF16_LOSS_TOL, T3_BF16_GRAD_TOL)):
+        rel = abs(runs[ref][0] - runs[name][0]) / abs(runs[name][0])
+        path, worst, n = grad_gaps(runs[ref][1], runs[name][1], f"T3 {ref} vs {name}")
+        gaps[name] = {"loss": rel, "grad": worst, "leaf": path}
+        log(f"[T3 step 0] bf16 remat vs {name}: loss relative {rel:.3e} (gate {loss_tol}), "
+            f"{n} grad leaves all finite and non-zero, worst ||g - g_ref|| / ||g_ref|| "
+            f"{worst:.3e} ({path}; gate {grad_tol})")
+        if not (rel <= loss_tol and worst <= grad_tol):
+            raise AssertionError(f"T3: bf16 remat vs {name}: loss {rel}, grad {worst} "
+                                 f"at {path}")
+    del runs
+
+    opt, step_fn = train.make_step(cfg, tcfg)
+    opt_state = opt.init(params)
+    ev_ms, walls, counts = [], [], []
+    for step in range(tcfg.total_steps):
+        b = batch(step)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        k1.stlt_scan_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        params, opt_state, metrics = step_fn(params, opt_state, b, step)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.time() - t0))
+        ev_ms.append(start.elapsed_time(end))
+        counts.append(k1.stlt_scan_kernel.launches)
+        loss = float(metrics["loss"])
+        log(f"[T3 train] step {step}: loss {loss:.6f} grad_norm "
+            f"{float(metrics['grad_norm']):.4f}; {ev_ms[-1]:.3f} ms (events), "
+            f"{walls[-1]:.3f} ms (wall), {counts[-1]} K1 launches")
+        if counts[-1] != k1_calls_per_step(cfg) or not np.isfinite(loss):
+            raise AssertionError(f"T3 step {step}: {counts[-1]} K1 launches, loss {loss}")
+    med = float(np.median(ev_ms[1:]))
+    log(f"[T3 train] {B} x {N} tokens a step: median step {med:.3f} ms by CUDA events "
+        f"over steps 1-4 ({[round(t, 3) for t in ev_ms[1:]]}), wall "
+        f"{float(np.median(walls[1:])):.3f} ms; {B * N / (med / 1e3):.1f} training "
+        f"tokens/s")
+
+    b = batch(tcfg.total_steps)
+    memory = {}
+    for mode in ("full", "dots", "off"):
+        c = dataclasses.replace(cfg, remat=mode != "off",
+                                remat_policy="full" if mode == "off" else mode)
+        _, fn = train.make_step(c, tcfg)
+        fn(params, opt_state, b, tcfg.total_steps)            # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = time_cuda(lambda: fn(params, opt_state, b, tcfg.total_steps), iters=2,
+                       warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        memory[mode] = {"peak_gib": peak / 2**30, "held_gib": held / 2**30, "step_ms": ms}
+        log(f"[T3 memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
+            f"and AdamW state held: {held / 2**30:.2f} GiB), step {ms:.3f} ms (events, "
+            f"mean of 2)")
+    prof = train_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), cfg, "T3")
+    return {"step_ms": med, "tok_s": B * N / (med / 1e3), "launches_per_step": counts[-1],
+            "gaps": gaps, "memory": memory, **prof}
+
+
+class Preempted(Exception):
+    """Raised by ``preempting_manager``'s save: the run stops there."""
+
+
+def preempting_manager(base, at_step: int):
+    """A ``CheckpointManager`` class whose save of ``at_step`` finishes and
+    then stops the run, as a preemption right after a checkpoint would."""
+    class PreemptedAfterSave(base):
+        def save(self, step, tree):
+            super().save(step, tree)
+            if step == at_step:
+                self.wait()
+                raise Preempted(f"stopped after the checkpoint of step {step}")
+    return PreemptedAfterSave
+
+
+def cli_resume_phase(train) -> dict:
+    """The paper-small preset through ``launch.train.main`` on the card with
+    ``--ckpt-dir`` in a temporary directory: 6 steps straight, twice (how far
+    two uninterrupted runs are apart on this card), against a run of the
+    same command stopped after its checkpoint of step 2 (3 steps) and the
+    same command again, which resumes from there to 6. The resumed run's
+    params and moments are within 2x the straight runs' distance plus
+    RESUME_ATOL of the first."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.utils import tree_flatten_with_paths
+
+    common = ["--preset", "paper-small", "--batch", "8", "--seq", "256", "--steps", "6",
+              "--log-every", "1", "--save-every", "2"]
+
+    def run(where, preempt_at=None):
+        out, manager = io.StringIO(), train.CheckpointManager
+        if preempt_at is not None:
+            train.CheckpointManager = preempting_manager(manager, preempt_at)
+        try:
+            with contextlib.redirect_stdout(out):
+                state = train.main(common + ["--ckpt-dir", where])
+        except Preempted as stop:
+            state = None
+            out.write(f"{stop}\n")
+        finally:
+            train.CheckpointManager = manager
+        torch.cuda.synchronize()
+        for line in out.getvalue().splitlines():
+            log(f"[T3 cli] {line}")
+        return state, out.getvalue()
+
+    def distance(a, b):
+        pairs = [(x, y) for (_, x), (_, y) in zip(tree_flatten_with_paths(a),
+                                                   tree_flatten_with_paths(b))
+                 if isinstance(x, torch.Tensor)]
+        return (max(float((x - y).abs().max()) for x, y in pairs),
+                max(float(y.abs().max()) for _, y in pairs))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        straight, _ = run(f"{tmp}/a")
+        again, _ = run(f"{tmp}/b")
+        stopped, _ = run(f"{tmp}/r", preempt_at=2)
+        resumed, text = run(f"{tmp}/r")
+        wall = time.time() - t0
+    if stopped is not None or "resume from step 2" not in text \
+            or text.count("[train] step") != 3 or resumed["opt"]["count"] != 6:
+        raise AssertionError("T3 cli: the run was not stopped at step 2 and resumed "
+                             "there for steps 3-5")
+    d_straight, scale = distance(again, straight)
+    d_resumed, _ = distance(resumed, straight)
+    log(f"[T3 cli] paper-small, 8 x 256 tokens: two straight 6-step runs max abs "
+        f"{d_straight:.3e} apart, the run resumed at step 3 {d_resumed:.3e} from the "
+        f"first (largest |value| {scale:.3e}; gate 2 x {d_straight:.3e} + {RESUME_ATOL}); "
+        f"four runs {wall:.1f} s")
+    if not d_resumed <= 2 * d_straight + RESUME_ATOL:
+        raise AssertionError(f"T3 cli: resumed run {d_resumed} from the straight one, "
+                             f"straight runs {d_straight} apart")
+    return {"straight": d_straight, "resumed": d_resumed}
 
 
 def smi_line() -> str:
@@ -1245,6 +1481,11 @@ def main(argv) -> int:
     # analytic pole/mixer grads, against float64 autograd -----------------------
     vjp_err = max(scan_vjp_check(k1, ops, dev, B, H, n_t, S, dh, C, rev)
                   for n_t in (N, N + 37) for rev in (False, True))
+    # and at phase T3's shape: SmolLM-360M-stlt, 8 x 15 heads x 1024, S = 32
+    smollm = get_config("smollm-360m", "stlt")
+    vjp_err = max([vjp_err] + [
+        scan_vjp_check(k1, ops, dev, T3_B, smollm.num_heads, T3_N, smollm.stlt_nodes,
+                       smollm.dh, smollm.stlt_chunk, rev) for rev in (False, True)])
 
     # 3. the main path: full-width stlt-base generate --------------------------
     params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -1434,6 +1675,15 @@ def main(argv) -> int:
     plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*main_args, chunk=C), iters=10)
     log(f"[6 timing] K1 plain version at BH={BH} N={N}: {plain_ms:.4f} ms")
     del main_args
+    train_args, _, _ = k1_case(k1, ops, dev, *K1_TRAIN[:2], C, K1_TRAIN[2], dh, seed=5)
+    train_row = k1_rows[K1_TRAIN]
+    train_row["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*train_args, chunk=C),
+                                   iters=10)
+    log(f"[6 timing] K1 at phase T3's train shape BH={K1_TRAIN[0]} N={K1_TRAIN[1]} "
+        f"S={K1_TRAIN[2]}: plain version {train_row['plain']:.4f} ms, the kernel alone "
+        f"{train_row['alone']:.4f} ms, bound {train_row['bound']:.4f} ms "
+        f"({train_row['bound_by']})")
+    del train_args
     long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S)]["scan"],
                  k1.stlt_scan_kernel)
     with torch.no_grad():
@@ -1519,7 +1769,13 @@ def main(argv) -> int:
 
     # P. SmolLM-360M's STLT variant in bf16: speculative decoding and the SLO
     # node ladder through K1 at S = 32
-    spec = spec_phase(T, k1, get_config("smollm-360m", "stlt"), dev, k1_rows)
+    spec = spec_phase(T, k1, smollm, dev, k1_rows)
+    torch.cuda.empty_cache()
+
+    # T3. SmolLM-360M-stlt trained in bf16 with remat through K1, and the
+    # paper-small preset through the CLI with a checkpoint and a resume
+    t3 = smollm_train_phase(T, train, k1, smollm, dev, T3_B, T3_N)
+    cli = cli_resume_phase(train)
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     print(smi_line())
@@ -1539,6 +1795,16 @@ def main(argv) -> int:
         # anti-causal), the dx pass's time and its bound (no snapshot), the
         # scan VJP's worst error over the scale (phase T1)
         "launches_per_train_step": tr["launches_per_step"],
+        # phase T3 (SmolLM-360M-stlt, bf16, remat, 8 x 1024): K1 launches per
+        # train step (32 forward + 32 recompute + 32 anti-causal), K1 at the
+        # train shape: device time, the kernel alone, the wrapper's call, its
+        # plain version's time and its bound
+        "launches_per_smollm_train_step": t3["launches_per_step"],
+        "train_shape": list(K1_TRAIN), "train_device_ms": k1_rows[K1_TRAIN]["device"],
+        "train_alone_ms": k1_rows[K1_TRAIN]["alone"],
+        "train_call_ms": k1_rows[K1_TRAIN]["call"],
+        "train_plain_ms": k1_rows[K1_TRAIN]["plain"],
+        "train_bound_ms": k1_rows[K1_TRAIN]["bound"],
         # phase S: K1 launches in one continuous serve (layers x admission
         # dispatches)
         "launches_per_serve": srv["k1_launches"],

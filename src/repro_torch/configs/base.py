@@ -58,9 +58,12 @@ class ModelConfig:
     stlt_hard_eval: bool = False
     # --- execution ------------------------------------------------------------
     scan_layers: bool = True         # JAX param layout only (see convert.py)
+    remat: bool = True               # recompute each block in backward
+    remat_policy: str = "full"       # full | dots (save un-batched products)
+    opt_moment_dtype: str = "float32"  # AdamW's moments (bfloat16 halves them)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    optimizer: str = "adamw"         # adamw (adafactor is not ported)
+    optimizer: str = "adamw"         # adamw | adafactor
 
     @property
     def dh(self) -> int:
@@ -120,6 +123,7 @@ class ModelConfig:
             stlt_chunk=16,
             layer_types=(),
             scan_layers=False,
+            remat=False,
             dtype="float32",
         )
         small.update(overrides)
@@ -129,9 +133,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule and mask-temperature settings of the trainer
-    (``launch/train.py``), with the JAX package's field names and defaults
-    (its gradient accumulation, label smoothing and gradient compression are
-    not ported)."""
+    (``launch/train.py``), with the JAX package's field names and defaults.
+    Its ``microbatch``, ``label_smoothing`` and ``grad_compression`` fields
+    are left out: nothing in the JAX package reads them."""
     learning_rate: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000

@@ -1,13 +1,19 @@
-"""Single-GPU trainer of the port.
+"""Single-GPU trainer of the port, the counterpart of the JAX package's
+``launch/train.py``.
 
 One step: anneal the mask temperature, draw the adaptive node masks'
-noise, ``lm_loss`` forward, backward (the factorized scan's VJP: K1 causal
-in the forward, K1 anti-causal for dx, analytic pole/mixer grads), clip by
-global norm, AdamW at ``sched(step)``, as the JAX package's
-``launch/train.py::make_step``. No checkpointing and no remat: activations
-of ``stlt-base`` at 4 x 1000 tokens fit the card as they are.
+noise, cast the matrices to the activation dtype (``cast_params_for_compute``:
+fp32 masters, bf16 compute for a bf16 config), ``lm_loss`` forward with each
+block recomputed in backward (``cfg.remat``), backward (the factorized
+scan's VJP: K1 causal in the forward and again in the recompute, K1
+anti-causal for dx, analytic pole/mixer grads), clip by global norm, AdamW
+or adafactor at ``sched(step)``. With ``--ckpt-dir`` the run saves every
+``--save-every`` steps and at the end, and resumes from the latest
+checkpoint there. Without ``--arch`` it trains the ``paper-small`` preset.
 
-  python -m repro_torch.launch.train --arch stlt-base --steps 5 --batch 4 --seq 1000
+  python -m repro_torch.launch.train --preset paper-small --steps 200 --ckpt-dir ckpt
+  python -m repro_torch.launch.train --arch smollm-360m --variant stlt --steps 5 \
+      --batch 8 --seq 1024
   python -m repro_torch.launch.train --arch stlt-base --reduced --device cpu \
       --steps 5 --batch 2 --seq 64
 
@@ -24,22 +30,37 @@ import numpy as np
 import torch
 
 from repro_torch import configs as configs_lib
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.base import DTYPES, ModelConfig, TrainConfig
 from repro_torch.core.adaptive import anneal_tau
 from repro_torch.data import ByteCorpus, lm_batch_stream
 from repro_torch.models import transformer as T
 from repro_torch.optim import (apply_updates, clip_by_global_norm, default_wd_mask,
                                make_optimizer, make_schedule)
-from repro_torch.utils import resolve_device, tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils import (cast_params_for_compute, resolve_device, tree_leaves,
+                               tree_map, tree_unflatten)
+
+
+def paper_small(vocab: int = 256) -> ModelConfig:
+    """A small slice of the paper's base model, the JAX CLI's default."""
+    return ModelConfig(
+        name="stlt-paper-small", family="lm", vocab=vocab, num_layers=4,
+        d_model=256, num_heads=8, num_kv_heads=8, d_ff=1024, mixer="stlt",
+        stlt_nodes=32, stlt_adaptive=True, act="gelu", norm="layernorm",
+        dtype="float32", scan_layers=False, remat=False,
+    )
 
 
 def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, tau: float,
                    draws: Optional[Sequence[torch.Tensor]] = None):
     """(loss, metrics, grads) of ``lm_loss`` with stochastic masks; ``grads``
-    has params' structure. A leaf the loss does not reach gets a zero grad,
-    as ``jax.grad`` gives it."""
+    has params' structure and dtype. The matrices enter the loss cast to
+    ``cfg.act_dtype`` (``cast_params_for_compute``, as the JAX trainer casts
+    them), so a bf16 config computes in bf16 and its fp32 masters get fp32
+    grads. A leaf the loss does not reach gets a zero grad, as ``jax.grad``
+    gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    p = tree_unflatten(params, leaves)
+    p = cast_params_for_compute(tree_unflatten(params, leaves), cfg.act_dtype)
     loss, metrics = T.lm_loss(p, cfg, batch, deterministic=False, tau=tau,
                               draws=draws)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
@@ -64,11 +85,16 @@ def make_step(cfg: ModelConfig, tcfg: TrainConfig):
     """(opt, step_fn) with step_fn(params, opt_state, batch, step, draws=None)
     -> (params, opt_state, metrics). ``draws`` (per layer [B, H, S] uniform
     draws) replaces the step's own (``step_draws``), so a test can feed in
-    the JAX package's."""
-    if cfg.act_dtype != cfg.p_dtype:
-        raise NotImplementedError("mixed-precision training is not ported")
-    opt = make_optimizer(cfg.optimizer, b1=tcfg.beta1, b2=tcfg.beta2,
-                         weight_decay=tcfg.weight_decay)
+    the JAX package's. The optimizer is built as the JAX package's
+    ``launch/steps.py`` builds it: AdamW with ``tcfg``'s betas and weight
+    decay, its moments in ``cfg.opt_moment_dtype``; adafactor without
+    weight decay."""
+    if cfg.optimizer == "adamw":
+        opt = make_optimizer("adamw", b1=tcfg.beta1, b2=tcfg.beta2,
+                             weight_decay=tcfg.weight_decay,
+                             moment_dtype=DTYPES[cfg.opt_moment_dtype])
+    else:
+        opt = make_optimizer(cfg.optimizer, weight_decay=0.0)
     sched = make_schedule(tcfg.schedule, tcfg.learning_rate, tcfg.warmup_steps,
                           tcfg.total_steps)
 
@@ -91,21 +117,29 @@ def make_step(cfg: ModelConfig, tcfg: TrainConfig):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stlt-base", help="ported arch id")
+    ap.add_argument("--arch", default=None,
+                    help="ported arch id (default: the paper-small preset)")
+    ap.add_argument("--preset", default=None, choices=[None, "paper-small"])
+    ap.add_argument("--variant", default="native")
     ap.add_argument("--reduced", action="store_true", help="smoke-size config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--data", default="bytes", choices=["bytes", "synthetic"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = configs_lib.get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if args.preset == "paper-small" or args.arch is None:
+        cfg = paper_small()
+    else:
+        cfg = configs_lib.get_config(args.arch, args.variant)
+        if args.reduced:
+            cfg = cfg.reduced()
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(10, args.steps // 10))
     corpus = ByteCorpus() if args.data == "bytes" else None
@@ -118,15 +152,27 @@ def main(argv=None):
         return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
     opt, step_fn = make_step(cfg, tcfg)
-    params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(tcfg.seed),
-                       device=device)
-    opt_state = opt.init(params)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params on {device}")
+
+    def init_state():
+        params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(tcfg.seed),
+                           device=device)
+        return {"params": params, "opt": opt.init(params)}
+
+    start = -1
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        state, start = mgr.restore_or_init(init_state)
+    else:
+        mgr, state = None, init_state()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params on {device}, "
+          f"resume from step {start}")
 
     t_last, tok_per_step = time.time(), args.batch * args.seq
-    for step in range(args.steps):
-        params, opt_state, metrics = step_fn(params, opt_state, batch_fn(step), step)
+    for step in range(start + 1, args.steps):
+        params, opt_state, metrics = step_fn(state["params"], state["opt"],
+                                             batch_fn(step), step)
+        state = {"params": params, "opt": opt_state}
         if step % args.log_every == 0 or step == args.steps - 1:
             m = tree_map(float, metrics)
             dt = time.time() - t_last
@@ -134,8 +180,13 @@ def main(argv=None):
             print(f"[train] step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
                   f"gnorm {m['grad_norm']:.2f} s_eff {m['s_eff']:.1f} "
                   f"({tok_per_step * args.log_every / max(dt, 1e-9):.0f} tok/s)")
+        if mgr and step % args.save_every == 0 and step > 0:
+            mgr.save(step, state)
+    if mgr:
+        mgr.save(args.steps - 1, state)
+        mgr.wait()
     print("[train] done")
-    return params, opt_state
+    return state
 
 
 if __name__ == "__main__":

@@ -126,6 +126,38 @@ def apply_block(params: dict, cfg: ModelConfig, block_type: str, x, *,
     return _block_ffn(params, cfg, x + mixed.to(x.dtype)), aux
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of un-batched products
+    (JAX's ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in backward (``cfg.remat``), the counterpart of the
+    JAX package's ``_maybe_remat``: its activations are not kept past the
+    forward. Remat changes no values. Without grad there is no backward, so
+    nothing is wrapped."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if cfg.remat_policy == "dots":
+        kw = {"context_fn": lambda: create_selective_checkpoint_contexts(_dots_policy)}
+    elif cfg.remat_policy == "full":
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return lambda *args, **kwargs: checkpoint(fn, *args, use_reentrant=False,
+                                              **kw, **kwargs)
+
+
 def apply_lm(params: dict, cfg: ModelConfig, inputs, *,
              deterministic: bool = True,
              draws: Optional[Sequence[torch.Tensor]] = None, tau=None):
@@ -134,15 +166,17 @@ def apply_lm(params: dict, cfg: ModelConfig, inputs, *,
 
     The stochastic adaptive masks (``deterministic=False``) take layer i's
     uniform draws [B, H, S] from ``draws[i]`` when given (one per layer, in
-    layer order); without draws their noise is 0."""
+    layer order); without draws their noise is 0. With ``cfg.remat`` each
+    block is recomputed in backward (``_maybe_remat``)."""
     x = _with_pe(cfg, _embed(params, cfg, inputs))
     btypes = cfg.block_types()
     if draws is not None and len(draws) != len(btypes):
         raise ValueError(f"expected {len(btypes)} layers of draws, got {len(draws)}")
     total = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
+    block = _maybe_remat(apply_block, cfg)
     for li, (btype, p) in enumerate(zip(btypes, params["layers"])):
-        x, aux = apply_block(p, cfg, btype, x, deterministic=deterministic,
-                             draws=None if draws is None else draws[li], tau=tau)
+        x, aux = block(p, cfg, btype, x, deterministic=deterministic,
+                       draws=None if draws is None else draws[li], tau=tau)
         total = {k: total[k] + aux[k] for k in AUX_KEYS}
     n_stlt = sum(bt in ("stlt", "stlt_rel") for bt in cfg.block_types())
     total["s_eff"] = total["s_eff"] / max(1, n_stlt)

@@ -6,8 +6,9 @@ The interface mirrors the JAX package's (itself optax-like):
 ``updates, state = opt.update(grads, state, params, lr, wd_mask)`` with
 ``wd_mask = default_wd_mask(params, cfg)``;
 ``params = apply_updates(params, updates)``. The update is functional (new
-tensors, nothing modified in place), as there. Moments are fp32 (the port
-trains in fp32 only).
+tensors, nothing modified in place), as there. The moments are stored in
+``moment_dtype`` (bf16 halves the optimizer's memory) and the arithmetic is
+fp32 whatever it is, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,10 +29,11 @@ class Optimizer(NamedTuple):
 
 
 def adamw(b1: float = 0.9, b2: float = 0.98, eps: float = 1e-9,
-          weight_decay: float = 0.1) -> Optimizer:
+          weight_decay: float = 0.1,
+          moment_dtype: torch.dtype = torch.float32) -> Optimizer:
     def init(params):
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
 
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "count": 0}
@@ -44,12 +46,12 @@ def adamw(b1: float = 0.9, b2: float = 0.98, eps: float = 1e-9,
 
         def upd(g, m, v, p, wm):
             g = g.float()
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g * g
+            m_new = b1 * m.float() + (1 - b1) * g
+            v_new = b2 * v.float() + (1 - b2) * g * g
             step = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
             if wm:
                 step = step + wm * weight_decay * p.float()
-            return (-lr * step).to(p.dtype), m_new, v_new
+            return (-lr * step).to(p.dtype), m_new.to(moment_dtype), v_new.to(moment_dtype)
 
         out = [upd(*leaves) for leaves in zip(*map(tree_leaves, (
             grads, state["mu"], state["nu"], params, wd_mask)))]

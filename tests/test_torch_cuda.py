@@ -409,3 +409,49 @@ def test_k2_autograd_grads_on_the_card_match_the_cpu(dev, causal):
     for a, b in zip(*grads):
         scale = float(b.abs().max()) + 1e-12
         torch.testing.assert_close(a.cpu() / scale, b / scale, rtol=0, atol=2e-3)
+
+
+def test_bf16_train_steps_on_the_card_match_the_cpu(dev):
+    """Reduced SmolLM-360M-stlt in bf16 (remat on; the cast takes the
+    embedding and FFN matrices and leaves w_v fp32), two ``make_step`` steps
+    from the same weights on the card and on the CPU: 3 K1 launches a layer
+    a step (forward, recompute, dx), loss and grad norm within 1e-2 relative
+    (bf16 products summed in other orders), every moment leaf within 0.1 of
+    its norm, the params within 2 lr of a moving step (Adam's sign)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_flatten_with_paths, tree_map
+
+    cfg = get_config("smollm-360m", "stlt").reduced(
+        num_layers=2, d_model=256, d_ff=512, vocab=512, dtype="bfloat16", remat=True)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=10)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        opt, step_fn = train.make_step(cfg, tcfg)
+        p = tree_map(lambda t, w=where: t.to(w), params)
+        state, metrics = opt.init(p), []
+        k1.stlt_scan_kernel.launches = 0
+        for step in range(2):
+            batch = {k: torch.from_numpy(v).to(where)
+                     for k, v in lm_batch_stream(0, step, 2, 64, cfg.vocab).items()}
+            p, state, m = step_fn(p, state, batch, step)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        out[where.type] = (p, state, metrics, k1.stlt_scan_kernel.launches)
+    (pc, sc, mc, launches), (pp, sp, mp, _) = out["cuda"], out["cpu"]
+    assert launches == 2 * 3 * cfg.num_layers
+    for a, b in zip(mc, mp):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-2 * abs(b[k]), (k, a[k], b[k])
+    for name in ("mu", "nu"):
+        for (path, a), (_, b) in zip(tree_flatten_with_paths(sc[name]),
+                                     tree_flatten_with_paths(sp[name])):
+            rel = float(torch.linalg.vector_norm((a.cpu() - b).double())
+                        / torch.linalg.vector_norm(b.double()))
+            assert rel <= 0.1, (name, path, rel)
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(pc), tree_flatten_with_paths(pp)):
+        assert a.dtype == torch.float32
+        assert float((a.cpu() - b).abs().max()) <= 2 * tcfg.learning_rate + 1e-6, path

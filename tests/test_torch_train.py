@@ -1,8 +1,10 @@
 """Parity of the PyTorch port's training path with the JAX package, on the
 CPU: the anti-causal scan, the scan's VJP (dx by the same pass run
 anti-causally, analytic pole/mixer grads), the stochastic node masks with
-the JAX package's own draws fed in, AdamW, clipping, schedules, data, and
-whole train steps of ``stlt-base`` ``.reduced()``.
+the JAX package's own draws fed in, AdamW (fp32 and bf16 moments),
+adafactor, gradient compression, clipping, schedules, data and the data
+pipeline, remat, whole train steps of ``stlt-base`` ``.reduced()`` and
+bf16 train steps of SmolLM-360M-stlt at reduced widths, and the CLI.
 
 Inputs are made with numpy from a seed and fed to both packages. The JAX
 scan runs through its chunked reference, and at one tiny shape through its
@@ -12,8 +14,10 @@ beside each test: fp32 results within a few 1e-7 of their scale (summation
 order only), float64 ones within 1e-9, and equal where both packages do the
 same float32 arithmetic.
 """
+import dataclasses
 import functools
 import importlib
+import os
 import re
 from pathlib import Path
 
@@ -24,9 +28,11 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs.base import TrainConfig as JTrainConfig  # noqa: E402
 from repro.configs.stlt_base import CONFIG as J_CONFIG  # noqa: E402
 from repro.core import adaptive as j_adaptive  # noqa: E402
+from repro.data import pipeline as j_pipeline  # noqa: E402
 from repro.data import synthetic as j_synthetic  # noqa: E402
 from repro.data import text as j_text  # noqa: E402
 from repro.kernels import ops as j_ops  # noqa: E402
@@ -35,20 +41,28 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.optim import clip as j_clip  # noqa: E402
 from repro.optim import schedules as j_schedules  # noqa: E402
 from repro.utils import fold_key  # noqa: E402
+from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import optim as t_optim  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.configs.stlt_base import CONFIG as T_CONFIG  # noqa: E402
 from repro_torch.core import adaptive as t_adaptive  # noqa: E402
+from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.data import synthetic as t_synthetic  # noqa: E402
 from repro_torch.data import text as t_text  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
-from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.utils import (cast_params_for_compute, tree_flatten_with_paths,  # noqa: E402
+                               tree_leaves, tree_unflatten)
 from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
-# the module (``repro.optim`` re-exports its function under the same name)
+# the modules (``repro.optim`` re-exports their functions under the same names)
 j_adamw = importlib.import_module("repro.optim.adamw")
+j_adafactor = importlib.import_module("repro.optim.adafactor")
+j_compression = importlib.import_module("repro.optim.compression")
+j_optim = importlib.import_module("repro.optim")
+t_adafactor = importlib.import_module("repro_torch.optim.adafactor")
 ROOT = Path(__file__).resolve().parents[1]
 # fp32 scan outputs and grads, port vs JAX: max abs err / max |ref|
 REL_F32 = 1e-5
@@ -81,7 +95,7 @@ def _scan_inputs(seed, BH, N, d, S, dtype=np.float32):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    sources += [ROOT / "chip_smoke.py", ROOT / "tools" / "ab_port.py"]
+    sources += [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
     found = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
              for p in sources
@@ -376,8 +390,119 @@ def test_adamw_matches_jax_on_identical_grads():
                             jax.tree_util.tree_leaves(b)):
                 np.testing.assert_allclose(x, np.asarray(y), rtol=1e-6, atol=1e-12)
         assert ts["count"] == int(js["count"])
-    with pytest.raises(NotImplementedError):
-        t_optim.make_optimizer("adafactor")
+    # make_optimizer: adafactor takes only learning_rate and weight_decay,
+    # as the JAX package's drops the rest
+    jopt = j_optim.make_optimizer("adafactor", b1=0.5, weight_decay=0.01)
+    topt = t_optim.make_optimizer("adafactor", b1=0.5, weight_decay=0.01)
+    ju, _ = jopt.update(jax.tree_util.tree_map(jnp.asarray, grads[0]),
+                        jopt.init(jp), jp, 1e-3)
+    tu, _ = topt.update(_to_torch(grads[0]), topt.init(tp), tp, 1e-3)
+    for x, y in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(_np, tu)),
+                    jax.tree_util.tree_leaves(ju)):
+        np.testing.assert_allclose(x, np.asarray(y), rtol=1e-6, atol=1e-12)
+
+
+def _adafactor_tree(seed):
+    """Leaves on both sides of ``_factored``: matrices with both trailing
+    dims >= 8 (factored; one stacked 3-D), a [16, 4] matrix and vectors
+    (full second moments); some grads scaled up so update clipping acts."""
+    r = np.random.default_rng(seed)
+    f = lambda *s: r.normal(size=s).astype(np.float32)  # noqa: E731
+    return {"w": f(16, 8), "stacked": f(2, 12, 8), "thin": f(16, 4),
+            "b": f(8), "layers": [{"scale": 30 * f(10), "m": 30 * f(9, 11)}]}
+
+
+def test_adafactor_matches_jax():
+    """Three updates (lr 1e-3, 2e-3, 5e-3; weight decay 0.01) from the same
+    params and grads: updates, every second-moment leaf (factored vr/vc and
+    full v) and the params within 1e-5 relative (float32 on both sides;
+    XLA's pow, mean and sqrt may round the last bits differently)."""
+    shapes = ((16, 8), (2, 12, 8), (16, 4), (8,))
+    assert [j_adafactor._factored(s) for s in shapes] \
+        == [t_adafactor._factored(s) for s in shapes] == [True, True, False, False]
+    params = _adafactor_tree(0)
+    jopt = j_adafactor.adafactor(weight_decay=0.01)
+    topt = t_optim.adafactor(weight_decay=0.01)
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, params), _to_torch(params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    assert sorted(ts["v"]["w"]) == ["vc", "vr"] and sorted(ts["v"]["thin"]) == ["v"]
+    for seed, lr in zip((1, 2, 3), (1e-3, 2e-3, 5e-3)):
+        g = _adafactor_tree(seed)
+        ju, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp, lr)
+        tu, ts = topt.update(_to_torch(g), ts, tp, lr)
+        jp, tp = j_adamw.apply_updates(jp, ju), t_optim.apply_updates(tp, tu)
+        for a, b in ((tu, ju), (ts["v"], js["v"]), (tp, jp)):
+            got = jax.tree_util.tree_leaves(jax.tree_util.tree_map(_np, a))
+            want = jax.tree_util.tree_leaves(b)
+            assert len(got) == len(want)
+            for x, y in zip(got, want):
+                np.testing.assert_allclose(x, np.asarray(y), rtol=1e-5, atol=1e-12)
+        assert ts["count"] == int(js["count"])
+
+
+def test_adamw_bf16_moments_match_jax():
+    """``moment_dtype=bfloat16``: three updates; the moments are stored in
+    bf16 and equal JAX's bit for bit (the same fp32 arithmetic, rounded to
+    bf16); the updates within 1e-5 relative."""
+    params, grads = _tree(1), [_tree(2), _tree(3), _tree(4)]
+    jopt = j_adamw.adamw(moment_dtype=jnp.bfloat16)
+    topt = t_optim.adamw(moment_dtype=torch.bfloat16)
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, params), _to_torch(params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    wd = t_optim.default_wd_mask(tp, _models(False)[1])
+    for g, lr in zip(grads, (1e-3, 2e-3, 3e-3)):
+        ju, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp, lr)
+        tu, ts = topt.update(_to_torch(g), ts, tp, lr, wd)
+        jp, tp = j_adamw.apply_updates(jp, ju), t_optim.apply_updates(tp, tu)
+        for name in ("mu", "nu"):
+            assert all(t.dtype == torch.bfloat16 for t in tree_leaves(ts[name]))
+            got = jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+                lambda t: t.float().numpy(), ts[name]))
+            for x, y in zip(got, jax.tree_util.tree_leaves(js[name])):
+                np.testing.assert_array_equal(x, np.asarray(y, np.float32))
+        for x, y in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(_np, tu)),
+                        jax.tree_util.tree_leaves(ju)):
+            np.testing.assert_allclose(x, np.asarray(y), rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["none", "bf16", "bf16_ef"])
+def test_compress_gradients_matches_jax(mode):
+    """Four steps of compression on fresh grads: the compressed grads (bf16:
+    a round to nearest even on both sides) and the error accumulator equal
+    JAX's bit for bit; with error feedback the sum of what was sent plus the
+    final residual is the sum of the grads."""
+    tree = _tree(6)
+    je = j_compression.init_error_state(jax.tree_util.tree_map(jnp.asarray, tree))
+    te = t_optim.init_error_state(_to_torch(tree))
+    sent = jax.tree_util.tree_map(np.zeros_like, tree)
+    total = jax.tree_util.tree_map(np.zeros_like, tree)
+    for step in range(4):
+        g = jax.tree_util.tree_map(lambda a, k=step: a * (1 + 1e-3 * k), _tree(7 + step))
+        jq, je2 = j_compression.compress_gradients(
+            jax.tree_util.tree_map(jnp.asarray, g), mode, je if mode == "bf16_ef" else None)
+        tq, te2 = t_optim.compress_gradients(_to_torch(g), mode,
+                                             te if mode == "bf16_ef" else None)
+        for x, y in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+                lambda t: t.float().numpy(), tq)), jax.tree_util.tree_leaves(jq)):
+            np.testing.assert_array_equal(x, np.asarray(y, np.float32))
+        if mode == "bf16_ef":
+            je, te = je2, te2
+            for x, y in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(_np, te)),
+                            jax.tree_util.tree_leaves(je)):
+                np.testing.assert_array_equal(x, np.asarray(y))
+            sent = jax.tree_util.tree_map(lambda a, q: a + np.asarray(q, np.float32),
+                                          sent, jq)
+            total = jax.tree_util.tree_map(np.add, total, g)
+        else:
+            assert te2 is None
+        want_dtype = torch.float32 if mode == "none" else torch.bfloat16
+        assert all(t.dtype == want_dtype for t in tree_leaves(tq))
+    if mode == "bf16_ef":
+        for s_, r, t in zip(*(jax.tree_util.tree_leaves(x) for x in (
+                sent, jax.tree_util.tree_map(_np, te), total))):
+            np.testing.assert_allclose(s_ + r, t, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):
+        t_optim.compress_gradients(_to_torch(tree), "bf16_ef")
 
 
 @pytest.mark.parametrize("max_norm", [1.0, 1e3])
@@ -425,6 +550,35 @@ def test_byte_corpus_batch_is_identical():
         want, got = jc.batch(step, 3, 32, split), tc.batch(step, 3, 32, split)
         for k in ("inputs", "labels"):
             np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_data_pipeline_matches_jax_and_seeks():
+    """``DataPipeline`` yields (step, batch) in step order from its start
+    step, the same batches as the JAX package's pipeline (values; the JAX
+    one holds them as jax arrays), as CPU tensors without a device; setting
+    ``step`` forward (a resume seek) drops the batches made before it."""
+    def batch_fn(step):
+        return t_synthetic.lm_batch_stream(4, step, 2, 16, 300)
+
+    jpipe = j_pipeline.DataPipeline(batch_fn, prefetch=2, start_step=3)
+    tpipe = DataPipeline(batch_fn, prefetch=2, start_step=3)
+    try:
+        for want_step in (3, 4, 5):
+            js_, jb = next(jpipe)
+            ts_, tb = next(tpipe)
+            assert js_ == ts_ == want_step
+            for k in ("inputs", "labels"):
+                assert tb[k].device.type == "cpu"
+                np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
+        tpipe.step = 9                              # seek forward
+        step, tb = next(tpipe)
+        assert step == 9 and tpipe.step == 10
+        np.testing.assert_array_equal(tb["inputs"].numpy(), batch_fn(9)["inputs"])
+        assert [next(tpipe)[0] for _ in range(2)] == [10, 11]
+    finally:
+        jpipe.close()
+        tpipe.close()
+    assert not tpipe._thread.is_alive()
 
 
 # ---------------------------------------------------------------------------
@@ -562,11 +716,273 @@ def test_train_steps_match_jax_make_step(scan_layers, steps):
             torch.testing.assert_close(p, w, rtol=0, atol=0)
 
 
+# ---------------------------------------------------------------------------
+# (8) remat, bf16 train steps, resume, the CLI
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_changes_no_values(policy, monkeypatch):
+    """Remat off against ``policy`` on the scanned reduced model: the loss,
+    the metrics and every grad leaf are EQUAL (tolerance 0: the CPU
+    recomputes the same ops in the same order). Remat recomputes each
+    block's scan in backward: 3 passes a layer (forward, recompute, dx)
+    against 2. ``dots`` keeps the un-batched products: its backward runs as
+    many ``aten.mm`` as no remat, ``full`` runs them again."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.mm += func is torch.ops.aten.mm.default
+            return func(*args, **(kwargs or {}))
+
+    passes = []
+    plain = t_ops.stlt_scan_reference
+    monkeypatch.setattr(t_ops, "stlt_scan_reference",
+                        lambda *a, **k: passes.append(1) or plain(*a, **k))
+    _, tcfg, tree = _models(True)
+    assert tcfg.remat is False            # .reduced() turns it off, as in JAX
+    params = _port_tree(tree, tcfg)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+    draws = _jax_draws(_models(True)[0], 0, 0)
+    out = {}
+    for name, cfg in (("off", tcfg),
+                      (policy, dataclasses.replace(tcfg, remat=True, remat_policy=policy))):
+        passes.clear()
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, metrics = TT.lm_loss(tree_unflatten(params, leaves), cfg, batch,
+                                   deterministic=False, tau=0.5, draws=draws)
+        with CountMM() as count:
+            grads = torch.autograd.grad(loss, leaves)
+        out[name] = (loss, metrics, grads, len(passes), count.mm)
+    (l0, m0, g0, p0, mm0), (l1, m1, g1, p1, mm1) = out["off"], out[policy]
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    for k in m0:
+        torch.testing.assert_close(m1[k], m0[k], rtol=0, atol=0)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (p0, p1) == (2 * tcfg.num_layers, 3 * tcfg.num_layers)
+    assert mm0 > 0 and (mm1 == mm0 if policy == "dots" else mm1 > mm0)
+    with torch.no_grad():                  # no backward: nothing is wrapped
+        passes.clear()
+        TT.apply_lm(params, dataclasses.replace(tcfg, remat=True), batch["inputs"])
+        assert len(passes) == tcfg.num_layers
+
+
+# bf16: SmolLM-360M-stlt at widths where the cast (matrices of more than
+# 65,536 elements) takes the embedding (512 x 256) and the FFN (256 x 512)
+# and leaves w_v (256 x 256 = 65,536) in fp32; remat on, layers scanned.
+BF16_KW = dict(num_layers=2, d_model=256, d_ff=512, vocab=512, dtype="bfloat16",
+               remat=True, scan_layers=True)
+# port vs JAX, bf16 compute (XLA keeps fused bf16 chains in fp32, torch
+# rounds each op): loss, ce, grad_norm relative (measured <= 1.4e-4 over 3
+# steps); the moments per leaf ||m_port - m_jax|| / ||m_jax|| (mu is the
+# clipped grad, measured <= 0.027, T_hat's, at step 0)
+BF16_METRIC_RTOL = 1e-3
+BF16_MOMENT_REL = 0.1
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_models():
+    jcfg = j_get_config("smollm-360m", "stlt").reduced(**BF16_KW)
+    tcfg = t_configs.get_config("smollm-360m", "stlt").reduced(**BF16_KW)
+    tree = jax.tree_util.tree_map(np.asarray, JT.init_lm(jax.random.key(0), jcfg))
+    return jcfg, tcfg, tree, j_train.make_step(jcfg, JTrainConfig(**TCFG))
+
+
+def _bf16_batch(step):
+    return j_synthetic.lm_batch_stream(0, step, B, N, BF16_KW["vocab"])
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_bf16_train_steps_match_jax_make_step(steps):
+    """Reduced SmolLM-360M-stlt in bf16 (remat, scanned layers), ``make_step``
+    against ``repro.launch.train.make_step`` over 1 and 3 steps: both cast
+    the matrices inside the loss, so fp32 masters get fp32 grads. Metrics
+    within BF16_METRIC_RTOL, each moment leaf within BF16_MOMENT_REL (norm),
+    the params within 2 lr per moving step (Adam's sign argument of the fp32
+    test) and unmoved at step 0's lr of 0."""
+    jcfg, tcfg, tree, (jopt, jstep) = _bf16_models()
+    cast = dict(tree_flatten_with_paths(cast_params_for_compute(
+        _port_tree(tree, tcfg), torch.bfloat16)))
+    assert cast["embed/embed"].dtype == cast["layers/1/ffn/w1"].dtype == torch.bfloat16
+    assert cast["layers/1/stlt/w_v"].dtype == torch.float32
+    topt, tstep = t_train.make_step(tcfg, TrainConfig(**TCFG))
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = _port_tree(tree, tcfg)
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(steps):
+        batch = _bf16_batch(step)
+        jp, js, mj = jstep(jp, js, {k: jnp.asarray(v) for k, v in batch.items()}, step)
+        tp, ts, mt = tstep(tp, ts, {k: torch.from_numpy(v) for k, v in batch.items()},
+                           step)
+        for k in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(float(mt[k]), float(mj[k]), rtol=BF16_METRIC_RTOL,
+                                       err_msg=f"step {step} {k}")
+    assert ts["count"] == int(js["count"]) == steps
+    for name in ("mu", "nu"):
+        want = _port_tree(jax.tree_util.tree_map(np.asarray, js[name]), tcfg)
+        got = tree_flatten_with_paths(ts[name])
+        assert len(got) == 2 * 12 + 2
+        for (path, g), (_, w) in zip(got, tree_flatten_with_paths(want)):
+            assert g.dtype == torch.float32, path
+            rel = float(torch.linalg.vector_norm((g - w).double())
+                        / torch.linalg.vector_norm(w.double()))
+            assert rel <= BF16_MOMENT_REL, (name, path, rel)
+    want = tree_flatten_with_paths(_port_tree(jax.tree_util.tree_map(np.asarray, jp), tcfg))
+    for (path, p), (_, w) in zip(tree_flatten_with_paths(tp), want):
+        assert p.dtype == torch.float32, path
+        bound = 2 * TCFG["learning_rate"] * (steps - 1) + 1e-6
+        assert float((p - w).abs().max()) <= bound, path
+
+
+def test_resume_after_two_of_four_steps_is_bit_exact(tmp_path):
+    """4 straight ``make_step`` steps == 2 steps, an async save, a restore
+    into fresh state, 2 more: every param and moment and the count EQUAL
+    (the CPU's arithmetic is deterministic and the checkpoint holds fp32
+    exactly). The saved tree is a snapshot: changing the live tensors after
+    ``save`` does not reach the file."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    _, tcfg, tree = _models(True)
+    topt, tstep = t_train.make_step(tcfg, TrainConfig(**TCFG))
+
+    def fresh():
+        params = _port_tree(tree, tcfg)
+        return {"params": params, "opt": topt.init(params)}
+
+    def run(state, start, stop):
+        for step in range(start, stop):
+            batch = {k: torch.from_numpy(v) for k, v in _batch(step).items()}
+            p, o, _ = tstep(state["params"], state["opt"], batch, step)
+            state = {"params": p, "opt": o}
+        return state
+
+    gold = run(fresh(), 0, 4)
+    mgr = CheckpointManager(str(tmp_path), async_saves=True)
+    half = run(fresh(), 0, 2)
+    mgr.save(1, half)
+    for t in tree_leaves(half["params"]):
+        t.add_(1.0)                         # after save: must not reach the file
+    mgr.wait()
+    restored, step = mgr.restore_or_init(fresh)
+    assert step == 1 and restored["opt"]["count"] == 2
+    resumed = run(restored, 2, 4)
+    assert resumed["opt"]["count"] == gold["opt"]["count"] == 4
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(resumed),
+                                 tree_flatten_with_paths(gold)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=path)
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+    """The JAX package trains the scanned reduced model 2 steps and its
+    ``CheckpointManager`` saves {"params", "opt"}; ``from_jax_checkpoint``
+    reads it (numpy only): params and moments equal JAX's bit for bit,
+    unstacked. The port's step 3 (step index 2) from there against JAX's
+    step 3: metrics, moments and params within the fp32 train-step
+    tolerances (one moving step)."""
+    from repro.checkpoint import CheckpointManager as JCheckpointManager
+
+    jcfg, tcfg, tree = _models(True)
+    jopt, jstep = _j_make_step(True)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    js = jopt.init(jp)
+    for step in range(2):
+        jb = {k: jnp.asarray(v) for k, v in _batch(step).items()}
+        jp, js, _ = jstep(jp, js, jb, step)
+    JCheckpointManager(str(tmp_path), async_saves=False).save(1, {"params": jp, "opt": js})
+    state, step = convert.from_jax_checkpoint(str(tmp_path), tcfg, device="cpu")
+    assert step == 1 and state["opt"]["count"] == 2
+    for got, want in ((state["params"], jp), (state["opt"]["mu"], js["mu"]),
+                      (state["opt"]["nu"], js["nu"])):
+        want = dict(tree_flatten_with_paths(
+            _port_tree(jax.tree_util.tree_map(np.asarray, want), tcfg)))
+        got = dict(tree_flatten_with_paths(got))
+        assert sorted(got) == sorted(want) and len(got) == 2 * 17 + 3
+        for path, g in got.items():
+            torch.testing.assert_close(g, want[path], rtol=0, atol=0, msg=path)
+    _, tstep = t_train.make_step(tcfg, TrainConfig(**TCFG))
+    batch = _batch(2)
+    jp, js, mj = jstep(jp, js, {k: jnp.asarray(v) for k, v in batch.items()}, 2)
+    tp, ts, mt = tstep(state["params"], state["opt"],
+                       {k: torch.from_numpy(v) for k, v in batch.items()}, 2,
+                       draws=_jax_draws(jcfg, 0, 2))
+    for k in ("loss", "ce", "reg", "s_eff", "grad_norm"):
+        np.testing.assert_allclose(float(mt[k]), float(mj[k]), rtol=METRIC_RTOL, err_msg=k)
+    for name in ("mu", "nu"):
+        want = dict(tree_flatten_with_paths(
+            _port_tree(jax.tree_util.tree_map(np.asarray, js[name]), tcfg)))
+        for path, g in tree_flatten_with_paths(ts[name]):
+            w = want[path]
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()) + 1e-30, path
+    want = dict(tree_flatten_with_paths(_port_tree(jax.tree_util.tree_map(np.asarray, jp),
+                                                   tcfg)))
+    for path, p in tree_flatten_with_paths(tp):
+        err = (p - want[path]).abs()
+        assert float(err.max()) <= 2 * TCFG["learning_rate"] + 1e-6, path
+        assert float((err > 1e-6).double().mean()) <= 1e-3, path
+
+
 def test_train_cli_runs_on_the_cpu(capsys):
+    """The CLI on a reduced arch; and a bf16 config trains: ``make_step`` of
+    reduced SmolLM-360M-stlt in bf16, step 0's loss against the JAX
+    package's within BF16_METRIC_RTOL."""
     t_train.main(["--arch", "stlt-base", "--reduced", "--device", "cpu",
                   "--steps", "2", "--batch", "2", "--seq", "32", "--data", "synthetic",
                   "--log-every", "1"])
     out = capsys.readouterr().out
     assert out.count("[train] step") == 2 and "[train] done" in out
-    with pytest.raises(NotImplementedError, match="mixed-precision"):
-        t_train.make_step(T_CONFIG.reduced(dtype="bfloat16"), TrainConfig())
+    jcfg, tcfg, tree, (jopt, jstep) = _bf16_models()
+    topt, tstep = t_train.make_step(tcfg, TrainConfig())
+    tp = _port_tree(tree, tcfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    batch = _bf16_batch(0)
+    _, _, mj = jstep(jp, jopt.init(jp), {k: jnp.asarray(v) for k, v in batch.items()}, 0)
+    _, _, mt = tstep(tp, topt.init(tp), {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
+    np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]), rtol=BF16_METRIC_RTOL)
+
+
+def test_train_cli_paper_small_default_and_resume(tmp_path, capsys, monkeypatch):
+    """No ``--arch``: the paper-small preset (4 layers, d_model 256, 32
+    adaptive nodes, 3.0M params). With ``--ckpt-dir``: 4 steps straight
+    equal the same command stopped right after its checkpoint of step 2 (a
+    preemption) and run again, which resumes from step 2 for steps 3, bit
+    for bit; the resume line names the step."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Preempted(Exception):
+        pass
+
+    class PreemptedAfterStep2(CheckpointManager):
+        def save(self, step, tree):
+            super().save(step, tree)
+            if step == 2:
+                self.wait()
+                raise Preempted
+
+    argv = ["--device", "cpu", "--batch", "2", "--seq", "32", "--data", "synthetic",
+            "--log-every", "1", "--save-every", "2", "--steps", "4"]
+    cfg = t_train.paper_small()
+    assert (cfg.name, cfg.num_layers, cfg.d_model, cfg.stlt_nodes, cfg.remat) == \
+        ("stlt-paper-small", 4, 256, 32, False)
+    gold = t_train.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    out = capsys.readouterr().out
+    assert "stlt-paper-small: 3.0M params on cpu, resume from step -1" in out
+    assert sorted(os.listdir(tmp_path / "a")) == ["step_00000002", "step_00000003"]
+    with monkeypatch.context() as m:
+        m.setattr(t_train, "CheckpointManager", PreemptedAfterStep2)
+        with pytest.raises(Preempted):
+            t_train.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+    assert os.listdir(tmp_path / "b") == ["step_00000002"]
+    capsys.readouterr()
+    resumed = t_train.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+    out = capsys.readouterr().out
+    assert "resume from step 2" in out and out.count("[train] step") == 1
+    assert resumed["opt"]["count"] == gold["opt"]["count"] == 4
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(resumed),
+                                 tree_flatten_with_paths(gold)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=path)
