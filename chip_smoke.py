@@ -40,6 +40,20 @@ every grad leaf), 5 AdamW steps (96 K1 launches each), timed, the peak
 memory with remat full, dots and off, one step profiled; then the
 paper-small preset through the training CLI with a checkpoint directory,
 a run stopped after its checkpoint and resumed, against two straight runs.
+Phase W runs whisper-base's STLT variant at full width in bf16 (the
+enc-dec family: a bilateral STLT encoder, each layer a causal and an
+anti-causal K1 call, the cross-STLT and a causal STLT decoder): W1 encodes
+4 x 1500 frame embeddings (12 K1 launches) and decodes 64 tokens greedily
+(none), each step held to the teacher-forced forward on the produced tokens
+under the near-tie rule (a bound on rounding noise at full depth), then at
+2 + 2 layers in fp32 the card against the CPU (logits and step 0's grads)
+and each decode step against the teacher-forced forward within what the
+JAX package's own two forms meet, the encode and a decode step timed and
+the step profiled beside its HBM bound; W2 trains at 8 x (1500 frames,
+448 tokens): step 0 with remat against remat off and against fp32
+compute, 5 AdamW steps (54 K1 launches each), the peak memory with remat
+on and off, one step profiled. K1 is also checked and timed at phase W's
+shapes, in both directions.
 It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
@@ -95,9 +109,13 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # window resumed from h0 and the node draft's commit with per-row valid.
 # Last, phase T3's training rows: SmolLM-360M-stlt at batch 8 x 1024 tokens
 # (8 x 15 heads, S = 32), forward, remat recompute and the anti-causal dx.
+# Then phase W's whisper-base-stlt rows (8 heads, S = 32): the encode's
+# 4 x 1500 frames (a causal and an anti-causal call a layer), and the
+# training step's 8 x 1500 frames and 8 x 448 decoder tokens.
+K1_WHISPER = ((32, 1500, 32), (64, 1500, 32), (64, 448, 32))
 K1_SHAPES = ((32, 1000, 64), (8, 1000, 64), (8, 131072, 64), (8, 512, 64),
              (32, 512, 64), (32, 3000, 64), (15, 512, 32), (60, 512, 32), (60, 5, 32),
-             (120, 1024, 32))
+             (120, 1024, 32)) + K1_WHISPER
 K1_VERIFY = (60, 5, 32)
 K1_TRAIN = (120, 1024, 32)
 LONG_N = 131072
@@ -146,6 +164,66 @@ TRAIN_GRAD_TOL = 1e-3
 T3_B, T3_N = 8, 1024
 T3_BF16_LOSS_TOL = 1e-3
 T3_BF16_GRAD_TOL = 0.15
+# Phase W (whisper-base-stlt, bf16, matrices cast as serving_params casts
+# them): encode W_B x steps.WHISPER_ENC_FRAMES frame embeddings, decode
+# W_NEW tokens greedily; train at W_TRAIN_B x (the same frames, W_TRAIN_N
+# tokens).
+W_B, W_NEW = 4, 64
+W_TRAIN_B, W_TRAIN_N = 8, 448
+# The gates that can fail a wrong decoder or wrong grads are the fp32 ones
+# at the model's widths cut to 2 + 2 layers, batch 1, 1500 frames
+# (whisper_cpu_check): card against CPU (decode-step and teacher-forced
+# logits, max abs, within W_CPU_TOL: fp32 but for K1's 3xTF32 products;
+# step 0's loss and grad leaves within TRAIN_LOSS_TOL and TRAIN_GRAD_TOL),
+# and on each side every decode step against the teacher-forced forward on
+# the same tokens, within W_FP32_STEP_TOL. The two forms are one function,
+# so their gap is rounding, which the cross-STLT's softmax amplifies at
+# random init (its scores reach the hundreds). The JAX package's own forms
+# part by 9.9e-5 to 2.08e-3 at this shape over 24 seeds
+# (tests/jax_whisper_gaps.py on the CPU): the tolerance is ~2.4x the
+# largest.
+W_CPU_STEPS = 8
+W_CPU_TOL = 1e-3
+W_FP32_STEP_TOL = 5e-3
+# Step 0's fp32 grads there, card against CPU: the loss is well conditioned
+# (TRAIN_LOSS_TOL), the grads are not. Everything upstream of the
+# cross-STLT's softmax moves far on a rounding-sized change: the CPU
+# against itself with K1's chunk halved (summation order only) parts by
+# 2.3e-3 over the whole grad and 5.5e-3 at the worst leaf, and the card
+# (3xTF32 products in K1, 2^-22 relative against fp32's 2^-24, and cuBLAS's
+# summation order) by 15x and 22x that, alike on every leaf upstream of the
+# softmax (PERF.md, phase W). So the gate is a multiple of the floor read
+# in the same run, ~3x those ratios: it fails a grad leaf that is wrong by
+# more than about a third, not a subtle error; the CPU tests hold the port's
+# grads to the JAX package's to 1e-3 at reduced widths.
+W_GRAD_FLOOR_X = 64
+# At full depth that amplification compounds from layer to layer: the JAX
+# package's own fp32 forms part by up to 0.065 at 2 + 6 layers over 4 seeds
+# (the same tool), and the H100 read 0.254 at 6 + 6 (fp32), 0.918 and 1.004
+# (bf16, where the JAX package's step also casts the attention weights to
+# bf16 before their product with the values, and its forward does not), at
+# a logit scale of ~2.1 (PERF.md, phase W). So the full-depth gates below
+# bound rounding noise only, ~1.6x the card's largest reading each: with
+# the launch counts and the finiteness checks, they show that the
+# full-width path runs; they cannot tell a wrong decoder from rounding.
+# W_TIE_TOL is phase P's near-tie rule at twice the bf16 cap.
+W_GAP_CAP = 1.6
+W_TIE_TOL = 2 * W_GAP_CAP
+W_FP32_GAP_CAP = 0.4
+# W2 step 0, bf16 compute vs fp32 compute from the same fp32 masters: loss
+# relative, each grad leaf ||g_bf16 - g_fp32|| / ||g_fp32||. Through the
+# cross-STLT's sharp softmax the bf16 grads are rounding-dominated: the
+# H100 read loss 3.1e-5 / 4.0e-5 and worst leaves 2.39 (an encoder T_hat)
+# and 18.75 (dec_embed) before and after a change of the scan's summation
+# order (PERF.md, phase W). At reduced widths on the CPU either package's
+# bf16 grads part from its fp32 ones by 0.125 (whole grad) and 0.68 (worst
+# leaf), while the port's bf16 grads follow the JAX package's op-by-op bf16
+# ones within 0.025 and 0.126: tests/test_torch_encdec.py holds that. The
+# loss gate is a quarter of a bf16 ulp; the grad gate, 1.6x the larger
+# reading, only bounds that noise (every leaf is also checked finite and
+# non-zero; the tight grad checks are the fp32 ones above).
+W_BF16_LOSS_TOL = 1e-3
+W_BF16_GRAD_TOL = 30.0
 # paper-small through the CLI: a run resumed at step 3 of 6 against an
 # uninterrupted one, as far apart as two uninterrupted runs (max abs over
 # params and moments) twice over, plus this (absolute; weights are O(1))
@@ -200,6 +278,22 @@ def kernel_name(key: str) -> str:
     """A kernel's name without its namespace and arguments."""
     found = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
     return found.group(1) if found else key[:40]
+
+
+def top_kernels(kernels, n: int = 10) -> list:
+    """The ``n`` kernels of most device time among profiler events, by
+    name: [name, ms, launches] each."""
+    rows = {}
+    for e in kernels:
+        r = rows.setdefault(kernel_name(e.name), [0.0, 0])
+        r[0] += e.time_range.elapsed_us() / 1e3
+        r[1] += 1
+    return [[name, t, c] for name, (t, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:n]]
+
+
+def log_top_kernels(tag: str, top: list, busy_ms: float):
+    for name, t, count in top:
+        log(f"[{tag} profile]   {t:9.4f} ms  {count:6d}x  {100 * t / busy_ms:5.1f}%  {name[:70]}")
 
 
 def k1_bound(BH, N, d, C, S, valid):
@@ -559,13 +653,7 @@ def train_profile(fn, cfg, tag: str) -> dict:
         f"{pg_dev:.3f} ms of device time ({100 * pg_dev / busy:.1f}%), {pg_host:.2f} ms "
         f"of host time ({100 * pg_host / wall_ms:.1f}% of the wall); GEMMs {gemm:.3f} ms "
         f"({100 * gemm / busy:.1f}%)")
-    rows = {}
-    for e in kernels:
-        r = rows.setdefault(kernel_name(e.name), [0.0, 0])
-        r[0] += e.time_range.elapsed_us() / 1e3
-        r[1] += 1
-    for name, (t, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[{tag} profile]   {t:9.3f} ms  {count:6d}x  {100 * t / busy:5.1f}%  {name[:70]}")
+    log_top_kernels(tag, top_kernels(kernels), busy)
     return out
 
 
@@ -659,13 +747,18 @@ def train_phase(T, train, k1, cfg, dev, B, N) -> dict:
             "launches_per_step": counts[-1], **prof}
 
 
-def grad_gaps(a: dict, b: dict, what: str) -> tuple:
+def grad_gaps(a: dict, b: dict, what: str, unread=lambda path: False) -> tuple:
     """(worst leaf, worst ||a - b|| / ||b||, leaves) over two grad trees;
-    raises if a leaf of either is not finite or is zero."""
+    raises if a leaf of either is not finite or is zero. A leaf the loss
+    does not read (``unread(path)``) must be exactly zero in both."""
     from repro_torch.utils import tree_flatten_with_paths
 
     worst, n = ("", 0.0), 0
     for (path, x), (_, y) in zip(tree_flatten_with_paths(a), tree_flatten_with_paths(b)):
+        if unread(path):
+            if bool(x.any()) or bool(y.any()):
+                raise AssertionError(f"{what}: {path} is not read, but has a grad")
+            continue
         for t in (x, y):
             if not (bool(torch.isfinite(t).all()) and float(t.abs().max()) > 0):
                 raise AssertionError(f"{what}: grad of {path} is not finite or is zero")
@@ -675,6 +768,24 @@ def grad_gaps(a: dict, b: dict, what: str) -> tuple:
         if r >= worst[1]:
             worst = (path, r)
     return worst[0], worst[1], n
+
+
+def whole_grad_gap(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every leaf of two grad trees at once."""
+    from repro_torch.utils import tree_leaves
+
+    num = sum(float(((x - y).double() ** 2).sum()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    return (num / sum(float((y.double() ** 2).sum()) for y in tree_leaves(b))) ** 0.5
+
+
+def log_top_leaves(tag: str, a: dict, b: dict, n: int = 8):
+    from repro_torch.utils import tree_flatten_with_paths
+
+    rel = {p: float(torch.linalg.vector_norm((x - y).double())
+                    / max(float(torch.linalg.vector_norm(y.double())), 1e-30))
+           for (p, x), (_, y) in zip(tree_flatten_with_paths(a), tree_flatten_with_paths(b))}
+    log(f"[{tag}] " + ", ".join(f"{p} {r:.2e}" for p, r in
+                                sorted(rel.items(), key=lambda kv: -kv[1])[:n]))
 
 
 def smollm_train_phase(T, train, k1, cfg, dev, B, N) -> dict:
@@ -973,35 +1084,43 @@ def wave_stream_check(T, cfg, params, dev, reqs, arrivals, served, stats):
     return [max(len(r.prompt) for r in w) for w in waves], ties
 
 
-def serve_profile(fn, ticks: int, k1_calls: int) -> dict:
-    """One profiled call of ``fn`` (a serve, or a decode step): its wall,
-    the device's busy share (kernel time summed over the wall), kernel
-    launches per decode tick, and K1's share of device time. Only the
-    device's kernels are recorded (host events would cost minutes to read
-    back on a serve of hundreds of thousands of launches). The profiler
-    can drop kernels, so a profile whose K1 kernels are not 4 x ``k1_calls``
-    (or that recorded none) is taken again, up to three takes; None when no
-    take is whole."""
+def serve_profile(fn, ticks: int, k1_calls: int, annotations=()) -> dict:
+    """One profiled call of ``fn`` (a serve, a decode step, a train step):
+    its wall, the device's busy share (kernel time summed over the wall),
+    kernel launches per decode tick, K1's share of device time, and the ten
+    kernels of most device time. Only the device's kernels are recorded
+    (host events would cost minutes to read back on a serve of hundreds of
+    thousands of launches), unless ``annotations`` (``record_function``
+    spans of the port) are asked for: then host events too, and the device
+    time of the kernels under each span. The profiler can drop kernels, so
+    a profile whose K1 kernels are not 4 x ``k1_calls`` (or that recorded
+    none) is taken again, up to three takes; None when no take is whole."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if annotations else [])
     for _ in range(3):
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=activities) as prof:
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.time() - t0)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in tuple(annotations) + ANNOTATIONS]
         if kernels and sum(bool(K1_KERNEL.search(e.name)) for e in kernels) == 4 * k1_calls:
             break
     else:
         return None
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     k1_ms = sum(e.time_range.elapsed_us() for e in kernels if K1_KERNEL.search(e.name)) / 1e3
+    spans = {a: sum(e.device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU and e.name == a) / 1e3
+             for a in annotations}
     return {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms,
             "launches": len(kernels), "launches_per_tick": len(kernels) / max(ticks, 1),
-            "k1_ms": k1_ms, "k1_share": k1_ms / busy if busy else 0.0}
+            "k1_ms": k1_ms, "k1_share": k1_ms / busy if busy else 0.0, "spans_ms": spans,
+            "top": top_kernels(kernels)}
 
 
 def serve_phase(T, k1, cfg, params, dev) -> dict:
@@ -1377,6 +1496,403 @@ def spec_phase(T, k1, cfg, dev, k1_rows) -> dict:
             "tie_gap": tie_gap, "same": same}
 
 
+# ---------------------------------------------------------------------------
+# Phase W: whisper-base's STLT variant (the encoder-decoder family)
+# ---------------------------------------------------------------------------
+
+
+def whisper_k1_calls(cfg, grad: bool) -> int:
+    """K1 calls of one enc-dec forward (grad=False: 2 a bilateral encoder
+    layer, 1 a decoder layer) or forward + backward (each call's dx pass in
+    the other direction, and the remat recompute of a side the JAX package
+    stacks: ``scan_layers`` and more than one layer)."""
+    L, Ld = cfg.num_layers, cfg.num_decoder_layers
+    if not grad:
+        return 2 * L + Ld
+    remat = lambda n: cfg.remat and cfg.scan_layers and n > 1  # noqa: E731
+    return (4 + 2 * remat(L)) * L + (2 + remat(Ld)) * Ld
+
+
+def whisper_profile(fn, tag: str, k1_calls: int, annotations=()) -> dict:
+    """``serve_profile`` of one call of ``fn`` in phase W, logged with its
+    spans and its ten largest kernels."""
+    out = serve_profile(fn, 1, k1_calls, annotations)
+    if out is None:
+        log(f"[{tag} profile] not measured (every profile dropped kernels)")
+        return None
+    log(f"[{tag} profile] wall {out['wall_ms']:.3f} ms (profiled), device busy "
+        f"{out['busy_ms']:.3f} ms = {100 * out['busy']:.1f}% of wall, {out['launches']} kernel "
+        f"launches; K1 {out['k1_ms']:.4f} ms ({k1_calls} calls); " + ", ".join(
+            f"{a} {t:.4f} ms ({100 * t / out['busy_ms']:.1f}%)"
+            for a, t in out["spans_ms"].items()))
+    log_top_kernels(tag, out["top"], out["busy_ms"])
+    return out
+
+
+def whisper_frames(cfg, dev, B: int, M: int, seed: int):
+    """Random frame embeddings [B, M, d], the stub frontend's output."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, M, cfg.d_model, generator=g, device=dev)
+
+
+def whisper_decode_phase(W, steps, k1, cfg, dev, B=W_B, new=W_NEW) -> dict:
+    """Phase W1: full-width whisper-base-stlt, matrices cast as
+    ``steps.serving_params`` casts them. Encode B x M frames (the prefill:
+    encode + each decoder layer's cross context; 2 K1 calls an encoder
+    layer), decode ``new`` tokens greedily from token 1 (no K1), and hold
+    each step's logits against ``apply_encdec`` teacher-forced on the
+    produced tokens: the largest gap, printed, at most W_GAP_CAP, and every
+    token the teacher's argmax or within W_TIE_TOL of it (bounds on
+    rounding noise; the tight checks are ``whisper_cpu_check``'s). Times the encode,
+    the prefill and a decode step by CUDA events and profiles a decode step
+    (the cross context's score products beside the step's HBM bound)."""
+    smi, M = smi_line(), steps.WHISPER_ENC_FRAMES
+    masters = W.init_encdec(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = steps.serving_params(masters, cfg)
+    frames = whisper_frames(cfg, dev, B, M, seed=0)
+    L, Ld = cfg.num_layers, cfg.num_decoder_layers
+    prefill, decode = steps.prefill_fn(cfg, new), steps.decode_fn(cfg)
+    from repro_torch.kernels import relevance_flash as k2
+
+    with torch.no_grad():
+        prefill(params, frames)                  # first call: one-time costs
+        torch.cuda.synchronize()
+        k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
+        state = prefill(params, frames)
+        torch.cuda.synchronize()
+        enc_launches = k1.stlt_scan_kernel.launches
+        if enc_launches != 2 * L or k2.relevance_flash_kernel.launches:
+            raise AssertionError(f"W1: {enc_launches} K1 launches in the encode (expected "
+                                 f"{2 * L}), {k2.relevance_flash_kernel.launches} K2")
+        state_gib = sum(t.numel() * t.element_size() for st in state["dec"]
+                        for part in st.values() for t in part.values()) / 2**30
+        tok = torch.ones(B, dtype=torch.int64, device=dev)
+        k1.stlt_scan_kernel.launches = 0
+        rows, toks, st = [], [], state
+        for _ in range(new):
+            logits, st = decode(params, tok, st)
+            tok = logits.argmax(-1)
+            rows.append(logits.float())
+            toks.append(tok)
+        torch.cuda.synchronize()
+        dec_launches = k1.stlt_scan_kernel.launches
+        if dec_launches != 0:
+            raise AssertionError(f"W1: {dec_launches} K1 launches in {new} decode steps")
+        stream = torch.stack(toks, 1)                                   # [B, new]
+        dec_in = torch.cat([torch.ones_like(stream[:, :1]), stream[:, :-1]], 1)
+        k1.stlt_scan_kernel.launches = 0
+        teacher = W.apply_encdec(params, cfg, frames, dec_in).float()   # [B, new, V]
+        torch.cuda.synchronize()
+        if k1.stlt_scan_kernel.launches != 2 * L + Ld:
+            raise AssertionError(f"W1: {k1.stlt_scan_kernel.launches} K1 launches in the "
+                                 f"teacher-forced forward, expected {2 * L + Ld}")
+        stepped = torch.stack(rows, 1)
+        gap = float((stepped - teacher).abs().max())
+        scale = float(teacher.abs().max())
+        if not (bool(torch.isfinite(stepped).all()) and stepped.shape == teacher.shape):
+            raise AssertionError("W1: decode logits are not finite")
+        best = teacher.argmax(-1)
+        served_gap = (teacher.gather(-1, best[..., None]) - teacher.gather(-1, stream[..., None]))[..., 0]
+        ties = int((best != stream).sum())
+        worst_tie = float(served_gap.max())
+    log(f"[W1 decode] {B} x {M} frames encoded ({enc_launches} K1 launches; decode state "
+        f"{state_gib:.2f} GiB), {new} greedy tokens ({dec_launches} K1 launches); decode "
+        f"step vs teacher-forced apply_encdec: largest logit gap {gap:.6g} (cap {W_GAP_CAP}; "
+        f"logit scale {scale:.3f}); served tokens off the teacher's argmax {ties}, the "
+        f"largest served-vs-argmax gap {worst_tie:.6g} (tolerance {W_TIE_TOL}); first "
+        f"tokens {stream[:, :8].tolist()} [{smi}]")
+    if not gap <= W_GAP_CAP:
+        raise AssertionError(f"W1: decode step vs teacher-forced logit gap {gap} > {W_GAP_CAP}")
+    if not worst_tie < W_TIE_TOL:
+        raise AssertionError(f"W1: a served token trails the teacher's argmax by {worst_tie}")
+    gap32 = whisper_fp32_gap(W, steps, cfg, masters, frames, new)
+    del masters
+
+    with torch.no_grad():
+        enc_ms = time_cuda(lambda: W.encode(params, cfg, frames), iters=5)
+        prefill_ms = time_cuda(lambda: prefill(params, frames), iters=3)
+        step_ms = time_cuda(lambda: decode(params, tok, state), iters=20)
+        ctx_bytes = sum(st["xctx"][k].numel() * st["xctx"][k].element_size()
+                        for st in state["dec"] for k in ("L_re", "L_im"))
+        step_bytes = ctx_bytes + sum(
+            st["xctx"]["v"].numel() * st["xctx"]["v"].element_size() for st in state["dec"])
+        # the matrices a step reads: self-STLT w_v and w_o, the cross-STLT's
+        # w_o (its values are in the context), the FFN, and the head
+        mats = [t for p in params["dec_layers"] for t in (
+            p["stlt"]["w_v"], p["stlt"]["w_o"], p["cross"]["w_o"], p["ffn"]["w1"],
+            p["ffn"]["w2"])] + [params["lm_head"]["kernel"]]
+        step_bytes += sum(t.numel() * t.element_size() for t in mats)
+        bound_ms = 1e3 * step_bytes / PEAK_BYTES_PER_S
+        ctx_bound_ms = 1e3 * ctx_bytes / PEAK_BYTES_PER_S
+        log(f"[W1 timing] encode {B} x {M} frames {enc_ms:.3f} ms ({B * M / enc_ms * 1e3:.0f} "
+            f"frames/s), prefill (encode + {Ld} cross contexts) {prefill_ms:.3f} ms, decode "
+            f"step (batch {B}) {step_ms:.4f} ms by CUDA events; the step's HBM bound "
+            f"{bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB: the cross contexts' L_re/L_im "
+            f"{ctx_bytes / 1e9:.3f} GB = {ctx_bound_ms:.4f} ms, their values, the decoder's "
+            f"matrices and the head) [{smi}]")
+        prof = whisper_profile(lambda: decode(params, tok, state), "W1 decode step", 0,
+                             annotations=("cross_stlt.scores",))
+        enc_prof = whisper_profile(lambda: prefill(params, frames), "W1 prefill", 2 * L,
+                                 annotations=("cross_stlt.coefficients",))
+    del state, st, stepped, teacher
+    return {"encode_launches": enc_launches, "decode_launches": dec_launches, "gap": gap,
+            "fp32_gap": gap32, "ties": ties, "worst_tie": worst_tie, "encode_ms": enc_ms,
+            "prefill_ms": prefill_ms, "step_ms": step_ms, "step_bound_ms": bound_ms,
+            "ctx_bound_ms": ctx_bound_ms, "state_gib": state_gib, "profile": prof,
+            "prefill_profile": enc_prof}
+
+
+def whisper_fp32_gap(W, steps, cfg, masters, frames, new: int) -> float:
+    """The same encode and greedy decode at full width in fp32 (the
+    masters uncast, fp32 activations): each step's logits against the
+    teacher-forced ``apply_encdec`` on the produced tokens, at most
+    W_FP32_GAP_CAP (a bound on rounding noise at full depth). Returns the
+    gap."""
+    c = dataclasses.replace(cfg, dtype="float32")
+    B = frames.shape[0]
+    with torch.no_grad():
+        st = steps.prefill_fn(c, new)(masters, frames)
+        tok = torch.ones(B, dtype=torch.int64, device=frames.device)
+        rows, toks = [], []
+        for _ in range(new):
+            logits, st = steps.decode_fn(c)(masters, tok, st)
+            tok = logits.argmax(-1)
+            rows.append(logits)
+            toks.append(tok)
+        stream = torch.stack(toks, 1)
+        dec_in = torch.cat([torch.ones_like(stream[:, :1]), stream[:, :-1]], 1)
+        teacher = W.apply_encdec(masters, c, frames, dec_in)
+        gap = float((torch.stack(rows, 1) - teacher).abs().max())
+    log(f"[W1 decode] fp32 (masters uncast, fp32 activations): decode step vs "
+        f"teacher-forced largest logit gap {gap:.3e} (cap {W_FP32_GAP_CAP}; logit scale "
+        f"{float(teacher.abs().max()):.3f})")
+    if not gap <= W_FP32_GAP_CAP:
+        raise AssertionError(f"W1: fp32 decode step vs teacher-forced logit gap {gap}")
+    return gap
+
+
+def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS) -> dict:
+    """Phase W1/W2's tight checks: whisper-base-stlt at its widths but 2 + 2
+    layers, in fp32, batch 1, M frames, on the card and on the CPU from the
+    same weights. (a) The decode steps' logits (the card's greedy tokens fed
+    to both) and the teacher-forced logits, card against CPU, within
+    W_CPU_TOL. (b) On each, every decode step against the teacher-forced
+    forward on the same tokens within W_FP32_STEP_TOL, which the JAX
+    package's own two forms meet at this shape. (c) Step 0 at 1 x (M
+    frames, W_TRAIN_N tokens), card against CPU: the loss within
+    TRAIN_LOSS_TOL, every grad leaf finite and non-zero, and the grads'
+    gap (over the whole grad, and at the worst leaf) within W_GRAD_FLOOR_X
+    times the CPU's own gap when K1's chunk is halved (the card's K1 calls,
+    both directions and their dx passes, counted). Returns the gaps."""
+    from repro_torch.utils import tree_map
+
+    M = steps.WHISPER_ENC_FRAMES
+    c = dataclasses.replace(cfg, num_layers=2, num_decoder_layers=2, dtype="float32")
+    params = W.init_encdec(c, torch.Generator(device=dev).manual_seed(1), device=dev)
+    frames = whisper_frames(c, dev, 1, M, seed=1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    ids = torch.randint(0, c.vocab, (1, W_TRAIN_N + 1), generator=g, device=dev)
+    batch = {"enc_inputs": frames, "dec_inputs": ids[:, :-1], "labels": ids[:, 1:]}
+    out = {}
+    for where, p, b in (("card", params, batch),
+                        ("cpu", tree_map(torch.Tensor.cpu, params),
+                         {k: v.cpu() for k, v in batch.items()})):
+        f = b["enc_inputs"]
+        t0 = time.time()
+        with torch.no_grad():
+            st = steps.prefill_fn(c, new)(p, f)
+            tok = torch.ones(1, dtype=torch.int64, device=f.device)
+            rows, toks = [], []
+            for i in range(new):
+                lg, st = steps.decode_fn(c)(p, tok, st)
+                rows.append(lg.cpu())
+                tok = (out["card"]["toks"][i] if where == "cpu" else lg.argmax(-1)).to(f.device)
+                toks.append(tok.cpu())
+            dec_in = torch.cat([torch.ones(1, 1, dtype=torch.int64),
+                                torch.stack(toks, 1)[:, :-1]], 1).to(f.device)
+            teacher = W.apply_encdec(p, c, f, dec_in).cpu()
+        k1.stlt_scan_kernel.launches = 0
+        loss, _, grads = train.loss_and_grads(p, c, b, tau=1.0)
+        out[where] = {"rows": torch.stack(rows, 1), "toks": toks, "teacher": teacher,
+                      "loss": float(loss), "grads": tree_map(torch.Tensor.cpu, grads),
+                      "launches": k1.stlt_scan_kernel.launches, "s": time.time() - t0}
+    # the floor: the CPU against itself with K1's chunk halved (summation
+    # order only)
+    p_cpu = tree_map(torch.Tensor.cpu, params)
+    _, _, spread_grads = train.loss_and_grads(
+        p_cpu, dataclasses.replace(c, stlt_chunk=c.stlt_chunk // 2),
+        {k: v.cpu() for k, v in batch.items()}, tau=1.0)
+    card, cpu = out["card"], out["cpu"]
+    step_err = float((card["rows"] - cpu["rows"]).abs().max())
+    tf_err = float((card["teacher"] - cpu["teacher"]).abs().max())
+    forms = {w: float((o["rows"] - o["teacher"]).abs().max()) for w, o in out.items()}
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    unread = lambda q: "/cross/nodes/u_" in q  # noqa: E731
+    path, worst, n = grad_gaps(card["grads"], cpu["grads"], "W card vs cpu", unread)
+    s_path, s_worst, _ = grad_gaps(spread_grads, cpu["grads"], "W cpu chunks", unread)
+    whole, s_whole = (whole_grad_gap(a, cpu["grads"]) for a in (card["grads"], spread_grads))
+    log_top_leaves("W card vs cpu", card["grads"], cpu["grads"])
+    log_top_leaves("W cpu chunk spread", spread_grads, cpu["grads"])
+    log(f"[W card vs cpu] fp32, 2 + 2 layers, 1 x {M} frames, {new} decode steps: "
+        f"decode-step logits max abs err {step_err:.3e}, teacher-forced {tf_err:.3e} "
+        f"(tolerance {W_CPU_TOL}; logit scale {float(cpu['teacher'].abs().max()):.3f}); "
+        f"decode step vs teacher-forced on the card {forms['card']:.3e}, on the CPU "
+        f"{forms['cpu']:.3e} (tolerance {W_FP32_STEP_TOL}); step 0 at 1 x ({M} + "
+        f"{W_TRAIN_N}): loss relative {loss_rel:.3e} (tolerance {TRAIN_LOSS_TOL}), {n} grad "
+        f"leaves finite and non-zero, ||g_card - g_cpu|| / ||g_cpu|| over the whole grad "
+        f"{whole:.3e} and at the worst leaf {worst:.3e} ({path}), against the CPU's own "
+        f"chunk spread {s_whole:.3e} and {s_worst:.3e} ({s_path}; tolerance "
+        f"{W_GRAD_FLOOR_X}x each), {card['launches']} K1 launches; card "
+        f"{card['s']:.2f} s, CPU {cpu['s']:.2f} s")
+    if card["launches"] != whisper_k1_calls(c, grad=True):
+        raise AssertionError(f"W card vs cpu: {card['launches']} K1 launches in step 0")
+    if not max(step_err, tf_err) <= W_CPU_TOL:
+        raise AssertionError(f"W: card and CPU logits disagree: {step_err}, {tf_err}")
+    if not max(forms.values()) <= W_FP32_STEP_TOL:
+        raise AssertionError(f"W: fp32 decode step vs teacher-forced: {forms}")
+    if not (loss_rel <= TRAIN_LOSS_TOL and whole <= W_GRAD_FLOOR_X * s_whole
+            and worst <= W_GRAD_FLOOR_X * s_worst):
+        raise AssertionError(f"W: card vs CPU step 0: loss {loss_rel}, grad {whole} (whole), "
+                             f"{worst} at {path}")
+    return {"step_err": step_err, "teacher_err": tf_err, "forms": forms,
+            "loss_rel": loss_rel, "grad_whole": whole, "grad_worst": worst, "grad_leaf": path,
+            "floor_whole": s_whole, "floor_worst": s_worst}
+
+
+def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N) -> dict:
+    """Phase W2: whisper-base-stlt trained in bf16 (fp32 masters, the
+    matrices cast inside the loss, remat as the config sets it) at B x (M
+    frames, N tokens) a step. Step 0 with remat against remat off (K1
+    launches 54 and 36 at full depth) and against fp32 compute: loss and
+    every grad leaf, finite and non-zero (the cross-STLT's node mixers,
+    which it does not read, exactly zero), within the stated tolerances.
+    Then 5 AdamW steps, timed by CUDA events (54 K1 launches each), the peak
+    memory with remat on and off, and one profiled step."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.utils import tree_leaves
+
+    smi = smi_line()
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5, seed=0)
+    params = W.init_encdec(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def batch(step):
+        g = torch.Generator(device=dev).manual_seed(100 + step)
+        toks = torch.randint(0, cfg.vocab, (B, N + 1), generator=g, device=dev)
+        return {"enc_inputs": whisper_frames(cfg, dev, B, M, seed=200 + step),
+                "dec_inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def unread(path):   # the cross-STLT reads no node mixers
+        return "/cross/nodes/u_" in path
+
+    b0 = batch(0)
+    runs = {}
+    for name, c in (("first call", cfg), ("remat", cfg),
+                    ("no remat", dataclasses.replace(cfg, remat=False)),
+                    ("fp32 compute", dataclasses.replace(cfg, dtype="float32"))):
+        k1.stlt_scan_kernel.launches = 0
+        t0 = time.time()
+        loss, _, grads = train.loss_and_grads(params, c, b0, tau=1.0)
+        torch.cuda.synchronize()
+        n = k1.stlt_scan_kernel.launches
+        gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in tree_leaves(grads))))
+        log(f"[W2 step 0] {name}: loss {float(loss):.6f}, grad norm {gnorm:.4f}, "
+            f"{time.time() - t0:.2f} s, {n} K1 launches")
+        if n != whisper_k1_calls(c, grad=True) or not torch.isfinite(loss):
+            raise AssertionError(f"W2 {name}: {n} K1 launches (expected "
+                                 f"{whisper_k1_calls(c, grad=True)}), loss {float(loss)}")
+        runs[name] = (float(loss), grads)
+    gaps = {}
+    for name, ref, loss_tol, grad_tol in (
+            ("no remat", "remat", TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
+            ("fp32 compute", "remat", W_BF16_LOSS_TOL, W_BF16_GRAD_TOL)):
+        rel = abs(runs[ref][0] - runs[name][0]) / abs(runs[name][0])
+        path, worst, n = grad_gaps(runs[ref][1], runs[name][1], f"W2 {ref} vs {name}", unread)
+        gaps[name] = {"loss": rel, "grad": worst, "leaf": path}
+        log(f"[W2 step 0] bf16 remat vs {name}: loss relative {rel:.3e} (gate {loss_tol}), "
+            f"{n} grad leaves all finite and non-zero (the cross-STLT's u exactly zero), "
+            f"worst ||g - g_ref|| / ||g_ref|| {worst:.3e} ({path}; gate {grad_tol})")
+        if not (rel <= loss_tol and worst <= grad_tol):
+            raise AssertionError(f"W2: bf16 remat vs {name}: loss {rel}, grad {worst} "
+                                 f"at {path}")
+    del runs
+
+    from repro_torch.kernels import relevance_flash as k2
+
+    opt, step_fn = train.make_step(cfg, tcfg)
+    opt_state = opt.init(params)
+    ev_ms, walls, counts = [], [], []
+    for step in range(tcfg.total_steps):
+        b = batch(step)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        params, opt_state, metrics = step_fn(params, opt_state, b, step)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.time() - t0))
+        ev_ms.append(start.elapsed_time(end))
+        counts.append(k1.stlt_scan_kernel.launches)
+        loss = float(metrics["loss"])
+        log(f"[W2 train] step {step}: loss {loss:.6f} grad_norm "
+            f"{float(metrics['grad_norm']):.4f}; {ev_ms[-1]:.3f} ms (events), "
+            f"{walls[-1]:.3f} ms (wall), {counts[-1]} K1 launches")
+        if (counts[-1] != whisper_k1_calls(cfg, grad=True) or not np.isfinite(loss)
+                or k2.relevance_flash_kernel.launches):
+            raise AssertionError(f"W2 step {step}: {counts[-1]} K1 launches, "
+                                 f"{k2.relevance_flash_kernel.launches} K2, loss {loss}")
+    med = float(np.median(ev_ms[1:]))
+    log(f"[W2 train] {B} x ({M} frames + {N} tokens) a step: median step {med:.3f} ms by "
+        f"CUDA events over steps 1-4 ({[round(t, 3) for t in ev_ms[1:]]}), wall "
+        f"{float(np.median(walls[1:])):.3f} ms; {B * N / (med / 1e3):.1f} decoder tokens/s, "
+        f"{B * M / (med / 1e3):.1f} encoder frames/s [{smi}]")
+
+    b = batch(tcfg.total_steps)
+    memory = {}
+    for mode in ("on", "off"):
+        c = dataclasses.replace(cfg, remat=mode == "on")
+        _, fn = train.make_step(c, tcfg)
+        fn(params, opt_state, b, tcfg.total_steps)            # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = time_cuda(lambda: fn(params, opt_state, b, tcfg.total_steps), iters=2, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        memory[mode] = {"peak_gib": peak / 2**30, "held_gib": held / 2**30, "step_ms": ms}
+        log(f"[W2 memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
+            f"and AdamW state held: {held / 2**30:.2f} GiB), step {ms:.3f} ms (events, "
+            f"mean of 2) [{smi}]")
+    prof = whisper_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), "W2 step",
+                         whisper_k1_calls(cfg, grad=True),
+                         annotations=("cross_stlt.coefficients", "cross_stlt.scores"))
+    return {"step_ms": med, "dec_tok_s": B * N / (med / 1e3),
+            "frames_s": B * M / (med / 1e3), "launches_per_step": counts[-1],
+            "gaps": gaps, "memory": memory, "profile": prof}
+
+
+def k1_direction_timings(k1, ops, dev, C, d) -> dict:
+    """At phase W's encoder shapes, K1's training pass causal and
+    anti-causal (the reverse call flips x, runs the causal pass and flips z
+    back, on the host side of the kernel) by CUDA events, and one flip of x
+    alone: what an in-kernel reverse would save. Returns {(BH, N, S): row}."""
+    out = {}
+    for BH, N, S in K1_WHISPER[:2]:
+        x, lm, th, ur, ui, _ = vjp_case(dev, BH // 8, 8, N, S, d, C, seed=13)
+        operators = ops._operators(lm, th, ur, ui, C)
+        row = {"fwd_ms": time_cuda(lambda: ops._pass(x, operators, C, False,
+                                                      k1.stlt_scan_kernel), 20),
+               "rev_ms": time_cuda(lambda: ops._pass(x, operators, C, True,
+                                                      k1.stlt_scan_kernel), 20),
+               "flip_ms": time_cuda(lambda: x.flip(1), 20)}
+        log(f"[6 timing] K1 training pass at BH={BH} N={N} S={S}: causal "
+            f"{row['fwd_ms']:.4f} ms, anti-causal (flip, K1, flip) {row['rev_ms']:.4f} ms; "
+            f"one flip of x {row['flip_ms']:.4f} ms")
+        out[(BH, N, S)] = row
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1431,6 +1947,23 @@ def main(argv) -> int:
                 and torch.equal(got[2][idle], args[9][idle])):
             raise AssertionError("K1: valid == 0 rows must return h0 exactly")
         del args, got, want
+
+    # phase W's training passes (no carry, no snapshot), causal and
+    # anti-causal: the bilateral encoder's two calls and their dx passes
+    for bh_t, n_t, s_t in K1_WHISPER:
+        x, lm, th, ur, ui, _ = vjp_case(dev, bh_t // H, H, n_t, s_t, dh, C, seed=3)
+        operators = ops._operators(lm, th, ur, ui, C)
+        for rev in (False, True):
+            got = ops._pass(x, operators, C, rev, k1.stlt_scan_kernel)[0]
+            want = ops._pass(x, operators, C, rev, k1.stlt_scan_reference)[0]
+            err, scale = float((got - want).abs().max()), 1.0 + float(want.abs().max())
+            k1_err = max(k1_err, err)
+            log(f"[2 K1 vs plain] training pass BH={bh_t} N={n_t} S={s_t} reverse={rev}: "
+                f"max abs err {err:.3e} (scale {scale:.3e})")
+            if not err <= K1_TOL * scale:
+                raise AssertionError(f"K1's training pass at BH={bh_t} N={n_t} "
+                                     f"reverse={rev}: {err} > {K1_TOL} * {scale}")
+        del x, operators, got, want
 
     # 2b. K2 vs its plain version at the relevance path's shapes ---------------
     k2_err = 0.0
@@ -1684,6 +2217,17 @@ def main(argv) -> int:
         f"{train_row['alone']:.4f} ms, bound {train_row['bound']:.4f} ms "
         f"({train_row['bound_by']})")
     del train_args
+    k1_dir = k1_direction_timings(k1, ops, dev, C, dh)
+    for shape in K1_WHISPER:
+        w_args, _, _ = k1_case(k1, ops, dev, shape[0], shape[1], C, shape[2], dh, seed=5)
+        k1_rows[shape]["plain"] = time_cuda(
+            lambda: k1.stlt_scan_reference(*w_args, chunk=C), iters=5)
+        r = k1_rows[shape]
+        log(f"[6 timing] K1 at phase W's shape BH={shape[0]} N={shape[1]} S={shape[2]}: "
+            f"kernel alone {r['alone']:.4f} ms, device time {r['device']} ms, call "
+            f"{r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound {r['bound']:.4f} "
+            f"ms ({r['bound_by']})")
+        del w_args
     long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S)]["scan"],
                  k1.stlt_scan_kernel)
     with torch.no_grad():
@@ -1776,6 +2320,18 @@ def main(argv) -> int:
     # paper-small preset through the CLI with a checkpoint and a resume
     t3 = smollm_train_phase(T, train, k1, smollm, dev, T3_B, T3_N)
     cli = cli_resume_phase(train)
+    torch.cuda.empty_cache()
+
+    # W. whisper-base's STLT variant: encode and greedy decode (W1, card vs
+    # CPU at 2 + 2 layers), training in bf16 with remat (W2), through K1
+    # causal and anti-causal
+    from repro_torch.launch import steps
+    from repro_torch.models import whisper as W
+    wcfg = get_config("whisper-base", "stlt")
+    w1 = whisper_decode_phase(W, steps, k1, wcfg, dev)
+    w1["cpu"] = whisper_cpu_check(W, steps, train, k1, wcfg, dev)
+    torch.cuda.empty_cache()
+    w2 = whisper_train_phase(W, train, k1, wcfg, dev, steps.WHISPER_ENC_FRAMES)
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     print(smi_line())
@@ -1823,7 +2379,19 @@ def main(argv) -> int:
         "verify_bound_ms": k1_rows[K1_VERIFY]["bound"],
         "train_fwd_ms": train_k1["fwd_ms"], "dx_ms": train_k1["dx_ms"],
         "dx_device_ms": train_k1["dx_device_ms"], "dx_bound_ms": train_k1["bound"],
-        "vjp_max_err_over_scale": vjp_err}, {
+        "vjp_max_err_over_scale": vjp_err,
+        # phase W (whisper-base-stlt): K1 launches in one encode (2 a
+        # bilateral encoder layer) and in one bf16 train step with remat;
+        # K1 at the encode's shape (32 rows x 1500 frames, S = 32) and the
+        # train step's (64 x 1500, 64 x 448): device time, the kernel alone,
+        # the plain version, the bound; the anti-causal pass with its flips
+        "launches_per_whisper_encode": w1["encode_launches"],
+        "launches_per_whisper_train_step": w2["launches_per_step"],
+        "whisper_shapes": {"x".join(map(str, sh)): {
+            k: k1_rows[sh][k] for k in ("device", "alone", "call", "plain", "bound",
+                                        "bound_by")} for sh in K1_WHISPER},
+        "whisper_direction_ms": {"x".join(map(str, sh)): row
+                                 for sh, row in k1_dir.items()}}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

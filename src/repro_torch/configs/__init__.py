@@ -9,13 +9,14 @@ NotImplementedError.
 """
 import dataclasses
 
-from repro_torch.configs import smollm_360m, stlt_base
+from repro_torch.configs import smollm_360m, stlt_base, whisper_base
 from repro_torch.configs.base import DTYPES, ModelConfig, TrainConfig
 
-ARCHS = {"stlt-base": stlt_base.CONFIG, "smollm-360m": smollm_360m.CONFIG}
+ARCHS = {"stlt-base": stlt_base.CONFIG, "smollm-360m": smollm_360m.CONFIG,
+         "whisper-base": whisper_base.CONFIG}
 
 # the ported archs whose attention the paper's STLT can replace
-STLT_APPLICABLE = {"smollm-360m"}
+STLT_APPLICABLE = {"smollm-360m", "whisper-base"}
 
 _PORTED_MIXERS = ("stlt", "stlt_relevance")
 

@@ -27,7 +27,7 @@ def _dt(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # lm (the only family ported so far)
+    family: str                      # lm | encdec
     vocab: int
     num_layers: int
     d_model: int
@@ -39,7 +39,7 @@ class ModelConfig:
     layer_types: Tuple[str, ...] = ()
     act: str = "swiglu"
     norm: str = "rmsnorm"
-    input_mode: str = "tokens"
+    input_mode: str = "tokens"       # tokens | embeddings (the frame stub)
     tie_embeddings: bool = True
     # --- STLT (the paper) ---------------------------------------------------
     stlt_nodes: int = 32
@@ -56,6 +56,8 @@ class ModelConfig:
     stlt_zero_omega: bool = False
     stlt_mask_reg: float = 1e-3
     stlt_hard_eval: bool = False
+    # --- enc-dec (whisper) ------------------------------------------------------
+    num_decoder_layers: int = 0
     # --- execution ------------------------------------------------------------
     scan_layers: bool = True         # JAX param layout only (see convert.py)
     remat: bool = True               # recompute each block in backward
@@ -121,6 +123,7 @@ class ModelConfig:
             vocab=256,
             stlt_nodes=8,
             stlt_chunk=16,
+            num_decoder_layers=min(self.num_decoder_layers, 2),
             layer_types=(),
             scan_layers=False,
             remat=False,

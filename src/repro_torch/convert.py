@@ -1,5 +1,6 @@
 """Carry parameters, decode states and training checkpoints from the JAX
-package into the port.
+package into the port (the LM's, and the enc-dec family's with
+``from_jax_encdec_params``/``from_jax_encdec_state``).
 
 The port cannot import JAX, so the converters take the JAX pytree as nested
 dicts/lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``),
@@ -18,7 +19,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import read_leaves, read_manifest, to_tensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import execution_plan
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 
 def _tensor(a, device):
@@ -56,6 +57,52 @@ def from_jax_state(tree: dict, cfg: ModelConfig, device=None) -> dict:
     device = resolve_device(device)
     return {"layers": _unstack(tree["layers"], cfg, device),
             "pos": _tensor(tree["pos"], device).to(torch.int32)}
+
+
+def _per_layer(side, device) -> list:
+    """One side of an enc-dec tree as one entry per layer: a stacked run
+    (a dict whose leaves carry the layer on a leading axis, as the JAX
+    package's ``scan_layers`` and ``jax.vmap`` make them) is unstacked, a
+    list is taken as it is."""
+    if isinstance(side, dict):
+        count = len(np.asarray(tree_leaves(side)[0]))
+        return [tree_map(lambda a, j=j: _tensor(np.asarray(a)[j], device), side)
+                for j in range(count)]
+    return [tree_map(lambda a: _tensor(a, device), p) for p in side]
+
+
+def from_jax_encdec_params(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """JAX ``whisper.init_encdec`` params (numpy leaves) -> the port's
+    (``models/whisper.py``) on ``device`` (CUDA unless the caller names
+    another): ``enc_layers``/``dec_layers`` one dict per layer, from the JAX
+    package's stacked ``enc_layers``/``dec_layers`` or its ``enc_list``/
+    ``dec_list``."""
+    device = resolve_device(device)
+    out = {}
+    for key in ("enc_embed", "dec_embed", "enc_layers", "dec_layers", "enc_norm",
+                "dec_norm", "lm_head"):
+        if key in ("enc_layers", "dec_layers"):
+            side = tree[key] if key in tree else tree[key[:3] + "_list"]
+            out[key] = _per_layer(side, device)
+            want = cfg.num_layers if key == "enc_layers" else cfg.num_decoder_layers
+            if len(out[key]) != want:
+                raise ValueError(f"{key}: {len(out[key])} layers, {cfg.name!r} has {want}")
+        elif key in tree:
+            out[key] = tree_map(lambda a: _tensor(a, device), tree[key])
+    return out
+
+
+def from_jax_encdec_state(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """A JAX enc-dec decode state (``init_encdec_decode_state`` /
+    ``encdec_decode_step``, numpy leaves; a stacked decoder's states come
+    stacked, as ``jax.vmap`` makes them) -> the port's: one state per
+    decoder layer and the scalar position."""
+    device = resolve_device(device)
+    layers = _per_layer(tree["dec"], device)
+    if len(layers) != cfg.num_decoder_layers:
+        raise ValueError(f"{len(layers)} decoder states, {cfg.name!r} has "
+                         f"{cfg.num_decoder_layers} decoder layers")
+    return {"dec": layers, "pos": _tensor(tree["pos"], device).to(torch.int32)}
 
 
 def _nest(pairs) -> dict:

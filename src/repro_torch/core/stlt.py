@@ -24,9 +24,26 @@
   ``init_stlt_state`` and ``apply_stlt_step`` refuse it, as the JAX package
   asserts.
 
-The hann window and the bidirectional factorized transform, and the
-``associative``/``sequential`` engines of the factorized readout, are not
-ported yet and raise ``NotImplementedError``.
+Directions: ``bidirectional=False`` is the unilateral/causal transform
+(decoder); ``True`` the bilateral one (encoder), a causal plus an
+anti-causal scan minus the double-counted centre Re(sum_k u_k) v. Both
+scans take ``ops.stlt_scan``, so both run K1 on the card. The bilateral
+transform has no streaming state: ``stlt_prefill``, ``init_stlt_state`` and
+``apply_stlt_step`` refuse it, as the JAX package asserts.
+
+The ``sequential``/``associative`` engine names take the materialized
+complex scan of ``scan.scan_sequential``/``scan.scan_associative``
+(``_run_scan_generic``, an oracle path, as in the JAX package); streaming
+takes ``ops.stlt_scan`` for every engine name, as the JAX package takes its
+carry-native chunked engine for every name but ``pallas``.
+
+The cross-STLT (paper §3.5, decoder -> encoder) relates the causal
+transform of the decoder's inputs to the bilateral transform of the
+encoder's: ``apply_cross_stlt`` for a whole sequence, ``cross_stlt_context``
+and ``cross_stlt_step`` for decoding. The JAX package computes it in plain
+``jnp`` (no Pallas kernel), so it is plain torch here.
+
+The hann window is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,6 +63,7 @@ from repro_torch.models.layers import matmul
 from repro_torch.utils import lecun_normal
 
 SCAN_ENGINES = ("chunked", "chunked_fused", "pallas")
+GENERIC_ENGINES = ("sequential", "associative")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +108,11 @@ def _check_ported(cfg: STLTConfig, streaming: bool = False):
         raise NotImplementedError(f"STLT mode {cfg.mode!r} is not ported yet")
     if cfg.window != "exponential":
         raise NotImplementedError(f"STLT window {cfg.window!r} is not ported yet")
-    if cfg.bidirectional:
-        raise NotImplementedError("the bidirectional STLT is not ported yet")
-    if cfg.engine not in SCAN_ENGINES:
-        raise NotImplementedError(f"STLT engine {cfg.engine!r} is not ported yet")
+    if cfg.bidirectional and streaming:
+        raise ValueError("the bilateral STLT has no streaming state: prefill and "
+                         "decode are causal")
+    if cfg.engine not in SCAN_ENGINES + GENERIC_ENGINES:
+        raise ValueError(f"unknown STLT engine {cfg.engine!r}")
 
 
 def init_stlt(generator: torch.Generator, cfg: STLTConfig, device=None) -> dict:
@@ -168,9 +187,10 @@ def _serve_node_masks(params: dict, cfg: STLTConfig, pooled, node_cap, log_mag):
 
 
 def _scan(v, log_mag, theta, u_re, u_im, cfg: STLTConfig, state=None,
-          valid=None, return_state=False):
-    """[B, H, N, dh] through ``ops.stlt_scan`` with rows (b, h), H fastest.
-    log_mag/theta [H, S]; u [H, S] static or [B, H, S] masked."""
+          valid=None, return_state=False, reverse=False):
+    """[B, H, N, dh] through ``ops.stlt_scan`` with rows (b, h), H fastest,
+    anti-causal with ``reverse``. log_mag/theta [H, S]; u [H, S] static or
+    [B, H, S] masked."""
     B, H, N, dh = v.shape
     S = log_mag.shape[-1]
     lm, th = log_mag.repeat(B, 1), theta.repeat(B, 1)
@@ -182,13 +202,42 @@ def _scan(v, log_mag, theta, u_re, u_im, cfg: STLTConfig, state=None,
     h0i = state["h_im"].reshape(B * H, S, dh) if state is not None else None
     vr = None if valid is None else valid.to(torch.int32).repeat_interleave(H)
     out = kernel_ops.stlt_scan(v.reshape(B * H, N, dh), lm, th, ur, ui,
-                               chunk=cfg.chunk, h0_re=h0r, h0_im=h0i, valid=vr,
-                               return_state=return_state)
+                               chunk=cfg.chunk, reverse=reverse, h0_re=h0r,
+                               h0_im=h0i, valid=vr, return_state=return_state)
     if not return_state:
         return out.reshape(B, H, N, dh)
     z, (h_re, h_im) = out
     return z.reshape(B, H, N, dh), {"h_re": h_re.reshape(B, H, S, dh),
                                     "h_im": h_im.reshape(B, H, S, dh)}
+
+
+def _run_scan_generic(v, log_mag, theta, u_re, u_im, cfg: STLTConfig, reverse: bool):
+    """The ``sequential``/``associative`` engines: the materialized complex
+    scan [B*H, N, S, dh] of v at every pole, then Re(sum_k u_k L_k) (the
+    oracle path of the JAX package's ``_run_scan_generic``)."""
+    B, H, N, dh = v.shape
+    S = log_mag.shape[-1]
+    lam = torch.exp(torch.complex(log_mag.float(), theta.float())).repeat(B, 1)
+    xb = v.reshape(B * H, N, 1, dh).float().to(torch.complex64)
+    a = lam[:, None, :, None]
+    if cfg.engine == "sequential":
+        L = scan_lib.scan_sequential(a, xb.expand(B * H, N, S, dh), axis=-3,
+                                     reverse=reverse)
+    else:
+        L = scan_lib.scan_associative(a, xb, axis=-3, reverse=reverse)
+    if u_re.ndim == 2:
+        u = torch.complex(u_re, u_im).repeat(B, 1)
+    else:
+        u = torch.complex(u_re, u_im).reshape(B * H, S)
+    z = torch.einsum("bnkd,bk->bnd", L, u.to(L.dtype)).real
+    return z.to(v.dtype).reshape(B, H, N, dh)
+
+
+def _factorized(v, log_mag, theta, u_re, u_im, cfg: STLTConfig, reverse: bool):
+    """The factorized transform of v [B, H, N, dh] in one direction."""
+    if cfg.engine in GENERIC_ENGINES:
+        return _run_scan_generic(v, log_mag, theta, u_re, u_im, cfg, reverse)
+    return _scan(v, log_mag, theta, u_re, u_im, cfg, reverse=reverse)
 
 
 def _readout(params: dict, cfg: STLTConfig, x, z):
@@ -237,7 +286,7 @@ def _relevance_materialized(cfg: STLTConfig, x, v, log_mag, theta, masks,
                             pad_mask=None):
     """Materialized relevance readout, the small-N oracle: the full
     [B, H, N, N] relevance matrix and [B*H, N, S, dh] complex coefficients
-    (a plain complex scan; the port has no ``scan_associative``)."""
+    (a plain complex scan, one step a token)."""
     B, H, N, dh = v.shape
     S = cfg.num_nodes
     xh = _split_heads(x, H)
@@ -278,7 +327,10 @@ def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
     With ``deterministic=False`` the adaptive masks take logistic noise from
     the uniform ``draws`` [B, H, S] (``adaptive.node_masks``; none without
     them). Differentiable: the factorized scan is
-    ``ops._StltScan``, the relevance readout K2's autograd Function.
+    ``ops._StltScan``, the relevance readout K2's autograd Function. The
+    bilateral factorized transform (``cfg.bidirectional``) is the causal
+    plus the anti-causal scan minus Re(sum_k u_k) v, u the masked mixers
+    (per row under adaptive masks).
 
     aux: {"reg": scalar (Reg) loss, "s_eff": [B], "masks": [B,H,S] | None,
     "T": [H], "sigma": [H, S]}.
@@ -299,7 +351,13 @@ def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
         z = _relevance_readout(cfg, x, v, log_mag, theta, masks, pad_mask)
     else:
         u_re, u_im = _masked_u(params, masks)
-        z = _scan(v, log_mag, theta, u_re, u_im, cfg)
+        z = _factorized(v, log_mag, theta, u_re, u_im, cfg, reverse=False)
+        if cfg.bidirectional:
+            z = z + _factorized(v, log_mag, theta, u_re, u_im, cfg, reverse=True)
+            # the centre is counted by both scans: subtract Re(sum_k u_k) v
+            u0 = u_re.sum(-1)                               # [H] or [B, H]
+            u0 = u0[None, :, None, None] if u0.ndim == 1 else u0[:, :, None, None]
+            z = z - u0 * v
     y = _readout(params, cfg, x, z)
     reg = adaptive_lib.regularization(sigma, params["nodes"]["omega"], masks, acfg)
     return y, {"reg": reg, "s_eff": s_eff, "masks": masks, "T": T, "sigma": sigma}
@@ -442,3 +500,112 @@ def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
     if cfg.gate:
         z = z * F.silu(matmul(x_t, params["w_g"]))
     return matmul(z, params["w_o"]), {"h_re": h_re, "h_im": h_im, **sum_state}
+
+
+# ---------------------------------------------------------------------------
+# cross-STLT (paper §3.5, decoder -> encoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_stlt(generator: torch.Generator, cfg: STLTConfig, device=None) -> dict:
+    d, dtype = cfg.d_model, cfg.param_dtype
+    return {
+        "nodes": nodes_lib.init_nodes(
+            generator, cfg.num_heads, cfg.num_nodes,
+            sigma_min=cfg.sigma_min, sigma_max=cfg.sigma_max,
+            omega_max=cfg.omega_max, init_T=cfg.init_T, dtype=dtype, device=device),
+        "w_v": lecun_normal(generator, (d, d), dtype=dtype, device=device),
+        "w_o": lecun_normal(generator, (d, d), dtype=dtype, device=device),
+    }
+
+
+def _laplace_coefficients(x, lam, H: int, bidirectional: bool):
+    """Complex64 Laplace coefficients of the per-head inputs x [B, M, d] at
+    every pole lam [H, S]: [B, H, M, S, dh], causal or bilateral (forward
+    plus backward scan minus the centre counted twice)."""
+    B, M, d = x.shape
+    S = lam.shape[-1]
+    xc = _split_heads(x, H).reshape(B * H, M, 1, d // H).float().to(torch.complex64)
+    a = lam.repeat(B, 1)[:, None, :, None]                 # [B*H, 1, S, 1]
+    L = scan_lib.scan_associative(a, xc, axis=-3)
+    if bidirectional:   # in place: one [B*H, M, S, dh] buffer besides the other scan
+        L = L.add_(scan_lib.scan_associative(a, xc, axis=-3, reverse=True)).sub_(xc)
+    return L.reshape(B, H, M, S, d // H)
+
+
+def _pole_lambdas(params: dict, cfg: STLTConfig):
+    """The complex64 poles lambda [H, S]."""
+    log_mag, theta, _, _ = _poles(params, cfg)
+    return torch.exp(torch.complex(log_mag.float(), theta.float()))
+
+
+def apply_cross_stlt(params: dict, cfg: STLTConfig, x_dec: torch.Tensor,
+                     x_enc: torch.Tensor) -> torch.Tensor:
+    """R[n,m] = Re(sum_{k,d} L_dec[n,k,d] conj(L_enc[m,k,d])) / sqrt(S);
+    z = softmax(R) (x_enc W_v) W_o. L_dec is the causal transform of x_dec
+    [B, N, d], L_enc the bilateral one of x_enc [B, M, d], both complex64;
+    R and the softmax are fp32, and the products promote as the JAX package
+    types them (fp32 A times bf16 values is an fp32 product)."""
+    B, N, d = x_dec.shape
+    M = x_enc.shape[1]
+    H, S = cfg.num_heads, cfg.num_nodes
+    lam = _pole_lambdas(params, cfg)
+    # the annotations let a profile read these parts' device time
+    # (chip_smoke.py, phase W)
+    with torch.profiler.record_function("cross_stlt.coefficients"):
+        L_dec = _laplace_coefficients(x_dec, lam, H, bidirectional=False)
+        L_enc = _laplace_coefficients(x_enc, lam, H, bidirectional=True)
+    with torch.profiler.record_function("cross_stlt.scores"):
+        # Re(a conj b) = a_re b_re + a_im b_im: one real product over (k, d, re|im)
+        ld = torch.view_as_real(L_dec).reshape(B, H, N, -1)
+        le = torch.view_as_real(L_enc).reshape(B, H, M, -1)
+        R = (ld @ le.transpose(-1, -2)) / math.sqrt(S)
+        del ld, le, L_dec, L_enc
+        A = torch.softmax(R, dim=-1)
+    v_enc = _split_heads(matmul(x_enc, params["w_v"]), H)
+    z = matmul(A, v_enc)
+    return matmul(_merge_heads(z), params["w_o"])
+
+
+def cross_stlt_context(params: dict, cfg: STLTConfig, x_enc: torch.Tensor) -> dict:
+    """The encoder side of the cross-STLT for decoding: {"L_re", "L_im":
+    [B, H, M, S, dh] fp32, "v": [B, H, M, dh] in the values' dtype}."""
+    lam = _pole_lambdas(params, cfg)
+    with torch.profiler.record_function("cross_stlt.coefficients"):
+        L = _laplace_coefficients(x_enc, lam, cfg.num_heads, bidirectional=True)
+    v_enc = _split_heads(matmul(x_enc, params["w_v"]), cfg.num_heads)
+    return {"L_re": L.real.float().contiguous(), "L_im": L.imag.float().contiguous(),
+            "v": v_enc}
+
+
+def init_cross_stlt_state(cfg: STLTConfig, batch: int, device=None) -> dict:
+    """The decoder side's streaming Laplace coefficients, zero."""
+    H, S, dh = cfg.num_heads, cfg.num_nodes, cfg.head_dim
+    return {"h_re": torch.zeros((batch, H, S, dh), device=device),
+            "h_im": torch.zeros((batch, H, S, dh), device=device)}
+
+
+def cross_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor, state: dict,
+                    ctx: dict):
+    """One decoder token of the cross-STLT: x_t [B, d] -> (z [B, d], new
+    state). The attention weights are cast to the values' dtype before
+    their product, as the JAX package's step casts them (its whole-sequence
+    forward does not)."""
+    B, d = x_t.shape
+    H, S, dh = cfg.num_heads, cfg.num_nodes, cfg.head_dim
+    log_mag, theta, _, _ = _poles(params, cfg)
+    xh = x_t.reshape(B, H, dh)
+    a_re = (torch.exp(log_mag) * torch.cos(theta))[None, :, :, None]   # [1, H, S, 1]
+    a_im = (torch.exp(log_mag) * torch.sin(theta))[None, :, :, None]
+    h_re = a_re * state["h_re"] - a_im * state["h_im"] + xh[:, :, None, :]
+    h_im = a_re * state["h_im"] + a_im * state["h_re"]
+    M = ctx["L_re"].shape[2]
+    # R[b, h, m] = Re sum_{k,d} L_dec conj(L_enc): two matrix-vector products
+    # that read the whole context (annotated for phase W's decode profile)
+    with torch.profiler.record_function("cross_stlt.scores"):
+        R = (ctx["L_re"].reshape(B, H, M, S * dh) @ h_re.reshape(B, H, S * dh, 1)
+             + ctx["L_im"].reshape(B, H, M, S * dh) @ h_im.reshape(B, H, S * dh, 1)
+             )[..., 0] / math.sqrt(S)
+    A = torch.softmax(R, dim=-1)
+    z = (A.to(ctx["v"].dtype)[:, :, None, :] @ ctx["v"])[:, :, 0]   # [B, H, dh]
+    return matmul(z.reshape(B, d), params["w_o"]), {"h_re": h_re, "h_im": h_im}

@@ -109,6 +109,8 @@ def main(argv=None):
     cfg = configs_lib.get_config(args.arch, args.variant)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encdec":
+        raise SystemExit("enc-dec serving: see examples/translate.py")
     params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(0),
                        device=device)
     params = cast_params_for_compute(params, cfg.act_dtype)

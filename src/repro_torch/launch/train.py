@@ -2,14 +2,18 @@
 ``launch/train.py``.
 
 One step: anneal the mask temperature, draw the adaptive node masks'
-noise, cast the matrices to the activation dtype (``cast_params_for_compute``:
-fp32 masters, bf16 compute for a bf16 config), ``lm_loss`` forward with each
-block recomputed in backward (``cfg.remat``), backward (the factorized
+noise (an adaptive LM's), cast the matrices to the activation dtype
+(``cast_params_for_compute``: fp32 masters, bf16 compute for a bf16
+config), the family's loss forward (``lm_loss``, or ``encdec_loss`` for the
+enc-dec family) with each block recomputed in backward (``cfg.remat``),
+backward (the factorized
 scan's VJP: K1 causal in the forward and again in the recompute, K1
 anti-causal for dx, analytic pole/mixer grads), clip by global norm, AdamW
 or adafactor at ``sched(step)``. With ``--ckpt-dir`` the run saves every
 ``--save-every`` steps and at the end, and resumes from the latest
 checkpoint there. Without ``--arch`` it trains the ``paper-small`` preset.
+The CLI refuses enc-dec configs, as the JAX package's does; ``make_step``
+takes them.
 
   python -m repro_torch.launch.train --preset paper-small --steps 200 --ckpt-dir ckpt
   python -m repro_torch.launch.train --arch smollm-360m --variant stlt --steps 5 \
@@ -34,6 +38,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import DTYPES, ModelConfig, TrainConfig
 from repro_torch.core.adaptive import anneal_tau
 from repro_torch.data import ByteCorpus, lm_batch_stream
+from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 from repro_torch.optim import (apply_updates, clip_by_global_norm, default_wd_mask,
                                make_optimizer, make_schedule)
@@ -53,16 +58,17 @@ def paper_small(vocab: int = 256) -> ModelConfig:
 
 def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, tau: float,
                    draws: Optional[Sequence[torch.Tensor]] = None):
-    """(loss, metrics, grads) of ``lm_loss`` with stochastic masks; ``grads``
-    has params' structure and dtype. The matrices enter the loss cast to
-    ``cfg.act_dtype`` (``cast_params_for_compute``, as the JAX trainer casts
-    them), so a bf16 config computes in bf16 and its fp32 masters get fp32
-    grads. A leaf the loss does not reach gets a zero grad, as ``jax.grad``
+    """(loss, metrics, grads) of the family's loss (``steps.loss_fn``: the
+    LM's ``lm_loss`` with stochastic masks, or ``encdec_loss``, which takes
+    no draws); ``grads`` has params' structure and dtype. The matrices
+    enter the loss cast to ``cfg.act_dtype`` (``cast_params_for_compute``,
+    as the JAX trainer casts them), so a bf16 config computes in bf16 and
+    its fp32 masters get fp32 grads. A leaf the loss does not reach gets a zero grad, as ``jax.grad``
     gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     p = cast_params_for_compute(tree_unflatten(params, leaves), cfg.act_dtype)
-    loss, metrics = T.lm_loss(p, cfg, batch, deterministic=False, tau=tau,
-                              draws=draws)
+    loss, metrics = steps.loss_fn(cfg)(p, cfg, batch, deterministic=False, tau=tau,
+                                       draws=draws)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -84,11 +90,12 @@ def step_draws(seed: int, step: int, cfg: ModelConfig, batch_size: int,
 def make_step(cfg: ModelConfig, tcfg: TrainConfig):
     """(opt, step_fn) with step_fn(params, opt_state, batch, step, draws=None)
     -> (params, opt_state, metrics). ``draws`` (per layer [B, H, S] uniform
-    draws) replaces the step's own (``step_draws``), so a test can feed in
-    the JAX package's. The optimizer is built as the JAX package's
-    ``launch/steps.py`` builds it: AdamW with ``tcfg``'s betas and weight
-    decay, its moments in ``cfg.opt_moment_dtype``; adafactor without
-    weight decay."""
+    draws) replaces the step's own (``step_draws``, made only for an
+    adaptive LM), so a test can feed in the JAX package's. An enc-dec batch
+    is {"enc_inputs", "dec_inputs", "labels"}. The optimizer is built as
+    the JAX package's ``launch/steps.py`` builds it: AdamW with ``tcfg``'s
+    betas and weight decay, its moments in ``cfg.opt_moment_dtype``;
+    adafactor without weight decay."""
     if cfg.optimizer == "adamw":
         opt = make_optimizer("adamw", b1=tcfg.beta1, b2=tcfg.beta2,
                              weight_decay=tcfg.weight_decay,
@@ -101,7 +108,7 @@ def make_step(cfg: ModelConfig, tcfg: TrainConfig):
     def step_fn(params, opt_state, batch, step: int, draws=None):
         tau = anneal_tau(step, tcfg.total_steps, tcfg.adaptive_tau_start,
                          tcfg.adaptive_tau_end)
-        if draws is None:
+        if draws is None and cfg.family == "lm" and cfg.stlt_adaptive:
             draws = step_draws(tcfg.seed, step, cfg, batch["inputs"].shape[0],
                                batch["inputs"].device)
         _, metrics, grads = loss_and_grads(params, cfg, batch, tau=tau, draws=draws)
@@ -140,6 +147,8 @@ def main(argv=None):
         cfg = configs_lib.get_config(args.arch, args.variant)
         if args.reduced:
             cfg = cfg.reduced()
+    if cfg.family == "encdec":
+        raise SystemExit("use benchmarks/translation.py for enc-dec training")
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(10, args.steps // 10))
     corpus = ByteCorpus() if args.data == "bytes" else None

@@ -76,16 +76,23 @@ def default_wd_mask(params, cfg: ModelConfig):
     with ``cfg.scan_layers`` it stacks each run of equal blocks
     (``execution_plan``) on a leading axis, so a 1-D leaf of such a layer
     (the FFN biases) is 2-D there and IS decayed. The port's layers are
-    unstacked; it counts that axis back in to follow the reference."""
-    stacked, li = set(), 0
-    for _, count in execution_plan(cfg):
-        if count > 1:
-            stacked.update(range(li, li + count))
-        li += count
+    unstacked; it counts that axis back in to follow the reference. An
+    enc-dec model (``family="encdec"``) stacks each of ``enc_layers`` and
+    ``dec_layers`` when it has more than one layer."""
+    stacked = set()      # (tree key, layer index) of the stacked layers
+    if cfg.family == "encdec":
+        for key, n in (("enc_layers", cfg.num_layers), ("dec_layers", cfg.num_decoder_layers)):
+            if cfg.scan_layers and n > 1:
+                stacked.update((key, str(i)) for i in range(n))
+    else:
+        li = 0
+        for _, count in execution_plan(cfg):
+            if count > 1:
+                stacked.update(("layers", str(i)) for i in range(li, li + count))
+            li += count
     mask = []
     for path, leaf in tree_flatten_with_paths(params):
-        parts = path.split("/")
-        in_run = parts[0] == "layers" and int(parts[1]) in stacked
+        in_run = tuple(path.split("/")[:2]) in stacked
         exclude = (leaf.ndim + in_run <= 1
                    or "/nodes/" in path
                    or path.endswith(("sigma_hat", "omega", "T_hat", "u_re", "u_im"))

@@ -455,3 +455,93 @@ def test_bf16_train_steps_on_the_card_match_the_cpu(dev):
     for (path, a), (_, b) in zip(tree_flatten_with_paths(pc), tree_flatten_with_paths(pp)):
         assert a.dtype == torch.float32
         assert float((a.cpu() - b).abs().max()) <= 2 * tcfg.learning_rate + 1e-6, path
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family (whisper-base-stlt)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["fixed", "adaptive"])
+def test_bidirectional_apply_stlt_on_the_card_matches_the_cpu(dev, adaptive):
+    """The bilateral STLT layer (K1 causal and anti-causal, minus the
+    centre Re(sum_k u_k) v over the masked mixers) on the card against its
+    plain version on the CPU at N = 300 (a padded tail in both directions),
+    2 K1 launches, within RTOL_SCALE of the output's scale."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.utils import tree_map
+
+    cfg = stlt_lib.STLTConfig(d_model=128, num_heads=2, num_nodes=32, chunk=128,
+                              bidirectional=True,
+                              adaptive=AdaptiveConfig(enabled=adaptive))
+    params = stlt_lib.init_stlt(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(3, 300, 128, generator=torch.Generator().manual_seed(1))
+    before = k1.stlt_scan_kernel.launches
+    y, _ = stlt_lib.apply_stlt(tree_map(lambda t: t.to(dev), params), cfg, x.to(dev))
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches == before + 2
+    want, _ = stlt_lib.apply_stlt(params, cfg, x)
+    _assert_close(y.cpu(), want)
+
+
+def test_encdec_on_the_card_matches_the_cpu(dev):
+    """A reduced whisper-base-stlt (4 + 2 layers, stacked as the JAX package
+    stacks them, remat on) on the card and on the CPU from the same weights:
+    the encode makes 2 K1 calls a layer and the decode steps none; one
+    train step's forward + backward makes 4 x 6 + 2 x 3 = 30 (remat
+    recomputes each layer: encoder 2 forward, 2 recompute, 2 dx; decoder
+    1 + 1 + 1); the teacher-forced logits, 5 decode steps' logits (the
+    card's greedy tokens fed to both) and the loss within RTOL_SCALE of the
+    scale, every grad leaf within 1e-2 of its norm (the cross-STLT's sharp
+    softmax amplifies rounding), non-zero but for the cross-STLT's unread
+    node mixers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import whisper as W
+    from repro_torch.utils import tree_flatten_with_paths, tree_map
+
+    cfg = get_config("whisper-base", "stlt").reduced(scan_layers=True, remat=True)
+    params = W.init_encdec(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, 150, cfg.d_model, generator=g)
+    toks = torch.randint(0, cfg.vocab, (2, 25), generator=g)
+    batch = {"enc_inputs": frames, "dec_inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        p = tree_map(lambda t, w=where: t.to(w), params)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            before = k1.stlt_scan_kernel.launches
+            st = steps.prefill_fn(cfg, 8)(p, b["enc_inputs"])
+            torch.cuda.synchronize()
+            enc = k1.stlt_scan_kernel.launches - before
+            tok, rows, fed = torch.ones(2, dtype=torch.int64, device=where), [], []
+            for i in range(5):
+                lg, st = steps.decode_fn(cfg)(p, tok, st)
+                rows.append(lg.cpu())
+                tok = (out["cuda"]["fed"][i] if where.type == "cpu" else lg.argmax(-1)).to(where)
+                fed.append(tok.cpu())
+            torch.cuda.synchronize()
+            dec = k1.stlt_scan_kernel.launches - before - enc
+            teacher = W.apply_encdec(p, cfg, b["enc_inputs"], b["dec_inputs"]).cpu()
+        before = k1.stlt_scan_kernel.launches
+        loss, _, grads = train.loss_and_grads(p, cfg, b, tau=1.0)
+        torch.cuda.synchronize()
+        out[where.type] = {"enc": enc, "dec": dec, "rows": torch.stack(rows, 1), "fed": fed,
+                           "teacher": teacher, "loss": float(loss),
+                           "train": k1.stlt_scan_kernel.launches - before,
+                           "grads": tree_map(torch.Tensor.cpu, grads)}
+    card, cpu = out["cuda"], out["cpu"]
+    assert (card["enc"], card["dec"], card["train"]) == (8, 0, 30)
+    _assert_close(card["teacher"], cpu["teacher"])
+    _assert_close(card["rows"], cpu["rows"])
+    assert abs(card["loss"] - cpu["loss"]) <= RTOL_SCALE * abs(cpu["loss"])
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(card["grads"]),
+                                 tree_flatten_with_paths(cpu["grads"])):
+        if "/cross/nodes/u_" in path:
+            assert not a.any() and not b.any(), path
+            continue
+        assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0, path
+        rel = float(torch.linalg.vector_norm((a - b).double())
+                    / torch.linalg.vector_norm(b.double()))
+        assert rel <= 1e-2, (path, rel)

@@ -173,10 +173,14 @@ def test_init_stlt_layout_matches_jax():
     assert shapes(st) == shapes(sj)
 
 
-@pytest.mark.parametrize("kw", [dict(window="hann"), dict(bidirectional=True),
-                                dict(engine="associative"),
-                                dict(engine="sequential")])
+@pytest.mark.parametrize("kw", [dict(window="hann"),
+                                dict(window="hann", bidirectional=True),
+                                dict(window="hann", engine="associative"),
+                                dict(window="hann", engine="sequential")])
 def test_unported_stlt_variants_raise(kw):
+    """The hann window is not ported, in either direction and under every
+    engine name (the bilateral transform and the sequential/associative
+    engines are, held to the JAX package in tests/test_torch_encdec.py)."""
     _, cfg_t = _cfgs(**kw)
     pt = t_stlt.init_stlt(torch.Generator().manual_seed(0), cfg_t)
     with pytest.raises(NotImplementedError):
