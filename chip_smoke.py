@@ -53,7 +53,18 @@ the step profiled beside its HBM bound; W2 trains at 8 x (1500 frames,
 448 tokens): step 0 with remat against remat off and against fp32
 compute, 5 AdamW steps (54 K1 launches each), the peak memory with remat
 on and off, one step profiled. K1 is also checked and timed at phase W's
-shapes, in both directions.
+shapes, in both directions. Phase A runs the paper's baseline, native
+softmax attention (plain torch, no kernel of the port: K1 must make no
+launch): A1 serves native SmolLM-360M in bf16 (phase P's requests, plain
+and the n-gram draft; streams against each request run alone, verify
+against decode dispatches, the per-slot KV state beside the STLT
+variant's), A2 holds chunked against monolithic prefill and decode against
+the teacher-forced forward in fp32, the blockwise path against the dense
+one at 1 x 8192, the card against the CPU at 2 layers, and times one
+layer's attention beside ``F.scaled_dot_product_attention`` (a yardstick;
+the port never calls it), A3 trains it at 8 x 1024 in bf16 with remat (step
+0 against remat off and, at 2 layers in fp32, against the CPU; 5 AdamW
+steps; peak memory), A4 runs native whisper-base through phase W's checks.
 It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
@@ -594,10 +605,15 @@ K1_KERNEL = re.compile(r"\bk1_(pack|carry_in|carry_scan|readout)\b")
 GEMM_KERNELS = ("gemm", "nvjet")   # cuBLAS's fp32 (xmma gemm) and bf16 (nvjet) kernels
 
 
+def stlt_layers(cfg) -> int:
+    """The LM's STLT blocks: each makes K1 calls; attention blocks none."""
+    return sum(bt in ("stlt", "stlt_rel") for bt in cfg.block_types())
+
+
 def k1_calls_per_step(cfg) -> int:
-    """K1 calls in one forward + backward: each layer's forward, its remat
-    recompute in backward when ``cfg.remat`` is set, and its dx."""
-    return (3 if cfg.remat else 2) * cfg.num_layers
+    """K1 calls in one forward + backward: each STLT layer's forward, its
+    remat recompute in backward when ``cfg.remat`` is set, and its dx."""
+    return (3 if cfg.remat else 2) * stlt_layers(cfg)
 
 
 def train_profile(fn, cfg, tag: str) -> dict:
@@ -622,7 +638,7 @@ def train_profile(fn, cfg, tag: str) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     k1_events = sorted((e for e in kernels if K1_KERNEL.search(e.name)),
                        key=lambda e: e.time_range.start)
-    L, per = cfg.num_layers, 4                       # 4 kernels a K1 call
+    L, per = stlt_layers(cfg), 4                     # 4 kernels a K1 call
     if len(k1_events) != per * k1_calls_per_step(cfg):
         raise AssertionError(f"{tag} profile: {len(k1_events)} K1 kernels, expected "
                              f"{per * k1_calls_per_step(cfg)}")
@@ -647,8 +663,9 @@ def train_profile(fn, cfg, tag: str) -> dict:
            "param_grads_host_ms": pg_host, "gemm_ms": gemm, "launches": len(kernels)}
     log(f"[{tag} profile] one step: wall {wall_ms:.2f} ms (profiled), device busy "
         f"{busy:.2f} ms = {100 * busy / wall_ms:.1f}% of wall, {len(kernels)} kernel "
-        f"launches; K1 forward {k1_fwd:.4f} ms ({L} calls, {k1_fwd / L:.4f} ms each), "
-        f"remat recompute {k1_re:.4f} ms, dx {k1_dx:.4f} ms ({k1_dx / L:.4f} ms each), "
+        f"launches; K1 forward {k1_fwd:.4f} ms ({L} calls, {k1_fwd / max(L, 1):.4f} ms "
+        f"each), remat recompute {k1_re:.4f} ms, dx {k1_dx:.4f} ms "
+        f"({k1_dx / max(L, 1):.4f} ms each), "
         f"together {100 * k1_all / busy:.1f}% of device time; analytic param grads "
         f"{pg_dev:.3f} ms of device time ({100 * pg_dev / busy:.1f}%), {pg_host:.2f} ms "
         f"of host time ({100 * pg_host / wall_ms:.1f}% of the wall); GEMMs {gemm:.3f} ms "
@@ -788,14 +805,20 @@ def log_top_leaves(tag: str, a: dict, b: dict, n: int = 8):
                                 sorted(rel.items(), key=lambda kv: -kv[1])[:n]))
 
 
-def smollm_train_phase(T, train, k1, cfg, dev, B, N) -> dict:
-    """Phase T3: SmolLM-360M-stlt trained in bf16 (fp32 masters, the
-    matrices cast inside the loss, remat on) at B x N tokens a step through
-    K1. Step 0 with remat against remat off (K1 launches 3L and 2L), and
-    against fp32 compute from the same masters: loss and every grad leaf,
-    finite and non-zero, within the stated tolerances. Then 5 AdamW steps,
-    timed by CUDA events (3L K1 launches each), one step's peak memory with
-    remat full, dots and off, and one profiled step."""
+T3_COMPARE = (("no remat", TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
+              ("fp32 compute", T3_BF16_LOSS_TOL, T3_BF16_GRAD_TOL))
+
+
+def smollm_train_phase(T, train, k1, cfg, dev, B, N, tag="T3", compare=T3_COMPARE,
+                       remat_modes=("full", "dots", "off")) -> dict:
+    """Phase T3 (and A3 with the native config): SmolLM-360M trained in
+    bf16 (fp32 masters, the matrices cast inside the loss, remat on) at
+    B x N tokens a step, its STLT blocks through K1. Step 0 with remat
+    against the runs in ``compare`` (remat off: K1 launches 3L and 2L;
+    fp32 compute from the same masters): loss and every grad leaf, finite
+    and non-zero, within the stated tolerances. Then 5 AdamW steps, timed
+    by CUDA events (3L K1 launches each; none for attention), one step's
+    peak memory in each of ``remat_modes``, and one profiled step."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import lm_batch_stream
 
@@ -808,34 +831,34 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N) -> dict:
 
     b0 = batch(0)
     runs = {}
+    variants = {"no remat": dataclasses.replace(cfg, remat=False),
+                "fp32 compute": dataclasses.replace(cfg, dtype="float32")}
     # the first call pays one-time costs (and a CPU rehearsal's first bf16
     # products may round differently), so it is not compared
     for name, c in (("first call", cfg), ("remat", cfg),
-                    ("no remat", dataclasses.replace(cfg, remat=False)),
-                    ("fp32 compute", dataclasses.replace(cfg, dtype="float32"))):
+                    *((n, variants[n]) for n, _, _ in compare)):
         k1.stlt_scan_kernel.launches = 0
         t0 = time.time()
         loss, metrics, grads = train.loss_and_grads(params, c, b0, tau=1.0)
         torch.cuda.synchronize()
         n = k1.stlt_scan_kernel.launches
-        log(f"[T3 step 0] {name}: loss {float(loss):.6f}, {time.time() - t0:.2f} s, "
+        log(f"[{tag} step 0] {name}: loss {float(loss):.6f}, {time.time() - t0:.2f} s, "
             f"{n} K1 launches")
         if n != k1_calls_per_step(c) or not torch.isfinite(loss):
-            raise AssertionError(f"T3 {name}: {n} K1 launches (expected "
+            raise AssertionError(f"{tag} {name}: {n} K1 launches (expected "
                                  f"{k1_calls_per_step(c)}), loss {float(loss)}")
         runs[name] = (float(loss), grads)
     gaps = {}
-    for name, ref, loss_tol, grad_tol in (
-            ("no remat", "remat", TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
-            ("fp32 compute", "remat", T3_BF16_LOSS_TOL, T3_BF16_GRAD_TOL)):
+    for name, loss_tol, grad_tol in compare:
+        ref = "remat"
         rel = abs(runs[ref][0] - runs[name][0]) / abs(runs[name][0])
-        path, worst, n = grad_gaps(runs[ref][1], runs[name][1], f"T3 {ref} vs {name}")
+        path, worst, n = grad_gaps(runs[ref][1], runs[name][1], f"{tag} {ref} vs {name}")
         gaps[name] = {"loss": rel, "grad": worst, "leaf": path}
-        log(f"[T3 step 0] bf16 remat vs {name}: loss relative {rel:.3e} (gate {loss_tol}), "
-            f"{n} grad leaves all finite and non-zero, worst ||g - g_ref|| / ||g_ref|| "
-            f"{worst:.3e} ({path}; gate {grad_tol})")
+        log(f"[{tag} step 0] bf16 remat vs {name}: loss relative {rel:.3e} (gate "
+            f"{loss_tol}), {n} grad leaves all finite and non-zero, worst ||g - g_ref|| / "
+            f"||g_ref|| {worst:.3e} ({path}; gate {grad_tol})")
         if not (rel <= loss_tol and worst <= grad_tol):
-            raise AssertionError(f"T3: bf16 remat vs {name}: loss {rel}, grad {worst} "
+            raise AssertionError(f"{tag}: bf16 remat vs {name}: loss {rel}, grad {worst} "
                                  f"at {path}")
     del runs
 
@@ -856,20 +879,20 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N) -> dict:
         ev_ms.append(start.elapsed_time(end))
         counts.append(k1.stlt_scan_kernel.launches)
         loss = float(metrics["loss"])
-        log(f"[T3 train] step {step}: loss {loss:.6f} grad_norm "
+        log(f"[{tag} train] step {step}: loss {loss:.6f} grad_norm "
             f"{float(metrics['grad_norm']):.4f}; {ev_ms[-1]:.3f} ms (events), "
             f"{walls[-1]:.3f} ms (wall), {counts[-1]} K1 launches")
         if counts[-1] != k1_calls_per_step(cfg) or not np.isfinite(loss):
-            raise AssertionError(f"T3 step {step}: {counts[-1]} K1 launches, loss {loss}")
+            raise AssertionError(f"{tag} step {step}: {counts[-1]} K1 launches, loss {loss}")
     med = float(np.median(ev_ms[1:]))
-    log(f"[T3 train] {B} x {N} tokens a step: median step {med:.3f} ms by CUDA events "
+    log(f"[{tag} train] {B} x {N} tokens a step: median step {med:.3f} ms by CUDA events "
         f"over steps 1-4 ({[round(t, 3) for t in ev_ms[1:]]}), wall "
         f"{float(np.median(walls[1:])):.3f} ms; {B * N / (med / 1e3):.1f} training "
         f"tokens/s")
 
     b = batch(tcfg.total_steps)
     memory = {}
-    for mode in ("full", "dots", "off"):
+    for mode in remat_modes:
         c = dataclasses.replace(cfg, remat=mode != "off",
                                 remat_policy="full" if mode == "off" else mode)
         _, fn = train.make_step(c, tcfg)
@@ -882,10 +905,10 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N) -> dict:
                        warmup=0)
         peak = torch.cuda.max_memory_allocated()
         memory[mode] = {"peak_gib": peak / 2**30, "held_gib": held / 2**30, "step_ms": ms}
-        log(f"[T3 memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
+        log(f"[{tag} memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
             f"and AdamW state held: {held / 2**30:.2f} GiB), step {ms:.3f} ms (events, "
-            f"mean of 2)")
-    prof = train_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), cfg, "T3")
+            f"mean of 2) [{smi_line()}]")
+    prof = train_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), cfg, tag)
     return {"step_ms": med, "tok_s": B * N / (med / 1e3), "launches_per_step": counts[-1],
             "gaps": gaps, "memory": memory, **prof}
 
@@ -1017,11 +1040,12 @@ def near_tie(row, tok: int, what: str, tol: float = LOGIT_TOL) -> int:
     return 1
 
 
-def prompt_alone(T, cfg, params, dev, prompt, chunk: int):
+def prompt_alone(T, cfg, params, dev, prompt, chunk: int, max_len: int = 0):
     """(last logits, state) of ``prompt`` run alone, folded at [1, chunk]
     (padded, per-row valid) from token 0, so its chunk boundaries are the
-    engine's."""
-    state = T.init_decode_state(cfg, 1, 0, device=dev)
+    engine's; ``max_len`` sizes an attention model's KV cache as the
+    engine's is sized."""
+    state = T.init_decode_state(cfg, 1, max_len, device=dev)
     for off in range(0, len(prompt), chunk):
         n = min(chunk, len(prompt) - off)
         buf = np.zeros((1, chunk), np.int64)
@@ -1329,9 +1353,13 @@ def teacher_forced(T, cfg, params, dev, state, logits, stream, window=None, caps
     return rows, gap
 
 
-def spec_phase(T, k1, cfg, dev, k1_rows) -> dict:
-    """Phase P: continuous serve of full-width SmolLM-360M-stlt (bf16) in
-    five modes (plain, n-gram draft, node draft, adaptive n-gram, the SLO
+P_MAX_LEN = 4096   # the engine's default: bounds an attention model's requests
+
+
+def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram") -> dict:
+    """Phase P (and A1 with the native config and ``runs`` plain and
+    n-gram): continuous serve of full-width SmolLM-360M (bf16) in the modes
+    of ``runs`` (plain, n-gram draft, node draft, adaptive n-gram, the SLO
     ladder), its matrices cast to bf16 as the serve CLI casts them. Checks
     (a) every stream against each request run alone, teacher-forced (the
     SLO run's at the node budget the ladder gave each of its decode ticks),
@@ -1339,11 +1367,13 @@ def spec_phase(T, k1, cfg, dev, k1_rows) -> dict:
     recurrent-form logit gap along the plain streams, which it reads and
     prints, at most P_GAP_CAP; (b) spec runs make fewer target decode-phase
     dispatches (verify) than plain decode and the n-gram run accepts
-    tokens; (c) K1 launches = layers x (admission + verify + draft
-    prefill/commit dispatches) in every run; (d) the SLO run breaches its queue depth,
-    steps down and all the way back up, and serves every budget. Times each
-    run and profiles the n-gram serve (device kernels only)."""
+    tokens; (c) K1 launches = STLT layers x (admission + verify + draft
+    prefill/commit dispatches) in every run (0 for attention); (d) the SLO
+    run breaches its queue depth, steps down and all the way back up, and
+    serves every budget. Times each run and profiles the ``profiled`` serve
+    (device kernels only)."""
     from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving.prefix_cache import pytree_nbytes
     from repro_torch.utils import cast_params_for_compute
 
     smi = smi_line()
@@ -1351,18 +1381,26 @@ def spec_phase(T, k1, cfg, dev, k1_rows) -> dict:
         T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
     reqs = spec_requests(cfg, Request)
     arrivals = [s[3] for s in P_SPEC]
-    L = cfg.num_layers
-    engines = {name: ServeEngine(params, cfg, prefill_chunk=P_CHUNK, device=dev, **kw)
-               for name, kw in P_RUNS}
+    L = stlt_layers(cfg)
+    names = [name for name, _ in runs]
+    engines = {name: ServeEngine(params, cfg, max_len=P_MAX_LEN, prefill_chunk=P_CHUNK,
+                                 device=dev, **kw)
+               for name, kw in runs}
+    slot_bytes = pytree_nbytes(T.init_decode_state(cfg, 1, P_MAX_LEN, device=dev))
+    log(f"[{tag} serve] decode state of one slot at max_len {P_MAX_LEN}: {slot_bytes} bytes "
+        f"({slot_bytes / 2**20:.2f} MiB; {cfg.block_types()[0]} blocks, {cfg.dtype} "
+        f"activations)")
     # the node budget of each of a request's decode ticks in the SLO run
-    slo_caps, row_caps = {}, engines["slo"]._row_caps
+    slo_caps = {}
+    if "slo" in engines:
+        row_caps = engines["slo"]._row_caps
 
-    def logged_caps(sched):
-        caps = row_caps(sched)
-        for local in np.flatnonzero(sched.live):
-            slo_caps.setdefault(sched.req[local].id, []).append(int(caps[local]))
-        return caps
-    engines["slo"]._row_caps = logged_caps
+        def logged_caps(sched):
+            caps = row_caps(sched)
+            for local in np.flatnonzero(sched.live):
+                slo_caps.setdefault(sched.req[local].id, []).append(int(caps[local]))
+            return caps
+        engines["slo"]._row_caps = logged_caps
 
     def serve(name):
         eng = engines[name]
@@ -1375,125 +1413,129 @@ def spec_phase(T, k1, cfg, dev, k1_rows) -> dict:
 
     t_phase = time.time()
     serve("plain")   # first call: one-time costs
-    runs = {}
-    for name, _ in P_RUNS:
+    done = {}
+    for name in names:
         res, stats, wall, launches = serve(name)
         eng = engines[name]
         ss = dict(eng.serve_stats)
-        if launches == 0 or launches != L * k1_dispatches(ss):
-            raise AssertionError(f"P (c) {name}: {launches} K1 launches for {ss}")
+        if (L and launches == 0) or launches != L * k1_dispatches(ss):
+            raise AssertionError(f"{tag} (c) {name}: {launches} K1 launches for {ss}")
         for r in reqs:
             if len(res[r.id]) != r.max_new_tokens or not ((res[r.id] >= 0)
                                                           & (res[r.id] < cfg.vocab)).all():
-                raise AssertionError(f"P {name}: request {r.id} gave {res[r.id]}")
-        runs[name] = {"res": res, "k1_launches": launches, "serve_stats": ss,
+                raise AssertionError(f"{tag} {name}: request {r.id} gave {res[r.id]}")
+        done[name] = {"res": res, "k1_launches": launches, "serve_stats": ss,
                       "spec_stats": dict(eng.spec_stats), "node_stats": dict(eng.node_stats),
                       **serve_metrics(res, stats, reqs, wall)}
-        log(f"[P serve] {name}: wall {wall:.3f} s, {runs[name]['tokens']} tokens, "
-            f"{runs[name]['tok_s']:.1f} generated tok/s; TTFT p50/p99 "
-            f"{runs[name]['ttft_ms'][0]:.2f}/{runs[name]['ttft_ms'][1]:.2f} ms; inter-token "
-            f"gap p50/p99 {runs[name]['gap_ms'][0]:.3f}/{runs[name]['gap_ms'][1]:.3f} ms; "
-            f"{launches} K1 launches = {L} layers x {k1_dispatches(ss)} dispatches; {ss} "
+        log(f"[{tag} serve] {name}: wall {wall:.3f} s, {done[name]['tokens']} tokens, "
+            f"{done[name]['tok_s']:.1f} generated tok/s; TTFT p50/p99 "
+            f"{done[name]['ttft_ms'][0]:.2f}/{done[name]['ttft_ms'][1]:.2f} ms; inter-token "
+            f"gap p50/p99 {done[name]['gap_ms'][0]:.3f}/{done[name]['gap_ms'][1]:.3f} ms; "
+            f"{launches} K1 launches = {L} STLT layers x {k1_dispatches(ss)} dispatches; {ss} "
             f"[{smi}]")
-        if name != "plain" and name != "slo":
-            log(f"[P serve] {name} spec_stats {runs[name]['spec_stats']}")
-    log(f"[P serve] slo node_stats {runs['slo']['node_stats']}")
+        if name not in ("plain", "slo"):
+            log(f"[{tag} serve] {name} spec_stats {done[name]['spec_stats']}")
 
     # (b) fewer target decode-phase dispatches; the n-gram draft is accepted
-    plain_ticks = runs["plain"]["serve_stats"]["decode_dispatches"]
-    for name in ("ngram", "nodes", "ngram_adaptive"):
-        ss = runs[name]["serve_stats"]
+    plain_ticks = done["plain"]["serve_stats"]["decode_dispatches"]
+    spec_names = [n for n in ("ngram", "nodes", "ngram_adaptive") if n in done]
+    for name in spec_names:
+        ss = done[name]["serve_stats"]
         if not (ss["decode_dispatches"] == 0 and 0 < ss["verify_dispatches"] < plain_ticks):
-            raise AssertionError(f"P (b) {name}: {ss} against {plain_ticks} plain decode "
+            raise AssertionError(f"{tag} (b) {name}: {ss} against {plain_ticks} plain decode "
                                  "dispatches")
-    if not runs["ngram"]["spec_stats"]["accepted"] > 0:
-        raise AssertionError(f"P (b): the n-gram draft accepted nothing: "
-                             f"{runs['ngram']['spec_stats']}")
+    if "ngram" in done and not done["ngram"]["spec_stats"]["accepted"] > 0:
+        raise AssertionError(f"{tag} (b): the n-gram draft accepted nothing: "
+                             f"{done['ngram']['spec_stats']}")
     # (d) the SLO ladder
-    ns = runs["slo"]["node_stats"]
-    if not (ns["queue_breaches"] > 0 and ns["degrade_steps"] >= 1
-            and ns["restore_steps"] == ns["degrade_steps"]
-            and ns["min_nodes"] < cfg.stlt_nodes):
-        raise AssertionError(f"P (d): node_stats {ns}")
+    if "slo" in done:
+        ns = done["slo"]["node_stats"]
+        log(f"[{tag} serve] slo node_stats {ns}")
+        if not (ns["queue_breaches"] > 0 and ns["degrade_steps"] >= 1
+                and ns["restore_steps"] == ns["degrade_steps"]
+                and ns["min_nodes"] < cfg.stlt_nodes):
+            raise AssertionError(f"{tag} (d): node_stats {ns}")
 
-    log(f"[P time] the serves: {time.time() - t_phase:.1f} s")
+    log(f"[{tag} time] the serves: {time.time() - t_phase:.1f} s")
     t_phase = time.time()
     # (a) streams against each request run alone, teacher-forced
     window = P_K + 1
     checks, gap = {}, 0.0
     with torch.no_grad():
         for r in reqs:
-            stream = runs["slo"]["res"][r.id]
-            if len(slo_caps.get(r.id, [])) != len(stream) - 1:
-                raise AssertionError(f"P (a) slo: request {r.id}: {len(stream)} tokens, "
-                                     f"node budgets of {len(slo_caps.get(r.id, []))} "
-                                     "decode ticks")
-            logits, state = prompt_alone(T, cfg, params, dev, r.prompt, P_CHUNK)
-            for name, _ in P_RUNS:
+            if "slo" in done and len(slo_caps.get(r.id, [])) != len(done["slo"]["res"][r.id]) - 1:
+                raise AssertionError(f"{tag} (a) slo: request {r.id}: "
+                                     f"{len(done['slo']['res'][r.id])} tokens, node budgets "
+                                     f"of {len(slo_caps.get(r.id, []))} decode ticks")
+            logits, state = prompt_alone(T, cfg, params, dev, r.prompt, P_CHUNK, P_MAX_LEN)
+            for name in names:
                 rows, g = teacher_forced(
-                    T, cfg, params, dev, state, logits, runs[name]["res"][r.id],
+                    T, cfg, params, dev, state, logits, done[name]["res"][r.id],
                     window if name == "plain" else None,
                     slo_caps[r.id] if name == "slo" else None)
                 checks[(name, r.id)] = rows
                 gap = max(gap, g)
-    log(f"[P serve] (a) the largest chunk-form vs recurrent-form logit gap over every "
+    log(f"[{tag} serve] (a) the largest chunk-form vs recurrent-form logit gap over every "
         f"{window}-token window of the plain streams: {gap:.6g} (cap {P_GAP_CAP}) [{smi}]")
     if not gap <= P_GAP_CAP:
-        raise AssertionError(f"P (a): chunk-form vs recurrent-form logit gap {gap} "
+        raise AssertionError(f"{tag} (a): chunk-form vs recurrent-form logit gap {gap} "
                              f"> {P_GAP_CAP}")
     tol = P_TIE_TOL
-    ties = {name: 0 for name, _ in P_RUNS}
-    tie_gap = {name: 0.0 for name, _ in P_RUNS}
+    ties = {name: 0 for name in names}
+    tie_gap = {name: 0.0 for name in names}
     for (name, rid), rows in checks.items():
-        for step, ((best, d), tok) in enumerate(zip(rows, runs[name]["res"][rid])):
+        for step, ((best, d), tok) in enumerate(zip(rows, done[name]["res"][rid])):
             if best != int(tok):
                 if not d < tol:
-                    raise AssertionError(f"P (a) {name}: request {rid} step {step}: served "
-                                         f"{int(tok)}, alone argmax {best}, logit gap {d} "
-                                         f">= {tol}")
+                    raise AssertionError(f"{tag} (a) {name}: request {rid} step {step}: "
+                                         f"served {int(tok)}, alone argmax {best}, logit gap "
+                                         f"{d} >= {tol}")
                 ties[name] += 1
                 tie_gap[name] = max(tie_gap[name], d)
-    same = {name: all(np.array_equal(runs[name]["res"][r.id], runs["plain"]["res"][r.id])
+    same = {name: all(np.array_equal(done[name]["res"][r.id], done["plain"]["res"][r.id])
                       for r in reqs) for name in ties}
-    log(f"[P serve] (a) every stream equals its request run alone (the SLO run's at "
-        f"the ladder's node budgets) within the bf16 tolerance {tol:.4g}; near-tie "
-        f"steps {ties}, the largest served-vs-argmax logit gap among them {tie_gap}; "
-        f"stream equal to plain {same}; (b) target decode-phase dispatches: "
-        f"plain {plain_ticks}, " + ", ".join(
-            f"{n} {runs[n]['serve_stats']['verify_dispatches']}"
-            for n in ("ngram", "nodes", "ngram_adaptive")) + f" [{smi}]")
+    log(f"[{tag} serve] (a) every stream equals its request run alone"
+        f"{' (the SLO run at the ladder node budgets)' if 'slo' in done else ''} within the "
+        f"bf16 tolerance {tol:.4g}; near-tie steps {ties}, the largest served-vs-argmax logit "
+        f"gap among them {tie_gap}; stream equal to plain {same}; (b) target decode-phase "
+        f"dispatches: plain {plain_ticks}, " + ", ".join(
+            f"{n} {done[n]['serve_stats']['verify_dispatches']}" for n in spec_names)
+        + f" [{smi}]")
 
-    log(f"[P time] the alone checks: {time.time() - t_phase:.1f} s")
+    log(f"[{tag} time] the alone checks: {time.time() - t_phase:.1f} s")
     t_phase = time.time()
-    # the n-gram serve, profiled (kernels only); K1 at the verify shape
-    ngram_ss = runs["ngram"]["serve_stats"]
-    prof = serve_profile(lambda: serve("ngram"), ngram_ss["verify_dispatches"],
-                         L * k1_dispatches(ngram_ss))
-    log(f"[P time] the profile: {time.time() - t_phase:.1f} s")
-    vrow = k1_rows[K1_VERIFY]
-    from repro_torch.kernels import ops
-    vargs, _, _ = k1_case(k1, ops, dev, K1_VERIFY[0], K1_VERIFY[1], cfg.stlt_chunk,
-                          K1_VERIFY[2], cfg.dh, seed=5)
-    vrow["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*vargs, chunk=cfg.stlt_chunk),
-                              iters=20)
+    # one serve, profiled (kernels only); K1 at the verify shape
+    pss = done[profiled]["serve_stats"]
+    ticks = pss.get("verify_dispatches", 0) + pss["decode_dispatches"]
+    prof = serve_profile(lambda: serve(profiled), ticks, L * k1_dispatches(pss))
+    log(f"[{tag} time] the profile: {time.time() - t_phase:.1f} s")
     if prof is None:
-        log(f"[P profile] n-gram spec serve: not measured (every profile dropped kernels) "
-            f"[{smi}]")
+        log(f"[{tag} profile] {profiled} serve: not measured (every profile dropped "
+            f"kernels) [{smi}]")
     else:
-        log(f"[P profile] n-gram spec serve: wall {prof['wall_ms']:.1f} ms, device busy "
+        log(f"[{tag} profile] {profiled} serve: wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['busy_ms']:.2f} ms = {100 * prof['busy']:.1f}% of wall, "
             f"{prof['launches']} kernel launches = {prof['launches_per_tick']:.1f} per "
-            f"verify tick; K1 {prof['k1_ms']:.3f} ms = {100 * prof['k1_share']:.1f}% of "
-            f"device time [{smi}]")
-    device = "not measured" if vrow["device"] is None else f"{vrow['device']:.4f} ms"
-    log(f"[P K1] at the verify shape {K1_VERIFY[0]} x {K1_VERIFY[1]} (S={K1_VERIFY[2]}): "
-        f"ops.stlt_scan {vrow['scan']:.4f} ms (host operators + launch), K1 device time "
-        f"{device}, kernel alone {vrow['alone']:.4f} ms, plain version "
-        f"{vrow['plain']:.4f} ms, bound {vrow['bound']:.5f} ms ({vrow['bound_by']}) [{smi}]")
-    for name in runs:
-        del runs[name]["res"]
-    return {"runs": runs, "profile": prof, "tol": tol, "gap": gap, "ties": ties,
-            "tie_gap": tie_gap, "same": same}
+            f"decode or verify tick; K1 {prof['k1_ms']:.3f} ms = "
+            f"{100 * prof['k1_share']:.1f}% of device time [{smi}]")
+        log_top_kernels(tag, prof["top"], prof["busy_ms"])
+    if L and k1_rows is not None:
+        vrow = k1_rows[K1_VERIFY]
+        from repro_torch.kernels import ops
+        vargs, _, _ = k1_case(k1, ops, dev, K1_VERIFY[0], K1_VERIFY[1], cfg.stlt_chunk,
+                              K1_VERIFY[2], cfg.dh, seed=5)
+        vrow["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*vargs, chunk=cfg.stlt_chunk),
+                                  iters=20)
+        device = "not measured" if vrow["device"] is None else f"{vrow['device']:.4f} ms"
+        log(f"[{tag} K1] at the verify shape {K1_VERIFY[0]} x {K1_VERIFY[1]} "
+            f"(S={K1_VERIFY[2]}): ops.stlt_scan {vrow['scan']:.4f} ms (host operators + "
+            f"launch), K1 device time {device}, kernel alone {vrow['alone']:.4f} ms, plain "
+            f"version {vrow['plain']:.4f} ms, bound {vrow['bound']:.5f} ms "
+            f"({vrow['bound_by']}) [{smi}]")
+    for name in done:
+        del done[name]["res"]
+    return {"runs": done, "profile": prof, "tol": tol, "gap": gap, "ties": ties,
+            "tie_gap": tie_gap, "same": same, "slot_bytes": slot_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -1505,8 +1547,11 @@ def whisper_k1_calls(cfg, grad: bool) -> int:
     """K1 calls of one enc-dec forward (grad=False: 2 a bilateral encoder
     layer, 1 a decoder layer) or forward + backward (each call's dx pass in
     the other direction, and the remat recompute of a side the JAX package
-    stacks: ``scan_layers`` and more than one layer)."""
+    stacks: ``scan_layers`` and more than one layer). The attention form
+    makes none."""
     L, Ld = cfg.num_layers, cfg.num_decoder_layers
+    if not cfg.mixer.startswith("stlt"):
+        return 0
     if not grad:
         return 2 * L + Ld
     remat = lambda n: cfg.remat and cfg.scan_layers and n > 1  # noqa: E731
@@ -1535,18 +1580,22 @@ def whisper_frames(cfg, dev, B: int, M: int, seed: int):
     return torch.randn(B, M, cfg.d_model, generator=g, device=dev)
 
 
-def whisper_decode_phase(W, steps, k1, cfg, dev, B=W_B, new=W_NEW) -> dict:
-    """Phase W1: full-width whisper-base-stlt, matrices cast as
-    ``steps.serving_params`` casts them. Encode B x M frames (the prefill:
-    encode + each decoder layer's cross context; 2 K1 calls an encoder
-    layer), decode ``new`` tokens greedily from token 1 (no K1), and hold
+def whisper_decode_phase(W, steps, k1, cfg, dev, B=W_B, new=W_NEW, tag="W1") -> dict:
+    """Phase W1 (and A4 with the native config): full-width whisper-base,
+    matrices cast as ``steps.serving_params`` casts them. Encode B x M
+    frames (the prefill: encode + each decoder layer's cross context, or
+    its cross keys and values; 2 K1 calls an STLT encoder layer, none an
+    attention one), decode ``new`` tokens greedily from token 1 (no K1), and hold
     each step's logits against ``apply_encdec`` teacher-forced on the
     produced tokens: the largest gap, printed, at most W_GAP_CAP, and every
     token the teacher's argmax or within W_TIE_TOL of it (bounds on
     rounding noise; the tight checks are ``whisper_cpu_check``'s). Times the encode,
     the prefill and a decode step by CUDA events and profiles a decode step
     (the cross context's score products beside the step's HBM bound)."""
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+
     smi, M = smi_line(), steps.WHISPER_ENC_FRAMES
+    stlt = cfg.mixer.startswith("stlt")
     masters = W.init_encdec(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     params = steps.serving_params(masters, cfg)
     frames = whisper_frames(cfg, dev, B, M, seed=0)
@@ -1561,11 +1610,10 @@ def whisper_decode_phase(W, steps, k1, cfg, dev, B=W_B, new=W_NEW) -> dict:
         state = prefill(params, frames)
         torch.cuda.synchronize()
         enc_launches = k1.stlt_scan_kernel.launches
-        if enc_launches != 2 * L or k2.relevance_flash_kernel.launches:
-            raise AssertionError(f"W1: {enc_launches} K1 launches in the encode (expected "
-                                 f"{2 * L}), {k2.relevance_flash_kernel.launches} K2")
-        state_gib = sum(t.numel() * t.element_size() for st in state["dec"]
-                        for part in st.values() for t in part.values()) / 2**30
+        if enc_launches != 2 * L * stlt or k2.relevance_flash_kernel.launches:
+            raise AssertionError(f"{tag}: {enc_launches} K1 launches in the encode (expected "
+                                 f"{2 * L * stlt}), {k2.relevance_flash_kernel.launches} K2")
+        state_gib = pytree_nbytes(state["dec"]) / 2**30
         tok = torch.ones(B, dtype=torch.int64, device=dev)
         k1.stlt_scan_kernel.launches = 0
         rows, toks, st = [], [], state
@@ -1577,63 +1625,75 @@ def whisper_decode_phase(W, steps, k1, cfg, dev, B=W_B, new=W_NEW) -> dict:
         torch.cuda.synchronize()
         dec_launches = k1.stlt_scan_kernel.launches
         if dec_launches != 0:
-            raise AssertionError(f"W1: {dec_launches} K1 launches in {new} decode steps")
+            raise AssertionError(f"{tag}: {dec_launches} K1 launches in {new} decode steps")
         stream = torch.stack(toks, 1)                                   # [B, new]
         dec_in = torch.cat([torch.ones_like(stream[:, :1]), stream[:, :-1]], 1)
         k1.stlt_scan_kernel.launches = 0
         teacher = W.apply_encdec(params, cfg, frames, dec_in).float()   # [B, new, V]
         torch.cuda.synchronize()
-        if k1.stlt_scan_kernel.launches != 2 * L + Ld:
-            raise AssertionError(f"W1: {k1.stlt_scan_kernel.launches} K1 launches in the "
-                                 f"teacher-forced forward, expected {2 * L + Ld}")
+        if k1.stlt_scan_kernel.launches != whisper_k1_calls(cfg, grad=False):
+            raise AssertionError(f"{tag}: {k1.stlt_scan_kernel.launches} K1 launches in the "
+                                 f"teacher-forced forward, expected "
+                                 f"{whisper_k1_calls(cfg, grad=False)}")
         stepped = torch.stack(rows, 1)
         gap = float((stepped - teacher).abs().max())
         scale = float(teacher.abs().max())
         if not (bool(torch.isfinite(stepped).all()) and stepped.shape == teacher.shape):
-            raise AssertionError("W1: decode logits are not finite")
+            raise AssertionError(f"{tag}: decode logits are not finite")
         best = teacher.argmax(-1)
         served_gap = (teacher.gather(-1, best[..., None]) - teacher.gather(-1, stream[..., None]))[..., 0]
         ties = int((best != stream).sum())
         worst_tie = float(served_gap.max())
-    log(f"[W1 decode] {B} x {M} frames encoded ({enc_launches} K1 launches; decode state "
+    log(f"[{tag} decode] {B} x {M} frames encoded ({enc_launches} K1 launches; decode state "
         f"{state_gib:.2f} GiB), {new} greedy tokens ({dec_launches} K1 launches); decode "
         f"step vs teacher-forced apply_encdec: largest logit gap {gap:.6g} (cap {W_GAP_CAP}; "
         f"logit scale {scale:.3f}); served tokens off the teacher's argmax {ties}, the "
         f"largest served-vs-argmax gap {worst_tie:.6g} (tolerance {W_TIE_TOL}); first "
         f"tokens {stream[:, :8].tolist()} [{smi}]")
     if not gap <= W_GAP_CAP:
-        raise AssertionError(f"W1: decode step vs teacher-forced logit gap {gap} > {W_GAP_CAP}")
+        raise AssertionError(f"{tag}: decode step vs teacher-forced logit gap {gap} > "
+                             f"{W_GAP_CAP}")
     if not worst_tie < W_TIE_TOL:
-        raise AssertionError(f"W1: a served token trails the teacher's argmax by {worst_tie}")
-    gap32 = whisper_fp32_gap(W, steps, cfg, masters, frames, new)
+        raise AssertionError(f"{tag}: a served token trails the teacher's argmax by "
+                             f"{worst_tie}")
+    gap32 = whisper_fp32_gap(W, steps, cfg, masters, frames, new, tag)
     del masters
 
     with torch.no_grad():
         enc_ms = time_cuda(lambda: W.encode(params, cfg, frames), iters=5)
         prefill_ms = time_cuda(lambda: prefill(params, frames), iters=3)
         step_ms = time_cuda(lambda: decode(params, tok, state), iters=20)
-        ctx_bytes = sum(st["xctx"][k].numel() * st["xctx"][k].element_size()
-                        for st in state["dec"] for k in ("L_re", "L_im"))
-        step_bytes = ctx_bytes + sum(
-            st["xctx"]["v"].numel() * st["xctx"]["v"].element_size() for st in state["dec"])
-        # the matrices a step reads: self-STLT w_v and w_o, the cross-STLT's
-        # w_o (its values are in the context), the FFN, and the head
-        mats = [t for p in params["dec_layers"] for t in (
-            p["stlt"]["w_v"], p["stlt"]["w_o"], p["cross"]["w_o"], p["ffn"]["w1"],
-            p["ffn"]["w2"])] + [params["lm_head"]["kernel"]]
-        step_bytes += sum(t.numel() * t.element_size() for t in mats)
+        if stlt:
+            ctx_bytes = pytree_nbytes([[st["xctx"]["L_re"], st["xctx"]["L_im"]]
+                                       for st in state["dec"]])
+            step_bytes = ctx_bytes + pytree_nbytes([st["xctx"]["v"] for st in state["dec"]])
+            # the matrices a step reads: self-STLT w_v and w_o, the
+            # cross-STLT's w_o (its values are in the context), the FFN
+            mixers = [(p["stlt"]["w_v"], p["stlt"]["w_o"], p["cross"]["w_o"])
+                      for p in params["dec_layers"]]
+        else:
+            # the cross keys and values, the self KV caches, the projections
+            ctx_bytes = pytree_nbytes([[st["xk"], st["xv"]] for st in state["dec"]])
+            step_bytes = ctx_bytes + pytree_nbytes([st["self"] for st in state["dec"]])
+            mixers = [tuple(p["attn"].values()) + (p["cross"]["wq"], p["cross"]["wo"])
+                      for p in params["dec_layers"]]
+        mats = [t for m in mixers for t in m] + [t for p in params["dec_layers"] for t in (
+            p["ffn"]["w1"], p["ffn"]["w2"])] + [params["lm_head"]["kernel"]]
+        step_bytes += pytree_nbytes(mats)
         bound_ms = 1e3 * step_bytes / PEAK_BYTES_PER_S
         ctx_bound_ms = 1e3 * ctx_bytes / PEAK_BYTES_PER_S
-        log(f"[W1 timing] encode {B} x {M} frames {enc_ms:.3f} ms ({B * M / enc_ms * 1e3:.0f} "
-            f"frames/s), prefill (encode + {Ld} cross contexts) {prefill_ms:.3f} ms, decode "
-            f"step (batch {B}) {step_ms:.4f} ms by CUDA events; the step's HBM bound "
-            f"{bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB: the cross contexts' L_re/L_im "
-            f"{ctx_bytes / 1e9:.3f} GB = {ctx_bound_ms:.4f} ms, their values, the decoder's "
-            f"matrices and the head) [{smi}]")
-        prof = whisper_profile(lambda: decode(params, tok, state), "W1 decode step", 0,
-                             annotations=("cross_stlt.scores",))
-        enc_prof = whisper_profile(lambda: prefill(params, frames), "W1 prefill", 2 * L,
-                                 annotations=("cross_stlt.coefficients",))
+        ctx = "L_re/L_im" if stlt else "keys and values"
+        log(f"[{tag} timing] encode {B} x {M} frames {enc_ms:.3f} ms "
+            f"({B * M / enc_ms * 1e3:.0f} frames/s), prefill (encode + {Ld} cross contexts) "
+            f"{prefill_ms:.3f} ms, decode step (batch {B}) {step_ms:.4f} ms by CUDA events; "
+            f"the step's HBM bound {bound_ms:.4f} ms ({step_bytes / 1e9:.3f} GB: the cross "
+            f"contexts' {ctx} {ctx_bytes / 1e9:.3f} GB = {ctx_bound_ms:.4f} ms, the rest of "
+            f"the state, the decoder's matrices and the head) [{smi}]")
+        prof = whisper_profile(lambda: decode(params, tok, state), f"{tag} decode step", 0,
+                               annotations=("cross_stlt.scores",) if stlt else ())
+        enc_prof = whisper_profile(lambda: prefill(params, frames), f"{tag} prefill",
+                                   2 * L * stlt,
+                                   annotations=("cross_stlt.coefficients",) if stlt else ())
     del state, st, stepped, teacher
     return {"encode_launches": enc_launches, "decode_launches": dec_launches, "gap": gap,
             "fp32_gap": gap32, "ties": ties, "worst_tie": worst_tie, "encode_ms": enc_ms,
@@ -1642,7 +1702,7 @@ def whisper_decode_phase(W, steps, k1, cfg, dev, B=W_B, new=W_NEW) -> dict:
             "prefill_profile": enc_prof}
 
 
-def whisper_fp32_gap(W, steps, cfg, masters, frames, new: int) -> float:
+def whisper_fp32_gap(W, steps, cfg, masters, frames, new: int, tag="W1") -> float:
     """The same encode and greedy decode at full width in fp32 (the
     masters uncast, fp32 activations): each step's logits against the
     teacher-forced ``apply_encdec`` on the produced tokens, at most
@@ -1663,16 +1723,16 @@ def whisper_fp32_gap(W, steps, cfg, masters, frames, new: int) -> float:
         dec_in = torch.cat([torch.ones_like(stream[:, :1]), stream[:, :-1]], 1)
         teacher = W.apply_encdec(masters, c, frames, dec_in)
         gap = float((torch.stack(rows, 1) - teacher).abs().max())
-    log(f"[W1 decode] fp32 (masters uncast, fp32 activations): decode step vs "
+    log(f"[{tag} decode] fp32 (masters uncast, fp32 activations): decode step vs "
         f"teacher-forced largest logit gap {gap:.3e} (cap {W_FP32_GAP_CAP}; logit scale "
         f"{float(teacher.abs().max()):.3f})")
     if not gap <= W_FP32_GAP_CAP:
-        raise AssertionError(f"W1: fp32 decode step vs teacher-forced logit gap {gap}")
+        raise AssertionError(f"{tag}: fp32 decode step vs teacher-forced logit gap {gap}")
     return gap
 
 
-def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS) -> dict:
-    """Phase W1/W2's tight checks: whisper-base-stlt at its widths but 2 + 2
+def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS, tag="W") -> dict:
+    """Phase W1/W2's tight checks (and A4's): whisper-base at its widths but 2 + 2
     layers, in fp32, batch 1, M frames, on the card and on the CPU from the
     same weights. (a) The decode steps' logits (the card's greedy tokens fed
     to both) and the teacher-forced logits, card against CPU, within
@@ -1683,7 +1743,10 @@ def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS) -> dict:
     TRAIN_LOSS_TOL, every grad leaf finite and non-zero, and the grads'
     gap (over the whole grad, and at the worst leaf) within W_GRAD_FLOOR_X
     times the CPU's own gap when K1's chunk is halved (the card's K1 calls,
-    both directions and their dx passes, counted). Returns the gaps."""
+    both directions and their dx passes, counted). The attention form has
+    no K1 and no cross-STLT to amplify rounding: its grads are held within
+    TRAIN_GRAD_TOL (each leaf) as phase T2's, its K1 launches to 0.
+    Returns the gaps."""
     from repro_torch.utils import tree_map
 
     M = steps.WHISPER_ENC_FRAMES
@@ -1693,6 +1756,7 @@ def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS) -> dict:
     g = torch.Generator(device=dev).manual_seed(2)
     ids = torch.randint(0, c.vocab, (1, W_TRAIN_N + 1), generator=g, device=dev)
     batch = {"enc_inputs": frames, "dec_inputs": ids[:, :-1], "labels": ids[:, 1:]}
+    stlt = c.mixer.startswith("stlt")
     out = {}
     for where, p, b in (("card", params, batch),
                         ("cpu", tree_map(torch.Tensor.cpu, params),
@@ -1716,24 +1780,29 @@ def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS) -> dict:
         out[where] = {"rows": torch.stack(rows, 1), "toks": toks, "teacher": teacher,
                       "loss": float(loss), "grads": tree_map(torch.Tensor.cpu, grads),
                       "launches": k1.stlt_scan_kernel.launches, "s": time.time() - t0}
-    # the floor: the CPU against itself with K1's chunk halved (summation
-    # order only)
-    p_cpu = tree_map(torch.Tensor.cpu, params)
-    _, _, spread_grads = train.loss_and_grads(
-        p_cpu, dataclasses.replace(c, stlt_chunk=c.stlt_chunk // 2),
-        {k: v.cpu() for k, v in batch.items()}, tau=1.0)
     card, cpu = out["card"], out["cpu"]
+    # the floor: the CPU against itself with K1's chunk halved (summation
+    # order only; the attention form has no K1 chunk)
+    spread_grads = cpu["grads"]
+    if stlt:
+        _, _, spread_grads = train.loss_and_grads(
+            tree_map(torch.Tensor.cpu, params),
+            dataclasses.replace(c, stlt_chunk=c.stlt_chunk // 2),
+            {k: v.cpu() for k, v in batch.items()}, tau=1.0)
     step_err = float((card["rows"] - cpu["rows"]).abs().max())
     tf_err = float((card["teacher"] - cpu["teacher"]).abs().max())
     forms = {w: float((o["rows"] - o["teacher"]).abs().max()) for w, o in out.items()}
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     unread = lambda q: "/cross/nodes/u_" in q  # noqa: E731
-    path, worst, n = grad_gaps(card["grads"], cpu["grads"], "W card vs cpu", unread)
-    s_path, s_worst, _ = grad_gaps(spread_grads, cpu["grads"], "W cpu chunks", unread)
+    path, worst, n = grad_gaps(card["grads"], cpu["grads"], f"{tag} card vs cpu", unread)
+    s_path, s_worst, _ = grad_gaps(spread_grads, cpu["grads"], f"{tag} cpu chunks", unread)
     whole, s_whole = (whole_grad_gap(a, cpu["grads"]) for a in (card["grads"], spread_grads))
-    log_top_leaves("W card vs cpu", card["grads"], cpu["grads"])
-    log_top_leaves("W cpu chunk spread", spread_grads, cpu["grads"])
-    log(f"[W card vs cpu] fp32, 2 + 2 layers, 1 x {M} frames, {new} decode steps: "
+    grad_gate = ((W_GRAD_FLOOR_X * s_whole, W_GRAD_FLOOR_X * s_worst) if stlt
+                 else (TRAIN_GRAD_TOL, TRAIN_GRAD_TOL))
+    log_top_leaves(f"{tag} card vs cpu", card["grads"], cpu["grads"])
+    if stlt:
+        log_top_leaves(f"{tag} cpu chunk spread", spread_grads, cpu["grads"])
+    log(f"[{tag} card vs cpu] fp32, 2 + 2 layers, 1 x {M} frames, {new} decode steps: "
         f"decode-step logits max abs err {step_err:.3e}, teacher-forced {tf_err:.3e} "
         f"(tolerance {W_CPU_TOL}; logit scale {float(cpu['teacher'].abs().max()):.3f}); "
         f"decode step vs teacher-forced on the card {forms['card']:.3e}, on the CPU "
@@ -1741,26 +1810,26 @@ def whisper_cpu_check(W, steps, train, k1, cfg, dev, new=W_CPU_STEPS) -> dict:
         f"{W_TRAIN_N}): loss relative {loss_rel:.3e} (tolerance {TRAIN_LOSS_TOL}), {n} grad "
         f"leaves finite and non-zero, ||g_card - g_cpu|| / ||g_cpu|| over the whole grad "
         f"{whole:.3e} and at the worst leaf {worst:.3e} ({path}), against the CPU's own "
-        f"chunk spread {s_whole:.3e} and {s_worst:.3e} ({s_path}; tolerance "
-        f"{W_GRAD_FLOOR_X}x each), {card['launches']} K1 launches; card "
+        f"chunk spread {s_whole:.3e} and {s_worst:.3e} ({s_path}); gates {grad_gate[0]:.3e} "
+        f"and {grad_gate[1]:.3e}, {card['launches']} K1 launches; card "
         f"{card['s']:.2f} s, CPU {cpu['s']:.2f} s")
     if card["launches"] != whisper_k1_calls(c, grad=True):
-        raise AssertionError(f"W card vs cpu: {card['launches']} K1 launches in step 0")
+        raise AssertionError(f"{tag} card vs cpu: {card['launches']} K1 launches in step 0")
     if not max(step_err, tf_err) <= W_CPU_TOL:
-        raise AssertionError(f"W: card and CPU logits disagree: {step_err}, {tf_err}")
+        raise AssertionError(f"{tag}: card and CPU logits disagree: {step_err}, {tf_err}")
     if not max(forms.values()) <= W_FP32_STEP_TOL:
-        raise AssertionError(f"W: fp32 decode step vs teacher-forced: {forms}")
-    if not (loss_rel <= TRAIN_LOSS_TOL and whole <= W_GRAD_FLOOR_X * s_whole
-            and worst <= W_GRAD_FLOOR_X * s_worst):
-        raise AssertionError(f"W: card vs CPU step 0: loss {loss_rel}, grad {whole} (whole), "
-                             f"{worst} at {path}")
+        raise AssertionError(f"{tag}: fp32 decode step vs teacher-forced: {forms}")
+    if not (loss_rel <= TRAIN_LOSS_TOL and whole <= grad_gate[0] and worst <= grad_gate[1]):
+        raise AssertionError(f"{tag}: card vs CPU step 0: loss {loss_rel}, grad {whole} "
+                             f"(whole), {worst} at {path}")
     return {"step_err": step_err, "teacher_err": tf_err, "forms": forms,
             "loss_rel": loss_rel, "grad_whole": whole, "grad_worst": worst, "grad_leaf": path,
             "floor_whole": s_whole, "floor_worst": s_worst}
 
 
-def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N) -> dict:
-    """Phase W2: whisper-base-stlt trained in bf16 (fp32 masters, the
+def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N,
+                        tag="W2") -> dict:
+    """Phase W2 (and A4's with the native config): whisper-base trained in bf16 (fp32 masters, the
     matrices cast inside the loss, remat as the config sets it) at B x (M
     frames, N tokens) a step. Step 0 with remat against remat off (K1
     launches 54 and 36 at full depth) and against fp32 compute: loss and
@@ -1795,10 +1864,10 @@ def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N) -> 
         torch.cuda.synchronize()
         n = k1.stlt_scan_kernel.launches
         gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in tree_leaves(grads))))
-        log(f"[W2 step 0] {name}: loss {float(loss):.6f}, grad norm {gnorm:.4f}, "
+        log(f"[{tag} step 0] {name}: loss {float(loss):.6f}, grad norm {gnorm:.4f}, "
             f"{time.time() - t0:.2f} s, {n} K1 launches")
         if n != whisper_k1_calls(c, grad=True) or not torch.isfinite(loss):
-            raise AssertionError(f"W2 {name}: {n} K1 launches (expected "
+            raise AssertionError(f"{tag} {name}: {n} K1 launches (expected "
                                  f"{whisper_k1_calls(c, grad=True)}), loss {float(loss)}")
         runs[name] = (float(loss), grads)
     gaps = {}
@@ -1806,13 +1875,14 @@ def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N) -> 
             ("no remat", "remat", TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
             ("fp32 compute", "remat", W_BF16_LOSS_TOL, W_BF16_GRAD_TOL)):
         rel = abs(runs[ref][0] - runs[name][0]) / abs(runs[name][0])
-        path, worst, n = grad_gaps(runs[ref][1], runs[name][1], f"W2 {ref} vs {name}", unread)
+        path, worst, n = grad_gaps(runs[ref][1], runs[name][1], f"{tag} {ref} vs {name}", unread)
         gaps[name] = {"loss": rel, "grad": worst, "leaf": path}
-        log(f"[W2 step 0] bf16 remat vs {name}: loss relative {rel:.3e} (gate {loss_tol}), "
-            f"{n} grad leaves all finite and non-zero (the cross-STLT's u exactly zero), "
+        log(f"[{tag} step 0] bf16 remat vs {name}: loss relative {rel:.3e} (gate {loss_tol}), "
+            f"{n} grad leaves all finite and non-zero"
+            f"{' (the cross-STLT u exactly zero)' if cfg.mixer.startswith('stlt') else ''}, "
             f"worst ||g - g_ref|| / ||g_ref|| {worst:.3e} ({path}; gate {grad_tol})")
         if not (rel <= loss_tol and worst <= grad_tol):
-            raise AssertionError(f"W2: bf16 remat vs {name}: loss {rel}, grad {worst} "
+            raise AssertionError(f"{tag}: bf16 remat vs {name}: loss {rel}, grad {worst} "
                                  f"at {path}")
     del runs
 
@@ -1835,15 +1905,15 @@ def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N) -> 
         ev_ms.append(start.elapsed_time(end))
         counts.append(k1.stlt_scan_kernel.launches)
         loss = float(metrics["loss"])
-        log(f"[W2 train] step {step}: loss {loss:.6f} grad_norm "
+        log(f"[{tag} train] step {step}: loss {loss:.6f} grad_norm "
             f"{float(metrics['grad_norm']):.4f}; {ev_ms[-1]:.3f} ms (events), "
             f"{walls[-1]:.3f} ms (wall), {counts[-1]} K1 launches")
         if (counts[-1] != whisper_k1_calls(cfg, grad=True) or not np.isfinite(loss)
                 or k2.relevance_flash_kernel.launches):
-            raise AssertionError(f"W2 step {step}: {counts[-1]} K1 launches, "
+            raise AssertionError(f"{tag} step {step}: {counts[-1]} K1 launches, "
                                  f"{k2.relevance_flash_kernel.launches} K2, loss {loss}")
     med = float(np.median(ev_ms[1:]))
-    log(f"[W2 train] {B} x ({M} frames + {N} tokens) a step: median step {med:.3f} ms by "
+    log(f"[{tag} train] {B} x ({M} frames + {N} tokens) a step: median step {med:.3f} ms by "
         f"CUDA events over steps 1-4 ({[round(t, 3) for t in ev_ms[1:]]}), wall "
         f"{float(np.median(walls[1:])):.3f} ms; {B * N / (med / 1e3):.1f} decoder tokens/s, "
         f"{B * M / (med / 1e3):.1f} encoder frames/s [{smi}]")
@@ -1861,15 +1931,290 @@ def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N) -> 
         ms = time_cuda(lambda: fn(params, opt_state, b, tcfg.total_steps), iters=2, warmup=0)
         peak = torch.cuda.max_memory_allocated()
         memory[mode] = {"peak_gib": peak / 2**30, "held_gib": held / 2**30, "step_ms": ms}
-        log(f"[W2 memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
+        log(f"[{tag} memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
             f"and AdamW state held: {held / 2**30:.2f} GiB), step {ms:.3f} ms (events, "
             f"mean of 2) [{smi}]")
-    prof = whisper_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), "W2 step",
+    prof = whisper_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), f"{tag} step",
                          whisper_k1_calls(cfg, grad=True),
-                         annotations=("cross_stlt.coefficients", "cross_stlt.scores"))
+                         annotations=("cross_stlt.coefficients", "cross_stlt.scores")
+                         if cfg.mixer.startswith("stlt") else ())
     return {"step_ms": med, "dec_tok_s": B * N / (med / 1e3),
             "frames_s": B * M / (med / 1e3), "launches_per_step": counts[-1],
             "gaps": gaps, "memory": memory, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase A: native attention, the paper's baseline (SmolLM-360M, whisper-base)
+# ---------------------------------------------------------------------------
+
+# A1 serves phase P's requests with the native config: plain and with the
+# n-gram draft (the node draft and the SLO ladder act on STLT blocks only).
+A_RUNS = (("plain", {}), ("ngram", dict(spec_k=P_K, spec_draft="ngram")))
+# A2: a prompt of A_PROMPT tokens (3 chunks of P_CHUNK and a tail), fp32,
+# chunked against monolithic prefill and A_NEW decode steps against the
+# teacher-forced forward; the blockwise path against the dense one on one
+# layer at A_BLOCK_N tokens; the card against the CPU at 2 layers.
+A_PROMPT, A_NEW, A_BLOCK_N = 1700, 16, 8192
+# The blockwise path (online softmax over KV blocks of 1024, query blocks
+# of 512) and the dense one are one function in fp32, summed in other
+# orders (max abs error over 1 + the output's scale; fp32 rounding through
+# 8192-term softmax sums).
+A_BLOCK_TOL = 1e-4
+# A3 trains at T3's shape; its card-vs-CPU step 0 at 2 layers in fp32 on
+# A_CPU_B x A_CPU_N tokens (T2's gates). A4 is phase W's shapes.
+A_CPU_B, A_CPU_N = 2, 256
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (data sheet, 700 W)
+
+
+def attention_check_phase(T, A, cfg, dev) -> dict:
+    """Phase A2: native SmolLM-360M at full width and depth in fp32 (the
+    masters uncast, fp32 activations): a 2 x A_PROMPT prompt folded
+    P_CHUNK tokens a chunk through ``prefill_chunk`` (the tail a masked
+    [2, P_CHUNK] chunk, as the engine admits it) against the monolithic
+    ``prefill``, last logits within LOGIT_TOL; A_NEW greedy decode steps
+    from the monolithic state, each against the teacher-forced ``apply_lm``
+    on the prompt and the produced tokens, within LOGIT_TOL; layer 0's
+    attention at 1 x A_BLOCK_N through the blockwise path against the dense
+    one (A_BLOCK_TOL), both timed; and at 2 layers the card against the CPU:
+    ``prefill`` logits, 4 decode steps and ``apply_lm``, within LOGIT_TOL.
+    No K1 launch in any of it."""
+    from repro_torch.kernels import stlt_scan as k1
+    from repro_torch.utils import tree_map
+
+    smi = smi_line()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = T.init_lm(c32, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (2, A_PROMPT), generator=g, device=dev)
+    max_len = A_PROMPT + A_NEW
+    out = {}
+    k1.stlt_scan_kernel.launches = 0
+    with torch.no_grad():
+        mono, state = T.prefill(params, c32, toks, max_len)
+        chunked = T.init_decode_state(c32, 2, max_len, device=dev)
+        for off in range(0, A_PROMPT, P_CHUNK):
+            n = min(P_CHUNK, A_PROMPT - off)
+            buf = torch.zeros(2, P_CHUNK, dtype=toks.dtype, device=dev)
+            buf[:, :n] = toks[:, off:off + n]
+            last, chunked = T.prefill_chunk(params, c32, buf, chunked,
+                                            valid_len=torch.full((2,), n, device=dev))
+        out["chunk_err"] = float((last - mono).abs().max())
+        scale = float(mono.abs().max())
+        tok, rows, fed = mono.argmax(-1), [mono], []
+        for _ in range(A_NEW - 1):
+            fed.append(tok)
+            logits, state = T.decode_step(params, c32, tok, state)
+            rows.append(logits)
+            tok = logits.argmax(-1)
+        seq = torch.cat([toks, torch.stack(fed, 1)], 1)
+        teacher, _ = T.apply_lm(params, c32, seq)
+        out["step_err"] = float((torch.stack(rows, 1) - teacher[:, A_PROMPT - 1:]).abs().max())
+        torch.cuda.synchronize()
+        log(f"[A2 attention] fp32, {cfg.num_layers} layers, 2 x {A_PROMPT} tokens: chunked "
+            f"({P_CHUNK}-token chunks, masked tail) vs monolithic prefill last logits max "
+            f"abs err {out['chunk_err']:.3e}; {A_NEW} decode steps vs teacher-forced "
+            f"apply_lm {out['step_err']:.3e} (tolerance {LOGIT_TOL}; logit scale "
+            f"{scale:.3f}) [{smi}]")
+        if not max(out["chunk_err"], out["step_err"]) <= LOGIT_TOL:
+            raise AssertionError(f"A2: chunked/monolithic/decode disagree: {out}")
+        del state, chunked, teacher
+
+        # the blockwise path against the dense one, one layer, 1 x A_BLOCK_N
+        acfg = T._attn_cfg(c32, "attn")
+        p0 = params["layers"][0]["attn"]
+        x = torch.randn(1, A_BLOCK_N, cfg.d_model, generator=g, device=dev)
+        blk = A.apply_attention(p0, acfg, x)
+        dense = A.apply_attention(p0, acfg, x, force_dense=True)
+        out["block_err"] = float((blk - dense).abs().max())
+        bscale = float(dense.abs().max())
+        out["block_ms"] = time_cuda(lambda: A.apply_attention(p0, acfg, x), iters=3)
+        out["dense_ms"] = time_cuda(lambda: A.apply_attention(p0, acfg, x, force_dense=True),
+                                    iters=3)
+        log(f"[A2 attention] one layer at 1 x {A_BLOCK_N}, fp32: blockwise vs dense max abs "
+            f"err {out['block_err']:.3e} (scale {bscale:.3f}; tolerance {A_BLOCK_TOL} x "
+            f"(1 + scale)); blockwise {out['block_ms']:.3f} ms, dense {out['dense_ms']:.3f} "
+            f"ms (events) [{smi}]")
+        if not out["block_err"] <= A_BLOCK_TOL * (1 + bscale):
+            raise AssertionError(f"A2: blockwise vs dense {out['block_err']}")
+        del blk, dense, x
+
+        # the card against the CPU at 2 layers
+        c2 = dataclasses.replace(c32, num_layers=2)
+        p2 = T.init_lm(c2, torch.Generator(device=dev).manual_seed(3), device=dev)
+        p2c = tree_map(torch.Tensor.cpu, p2)
+        t2 = toks[:, :600]
+        res = {}
+        for where, p in (("card", p2), ("cpu", p2c)):
+            t = t2.to(p["embed"]["embed"].device)
+            lg, st = T.prefill(p, c2, t, 608)
+            rows = [lg.cpu()]
+            for i in range(4):
+                lg, st = T.decode_step(p, c2, t[:, 100 + i], st)
+                rows.append(lg.cpu())
+            res[where] = (torch.stack(rows, 1), T.apply_lm(p, c2, t)[0].cpu())
+        out["cpu_err"] = max(float((a - b).abs().max()) for a, b in zip(res["card"], res["cpu"]))
+        log(f"[A2 attention] card vs CPU, fp32, 2 layers: prefill + 4 decode steps and "
+            f"apply_lm over 2 x 600 tokens, logits max abs err {out['cpu_err']:.3e} "
+            f"(tolerance {LOGIT_TOL}) [{smi}]")
+        if not out["cpu_err"] <= LOGIT_TOL:
+            raise AssertionError(f"A2: card vs CPU logits {out['cpu_err']}")
+    torch.cuda.synchronize()
+    if k1.stlt_scan_kernel.launches:
+        raise AssertionError(f"A2: {k1.stlt_scan_kernel.launches} K1 launches")
+    return out
+
+
+def attention_timings(T, A, cfg, dev) -> dict:
+    """Phase A2's times by CUDA events, bf16 with the matrices cast as the
+    serve CLI casts them: layer 0's ``apply_attention`` at the prefill shape
+    4 x 1024 (projections included) and its core (``_sdpa_dense`` on q, k,
+    v); ``apply_attention_step`` at the decode shape (4 rows at position
+    1024 of a 4096-slot cache); and ``F.scaled_dot_product_attention`` on
+    the same q, k, v (causal, GQA) and the same cache (masked) as the
+    library yardstick: the port never calls it. Each core beside its bound:
+    the bytes of q, k, v and the output over HBM's rate, the (causal half
+    of the) products over the bf16 tensor cores' peak."""
+    from repro_torch.utils import cast_params_for_compute
+
+    smi = smi_line()
+    params = cast_params_for_compute(
+        T.init_lm(dataclasses.replace(cfg, num_layers=1),
+                  torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
+    acfg = T._attn_cfg(cfg, "attn")
+    p0 = params["layers"][0]["attn"]
+    B, N, H, Hkv, dh = 4, 1024, cfg.num_heads, cfg.num_kv_heads, cfg.dh
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(B, N, cfg.d_model, generator=g, device=dev).to(cfg.act_dtype)
+    out = {}
+    with torch.no_grad():
+        q, k, v = A._qkv(p0, acfg, x, torch.arange(N, device=dev))
+        out["prefill_layer_ms"] = time_cuda(lambda: A.apply_attention(p0, acfg, x), 20)
+        out["prefill_ms"] = time_cuda(lambda: A._sdpa_dense(q, k, v, acfg), 20)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        got = A._sdpa_dense(q, k, v, acfg)
+        out["prefill_sdpa_err"] = float((got.float() - ref.transpose(1, 2).float()).abs().max())
+        out["prefill_library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        flops = 4 * B * H * dh * N * (N + 1) / 2
+        out["prefill_bound_ms"] = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS)
+        out["prefill_bound_by"] = ("bytes" if nbytes / PEAK_BYTES_PER_S
+                                   > flops / PEAK_BF16_FLOPS else "operations")
+
+        size, pos = 4096, 1024
+        cache = A.init_kv_cache(acfg, B, size, dtype=cfg.act_dtype, device=dev)
+        cache["k"].normal_(generator=g)
+        cache["v"].normal_(generator=g)
+        cache["pos"].fill_(pos)
+        x_t = x[:, -1]
+        out["decode_layer_ms"] = time_cuda(lambda: A.apply_attention_step(p0, acfg, x_t,
+                                                                          cache), 20)
+        q1 = A._qkv(p0, acfg, x_t[:, None], cache["pos"][:, None])[0].to(cfg.act_dtype)
+        mask = (torch.arange(size, device=dev) <= pos)[None, None, None, :]
+        out["decode_library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
+            q1.transpose(1, 2), cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 20)
+        dbytes = 2 * cache["k"].numel() * cache["k"].element_size()
+        out["decode_bound_ms"] = 1e3 * dbytes / PEAK_BYTES_PER_S
+        profile(lambda: A._sdpa_dense(q, k, v, acfg), "A2 prefill attention core", top=6)
+        profile(lambda: A.apply_attention_step(p0, acfg, x_t, cache),
+                "A2 decode attention step", top=8)
+    log(f"[A2 timing] one attention layer, bf16: prefill {B} x {N} apply_attention "
+        f"{out['prefill_layer_ms']:.4f} ms, its core (_sdpa_dense) {out['prefill_ms']:.4f} "
+        f"ms, scaled_dot_product_attention {out['prefill_library_ms']:.4f} ms (max abs "
+        f"difference {out['prefill_sdpa_err']:.3e}), bound {out['prefill_bound_ms']:.5f} ms "
+        f"({out['prefill_bound_by']}); decode {B} rows at position {pos} of a {size}-slot "
+        f"cache: apply_attention_step {out['decode_layer_ms']:.4f} ms, "
+        f"scaled_dot_product_attention on the cache {out['decode_library_ms']:.4f} ms, "
+        f"bound {out['decode_bound_ms']:.5f} ms (bytes: the cache read once) [{smi}]")
+    if not out["prefill_sdpa_err"] <= 0.05:
+        raise AssertionError(f"A2: the port's attention and SDPA disagree: "
+                             f"{out['prefill_sdpa_err']}")
+    return out
+
+
+def attention_train_cpu_check(T, train, cfg, dev) -> dict:
+    """Phase A3's tight check: step 0 of native SmolLM-360M at its widths
+    but 2 layers, in fp32, A_CPU_B x A_CPU_N tokens, on the card and on the
+    CPU from the same weights: loss within TRAIN_LOSS_TOL, every grad leaf
+    finite and non-zero and within TRAIN_GRAD_TOL (phase T2's gates)."""
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.utils import tree_map
+
+    c = dataclasses.replace(cfg, num_layers=2, dtype="float32", remat=False)
+    params = T.init_lm(c, torch.Generator(device=dev).manual_seed(4), device=dev)
+    batch = {k: torch.from_numpy(v) for k, v in
+             lm_batch_stream(0, 0, A_CPU_B, A_CPU_N, c.vocab).items()}
+    out = {}
+    for where, p in (("card", params), ("cpu", tree_map(torch.Tensor.cpu, params))):
+        b = {k: v.to(where if where == "cpu" else dev) for k, v in batch.items()}
+        loss, _, grads = train.loss_and_grads(p, c, b, tau=1.0)
+        out[where] = (float(loss), tree_map(torch.Tensor.cpu, grads))
+    rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    path, worst, n = grad_gaps(out["card"][1], out["cpu"][1], "A3 card vs CPU")
+    log(f"[A3 step 0] card vs CPU, fp32, 2 layers, {A_CPU_B} x {A_CPU_N}: loss "
+        f"{out['card'][0]:.6f} vs {out['cpu'][0]:.6f} (relative {rel:.3e}; gate "
+        f"{TRAIN_LOSS_TOL}), {n} grad leaves finite and non-zero, worst ||g_card - g_cpu|| "
+        f"/ ||g_cpu|| {worst:.3e} ({path}; gate {TRAIN_GRAD_TOL})")
+    if not (rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"A3: card vs CPU step 0: loss {rel}, grad {worst} at {path}")
+    return {"loss": rel, "grad": worst, "leaf": path}
+
+
+def attention_phase(T, train, W, steps, k1, dev, get_config) -> dict:
+    """Phase A: the paper's baseline, native softmax attention, at full
+    width (plain torch; no kernel of the port on its path: K1 must make 0
+    launches in every part). A1 serves native SmolLM-360M (bf16, matrices
+    cast as the serve CLI casts them) through ``spec_phase`` (plain and the
+    n-gram draft; the plain serve profiled: fewer launches to read back than
+    the n-gram serve's 332k), with the per-slot decode state beside the
+    STLT variant's; A2 checks and times the attention itself; A3 trains it at
+    T3's shape through ``smollm_train_phase`` (remat on against off), with
+    the card against the CPU at 2 layers; A4 runs native whisper-base
+    through phase W's helpers (encode, decode, the card against the CPU at
+    2 + 2 layers, a train step)."""
+    from repro_torch.models import attention as A
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+
+    t_all, smi = time.time(), smi_line()
+    cfg = get_config("smollm-360m")
+    out = {"times": {}}
+    t0 = time.time()
+    out["A1"] = spec_phase(T, k1, cfg, dev, None, runs=A_RUNS, tag="A1", profiled="plain")
+    stlt_bytes = pytree_nbytes(T.init_decode_state(get_config("smollm-360m", "stlt"), 1,
+                                                   P_MAX_LEN, device=dev))
+    out["A1"]["stlt_slot_bytes"] = stlt_bytes
+    log(f"[A1 serve] decode state of one slot: native {out['A1']['slot_bytes']} bytes "
+        f"({out['A1']['slot_bytes'] / 2**20:.2f} MiB: bf16 K and V, {cfg.num_layers} layers x "
+        f"{P_MAX_LEN} positions x {cfg.num_kv_heads} KV heads x {cfg.dh}), STLT variant "
+        f"{stlt_bytes} bytes ({stlt_bytes / 2**20:.2f} MiB: fp32 carries, O(S d), any "
+        f"length); ratio {out['A1']['slot_bytes'] / stlt_bytes:.1f} [{smi}]")
+    out["times"]["A1"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["A2"] = attention_check_phase(T, A, cfg, dev)
+    out["A2"].update(attention_timings(T, A, cfg, dev))
+    out["times"]["A2"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["A3"] = smollm_train_phase(T, train, k1, cfg, dev, T3_B, T3_N, tag="A3",
+                                   compare=T3_COMPARE[:1], remat_modes=("full", "off"))
+    out["A3"]["cpu"] = attention_train_cpu_check(T, train, cfg, dev)
+    out["times"]["A3"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    wcfg = get_config("whisper-base")
+    out["A4"] = whisper_decode_phase(W, steps, k1, wcfg, dev, tag="A4")
+    out["A4"]["cpu"] = whisper_cpu_check(W, steps, train, k1, wcfg, dev, tag="A4")
+    torch.cuda.empty_cache()
+    out["A4"]["train"] = whisper_train_phase(W, train, k1, wcfg, dev,
+                                             steps.WHISPER_ENC_FRAMES, tag="A4")
+    out["times"]["A4"] = time.time() - t0
+    torch.cuda.empty_cache()
+    log(f"[A time] phase A {time.time() - t_all:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["times"].items()) + f" [{smi}]")
+    return out
 
 
 def k1_direction_timings(k1, ops, dev, C, d) -> dict:
@@ -2332,6 +2677,12 @@ def main(argv) -> int:
     w1["cpu"] = whisper_cpu_check(W, steps, train, k1, wcfg, dev)
     torch.cuda.empty_cache()
     w2 = whisper_train_phase(W, train, k1, wcfg, dev, steps.WHISPER_ENC_FRAMES)
+    torch.cuda.empty_cache()
+
+    # A. native attention, the paper's baseline: SmolLM-360M served (plain
+    # and n-gram spec), checked, timed beside SDPA, trained; native
+    # whisper-base encoded, decoded and trained. No K1 launch.
+    attention_phase(T, train, W, steps, k1, dev, get_config)
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     print(smi_line())

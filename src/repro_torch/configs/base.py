@@ -1,5 +1,5 @@
 """Model and training configuration for the PyTorch port: the
-``ModelConfig`` fields the STLT paths read, ``stlt_config()``, the
+``ModelConfig`` fields the STLT and attention paths read, ``stlt_config()``, the
 ``TrainConfig`` of the trainer, and the dtype-string map.
 
 This is the port's own copy of ``repro/configs/base.py`` (the port imports
@@ -37,8 +37,12 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // num_heads
     mixer: str = "attention"         # attention | stlt | stlt_relevance
     layer_types: Tuple[str, ...] = ()
+    local_window: int = 0            # sliding window for "local_attn" layers
     act: str = "swiglu"
     norm: str = "rmsnorm"
+    qkv_bias: bool = False
+    rope_fraction: float = 1.0       # 0.0 disables RoPE; 0.5 rotates half
+    rope_theta: float = 10000.0
     input_mode: str = "tokens"       # tokens | embeddings (the frame stub)
     tie_embeddings: bool = True
     # --- STLT (the paper) ---------------------------------------------------
@@ -65,6 +69,7 @@ class ModelConfig:
     opt_moment_dtype: str = "float32"  # AdamW's moments (bfloat16 halves them)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    blockwise_threshold: int = 8192  # attention: online softmax for N >= this
     optimizer: str = "adamw"         # adamw | adafactor
 
     @property
@@ -124,11 +129,16 @@ class ModelConfig:
             stlt_nodes=8,
             stlt_chunk=16,
             num_decoder_layers=min(self.num_decoder_layers, 2),
+            local_window=min(self.local_window, 8) if self.local_window else 0,
             layer_types=(),
             scan_layers=False,
             remat=False,
             dtype="float32",
+            blockwise_threshold=64,
         )
+        if self.layer_types:
+            # keep the heterogeneous pattern at the reduced depth
+            small["layer_types"] = tuple(self.layer_types[:small["num_layers"]])
         small.update(overrides)
         return dataclasses.replace(self, **small)
 

@@ -3,8 +3,7 @@ d_ff=2560 vocab=49152; llama-arch small.
 
 The JAX package's config field by field, less ``dp_only`` (a sharding hint;
 the port runs on one device). ``get_config("smollm-360m", "stlt")`` swaps
-every attention block for the STLT; the native form's attention is not
-ported."""
+every attention block for the STLT."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

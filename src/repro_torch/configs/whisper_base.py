@@ -3,12 +3,12 @@ vocab=51865; enc-dec with conv frontend STUB (callers feed precomputed
 frame embeddings [B, 1500, d] to the encoder).
 
 The JAX package's config field by field, less ``dp_only`` (a sharding hint;
-the port runs on one device), ``rope_fraction`` (read by the attention
-mixer only, which the port does not run) and ``cross_attention`` (read by
-no code: the cross side is always present). ``get_config("whisper-base",
-"stlt")`` gives the paper's hybrid: a bilateral STLT encoder, a unilateral
-STLT decoder and the cross-STLT between them; the native form's attention
-is not ported."""
+the port runs on one device) and ``cross_attention`` (read by no code: the
+cross side is always present). The native form is a bidirectional
+attention encoder, a causal attention decoder and softmax cross-attention;
+``get_config("whisper-base", "stlt")`` gives the paper's hybrid: a
+bilateral STLT encoder, a unilateral STLT decoder and the cross-STLT
+between them."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -23,6 +23,7 @@ CONFIG = ModelConfig(
     d_ff=2048,
     act="gelu",
     norm="layernorm",
+    rope_fraction=0.0,
     input_mode="embeddings",   # conv frontend stub: frames arrive embedded
     tie_embeddings=False,
     dtype="bfloat16",

@@ -8,7 +8,8 @@ config), the family's loss forward (``lm_loss``, or ``encdec_loss`` for the
 enc-dec family) with each block recomputed in backward (``cfg.remat``),
 backward (the factorized
 scan's VJP: K1 causal in the forward and again in the recompute, K1
-anti-causal for dx, analytic pole/mixer grads), clip by global norm, AdamW
+anti-causal for dx, analytic pole/mixer grads; attention blocks through
+autograd of plain torch), clip by global norm, AdamW
 or adafactor at ``sched(step)``. With ``--ckpt-dir`` the run saves every
 ``--save-every`` steps and at the end, and resumes from the latest
 checkpoint there. Without ``--arch`` it trains the ``paper-small`` preset.
@@ -18,6 +19,8 @@ takes them.
   python -m repro_torch.launch.train --preset paper-small --steps 200 --ckpt-dir ckpt
   python -m repro_torch.launch.train --arch smollm-360m --variant stlt --steps 5 \
       --batch 8 --seq 1024
+  python -m repro_torch.launch.train --arch smollm-360m --reduced --device cpu \
+      --steps 5 --batch 2 --seq 64
   python -m repro_torch.launch.train --arch stlt-base --reduced --device cpu \
       --steps 5 --batch 2 --seq 64
 

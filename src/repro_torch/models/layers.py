@@ -1,8 +1,9 @@
-"""Shared layers: norms, embeddings, sinusoidal PE, FFN, cross entropy.
+"""Shared layers: norms, embeddings, sinusoidal PE, RoPE, FFN, cross entropy.
 
 Numerics follow the JAX package, where the two frameworks' defaults differ:
 ``jax.nn.gelu`` is the tanh approximation, ``jnp.var`` is the population
-variance, the sinusoidal PE puts sin in even and cos in odd columns, and a
+variance, the sinusoidal PE puts sin in even and cos in odd columns, RoPE
+rotates interleaved pairs (columns 2i and 2i + 1), and a
 product of a bf16 activation and an fp32 parameter runs in fp32 (JAX
 promotes it; ``torch.matmul`` refuses mixed types), see ``matmul``.
 """
@@ -78,6 +79,33 @@ def sinusoidal_pe(n: int, d: int, offset=0, dtype=torch.float32, device=None):
     pe[..., 0::2] = torch.sin(angle)
     pe[..., 1::2] = torch.cos(angle[..., : d // 2])
     return pe.to(dtype)
+
+
+def rope_angles(positions: torch.Tensor, rot_dim: int, theta: float = 10000.0):
+    """positions [..., N] -> (sin, cos), each [..., N, rot_dim // 2], in fp32."""
+    dim = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=positions.device)
+    freq = 1.0 / (theta ** (dim / rot_dim))
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+               fraction: float = 1.0) -> torch.Tensor:
+    """Rotary embedding of the leading ``fraction`` of the head dims, by
+    interleaved pairs (x[..., 0::2], x[..., 1::2]), cast back to x's dtype.
+    x [B, N, H, dh]; sin/cos [N, rot // 2] or [B, N, rot // 2]. ``fraction``
+    0.5 is ChatGLM's 2d-RoPE; a rotated width of 0 returns x."""
+    dh = x.shape[-1]
+    rot = int(dh * fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    s, c = sin[..., :, None, :], cos[..., :, None, :]   # over the head axis
+    y = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(
+        x_rot.shape[:-1] + (rot,))
+    return torch.cat([y.to(x.dtype), x_pass], dim=-1)
 
 
 def init_ffn(generator, d: int, d_ff: int, act: str = "swiglu",

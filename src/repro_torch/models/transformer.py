@@ -1,7 +1,9 @@
-"""Decoder-only LM with STLT token mixers: forward, loss and serving.
+"""Decoder-only LM with STLT or softmax-attention token mixers: forward,
+loss and serving.
 
 Parameters mirror the JAX pytree keys (``embed/embed``, ``layers``,
-``final_norm``; per block ``norm1``, ``stlt``, ``norm2``, ``ffn``) with one
+``final_norm``; per block ``norm1``, ``stlt`` or ``attn``, ``norm2``,
+``ffn``) with one
 difference: ``params["layers"]`` always holds one dict per layer. The JAX
 package stacks runs of equal blocks on a leading axis when
 ``scan_layers=True``; ``convert.from_jax_params`` unstacks them along
@@ -13,9 +15,13 @@ state to its accepted length. Activations run in ``cfg.dtype`` over
 parameters in ``cfg.param_dtype``, products promoted as JAX promotes them
 (``layers.matmul``): a bf16 model's logits come out fp32.
 
-Only STLT blocks are ported: ``stlt`` (factorized) and ``stlt_rel`` (the
-relevance readout, ``mixer="stlt_relevance"``). Other block types raise
-NotImplementedError. A relevance block has no streaming state, so
+Ported block types: ``stlt`` (factorized), ``stlt_rel`` (the relevance
+readout, ``mixer="stlt_relevance"``), ``attn`` (GQA softmax attention with
+RoPE, ``models/attention.py``) and ``local_attn`` (the same in a window of
+``cfg.local_window`` keys, a ring-buffer KV cache). Other block types raise
+NotImplementedError. An attention block's decode state is its KV cache
+(``k``, ``v`` [B, size, Hkv, dh] in the activation dtype, ``pos`` [B]); the
+STLT's is O(S*d). A relevance block has no streaming state, so
 ``init_decode_state``, ``prefill``, ``prefill_chunk`` and ``decode_step``
 raise ValueError on such a model, as the JAX package asserts.
 """
@@ -27,16 +33,30 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import stlt as stlt_lib
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.utils import default_generator, resolve_device, trunc_normal
 
 AUX_KEYS = ("reg", "aux_loss", "router_z", "s_eff")
-_PORTED_BLOCKS = ("stlt", "stlt_rel")
+_PORTED_BLOCKS = ("stlt", "stlt_rel", "attn", "local_attn")
+_ATTN_BLOCKS = ("attn", "local_attn")
+_STLT_BLOCKS = ("stlt", "stlt_rel")
 
 
 def _check_block(btype: str):
     if btype not in _PORTED_BLOCKS:
         raise NotImplementedError(f"block type {btype!r} is not ported yet")
+
+
+def _attn_cfg(cfg: ModelConfig, btype: str) -> attn_lib.AttentionConfig:
+    """An attention block's config; ``local_attn`` reads ``cfg.local_window``
+    keys."""
+    return attn_lib.AttentionConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias, rope_fraction=cfg.rope_fraction,
+        rope_theta=cfg.rope_theta, causal=True,
+        window=cfg.local_window if btype == "local_attn" else 0,
+        blockwise_threshold=cfg.blockwise_threshold, param_dtype=cfg.p_dtype)
 
 
 def execution_plan(cfg: ModelConfig):
@@ -65,9 +85,14 @@ def execution_plan(cfg: ModelConfig):
 def init_block(generator, cfg: ModelConfig, block_type: str, device=None) -> dict:
     _check_block(block_type)
     d = cfg.d_model
+    if block_type in _ATTN_BLOCKS:
+        mixer = {"attn": attn_lib.init_attention(generator, _attn_cfg(cfg, block_type),
+                                                 device=device)}
+    else:
+        mixer = {"stlt": stlt_lib.init_stlt(generator, cfg.stlt_config(), device=device)}
     return {
         "norm1": L.init_norm(cfg.norm, d, cfg.p_dtype, device),
-        "stlt": stlt_lib.init_stlt(generator, cfg.stlt_config(), device=device),
+        **mixer,
         "norm2": L.init_norm(cfg.norm, d, cfg.p_dtype, device),
         "ffn": L.init_ffn(generator, d, cfg.d_ff, act=cfg.act,
                           dtype=cfg.p_dtype, device=device),
@@ -117,12 +142,16 @@ def apply_block(params: dict, cfg: ModelConfig, block_type: str, x, *,
                 deterministic: bool = True, draws=None, tau=None):
     _check_block(block_type)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
-    mixed, sa = stlt_lib.apply_stlt(params["stlt"], cfg.stlt_config(), h,
-                                    deterministic=deterministic, draws=draws,
-                                    tau=tau)
     zero = torch.zeros((), device=x.device)
-    aux = {"reg": sa["reg"].float(), "aux_loss": zero, "router_z": zero,
-           "s_eff": sa["s_eff"].mean().float()}
+    if block_type in _ATTN_BLOCKS:
+        mixed = attn_lib.apply_attention(params["attn"], _attn_cfg(cfg, block_type), h)
+        aux = {k: zero for k in AUX_KEYS}
+    else:
+        mixed, sa = stlt_lib.apply_stlt(params["stlt"], cfg.stlt_config(), h,
+                                        deterministic=deterministic, draws=draws,
+                                        tau=tau)
+        aux = {"reg": sa["reg"].float(), "aux_loss": zero, "router_z": zero,
+               "s_eff": sa["s_eff"].mean().float()}
     return _block_ffn(params, cfg, x + mixed.to(x.dtype)), aux
 
 
@@ -178,7 +207,8 @@ def apply_lm(params: dict, cfg: ModelConfig, inputs, *,
         x, aux = block(p, cfg, btype, x, deterministic=deterministic,
                        draws=None if draws is None else draws[li], tau=tau)
         total = {k: total[k] + aux[k] for k in AUX_KEYS}
-    n_stlt = sum(bt in ("stlt", "stlt_rel") for bt in cfg.block_types())
+    # s_eff is summed over the STLT blocks only (0 of them: no division)
+    n_stlt = sum(bt in _STLT_BLOCKS for bt in cfg.block_types())
     total["s_eff"] = total["s_eff"] / max(1, n_stlt)
     return _head(params, cfg, x), total
 
@@ -203,16 +233,21 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 
+def _init_block_state(cfg: ModelConfig, btype: str, batch: int, max_len: int, device):
+    _check_block(btype)
+    if btype in _ATTN_BLOCKS:
+        return attn_lib.init_kv_cache(_attn_cfg(cfg, btype), batch, max_len,
+                                      dtype=cfg.act_dtype, device=device)
+    return stlt_lib.init_stlt_state(cfg.stlt_config(), batch, device=device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Per-layer streaming states and per-row positions [batch]. ``max_len``
-    sizes attention caches in the JAX package; STLT states are O(S*d)."""
-    del max_len
+    sizes the attention blocks' KV caches (a ``local_attn`` ring holds
+    ``min(max_len, local_window)`` slots); STLT states are O(S*d)."""
     device = resolve_device(device)
-    layers = []
-    for bt in cfg.block_types():
-        _check_block(bt)
-        layers.append(stlt_lib.init_stlt_state(cfg.stlt_config(), batch,
-                                               device=device))
+    layers = [_init_block_state(cfg, bt, batch, max_len, device)
+              for bt in cfg.block_types()]
     return {"layers": layers,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -225,8 +260,12 @@ def _block_prefill_chunk(params, cfg: ModelConfig, btype: str, x, state,
     _check_block(btype)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
     old_state = state
-    mixed, state = stlt_lib.stlt_prefill(params["stlt"], cfg.stlt_config(), h,
-                                         state, valid=valid, node_cap=node_cap)
+    if btype in _ATTN_BLOCKS:
+        mixed, state = attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h,
+                                              state, valid=valid)
+    else:
+        mixed, state = stlt_lib.stlt_prefill(params["stlt"], cfg.stlt_config(), h,
+                                             state, valid=valid, node_cap=node_cap)
     if valid is not None and old_state is not None:
         keep = valid > 0
         state = {k: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)),
@@ -235,15 +274,26 @@ def _block_prefill_chunk(params, cfg: ModelConfig, btype: str, x, state,
     return _block_ffn(params, cfg, x + mixed.to(x.dtype)), state
 
 
+def _block_prefill(params, cfg: ModelConfig, btype: str, x, max_len: int):
+    """One block's whole-prompt forward and its state: attention through
+    ``prefill_kv_cache`` (blockwise for long prompts; ``max_len`` sizes the
+    cache), the STLT as the fresh case of the chunk prefill."""
+    if btype not in _ATTN_BLOCKS:
+        return _block_prefill_chunk(params, cfg, btype, x, None)
+    h = L.apply_norm(cfg.norm, params["norm1"], x)
+    mixed, state = attn_lib.prefill_kv_cache(params["attn"], _attn_cfg(cfg, btype), h,
+                                             max_len)
+    return _block_ffn(params, cfg, x + mixed.to(x.dtype)), state
+
+
 def prefill(params: dict, cfg: ModelConfig, inputs, max_len: int):
     """Parallel prefill over the whole prompt: (last-token logits [B, V],
     decode state)."""
-    del max_len
     x = _with_pe(cfg, _embed(params, cfg, inputs))
     B, N = x.shape[0], x.shape[1]
     states = []
     for btype, p in zip(cfg.block_types(), params["layers"]):
-        x, st = _block_prefill_chunk(p, cfg, btype, x, None)
+        x, st = _block_prefill(p, cfg, btype, x, max_len)
         states.append(st)
     pos = torch.full((B,), N, dtype=torch.int32, device=x.device)
     return _head(params, cfg, x[:, -1]), {"layers": states, "pos": pos}
@@ -282,12 +332,17 @@ def prefill_chunk(params: dict, cfg: ModelConfig, inputs, state: dict,
 
 def _block_state_at(params, cfg: ModelConfig, btype: str, x, state, q):
     """One block's state after the first ``q[b]`` tokens of its input window
-    x [B, L, d], the rollback half of ``spec_verify``: the closed-form
-    carry snapshot (``stlt.stlt_state_at``), no outputs. ``q == 0`` rows
-    keep their old state exactly (a per-row select)."""
+    x [B, L, d], the rollback half of ``spec_verify``, no outputs: the STLT's
+    closed-form carry snapshot (``stlt.stlt_state_at``), attention's masked
+    chunk prefill (``valid=q``: only the accepted keys are written). ``q ==
+    0`` rows keep their old state exactly (a per-row select)."""
     _check_block(btype)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
-    new = stlt_lib.stlt_state_at(params["stlt"], cfg.stlt_config(), h, state, q)
+    if btype in _ATTN_BLOCKS:
+        _, new = attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h, state,
+                                        valid=q)
+    else:
+        new = stlt_lib.stlt_state_at(params["stlt"], cfg.stlt_config(), h, state, q)
     keep = q > 0
     return {k: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)),
                            n.to(state[k].dtype), state[k])
@@ -334,15 +389,20 @@ def spec_verify(params: dict, cfg: ModelConfig, inputs, state: dict, valid_len,
 def _block_step(params, cfg: ModelConfig, btype: str, x_t, state, node_cap=None):
     _check_block(btype)
     h = L.apply_norm(cfg.norm, params["norm1"], x_t)
-    mixed, state = stlt_lib.apply_stlt_step(params["stlt"], cfg.stlt_config(),
-                                            h, state, node_cap=node_cap)
+    if btype in _ATTN_BLOCKS:
+        mixed, state = attn_lib.apply_attention_step(params["attn"],
+                                                     _attn_cfg(cfg, btype), h, state)
+    else:
+        mixed, state = stlt_lib.apply_stlt_step(params["stlt"], cfg.stlt_config(),
+                                                h, state, node_cap=node_cap)
     return _block_ffn(params, cfg, x_t + mixed.to(x_t.dtype)), state
 
 
 def decode_step(params: dict, cfg: ModelConfig, token_t, state: dict,
                 node_cap: Optional[torch.Tensor] = None):
     """One token for the whole stack. token_t [B] ints. ``node_cap`` [B] is
-    the per-row node budget (cap == S rows run unmasked)."""
+    the per-row node budget of the STLT blocks (cap == S rows run unmasked);
+    attention blocks ignore it."""
     pos = state["pos"]
     x_t = _embed(params, cfg, token_t)
     if cfg.mixer != "attention":

@@ -4,17 +4,21 @@ The audio conv frontend is a stub, as in the JAX package: the encoder takes
 precomputed frame embeddings [B, M, d] (``cfg.input_mode == "embeddings"``),
 or embeds source tokens (``"tokens"``, the paper's WMT'14 experiment).
 
-The paper's hybrid scheme (§3.5) with ``mixer="stlt"``: a bilateral STLT
-encoder (each layer a causal and an anti-causal K1 call on the card), a
-unilateral STLT decoder, and the cross-STLT between them (plain torch, as
-the JAX package computes it in plain ``jnp``). The attention form
-(``mixer="attention"``) waits for the attention mixer (ROADMAP Queue 1
-item 6): every entry point raises NotImplementedError for it.
+Mixers, as in the JAX package (the paper's hybrid scheme, §3.5):
+``mixer="attention"`` (native whisper) runs a bidirectional attention
+encoder, a causal attention decoder with a KV cache and softmax
+cross-attention over the encoder's keys and values (``xk``/``xv``,
+computed once per decode); ``mixer="stlt"`` a bilateral STLT encoder (each
+layer a causal and an anti-causal K1 call on the card), a unilateral STLT
+decoder, and the cross-STLT between them. Attention and the cross-STLT are
+plain torch, as the JAX package computes them in plain ``jnp``. Attention
+here carries no RoPE (``rope_fraction=0``): both sides add the sinusoidal
+PE, in either form.
 
 Parameters mirror the JAX pytree keys (``enc_embed`` for token inputs,
 ``dec_embed``, ``enc_norm``, ``dec_norm``, ``lm_head``; per encoder layer
-``norm1``, ``stlt``, ``norm2``, ``ffn``; per decoder layer also ``norm_x``
-and ``cross``), with one difference: ``enc_layers`` and ``dec_layers``
+``norm1``, ``stlt`` or ``attn``, ``norm2``, ``ffn``; per decoder layer also
+``norm_x`` and ``cross``), with one difference: ``enc_layers`` and ``dec_layers``
 always hold one dict per layer. The JAX package stacks each side on a
 leading axis (``enc_layers``/``dec_layers``) when ``scan_layers`` is set
 and the side has more than one layer, and keeps a list (``enc_list``/
@@ -31,16 +35,48 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import stlt as stlt_lib
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.utils import default_generator, resolve_device, trunc_normal
 
 
-def _check_mixer(cfg: ModelConfig):
-    if not cfg.mixer.startswith("stlt"):
-        raise NotImplementedError(
-            f"enc-dec mixer {cfg.mixer!r} is not ported: the attention encoder, "
-            "decoder and cross-attention wait for the attention mixer (ROADMAP "
-            "Queue 1 item 6)")
+def _use_stlt(cfg: ModelConfig) -> bool:
+    return cfg.mixer.startswith("stlt")
+
+
+def _attn_cfg(cfg: ModelConfig, causal: bool) -> attn_lib.AttentionConfig:
+    return attn_lib.AttentionConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
+        rope_fraction=0.0,  # whisper uses the absolute sinusoidal PE
+        causal=causal, blockwise_threshold=cfg.blockwise_threshold,
+        param_dtype=cfg.p_dtype)
+
+
+# ---------------------------------------------------------------------------
+# cross attention
+# ---------------------------------------------------------------------------
+
+
+def apply_cross_attention(params, cfg: ModelConfig, x_dec, enc_kv):
+    """Softmax attention of x_dec [B, N, d] over the encoder's precomputed
+    (k, v) [B, M, Hkv, dh], every key readable; no bias, no RoPE on q, as
+    in the JAX package."""
+    acfg = _attn_cfg(cfg, causal=False)
+    B, N, _ = x_dec.shape
+    q = L.matmul(x_dec, params["wq"]).reshape(B, N, acfg.num_heads, acfg.dh)
+    k, v = enc_kv
+    out = attn_lib._sdpa_dense(q, k, v, acfg)
+    return L.matmul(out.reshape(B, N, -1), params["wo"])
+
+
+def encode_cross_kv(params, cfg: ModelConfig, enc_out):
+    """The cross-attention's keys and values of the encoder output."""
+    acfg = _attn_cfg(cfg, causal=False)
+    B, M, _ = enc_out.shape
+    k = L.matmul(enc_out, params["wk"]).reshape(B, M, acfg.num_kv_heads, acfg.dh)
+    v = L.matmul(enc_out, params["wv"]).reshape(B, M, acfg.num_kv_heads, acfg.dh)
+    return k, v
 
 
 def _stacked(cfg: ModelConfig, n_layers: int) -> bool:
@@ -67,7 +103,6 @@ def init_encdec(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> dict:
     """Random parameters drawn from ``generator`` (seed 0 when None), on
     ``device`` (CUDA unless the caller names another)."""
-    _check_mixer(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None else default_generator(device)
     d, dt = cfg.d_model, cfg.p_dtype
@@ -86,15 +121,27 @@ def init_encdec(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.input_mode == "tokens":
         params["enc_embed"] = embedding()
     params["dec_embed"] = embedding()
-    params["enc_layers"] = [
-        {"norm1": norm(), "norm2": norm(), "ffn": ffn(),
-         "stlt": stlt_lib.init_stlt(gen, cfg.stlt_config(bidirectional=True), device)}
-        for _ in range(cfg.num_layers)]
-    params["dec_layers"] = [
-        {"norm1": norm(), "norm_x": norm(), "norm2": norm(), "ffn": ffn(),
-         "stlt": stlt_lib.init_stlt(gen, cfg.stlt_config(), device),
-         "cross": stlt_lib.init_cross_stlt(gen, cfg.stlt_config(), device)}
-        for _ in range(cfg.num_decoder_layers)]
+
+    def attention(causal):
+        return attn_lib.init_attention(gen, _attn_cfg(cfg, causal), device)
+
+    def enc_mixer():
+        if _use_stlt(cfg):
+            return {"stlt": stlt_lib.init_stlt(gen, cfg.stlt_config(bidirectional=True),
+                                               device)}
+        return {"attn": attention(False)}
+
+    def dec_mixer():
+        if _use_stlt(cfg):
+            return {"stlt": stlt_lib.init_stlt(gen, cfg.stlt_config(), device),
+                    "cross": stlt_lib.init_cross_stlt(gen, cfg.stlt_config(), device)}
+        return {"attn": attention(True), "cross": attention(False)}
+
+    params["enc_layers"] = [{"norm1": norm(), "norm2": norm(), "ffn": ffn(), **enc_mixer()}
+                            for _ in range(cfg.num_layers)]
+    params["dec_layers"] = [{"norm1": norm(), "norm_x": norm(), "norm2": norm(),
+                             "ffn": ffn(), **dec_mixer()}
+                            for _ in range(cfg.num_decoder_layers)]
     params["enc_norm"] = norm()
     params["dec_norm"] = norm()
     params["lm_head"] = {"kernel": trunc_normal(gen, (d, cfg.vocab), stddev=0.02,
@@ -114,16 +161,26 @@ def _ffn_residual(p, cfg: ModelConfig, x):
 
 def _apply_enc_layer(p, cfg: ModelConfig, x):
     h = L.apply_norm(cfg.norm, p["norm1"], x)
-    mixed, _ = stlt_lib.apply_stlt(p["stlt"], cfg.stlt_config(bidirectional=True), h)
+    if _use_stlt(cfg):
+        mixed, _ = stlt_lib.apply_stlt(p["stlt"], cfg.stlt_config(bidirectional=True), h)
+    else:
+        mixed = attn_lib.apply_attention(p["attn"], _attn_cfg(cfg, causal=False), h)
     return _ffn_residual(p, cfg, x + mixed.to(x.dtype))
 
 
 def _apply_dec_layer(p, cfg: ModelConfig, x, enc_out):
     h = L.apply_norm(cfg.norm, p["norm1"], x)
-    mixed, _ = stlt_lib.apply_stlt(p["stlt"], cfg.stlt_config(), h)
+    if _use_stlt(cfg):
+        mixed, _ = stlt_lib.apply_stlt(p["stlt"], cfg.stlt_config(), h)
+    else:
+        mixed = attn_lib.apply_attention(p["attn"], _attn_cfg(cfg, causal=True), h)
     x = x + mixed.to(x.dtype)
     hx = L.apply_norm(cfg.norm, p["norm_x"], x)
-    cross = stlt_lib.apply_cross_stlt(p["cross"], cfg.stlt_config(), hx, enc_out)
+    if _use_stlt(cfg):
+        cross = stlt_lib.apply_cross_stlt(p["cross"], cfg.stlt_config(), hx, enc_out)
+    else:
+        cross = apply_cross_attention(p["cross"], cfg, hx,
+                                      encode_cross_kv(p["cross"], cfg, enc_out))
     return _ffn_residual(p, cfg, x + cross.to(x.dtype))
 
 
@@ -134,7 +191,6 @@ def _with_pe(x):
 def encode(params: dict, cfg: ModelConfig, enc_inputs):
     """enc_inputs: tokens [B, M] or frame embeddings [B, M, d] (the stub
     frontend) -> the normed encoder output [B, M, d] in ``cfg.dtype``."""
-    _check_mixer(cfg)
     if cfg.input_mode == "tokens":
         x = L.embed(params["enc_embed"], enc_inputs).to(cfg.act_dtype)
     else:
@@ -173,25 +229,32 @@ def encdec_loss(params: dict, cfg: ModelConfig, batch: dict, **_):
 
 def init_encdec_decode_state(params: dict, cfg: ModelConfig, enc_inputs, batch: int,
                              max_len: int) -> dict:
-    """Encode once; per decoder layer the self-STLT's O(S*d) state, the
-    cross-STLT's streaming decoder-side coefficients and its encoder context
-    (``stlt.cross_stlt_context``). ``max_len`` sizes the attention form's
-    caches in the JAX package; STLT states do not grow."""
-    del max_len
+    """Encode once; per decoder layer, in the STLT form, the self-STLT's
+    O(S*d) state, the cross-STLT's streaming decoder-side coefficients and
+    its encoder context (``stlt.cross_stlt_context``); in the attention form
+    a KV cache of ``max_len`` slots (activation dtype) and the
+    cross-attention's encoder keys and values ``xk``/``xv``."""
     enc_out = encode(params, cfg, enc_inputs)
     scfg = cfg.stlt_config()
     dev = enc_out.device
-    states = [{"self": stlt_lib.init_stlt_state(scfg, batch, device=dev),
-               "xstate": stlt_lib.init_cross_stlt_state(scfg, batch, device=dev),
-               "xctx": stlt_lib.cross_stlt_context(p["cross"], scfg, enc_out)}
-              for p in params["dec_layers"]]
+
+    def one_state(p):
+        if _use_stlt(cfg):
+            return {"self": stlt_lib.init_stlt_state(scfg, batch, device=dev),
+                    "xstate": stlt_lib.init_cross_stlt_state(scfg, batch, device=dev),
+                    "xctx": stlt_lib.cross_stlt_context(p["cross"], scfg, enc_out)}
+        k, v = encode_cross_kv(p["cross"], cfg, enc_out)
+        return {"self": attn_lib.init_kv_cache(_attn_cfg(cfg, True), batch, max_len,
+                                               dtype=cfg.act_dtype, device=dev),
+                "xk": k, "xv": v}
+
+    states = [one_state(p) for p in params["dec_layers"]]
     return {"dec": states, "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def encdec_decode_step(params: dict, cfg: ModelConfig, token_t, state: dict):
     """One decoder token [B] against the fixed encoder context -> (logits
     [B, V], new state)."""
-    _check_mixer(cfg)
     scfg = cfg.stlt_config()
     pos = state["pos"]
     y = L.embed(params["dec_embed"], token_t).to(cfg.act_dtype)
@@ -202,13 +265,24 @@ def encdec_decode_step(params: dict, cfg: ModelConfig, token_t, state: dict):
 
     new_states = []
     for p, st in zip(params["dec_layers"], state["dec"]):
-        mixed, new_self = stlt_lib.apply_stlt_step(p["stlt"], scfg, norm(p["norm1"], y),
-                                                   st["self"])
+        h = norm(p["norm1"], y)
+        if _use_stlt(cfg):
+            mixed, new_self = stlt_lib.apply_stlt_step(p["stlt"], scfg, h, st["self"])
+        else:
+            mixed, new_self = attn_lib.apply_attention_step(
+                p["attn"], _attn_cfg(cfg, True), h, st["self"])
         y = y + mixed.to(y.dtype)
-        cross, new_x = stlt_lib.cross_stlt_step(p["cross"], scfg, norm(p["norm_x"], y),
-                                                st["xstate"], st["xctx"])
+        hx = norm(p["norm_x"], y)
+        if _use_stlt(cfg):
+            cross, new_x = stlt_lib.cross_stlt_step(p["cross"], scfg, hx, st["xstate"],
+                                                    st["xctx"])
+            new_st = {"self": new_self, "xstate": new_x, "xctx": st["xctx"]}
+        else:
+            cross = apply_cross_attention(p["cross"], cfg, hx[:, None, :],
+                                          (st["xk"], st["xv"]))[:, 0]
+            new_st = {"self": new_self, "xk": st["xk"], "xv": st["xv"]}
         y = y + cross.to(y.dtype)
         y = y + L.ffn(p["ffn"], norm(p["norm2"], y), act=cfg.act).to(y.dtype)
-        new_states.append({"self": new_self, "xstate": new_x, "xctx": st["xctx"]})
+        new_states.append(new_st)
     y = norm(params["dec_norm"], y)
     return L.matmul(y, params["lm_head"]["kernel"]), {"dec": new_states, "pos": pos + 1}

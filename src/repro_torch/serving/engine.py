@@ -1,7 +1,8 @@
 """Slot-level continuous-batching serve engine, the port of the JAX
 package's ``serving/engine.py`` on one device.
 
-The engine owns a pool of ``slots`` decode rows whose O(S*d) STLT states
+The engine owns a pool of ``slots`` decode rows whose states (O(S*d) for
+an STLT block, a KV cache of ``max_len`` slots for an attention block)
 live in ONE batched decode state (``transformer.init_decode_state(cfg,
 batch=slots)``); every per-sequence position is a [slots] vector, so
 co-resident rows sit at different depths. Three operations drive it:
@@ -11,8 +12,8 @@ row), ``reset_slot`` (return a released row to the pristine state) and
 :class:`Scheduler` tracks which row holds which request; a finished
 request's row is refilled from the queue while the others keep decoding.
 
-Admission runs K1 (the Hopper STLT scan) once per layer per dispatch, by
-one of three routes:
+Admission runs K1 (the Hopper STLT scan) once per STLT layer per dispatch
+(an attention layer runs plain torch), by one of three routes:
 
 * monolithic (``prefill_chunk=0``): ``transformer.prefill`` of the whole
   prompt (``prefill_chunk`` from a cached prefix's state);
@@ -220,9 +221,13 @@ class ServeEngine:
         ``(16, 8, 4)``; a decode tick whose wall gap exceeds ``slo_gap_ms``
         (when > 0) or after whose admission ``slo_queue_depth`` or more
         requests still queue (when > 0) steps one level down, and
-        ``slo_recovery_ticks`` healthy ticks step one level up. Every block
-        of a servable port model is an STLT block, so the JAX package's
-        "requires an STLT mixer" refusals cannot arise here."""
+        ``slo_recovery_ticks`` healthy ticks step one level up.
+
+        ``serve_nodes``, ``slo_degrade`` and the node draft act on STLT
+        blocks: on a model with none (native attention) they are refused.
+        With an ``attn`` block the KV cache holds ``max_len`` positions, so
+        a request whose prompt and budget exceed it is refused up front
+        (``_check_fits``)."""
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0 (got {spec_k})")
         if spec_draft not in ("ngram", "nodes"):
@@ -239,7 +244,13 @@ class ServeEngine:
             raise ValueError(
                 "spec_adapt_window and spec_adapt_recovery must be >= 1 "
                 f"(got {spec_adapt_window}, {spec_adapt_recovery})")
-        if spec_k and cfg.stlt_adaptive:
+        self._has_stlt = any(bt in ("stlt", "stlt_rel") for bt in cfg.block_types())
+        # only unbounded causal attention allocates a length-bounded cache;
+        # a local window is a ring and STLT states are O(1) in N
+        self._length_bounded = "attn" in cfg.block_types()
+        if spec_k and spec_draft == "nodes" and not self._has_stlt:
+            raise ValueError("spec_draft='nodes' requires an STLT mixer")
+        if spec_k and self._has_stlt and cfg.stlt_adaptive:
             raise ValueError(
                 "speculative decoding is incompatible with adaptive node "
                 "masks (stlt_adaptive=True): verify pools one mask per "
@@ -254,6 +265,8 @@ class ServeEngine:
         S = cfg.stlt_nodes
         slo_degrade = tuple(int(m) for m in (slo_degrade or ()))
         if slo_degrade:
+            if not self._has_stlt:
+                raise ValueError("slo_degrade requires an STLT mixer")
             if not (slo_gap_ms > 0 or slo_queue_depth > 0):
                 raise ValueError(
                     "slo_degrade needs a trigger: set slo_gap_ms and/or "
@@ -283,8 +296,11 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk or 0
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0 (got {prefill_chunk})")
-        if serve_nodes is not None and not 1 <= serve_nodes <= S:
-            raise ValueError(f"serve_nodes must be in [1, {S}] (got {serve_nodes})")
+        if serve_nodes is not None:
+            if not self._has_stlt:
+                raise ValueError("serve_nodes requires an STLT mixer")
+            if not 1 <= serve_nodes <= S:
+                raise ValueError(f"serve_nodes must be in [1, {S}] (got {serve_nodes})")
         self.serve_nodes = serve_nodes
         self.prefix_cache = prefix_cache
         self.noise = noise or (lambda seed: GumbelStreams(seed, cfg.vocab, self.device))
@@ -374,11 +390,19 @@ class ServeEngine:
         out[prompt_len - len(prompt):] = prompt  # left-pad
         return out
 
+    def _check_fits(self, req: Request, prompt_tokens: int):
+        """A model with an ``attn`` block caches ``max_len`` positions: its
+        request's prompt and budget must fit in them."""
+        if self._length_bounded and prompt_tokens + req.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"request {req.id}: {prompt_tokens} prompt tokens + "
+                f"{req.max_new_tokens} new tokens exceeds max_len={self.max_len}")
+
     def _queue(self, requests, arrivals, prompt_len=None):
         """Validate the whole request set up front (ids, budgets, node caps,
-        lengths, arrivals), so a bad request fails before any device work,
-        then return (arrival, request) pairs in arrival order. (STLT states
-        are O(S*d), so ``max_len`` bounds no request.)"""
+        lengths against ``max_len`` where a KV cache bounds them, arrivals),
+        so a bad request fails before any device work, then return
+        (arrival, request) pairs in arrival order."""
         ids = [r.id for r in requests]
         if len(set(ids)) != len(ids):
             raise ValueError(
@@ -390,15 +414,20 @@ class ServeEngine:
                 raise ValueError(
                     f"request {r.id}: max_new_tokens must be >= 1 "
                     f"(got {r.max_new_tokens})")
-            if r.serve_nodes is not None and not 1 <= r.serve_nodes <= S:
-                raise ValueError(
-                    f"request {r.id}: serve_nodes must be in [1, {S}] "
-                    f"(got {r.serve_nodes})")
+            if r.serve_nodes is not None:
+                if not self._has_stlt:
+                    raise ValueError(
+                        f"request {r.id}: serve_nodes requires an STLT mixer")
+                if not 1 <= r.serve_nodes <= S:
+                    raise ValueError(
+                        f"request {r.id}: serve_nodes must be in [1, {S}] "
+                        f"(got {r.serve_nodes})")
             n_prompt = len(np.asarray(r.prompt))
             if prompt_len is not None and n_prompt > prompt_len:
                 raise ValueError(
                     f"request {r.id}: prompt of {n_prompt} tokens exceeds "
                     f"prompt_len={prompt_len}")
+            self._check_fits(r, prompt_len if prompt_len is not None else n_prompt)
         arrivals = [0] * len(requests) if arrivals is None else list(arrivals)
         if len(arrivals) != len(requests):
             raise ValueError(
@@ -882,7 +911,9 @@ class ServeEngine:
         """Admission-wave baseline: a whole wave drains before any queued
         request is admitted. Waves are rectangular: prompts are left-padded
         to the wave's longest (or ``prompt_len``) and prefilled in one
-        monolithic dispatch; decode runs every row at full S. Sampling draws
+        monolithic dispatch; decode runs every row at full S. With a KV cache
+        of ``max_len`` positions, a request that would push a row of the wave
+        past it waits for the next wave (FIFO). Sampling draws
         from the same per-request streams as continuous mode."""
         results: dict[int, list[int]] = {}
         stats: dict[int, dict] = {}
@@ -895,6 +926,13 @@ class ServeEngine:
                 tick = queue[0][0]
             wave = []
             while queue and queue[0][0] <= tick and len(wave) < slots:
+                # the padding to the wave's longest prompt counts against
+                # every row's max_len; a request alone always fits (_queue)
+                trial = wave + [queue[0]]
+                plen_trial = prompt_len or max(len(r.prompt) for _, r in trial)
+                if wave and self._length_bounded and any(
+                        plen_trial + r.max_new_tokens > self.max_len for _, r in trial):
+                    break
                 wave.append(queue.pop(0))
             sched = Scheduler(len(wave))
             plen = prompt_len or max(len(r.prompt) for _, r in wave)

@@ -545,3 +545,85 @@ def test_encdec_on_the_card_matches_the_cpu(dev):
         rel = float(torch.linalg.vector_norm((a - b).double())
                     / torch.linalg.vector_norm(b.double()))
         assert rel <= 1e-2, (path, rel)
+
+
+def _attention_lm(layer_types=()):
+    """Reduced native SmolLM-360M (4 layers, d_model 64, 4 heads, 2 KV
+    heads, RoPE; or local_attn blocks over a 16-token window), fp32, random
+    weights from seed 0, on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("smollm-360m").reduced(layer_types=layer_types,
+                                            local_window=16 if layer_types else 0)
+    return cfg, T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.mark.parametrize("layer_types", [(), ("local_attn",) * 4], ids=["attn", "local_attn"])
+def test_attention_chunked_prefill_on_the_card_matches_monolithic(dev, layer_types):
+    """Native attention on the card, fp32: a 100-token prompt folded 24
+    tokens a chunk (the last 4 tokens a masked tail of a 24-wide chunk)
+    through ``prefill_chunk`` against the monolithic ``prefill`` (which
+    takes the blockwise path: N >= the reduced threshold of 64), then 4
+    decode steps from each; last logits and every step within RTOL_SCALE
+    of the scale; the card's monolithic logits against the CPU's too. No
+    K1 launch: attention never reaches the STLT scan."""
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_map
+
+    cfg, params = _attention_lm(layer_types)
+    toks = torch.randint(0, cfg.vocab, (2, 104), generator=torch.Generator().manual_seed(1))
+    before = k1.stlt_scan_kernel.launches
+    with torch.no_grad():
+        cpu_logits, _ = T.prefill(params, cfg, toks[:, :100], 128)
+        p = tree_map(lambda t: t.to(dev), params)
+        t = toks.to(dev)
+        mono, sm = T.prefill(p, cfg, t[:, :100], 128)
+        sc = T.init_decode_state(cfg, 2, 128, device=dev)
+        for a in range(0, 100, 24):
+            chunk = torch.zeros(2, 24, dtype=t.dtype, device=dev)
+            n = min(24, 100 - a)
+            chunk[:, :n] = t[:, a:a + n]
+            chunked, sc = T.prefill_chunk(p, cfg, chunk, sc,
+                                          valid_len=torch.full((2,), n, device=dev))
+        _assert_close(chunked.cpu(), mono.cpu())
+        _assert_close(mono.cpu(), cpu_logits)
+        for i in range(100, 104):
+            la, sm = T.decode_step(p, cfg, t[:, i], sm)
+            lb, sc = T.decode_step(p, cfg, t[:, i], sc)
+            _assert_close(lb.cpu(), la.cpu())
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches == before
+
+
+# bf16 activations and bf16 matrices (every matrix cast, not only those past
+# the serving cast's 65,536 elements, so scores, softmax inputs and the PV
+# product all run at bf16) against fp32, from the same weights: at these
+# widths the CPU reads a logit gap of 0.009-0.013 at a logit scale of ~0.6
+# over three seeds, both block kinds (2^-8 relative rounding per op through
+# 4 layers); the bound is 5e-2 of (1 + scale), ~3x that.
+ATTN_BF16_TOL = 5e-2
+
+
+@pytest.mark.parametrize("layer_types", [(), ("local_attn",) * 4], ids=["attn", "local_attn"])
+def test_attention_bf16_on_the_card_is_near_fp32(dev, layer_types):
+    """The reduced native model's logits over 100 tokens on the card in
+    bf16 (activations and matrices) against fp32, within ATTN_BF16_TOL of
+    (1 + the fp32 scale), finite; the fp32 logits against the CPU's."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import cast_params_for_compute, tree_map
+
+    cfg, params = _attention_lm(layer_types)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        cpu, _ = T.apply_lm(params, cfg, toks)
+        p = tree_map(lambda t: t.to(dev), params)
+        ref, _ = T.apply_lm(p, cfg, toks.to(dev))
+        low, _ = T.apply_lm(cast_params_for_compute(p, torch.bfloat16, min_size=0),
+                            dataclasses.replace(cfg, dtype="bfloat16"), toks.to(dev))
+    _assert_close(ref.cpu(), cpu)
+    assert low.dtype == torch.bfloat16 and bool(torch.isfinite(low).all())
+    gap = float((low.float() - ref).abs().max())
+    assert gap <= ATTN_BF16_TOL * (1 + float(ref.abs().max())), gap

@@ -342,23 +342,30 @@ def _encdec_batch(cfg, seed, batch=2):
             "dec_inputs": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def test_whisper_config_matches_jax_and_native_raises():
-    """get_config("whisper-base", "stlt") field for field as the JAX
-    package's (the fields the port has), and its .reduced() too; the native
-    form (attention) is refused, and so is the attention enc-dec model."""
-    for got, want in ((t_configs.get_config("whisper-base", "stlt"),
-                       j_get_config("whisper-base", "stlt")),
-                      (t_configs.get_config("whisper-base", "stlt").reduced(),
-                       j_get_config("whisper-base", "stlt").reduced())):
+@pytest.mark.parametrize("variant", ["stlt", "native"])
+def test_whisper_config_matches_jax_and_native_raises(variant):
+    """get_config("whisper-base", variant) field for field as the JAX
+    package's (the fields the port has), and its .reduced() too. The native
+    form (the attention encoder, decoder and cross-attention) is no longer
+    refused: it initialises with the JAX package's leaves (attn, cross) and
+    its shapes; tests/test_torch_attention.py holds its numerics."""
+    for got, want in ((t_configs.get_config("whisper-base", variant),
+                       j_get_config("whisper-base", variant)),
+                      (t_configs.get_config("whisper-base", variant).reduced(),
+                       j_get_config("whisper-base", variant).reduced())):
         for f in dataclasses.fields(TModelConfig):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert "whisper-base" in t_configs.STLT_APPLICABLE
-    with pytest.raises(NotImplementedError, match="'attention' mixer"):
-        t_configs.get_config("whisper-base")
-    attn = dataclasses.replace(t_configs.get_config("whisper-base", "stlt").reduced(),
-                               mixer="attention")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TW.init_encdec(attn, device="cpu")
+    cfg = t_configs.get_config("whisper-base", variant).reduced()
+    jshapes = jax.eval_shape(lambda: JW.init_encdec(
+        jax.random.key(0), j_get_config("whisper-base", variant).reduced()))
+    want = convert.from_jax_encdec_params(jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape, a.dtype), jshapes), cfg, device="cpu")
+    got = TW.init_encdec(cfg, device="cpu")
+    assert {p: tuple(t.shape) for p, t in tree_flatten_with_paths(got)} == \
+        {p: tuple(t.shape) for p, t in tree_flatten_with_paths(want)}
+    assert ("dec_layers/0/attn" in {p.rsplit("/", 1)[0] for p, _ in
+                                    tree_flatten_with_paths(got)}) == (variant == "native")
 
 
 def test_copy_task_batch_is_identical():
@@ -370,13 +377,15 @@ def test_copy_task_batch_is_identical():
             np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("scan_layers", [False, True], ids=["list", "stacked"])
-@pytest.mark.parametrize("arch", ["whisper", "mt"])
+@pytest.mark.parametrize("arch,scan_layers", [("whisper", False), ("whisper", True),
+                                               ("mt", True)],
+                         ids=["whisper-list", "whisper-stacked", "mt-stacked"])
 def test_apply_encdec_and_loss_match_jax(arch, scan_layers):
     """Teacher-forced logits and encdec_loss of the reduced whisper-base-stlt
-    (4 + 2 layers, 40 frame embeddings) and of mt-stlt (2 + 2 layers, source
-    tokens), with the JAX params on both layouts (enc_list/dec_list and the
-    stacked enc_layers/dec_layers) carried across. Within 2e-5."""
+    (4 + 2 layers, 40 frame embeddings) on both JAX layouts (enc_list/
+    dec_list and the stacked enc_layers/dec_layers) carried across, and of
+    mt-stlt (2 + 2 layers, source tokens) stacked: the list layout is the
+    same walk for either input mode. Within 2e-5."""
     jcfg, tcfg, tree = _models(arch, scan_layers)
     assert ("enc_layers" in tree) == (scan_layers and jcfg.num_layers > 1)
     assert ("enc_embed" in tree) == (arch == "mt")

@@ -703,8 +703,9 @@ def test_cast_params_for_compute_matches_jax(min_size):
 
 def test_get_config_variant_switch():
     """``variant="stlt"`` swaps SmolLM-360M's attention for the STLT, field
-    for field as the JAX package does; the native form (attention) and
-    undefined variants are refused; stlt-base is unchanged."""
+    for field as the JAX package does; the native form is the published
+    config (attention, ported); undefined variants and unported archs are
+    refused; stlt-base is unchanged."""
     got = t_configs.get_config("smollm-360m", "stlt")
     want = j_get_config("smollm-360m", "stlt")
     for f in dataclasses.fields(TModelConfig):
@@ -712,11 +713,11 @@ def test_get_config_variant_switch():
     assert got.block_types() == ("stlt",) * 32 and got.stlt_nodes == 32
     assert not got.stlt_adaptive and got.dtype == "bfloat16"
     assert t_configs.get_config("stlt-base") is t_configs.ARCHS["stlt-base"]
-    with pytest.raises(NotImplementedError, match="'attention' mixer"):
-        t_configs.get_config("smollm-360m")
+    native = t_configs.get_config("smollm-360m")
+    assert native.mixer == "attention" and native.block_types() == ("attn",) * 32
     with pytest.raises(ValueError, match="STLT variant undefined"):
         t_configs.get_config("stlt-base", "stlt")
     with pytest.raises(ValueError, match="unknown variant"):
         t_configs.get_config("smollm-360m", "hybrid")
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_configs.get_config("qwen2-1.5b", "stlt")
+        t_configs.get_config("granite-20b", "stlt")
