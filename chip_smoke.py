@@ -65,7 +65,20 @@ layer's attention beside ``F.scaled_dot_product_attention`` (a yardstick;
 the port never calls it), A3 trains it at 8 x 1024 in bf16 with remat (step
 0 against remat off and, at 2 layers in fp32, against the CPU; 5 AdamW
 steps; peak memory), A4 runs native whisper-base through phase W's checks.
-It
+Phase H runs the hybrid family and the untied head at full width in bf16:
+H1 and H2 serve recurrentgemma-9b (38 layers, d_model 4096, 26 rg-LRU and
+12 local-attention blocks, a 256,000-token untied head) native and as its
+STLT variant (the local-attention third through K1 at head dim 256) on
+phase P's requests, plain and with the n-gram draft, each stream against
+its request run alone under the near-tie rule, K1 launches 0 and 12 x the
+dispatches that call it, the per-slot decode state of both; H3 checks both
+forms in fp32 at one period of the pattern (chunked against monolithic
+prefill, an idle row's state bit for bit, decode against the
+teacher-forced forward, the card against the CPU); H4 trains that period
+at 2 x 1024 (remat against off, 3 K1 launches a step in the STLT form, the
+peak memory, step 0 against the CPU at reduced widths); H5 generates with
+chatglm3-6b-stlt (28 K1 launches at head dim 128), held to the
+teacher-forced forward. It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
 without its host work; K1 at each of its phase 2 shapes, K2 at
@@ -85,6 +98,7 @@ outside a checkout of the repository (it imports ``repro_torch`` from
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -110,7 +124,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # 3 (C + 2S)/8 = 96 k-steps an output), the plain version's fp32, summed in
 # different orders over up to C + 2S terms per output and nc carry steps.
 K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
-# K1's shapes (rows, tokens, nodes): stlt-base's rows (8 heads, S = 64) at
+# K1's shapes (rows, tokens, nodes, head dim): stlt-base's rows (8 heads,
+# S = 64, d = 64) at
 # batch 4 and batch 1 over the main path's 1000 tokens, batch 1 over a
 # 131,072-token prompt, serve's two admission shapes, [1, chunk] and
 # [slots, chunk] at chunk 512, 4 slots, and the largest of phase S's wave
@@ -122,13 +137,20 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # (8 x 15 heads, S = 32), forward, remat recompute and the anti-causal dx.
 # Then phase W's whisper-base-stlt rows (8 heads, S = 32): the encode's
 # 4 x 1500 frames (a causal and an anti-causal call a layer), and the
-# training step's 8 x 1500 frames and 8 x 448 decoder tokens.
-K1_WHISPER = ((32, 1500, 32), (64, 1500, 32), (64, 448, 32))
-K1_SHAPES = ((32, 1000, 64), (8, 1000, 64), (8, 131072, 64), (8, 512, 64),
-             (32, 512, 64), (32, 3000, 64), (15, 512, 32), (60, 512, 32), (60, 5, 32),
-             (120, 1024, 32)) + K1_WHISPER
-K1_VERIFY = (60, 5, 32)
-K1_TRAIN = (120, 1024, 32)
+# training step's 8 x 1500 frames and 8 x 448 decoder tokens (all d = 64).
+# Last, phase H's rows: recurrentgemma-9b-stlt (16 heads, S = 32, d = 256)
+# at [4, 512] and [1, 512] admission, the [4, k + 1] = 64 x 5 verify
+# window and the 2 x 1024 training step, and chatglm3-6b-stlt (32 heads,
+# d = 128) at its 2 x 512 prompt.
+K1_WHISPER = ((32, 1500, 32, 64), (64, 1500, 32, 64), (64, 448, 32, 64))
+K1_HYBRID = ((64, 512, 32, 256), (16, 512, 32, 256), (64, 5, 32, 256),
+             (32, 1024, 32, 256), (64, 512, 32, 128))
+K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
+             (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
+             (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64)) + K1_WHISPER + K1_HYBRID
+K1_VERIFY = (60, 5, 32, 64)
+K1_TRAIN = (120, 1024, 32, 64)
+H_K1_VERIFY = (64, 5, 32, 256)
 LONG_N = 131072
 # logits through 6 full-width layers: chunked vs monolithic prefill and
 # card vs CPU differ only by fp32 summation order (logit scale ~0.5).
@@ -242,6 +264,14 @@ RESUME_ATOL = 1e-6
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def free_cuda():
+    """Return the memory of a finished phase to the card: collect the
+    reference cycles that hold its tensors (a serving engine's closures),
+    then empty the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -370,13 +400,13 @@ def k1_kernel_alone(k1, args, C):
     return lambda: k1._launch(tensors, sizes)
 
 
-def k1_timings(k1, ops, dev, C, d):
+def k1_timings(k1, ops, dev, C):
     """K1 at each of ``K1_SHAPES``: the kernel alone, the wrapper's call and
     the whole ``ops.stlt_scan`` call (host operators included), by CUDA
     events, and the kernel's device time (profiler, launch gaps excluded),
-    beside its bounds. Returns {(BH, N, S): row}."""
+    beside its bounds. Returns {(BH, N, S, d): row}."""
     out = {}
-    for BH, N, S in K1_SHAPES:
+    for BH, N, S, d in K1_SHAPES:
         args, valid_np, raw = k1_case(k1, ops, dev, BH, N, C, S, d, seed=5)
         iters = 50 if N <= 1000 else 5
         x, lm, th, ur, ui, h0r, h0i, valid = raw
@@ -392,14 +422,14 @@ def k1_timings(k1, ops, dev, C, d):
         bound_ms, fp32_ms, bound_by, flops, nbytes = k1_bound(BH, N, d, C, S, valid_np)
         row.update(bound=bound_ms, bound_fp32=fp32_ms, bound_by=bound_by)
         device = "not measured" if kernels == {} else f"{row['device']:.4f} ms"
-        log(f"[6 timing] K1 at BH={BH} N={N} S={S}: kernel alone {row['alone']:.4f} ms "
+        log(f"[6 timing] K1 at BH={BH} N={N} S={S} d={d}: kernel alone {row['alone']:.4f} ms "
             f"(device time {device}), call {row['call']:.4f} ms, "
             f"ops.stlt_scan {row['scan']:.4f} ms; bound {bound_ms:.4f} ms 3xTF32 "
             f"tensor cores ({bound_by}) / {fp32_ms:.4f} ms fp32 FMA "
             f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
         log("[6 timing]   device time by kernel: " + ", ".join(
             f"{kernel_name(k)} {v:.4f} ms" for k, v in kernels.items()))
-        out[(BH, N, S)] = row
+        out[(BH, N, S, d)] = row
         del args, raw
     return out
 
@@ -847,7 +877,8 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N, tag="T3", compare=T3_COMPAR
         if n != k1_calls_per_step(c) or not torch.isfinite(loss):
             raise AssertionError(f"{tag} {name}: {n} K1 launches (expected "
                                  f"{k1_calls_per_step(c)}), loss {float(loss)}")
-        runs[name] = (float(loss), grads)
+        runs[name] = (float(loss), None if name == "first call" else grads)
+        del grads
     gaps = {}
     for name, loss_tol, grad_tol in compare:
         ref = "remat"
@@ -1356,7 +1387,9 @@ def teacher_forced(T, cfg, params, dev, state, logits, stream, window=None, caps
 P_MAX_LEN = 4096   # the engine's default: bounds an attention model's requests
 
 
-def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram") -> dict:
+def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram",
+               verify=K1_VERIFY, gap_cap=None, tie_tol=None, require_accept=True,
+               profile_requests=None) -> dict:
     """Phase P (and A1 with the native config and ``runs`` plain and
     n-gram): continuous serve of full-width SmolLM-360M (bf16) in the modes
     of ``runs`` (plain, n-gram draft, node draft, adaptive n-gram, the SLO
@@ -1371,14 +1404,32 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
     prefill/commit dispatches) in every run (0 for attention); (d) the SLO
     run breaches its queue depth, steps down and all the way back up, and
     serves every budget. Times each run and profiles the ``profiled`` serve
-    (device kernels only)."""
+    (device kernels only). ``verify`` is K1's verify shape in ``k1_rows``;
+    ``gap_cap`` and ``tie_tol`` replace P_GAP_CAP and P_TIE_TOL (phase H's
+    hybrid). With ``require_accept`` off (phase H: at random init the
+    hybrid's greedy streams need not follow the prompts' motifs, and the
+    H100 read 0 of 912 drafts accepted), (b) asks only that verify replace
+    decode without taking more ticks, and the accept rate is logged.
+    ``profile_requests`` profiles a serve of only the first that many
+    requests (phase H: reading back a whole serve's ~300k kernel events
+    takes a minute). A stream equal to the plain run's is held to the plain
+    run's teacher-forced rows (the same tokens give the same rows). The fp32
+    masters are dropped once cast; their peak is logged."""
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.serving.prefix_cache import pytree_nbytes
     from repro_torch.utils import cast_params_for_compute
 
     smi = smi_line()
+    gap_cap = P_GAP_CAP if gap_cap is None else gap_cap
+    tie_tol = P_TIE_TOL if tie_tol is None else tie_tol
+    torch.cuda.reset_peak_memory_stats()
     params = cast_params_for_compute(
         T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
+    torch.cuda.synchronize()
+    init_peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    log(f"[{tag} serve] {cfg.name}: fp32 init then the bf16 cast peaked at "
+        f"{init_peak / 2**30:.2f} GiB; {held / 2**30:.2f} GiB held once the fp32 masters "
+        f"are dropped [{smi}]")
     reqs = spec_requests(cfg, Request)
     arrivals = [s[3] for s in P_SPEC]
     L = stlt_layers(cfg)
@@ -1387,9 +1438,9 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
                                  device=dev, **kw)
                for name, kw in runs}
     slot_bytes = pytree_nbytes(T.init_decode_state(cfg, 1, P_MAX_LEN, device=dev))
+    kinds = {bt: cfg.block_types().count(bt) for bt in dict.fromkeys(cfg.block_types())}
     log(f"[{tag} serve] decode state of one slot at max_len {P_MAX_LEN}: {slot_bytes} bytes "
-        f"({slot_bytes / 2**20:.2f} MiB; {cfg.block_types()[0]} blocks, {cfg.dtype} "
-        f"activations)")
+        f"({slot_bytes / 2**20:.2f} MiB; blocks {kinds}, {cfg.dtype} activations)")
     # the node budget of each of a request's decode ticks in the SLO run
     slo_caps = {}
     if "slo" in engines:
@@ -1402,12 +1453,13 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
             return caps
         engines["slo"]._row_caps = logged_caps
 
-    def serve(name):
+    def serve(name, n_reqs=None):
         eng = engines[name]
         torch.cuda.synchronize()
         k1.stlt_scan_kernel.launches = 0
         t0 = time.time()
-        res, stats = eng.serve(reqs, slots=P_SLOTS, arrivals=arrivals, return_stats=True)
+        res, stats = eng.serve(reqs[:n_reqs], slots=P_SLOTS, arrivals=arrivals[:n_reqs],
+                               return_stats=True)
         torch.cuda.synchronize()
         return res, stats, time.time() - t0, k1.stlt_scan_kernel.launches
 
@@ -1439,12 +1491,13 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
     # (b) fewer target decode-phase dispatches; the n-gram draft is accepted
     plain_ticks = done["plain"]["serve_stats"]["decode_dispatches"]
     spec_names = [n for n in ("ngram", "nodes", "ngram_adaptive") if n in done]
+    most = plain_ticks - 1 if require_accept else plain_ticks
     for name in spec_names:
         ss = done[name]["serve_stats"]
-        if not (ss["decode_dispatches"] == 0 and 0 < ss["verify_dispatches"] < plain_ticks):
+        if not (ss["decode_dispatches"] == 0 and 0 < ss["verify_dispatches"] <= most):
             raise AssertionError(f"{tag} (b) {name}: {ss} against {plain_ticks} plain decode "
                                  "dispatches")
-    if "ngram" in done and not done["ngram"]["spec_stats"]["accepted"] > 0:
+    if "ngram" in done and require_accept and not done["ngram"]["spec_stats"]["accepted"] > 0:
         raise AssertionError(f"{tag} (b): the n-gram draft accepted nothing: "
                              f"{done['ngram']['spec_stats']}")
     # (d) the SLO ladder
@@ -1469,6 +1522,10 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
                                      f"of {len(slo_caps.get(r.id, []))} decode ticks")
             logits, state = prompt_alone(T, cfg, params, dev, r.prompt, P_CHUNK, P_MAX_LEN)
             for name in names:
+                if name not in ("plain", "slo") and np.array_equal(done[name]["res"][r.id],
+                                                                   done["plain"]["res"][r.id]):
+                    checks[(name, r.id)] = checks[("plain", r.id)]
+                    continue
                 rows, g = teacher_forced(
                     T, cfg, params, dev, state, logits, done[name]["res"][r.id],
                     window if name == "plain" else None,
@@ -1476,11 +1533,11 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
                 checks[(name, r.id)] = rows
                 gap = max(gap, g)
     log(f"[{tag} serve] (a) the largest chunk-form vs recurrent-form logit gap over every "
-        f"{window}-token window of the plain streams: {gap:.6g} (cap {P_GAP_CAP}) [{smi}]")
-    if not gap <= P_GAP_CAP:
+        f"{window}-token window of the plain streams: {gap:.6g} (cap {gap_cap}) [{smi}]")
+    if not gap <= gap_cap:
         raise AssertionError(f"{tag} (a): chunk-form vs recurrent-form logit gap {gap} "
-                             f"> {P_GAP_CAP}")
-    tol = P_TIE_TOL
+                             f"> {gap_cap}")
+    tol = tie_tol
     ties = {name: 0 for name in names}
     tie_gap = {name: 0.0 for name in names}
     for (name, rid), rows in checks.items():
@@ -1506,36 +1563,42 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram")
     t_phase = time.time()
     # one serve, profiled (kernels only); K1 at the verify shape
     pss = done[profiled]["serve_stats"]
+    what = f"{profiled} serve"
+    if profile_requests is not None:
+        serve(profiled, profile_requests)
+        pss = dict(engines[profiled].serve_stats)
+        what += f" of the first {profile_requests} requests"
     ticks = pss.get("verify_dispatches", 0) + pss["decode_dispatches"]
-    prof = serve_profile(lambda: serve(profiled), ticks, L * k1_dispatches(pss))
+    prof = serve_profile(lambda: serve(profiled, profile_requests), ticks,
+                         L * k1_dispatches(pss))
     log(f"[{tag} time] the profile: {time.time() - t_phase:.1f} s")
     if prof is None:
-        log(f"[{tag} profile] {profiled} serve: not measured (every profile dropped "
+        log(f"[{tag} profile] {what}: not measured (every profile dropped "
             f"kernels) [{smi}]")
     else:
-        log(f"[{tag} profile] {profiled} serve: wall {prof['wall_ms']:.1f} ms, device busy "
+        log(f"[{tag} profile] {what}: wall {prof['wall_ms']:.1f} ms, device busy "
             f"{prof['busy_ms']:.2f} ms = {100 * prof['busy']:.1f}% of wall, "
             f"{prof['launches']} kernel launches = {prof['launches_per_tick']:.1f} per "
             f"decode or verify tick; K1 {prof['k1_ms']:.3f} ms = "
             f"{100 * prof['k1_share']:.1f}% of device time [{smi}]")
         log_top_kernels(tag, prof["top"], prof["busy_ms"])
     if L and k1_rows is not None:
-        vrow = k1_rows[K1_VERIFY]
+        vrow = k1_rows[verify]
         from repro_torch.kernels import ops
-        vargs, _, _ = k1_case(k1, ops, dev, K1_VERIFY[0], K1_VERIFY[1], cfg.stlt_chunk,
-                              K1_VERIFY[2], cfg.dh, seed=5)
+        vargs, _, _ = k1_case(k1, ops, dev, *verify[:2], cfg.stlt_chunk, *verify[2:], seed=5)
         vrow["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*vargs, chunk=cfg.stlt_chunk),
                                   iters=20)
         device = "not measured" if vrow["device"] is None else f"{vrow['device']:.4f} ms"
-        log(f"[{tag} K1] at the verify shape {K1_VERIFY[0]} x {K1_VERIFY[1]} "
-            f"(S={K1_VERIFY[2]}): ops.stlt_scan {vrow['scan']:.4f} ms (host operators + "
-            f"launch), K1 device time {device}, kernel alone {vrow['alone']:.4f} ms, plain "
+        log(f"[{tag} K1] at the verify shape {verify[0]} x {verify[1]} "
+            f"(S={verify[2]}, d={verify[3]}): ops.stlt_scan {vrow['scan']:.4f} ms (host "
+            f"operators + launch), K1 device time {device}, kernel alone {vrow['alone']:.4f} ms, plain "
             f"version {vrow['plain']:.4f} ms, bound {vrow['bound']:.5f} ms "
             f"({vrow['bound_by']}) [{smi}]")
     for name in done:
         del done[name]["res"]
     return {"runs": done, "profile": prof, "tol": tol, "gap": gap, "ties": ties,
-            "tie_gap": tie_gap, "same": same, "slot_bytes": slot_bytes}
+            "tie_gap": tie_gap, "same": same, "slot_bytes": slot_bytes,
+            "init_peak_gib": init_peak / 2**30, "held_gib": held / 2**30}
 
 
 # ---------------------------------------------------------------------------
@@ -2134,31 +2197,32 @@ def attention_timings(T, A, cfg, dev) -> dict:
     return out
 
 
-def attention_train_cpu_check(T, train, cfg, dev) -> dict:
-    """Phase A3's tight check: step 0 of native SmolLM-360M at its widths
-    but 2 layers, in fp32, A_CPU_B x A_CPU_N tokens, on the card and on the
-    CPU from the same weights: loss within TRAIN_LOSS_TOL, every grad leaf
-    finite and non-zero and within TRAIN_GRAD_TOL (phase T2's gates)."""
+def train_cpu_check(T, train, c, dev, tag="A3", B=A_CPU_B, N=A_CPU_N) -> dict:
+    """A train phase's tight check (A3: native SmolLM-360M at its widths
+    but 2 layers; H4: recurrentgemma-9b at ``reduced()`` widths), in fp32,
+    B x N tokens, step 0 of config ``c`` on the card and on the CPU from the
+    same weights: loss within TRAIN_LOSS_TOL, every grad leaf finite and
+    non-zero and within TRAIN_GRAD_TOL (phase T2's gates)."""
     from repro_torch.data import lm_batch_stream
     from repro_torch.utils import tree_map
 
-    c = dataclasses.replace(cfg, num_layers=2, dtype="float32", remat=False)
     params = T.init_lm(c, torch.Generator(device=dev).manual_seed(4), device=dev)
     batch = {k: torch.from_numpy(v) for k, v in
-             lm_batch_stream(0, 0, A_CPU_B, A_CPU_N, c.vocab).items()}
+             lm_batch_stream(0, 0, B, N, c.vocab).items()}
     out = {}
     for where, p in (("card", params), ("cpu", tree_map(torch.Tensor.cpu, params))):
         b = {k: v.to(where if where == "cpu" else dev) for k, v in batch.items()}
         loss, _, grads = train.loss_and_grads(p, c, b, tau=1.0)
         out[where] = (float(loss), tree_map(torch.Tensor.cpu, grads))
     rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    path, worst, n = grad_gaps(out["card"][1], out["cpu"][1], "A3 card vs CPU")
-    log(f"[A3 step 0] card vs CPU, fp32, 2 layers, {A_CPU_B} x {A_CPU_N}: loss "
+    path, worst, n = grad_gaps(out["card"][1], out["cpu"][1], f"{tag} card vs CPU")
+    log(f"[{tag} step 0] card vs CPU, fp32, {c.num_layers} layers, d_model {c.d_model}, "
+        f"{B} x {N}: loss "
         f"{out['card'][0]:.6f} vs {out['cpu'][0]:.6f} (relative {rel:.3e}; gate "
         f"{TRAIN_LOSS_TOL}), {n} grad leaves finite and non-zero, worst ||g_card - g_cpu|| "
         f"/ ||g_cpu|| {worst:.3e} ({path}; gate {TRAIN_GRAD_TOL})")
     if not (rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
-        raise AssertionError(f"A3: card vs CPU step 0: loss {rel}, grad {worst} at {path}")
+        raise AssertionError(f"{tag}: card vs CPU step 0: loss {rel}, grad {worst} at {path}")
     return {"loss": rel, "grad": worst, "leaf": path}
 
 
@@ -2200,7 +2264,8 @@ def attention_phase(T, train, W, steps, k1, dev, get_config) -> dict:
     t0 = time.time()
     out["A3"] = smollm_train_phase(T, train, k1, cfg, dev, T3_B, T3_N, tag="A3",
                                    compare=T3_COMPARE[:1], remat_modes=("full", "off"))
-    out["A3"]["cpu"] = attention_train_cpu_check(T, train, cfg, dev)
+    out["A3"]["cpu"] = train_cpu_check(
+        T, train, dataclasses.replace(cfg, num_layers=2, dtype="float32", remat=False), dev)
     out["times"]["A3"] = time.time() - t0
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -2217,13 +2282,292 @@ def attention_phase(T, train, W, steps, k1, dev, get_config) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase H: the hybrid family (recurrentgemma-9b) and the untied head
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b at full width and depth (38 layers: 26 rg-LRU and 12
+# local-attention blocks, window 2048, d_model 4096, 16 heads, 1 KV head,
+# dh 256, untied 256,000-token head, bf16, matrices cast as the serve CLI
+# casts them). H1 serves the native form, H2 the STLT variant (only the
+# local-attention third replaced: K1 at head dim 256), each plain and with
+# the n-gram draft, on phase P's requests through spec_phase.
+H_ARCH = "recurrentgemma-9b"
+# H3 (fp32, the model's widths cut to one period of the pattern: rglru,
+# rglru, local_attn | stlt): a 2-row prompt folded at P_CHUNK (a 512-token
+# chunk and a masked 88-token tail; row 1 ends in the first chunk and
+# idles through the second) against the monolithic prefill, H_NEW decode
+# steps against the teacher-forced forward, the card against the CPU on
+# 1 x H_CPU_N tokens and 4 decode steps. The forms are one function in
+# fp32, summed in other orders: LOGIT_TOL.
+H_PERIOD, H_PROMPT, H_ROW1, H_NEW, H_CPU_N = 3, 600, 400, 8, 256
+# H4 trains the same 3 layers at full width, 2 x 1024 a step (bf16 over
+# fp32 masters, remat on, AdamW), remat against off on the card (T3's
+# gates) and step 0 card against CPU at reduced() widths (T2's gates).
+# Its AdamW moments are bf16 (``opt_moment_dtype``): the update is
+# functional, so a step holds the old and the new params and moments at
+# once, and with fp32 moments the 2.75B params (the 256,000-token embedding
+# and head are 2.1B of them) would need ~82 GiB.
+H_TRAIN_B, H_TRAIN_N = 2, 1024
+# H5: chatglm3-6b's STLT variant at full width (28 layers, d_model 4096,
+# 32 heads, dh 128: K1 at head dim 128; untied 65,024-token head, bf16):
+# one greedy generate of H5_B x (H5_PROMPT + H5_NEW), each token held to
+# the teacher-forced forward under the near-tie rule.
+H5_ARCH, H5_B, H5_PROMPT, H5_NEW = "chatglm3-6b", 2, 512, 16
+# The bf16 chunk-form vs recurrent-form logit gaps H accepts (as phase P's
+# P_GAP_CAP) and their near-tie tolerances, twice each cap. In bf16 the
+# rg-LRU's two forms differ by more than rounding, in the JAX package as in
+# the port: the [4, d] conv weight stays fp32 under the serving cast, so the
+# chunk form's conv output enters the gates in fp32 and the step's in bf16.
+# At 6 layers, d_model 1024 the JAX package's own gap reads 0.050-0.052
+# (native) and 0.023-0.025 (STLT), 0.066-0.068 / 0.031 at 12 layers, and
+# the port's 0.047-0.049 / 0.023-0.025 on the same weights
+# (tests/jax_hybrid_gaps.py, CPU). The H100 read 0.3359 (H1) and 0.125 (H2)
+# at full width and depth, the same in two runs, and 0.0781 for H5's
+# decode form against the teacher-forced forward (chatglm3-6b-stlt, no
+# rg-LRU: bf16 rounding through 28 layers at a logit scale of 5.5)
+# (tools/phase_h_gaps.py, PERF.md phase H); each cap is the first
+# sixteenth at or above 1.6x its reading. They bound rounding noise through
+# the full depth; the fp32 checks of H3 are the tight ones.
+H1_GAP_CAP = 0.5625
+H1_TIE_TOL = 2 * H1_GAP_CAP
+H2_GAP_CAP = 0.25
+H2_TIE_TOL = 2 * H2_GAP_CAP
+H5_GAP_CAP = 0.125
+H5_TIE_TOL = 2 * H5_GAP_CAP
+# H1 and H2 profile a serve of phase P's first 4 requests (of 8).
+H_PROFILE_REQUESTS = 4
+
+
+def period_cfg(cfg, **kw):
+    """``cfg`` cut to one period of its layer pattern (H_PERIOD layers)."""
+    return dataclasses.replace(cfg, num_layers=H_PERIOD,
+                               layer_types=cfg.layer_types[:H_PERIOD], **kw)
+
+
+def forward_at(T, cfg, params, seq, positions):
+    """Teacher-forced logits of ``seq`` [B, N] at ``positions`` only: the
+    blocks of ``apply_lm`` over the whole sequence, the head on the
+    positions asked for (full logits of a 256,000-token vocabulary take
+    ~1 GB for 1024 positions in fp32)."""
+    x = T._with_pe(cfg, T._embed(params, cfg, seq))
+    for bt, p in zip(cfg.block_types(), params["layers"]):
+        x, _ = T.apply_block(p, cfg, bt, x)
+    return T._head(params, cfg, x[:, positions])
+
+
+def hybrid_check_phase(T, k1, cfg, dev, tag="H3") -> dict:
+    """Phase H3 for one form of the hybrid (``cfg`` at full width): in fp32
+    at H_PERIOD layers, chunked against monolithic prefill (row 0's last
+    logits; row 1, which ends in the first chunk, against its own
+    monolithic prefill), row 1's state bit for bit through the dispatch in
+    which its valid length is 0, H_NEW decode steps against the
+    teacher-forced forward, and the card against the CPU (prefill of
+    1 x H_CPU_N tokens, 4 decode steps); K1 launches = STLT layers x the 5
+    whole-sequence calls (monolithic prefill, 2 chunk dispatches, row 1
+    alone, the teacher-forced forward), none in decode."""
+    from repro_torch.utils import tree_map
+
+    smi = smi_line()
+    c = period_cfg(cfg, dtype="float32")
+    params = T.init_lm(c, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(0, c.vocab, (2, H_PROMPT + H_NEW), generator=g, device=dev)
+    max_len, out = H_PROMPT + H_NEW, {}
+    k1.stlt_scan_kernel.launches = 0
+    with torch.no_grad():
+        mono, state = T.prefill(params, c, toks[:, :H_PROMPT], max_len)
+        mono1, _ = T.prefill(params, c, toks[1:2, :H_ROW1], max_len)
+        lens = np.array([H_PROMPT, H_ROW1])
+        st = T.init_decode_state(c, 2, max_len, device=dev)
+        idle_same, last = None, {}
+        for off in range(0, H_PROMPT, P_CHUNK):
+            v = np.clip(lens - off, 0, P_CHUNK)
+            buf = torch.zeros(2, P_CHUNK, dtype=toks.dtype, device=dev)
+            buf[:, :int(v[0])] = toks[:, off:off + int(v[0])]
+            before = T.extract_slot(st, 1, c) if v[1] == 0 else None
+            lg, st = T.prefill_chunk(params, c, buf, st, valid_len=torch.from_numpy(v).to(dev))
+            for b in np.nonzero((v > 0) & (off + v == lens))[0]:
+                last[int(b)] = lg[b]
+            if before is not None:
+                after = T.extract_slot(st, 1, c)
+                idle_same = all(torch.equal(a[k], b[k]) for a, b in
+                                zip(after["layers"], before["layers"]) for k in a) \
+                    and torch.equal(after["pos"], before["pos"])
+        out["chunk_err"] = max(float((last[0] - mono[0]).abs().max()),
+                               float((last[1] - mono1[0]).abs().max()))
+        scale = float(mono.abs().max())
+        tok, rows, fed = mono.argmax(-1), [mono], []
+        before_decode = k1.stlt_scan_kernel.launches
+        for _ in range(H_NEW - 1):
+            fed.append(tok)
+            logits, state = T.decode_step(params, c, tok, state)
+            rows.append(logits)
+            tok = logits.argmax(-1)
+        launches_decode = k1.stlt_scan_kernel.launches
+        seq = torch.cat([toks[:, :H_PROMPT], torch.stack(fed, 1)], 1)
+        teacher = forward_at(T, c, params, seq, torch.arange(H_PROMPT - 1, seq.shape[1]))
+        out["step_err"] = float((torch.stack(rows, 1) - teacher).abs().max())
+        torch.cuda.synchronize()
+        launches = k1.stlt_scan_kernel.launches
+        L = stlt_layers(c)
+        log(f"[{tag}] {cfg.name} ({c.block_types()}), fp32, d_model {c.d_model}: chunked "
+            f"({P_CHUNK}-token chunks, masked tail) vs monolithic prefill last logits max abs "
+            f"err {out['chunk_err']:.3e}; the idle row's state bit for bit {idle_same}; "
+            f"{H_NEW} decode steps vs teacher-forced {out['step_err']:.3e} (tolerance "
+            f"{LOGIT_TOL}; logit scale {scale:.3f}); K1 launches {launches}, of them in "
+            f"decode {launches_decode - before_decode} [{smi}]")
+        if not (max(out["chunk_err"], out["step_err"]) <= LOGIT_TOL and idle_same):
+            raise AssertionError(f"{tag}: chunked/monolithic/decode disagree: {out}, "
+                                 f"idle row kept {idle_same}")
+        if launches != 5 * L or launches_decode != before_decode or before_decode != 4 * L:
+            raise AssertionError(f"{tag}: {launches} K1 launches ({launches_decode} before "
+                                 f"the teacher-forced forward), expected {5 * L}")
+        del state, st, teacher
+
+        res = {}
+        t2 = toks[:1, :H_CPU_N]
+        for where, p in (("card", params), ("cpu", tree_map(torch.Tensor.cpu, params))):
+            t = t2.to(p["final_norm"]["scale"].device)
+            lg, s2 = T.prefill(p, c, t, H_CPU_N + 4)
+            got = [lg.cpu()]
+            for i in range(4):
+                lg, s2 = T.decode_step(p, c, t[:, 10 + i], s2)
+                got.append(lg.cpu())
+            res[where] = torch.stack(got, 1)
+            del p, s2
+        out["cpu_err"] = float((res["card"] - res["cpu"]).abs().max())
+        log(f"[{tag}] card vs CPU, fp32, {H_PERIOD} layers: prefill of 1 x {H_CPU_N} and 4 "
+            f"decode steps, logits max abs err {out['cpu_err']:.3e} (tolerance {LOGIT_TOL}) "
+            f"[{smi}]")
+        if not out["cpu_err"] <= LOGIT_TOL:
+            raise AssertionError(f"{tag}: card vs CPU logits {out['cpu_err']}")
+    return out
+
+
+def chatglm3_generate_phase(T, k1, get_config, dev, tag="H5") -> dict:
+    """Phase H5: chatglm3-6b's STLT variant at full width in bf16 (the
+    matrices cast as the serve CLI casts them), one greedy ``generate`` of
+    H5_B x (H5_PROMPT + H5_NEW) through the engine (K1 launches = 28, the
+    prefill's, none in decode); the decode form rerun on the generated
+    tokens and held to the teacher-forced forward: every generated token
+    within H5_TIE_TOL of the teacher's max logit, the forms' largest gap
+    within H5_GAP_CAP."""
+    from repro_torch.serving import ServeEngine
+    from repro_torch.utils import cast_params_for_compute
+
+    smi = smi_line()
+    cfg = get_config(H5_ARCH, "stlt")
+    torch.cuda.reset_peak_memory_stats()
+    params = cast_params_for_compute(
+        T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
+    torch.cuda.synchronize()
+    peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    engine = ServeEngine(params, cfg, max_len=H5_PROMPT + H5_NEW, device=dev)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, size=(H5_B, H5_PROMPT))
+    engine.generate(prompts, 2)   # first call: one-time costs
+    torch.cuda.synchronize()
+    k1.stlt_scan_kernel.launches = 0
+    t0 = time.time()
+    tokens = engine.generate(prompts, H5_NEW)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = k1.stlt_scan_kernel.launches
+    if launches != stlt_layers(cfg) or tokens.shape != (H5_B, H5_NEW):
+        raise AssertionError(f"{tag}: {launches} K1 launches, tokens {tokens.shape}")
+    toks = torch.from_numpy(prompts).to(dev)
+    gen = torch.from_numpy(np.asarray(tokens)).to(dev)
+    with torch.no_grad():
+        lg, st = T.prefill(params, cfg, toks, H5_PROMPT + H5_NEW)
+        rows = [lg]
+        for i in range(H5_NEW - 1):
+            lg, st = T.decode_step(params, cfg, gen[:, i], st)
+            rows.append(lg)
+        steps = torch.stack(rows, 1).float()
+        seq = torch.cat([toks, gen[:, :-1]], 1)
+        teacher = forward_at(T, cfg, params, seq,
+                             torch.arange(H5_PROMPT - 1, seq.shape[1])).float()
+    gap = float((steps - teacher).abs().max())
+    ties = sum(near_tie(teacher[b, i], int(gen[b, i]), f"{tag}: row {b} step {i}", H5_TIE_TOL)
+               for b in range(H5_B) for i in range(H5_NEW))
+    log(f"[{tag}] {cfg.name} STLT variant, bf16, {cfg.num_layers} layers, dh {cfg.dh}: "
+        f"generate {H5_B} x ({H5_PROMPT} + {H5_NEW}) {wall:.3f} s "
+        f"({H5_B * H5_NEW / wall:.1f} new tok/s), {launches} K1 launches; init peak "
+        f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB held; decode form vs teacher-forced "
+        f"max logit gap {gap:.4g} (cap {H5_GAP_CAP}), near ties {ties} (tolerance "
+        f"{H5_TIE_TOL}; logit scale {float(teacher.abs().max()):.3f}) [{smi}]")
+    if not gap <= H5_GAP_CAP:
+        raise AssertionError(f"{tag}: decode vs teacher-forced gap {gap} > {H5_GAP_CAP}")
+    return {"wall_s": wall, "k1_launches": launches, "gap": gap, "ties": ties,
+            "init_peak_gib": peak / 2**30, "held_gib": held / 2**30}
+
+
+def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
+    """Phase H: recurrentgemma-9b in both forms at full width on the card.
+    H1 serves the native form and H2 the STLT variant (``spec_phase``,
+    plain and the n-gram draft, at H1_ and H2_GAP_CAP; K1 launches 0 in
+    H1, 12 x the dispatches that call it in H2), with the per-slot decode
+    state of each; H3 checks both forms in fp32 at one period of the
+    pattern (``hybrid_check_phase``); H4 trains that period at full width
+    (``smollm_train_phase``: 3 K1 calls a step in the STLT form, none in
+    the native) and holds step 0 to the CPU at ``reduced()`` widths; H5 is
+    chatglm3-6b's STLT variant (``chatglm3_generate_phase``)."""
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+
+    t_all, smi = time.time(), smi_line()
+    out = {"times": {}}
+    free_cuda()
+    for tag, variant, cap, tol in (("H1", "native", H1_GAP_CAP, H1_TIE_TOL),
+                                   ("H2", "stlt", H2_GAP_CAP, H2_TIE_TOL)):
+        t0 = time.time()
+        cfg = get_config(H_ARCH, variant)
+        out[tag] = spec_phase(T, k1, cfg, dev, k1_rows if variant == "stlt" else None,
+                              runs=A_RUNS, tag=tag, profiled="plain", verify=H_K1_VERIFY,
+                              gap_cap=cap, tie_tol=tol, require_accept=False,
+                              profile_requests=H_PROFILE_REQUESTS)
+        out["times"][tag] = time.time() - t0
+        free_cuda()
+    n_bytes, s_bytes = out["H1"]["slot_bytes"], out["H2"]["slot_bytes"]
+    native = get_config(H_ARCH)
+    rec = pytree_nbytes(T._init_block_state(native, "rglru", 1, P_MAX_LEN, dev))
+    n_attn, n_rec = (native.block_types().count(bt) for bt in ("local_attn", "rglru"))
+    log(f"[H serve] decode state of one slot at max_len {P_MAX_LEN}: native {n_bytes} bytes "
+        f"({n_bytes / 2**20:.2f} MiB: {n_attn} bf16 rings of "
+        f"{min(P_MAX_LEN, native.local_window)} positions x {native.num_kv_heads} KV head x "
+        f"{native.dh}, K and V, and {n_rec} fp32 rg-LRU states of {rec} bytes), STLT variant "
+        f"{s_bytes} bytes ({s_bytes / 2**20:.2f} MiB: {n_attn} fp32 STLT carries and the same "
+        f"rg-LRU states); ratio {n_bytes / s_bytes:.2f} [{smi}]")
+    for tag, variant in (("H3 native", "native"), ("H3 stlt", "stlt")):
+        t0 = time.time()
+        out[tag] = hybrid_check_phase(T, k1, get_config(H_ARCH, variant), dev, tag=tag)
+        out["times"][tag] = time.time() - t0
+        free_cuda()
+    for tag, variant in (("H4 native", "native"), ("H4 stlt", "stlt")):
+        t0 = time.time()
+        cfg = get_config(H_ARCH, variant)
+        out[tag] = smollm_train_phase(T, train, k1, period_cfg(cfg, opt_moment_dtype="bfloat16"),
+                                      dev, H_TRAIN_B, H_TRAIN_N, tag=tag,
+                                      compare=T3_COMPARE[:1], remat_modes=("full", "off"))
+        free_cuda()
+        out[tag]["cpu"] = train_cpu_check(T, train, cfg.reduced(), dev, tag=tag)
+        out["times"][tag] = time.time() - t0
+        free_cuda()
+    t0 = time.time()
+    out["H5"] = chatglm3_generate_phase(T, k1, get_config, dev)
+    out["times"]["H5"] = time.time() - t0
+    free_cuda()
+    log(f"[H time] phase H {time.time() - t_all:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["times"].items()) + f" [{smi}]")
+    return out
+
+
 def k1_direction_timings(k1, ops, dev, C, d) -> dict:
     """At phase W's encoder shapes, K1's training pass causal and
     anti-causal (the reverse call flips x, runs the causal pass and flips z
     back, on the host side of the kernel) by CUDA events, and one flip of x
     alone: what an in-kernel reverse would save. Returns {(BH, N, S): row}."""
     out = {}
-    for BH, N, S in K1_WHISPER[:2]:
+    for BH, N, S, _ in K1_WHISPER[:2]:
         x, lm, th, ur, ui, _ = vjp_case(dev, BH // 8, 8, N, S, d, C, seed=13)
         operators = ops._operators(lm, th, ur, ui, C)
         row = {"fwd_ms": time_cuda(lambda: ops._pass(x, operators, C, False,
@@ -2234,7 +2578,7 @@ def k1_direction_timings(k1, ops, dev, C, d) -> dict:
         log(f"[6 timing] K1 training pass at BH={BH} N={N} S={S}: causal "
             f"{row['fwd_ms']:.4f} ms, anti-causal (flip, K1, flip) {row['rev_ms']:.4f} ms; "
             f"one flip of x {row['flip_ms']:.4f} ms")
-        out[(BH, N, S)] = row
+        out[(BH, N, S, d)] = row
     return out
 
 
@@ -2273,8 +2617,8 @@ def main(argv) -> int:
     # over a long row -----------------------------------------------------------
     BH = B * H
     k1_err = 0.0
-    for bh_t, n_t, s_t in K1_SHAPES:
-        args, _, _ = k1_case(k1, ops, dev, bh_t, n_t, C, s_t, dh, seed=1)
+    for bh_t, n_t, s_t, d_t in K1_SHAPES:
+        args, _, _ = k1_case(k1, ops, dev, bh_t, n_t, C, s_t, d_t, seed=1)
         got = k1.stlt_scan_kernel(*args, chunk=C)
         want = k1.stlt_scan_reference(*args, chunk=C)
         torch.cuda.synchronize()
@@ -2282,11 +2626,11 @@ def main(argv) -> int:
             err = float((a - b).abs().max())
             scale = 1.0 + float(b.abs().max())
             k1_err = max(k1_err, err)
-            log(f"[2 K1 vs plain] BH={bh_t} N={n_t} S={s_t} {name}: max abs err {err:.3e} "
-                f"(scale {scale:.3e})")
+            log(f"[2 K1 vs plain] BH={bh_t} N={n_t} S={s_t} d={d_t} {name}: max abs err "
+                f"{err:.3e} (scale {scale:.3e})")
             if not err <= K1_TOL * scale:
-                raise AssertionError(f"K1 {name} at BH={bh_t} N={n_t} disagrees with its "
-                                     f"plain version: {err} > {K1_TOL} * {scale}")
+                raise AssertionError(f"K1 {name} at BH={bh_t} N={n_t} d={d_t} disagrees with "
+                                     f"its plain version: {err} > {K1_TOL} * {scale}")
         idle = torch.from_numpy(np.arange(bh_t) % 4 == 0).to(dev)   # valid == 0
         if not (torch.equal(got[1][idle], args[8][idle])
                 and torch.equal(got[2][idle], args[9][idle])):
@@ -2295,8 +2639,8 @@ def main(argv) -> int:
 
     # phase W's training passes (no carry, no snapshot), causal and
     # anti-causal: the bilateral encoder's two calls and their dx passes
-    for bh_t, n_t, s_t in K1_WHISPER:
-        x, lm, th, ur, ui, _ = vjp_case(dev, bh_t // H, H, n_t, s_t, dh, C, seed=3)
+    for bh_t, n_t, s_t, d_t in K1_WHISPER:
+        x, lm, th, ur, ui, _ = vjp_case(dev, bh_t // H, H, n_t, s_t, d_t, C, seed=3)
         operators = ops._operators(lm, th, ur, ui, C)
         for rev in (False, True):
             got = ops._pass(x, operators, C, rev, k1.stlt_scan_kernel)[0]
@@ -2528,7 +2872,7 @@ def main(argv) -> int:
     tr = train_phase(T, train, k1, cfg, dev, B, N)
 
     # 6. timing -------------------------------------------------------------------
-    k1_rows = k1_timings(k1, ops, dev, C, dh)
+    k1_rows = k1_timings(k1, ops, dev, C)
     # K1 in the training call (no carry, no snapshot): the forward pass and the
     # anti-causal dx pass (host flips included) at the step's shape
     x, lm, th, ur, ui, dz = vjp_case(dev, B, H, N, S, dh, C, seed=12)
@@ -2548,12 +2892,12 @@ def main(argv) -> int:
             f"{kernel_name(k)} {v:.4f} ms" for k, v in dx_kernels.items()))
     del x, dz, operators
     main_args, _, _ = k1_case(k1, ops, dev, BH, N, C, S, dh, seed=5)
-    main_row = k1_rows[(BH, N, S)]
+    main_row = k1_rows[(BH, N, S, dh)]
     k1_ms = main_row["call"]
     plain_ms = time_cuda(lambda: k1.stlt_scan_reference(*main_args, chunk=C), iters=10)
     log(f"[6 timing] K1 plain version at BH={BH} N={N}: {plain_ms:.4f} ms")
     del main_args
-    train_args, _, _ = k1_case(k1, ops, dev, *K1_TRAIN[:2], C, K1_TRAIN[2], dh, seed=5)
+    train_args, _, _ = k1_case(k1, ops, dev, *K1_TRAIN[:2], C, *K1_TRAIN[2:], seed=5)
     train_row = k1_rows[K1_TRAIN]
     train_row["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*train_args, chunk=C),
                                    iters=10)
@@ -2564,7 +2908,7 @@ def main(argv) -> int:
     del train_args
     k1_dir = k1_direction_timings(k1, ops, dev, C, dh)
     for shape in K1_WHISPER:
-        w_args, _, _ = k1_case(k1, ops, dev, shape[0], shape[1], C, shape[2], dh, seed=5)
+        w_args, _, _ = k1_case(k1, ops, dev, *shape[:2], C, *shape[2:], seed=5)
         k1_rows[shape]["plain"] = time_cuda(
             lambda: k1.stlt_scan_reference(*w_args, chunk=C), iters=5)
         r = k1_rows[shape]
@@ -2573,7 +2917,7 @@ def main(argv) -> int:
             f"{r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound {r['bound']:.4f} "
             f"ms ({r['bound_by']})")
         del w_args
-    long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S)]["scan"],
+    long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S, dh)]["scan"],
                  k1.stlt_scan_kernel)
     with torch.no_grad():
         tok = torch.from_numpy(prompts).to(dev)
@@ -2683,6 +3027,23 @@ def main(argv) -> int:
     # and n-gram spec), checked, timed beside SDPA, trained; native
     # whisper-base encoded, decoded and trained. No K1 launch.
     attention_phase(T, train, W, steps, k1, dev, get_config)
+    torch.cuda.empty_cache()
+
+    # H. the hybrid family: recurrentgemma-9b served in both forms at full
+    # width (K1 at head dim 256 in the STLT variant, none in the native),
+    # checked in fp32 at one period, trained; chatglm3-6b-stlt generates
+    # (K1 at head dim 128)
+    hyb = hybrid_phase(T, train, k1, dev, get_config, k1_rows)
+    for shape in K1_HYBRID:
+        h_args, _, _ = k1_case(k1, ops, dev, *shape[:2], C, *shape[2:], seed=5)
+        k1_rows[shape]["plain"] = time_cuda(
+            lambda: k1.stlt_scan_reference(*h_args, chunk=C), iters=5)
+        r = k1_rows[shape]
+        log(f"[6 timing] K1 at phase H's shape BH={shape[0]} N={shape[1]} S={shape[2]} "
+            f"d={shape[3]}: kernel alone {r['alone']:.4f} ms, device time {r['device']} ms, "
+            f"call {r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound "
+            f"{r['bound']:.4f} ms ({r['bound_by']})")
+        del h_args
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     print(smi_line())
@@ -2742,7 +3103,22 @@ def main(argv) -> int:
             k: k1_rows[sh][k] for k in ("device", "alone", "call", "plain", "bound",
                                         "bound_by")} for sh in K1_WHISPER},
         "whisper_direction_ms": {"x".join(map(str, sh)): row
-                                 for sh, row in k1_dir.items()}}, {
+                                 for sh, row in k1_dir.items()},
+        # phase H: K1 launches in the native recurrentgemma-9b serves (0),
+        # in its STLT variant's plain and n-gram serves (12 STLT layers x
+        # the dispatches that call K1), per STLT train step at one period
+        # (3: forward, recompute, dx), in chatglm3-6b-stlt's generate (28);
+        # K1 at phase H's shapes (d = 256 and 128)
+        "launches_per_hybrid_native_serve": hyb["H1"]["runs"]["plain"]["k1_launches"],
+        "launches_per_hybrid_native_ngram_serve": hyb["H1"]["runs"]["ngram"]["k1_launches"],
+        "launches_per_hybrid_stlt_serve": hyb["H2"]["runs"]["plain"]["k1_launches"],
+        "launches_per_hybrid_stlt_ngram_serve": hyb["H2"]["runs"]["ngram"]["k1_launches"],
+        "launches_per_hybrid_train_step": hyb["H4 stlt"]["launches_per_step"],
+        "launches_per_hybrid_native_train_step": hyb["H4 native"]["launches_per_step"],
+        "launches_per_chatglm3_generate": hyb["H5"]["k1_launches"],
+        "hybrid_shapes": {"x".join(map(str, sh)): {
+            k: k1_rows[sh][k] for k in ("device", "alone", "call", "plain", "bound",
+                                        "bound_by")} for sh in K1_HYBRID}}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

@@ -1,21 +1,48 @@
-"""Architecture registry of the port: ``get_config(arch, variant=...)``.
+"""Architecture registry of the port: ``get_config(arch, variant=...)``, the
+assigned shape set, and the cell enumeration with its per-cell skip rules.
 
 Variants, as in the JAX package:
-  native -- the architecture as published (softmax attention);
+  native -- the architecture as published (softmax attention, rg-LRU);
   stlt   -- every attention block replaced by the learnable STLT (defined
-            for the archs in ``STLT_APPLICABLE``).
-An architecture that is not ported raises NotImplementedError.
+            for the archs in ``STLT_APPLICABLE``; recurrentgemma keeps its
+            rg-LRU blocks and replaces only its local-attention third).
+The arch ids and their order are the JAX package's, so ``all_cells()``
+names the same cells. An architecture that is not ported raises
+NotImplementedError from ``get_config``.
 """
+from __future__ import annotations
+
 import dataclasses
+from typing import Optional
 
-from repro_torch.configs import qwen2_1_5b, smollm_360m, stlt_base, whisper_base
-from repro_torch.configs.base import DTYPES, ModelConfig, TrainConfig
+from repro_torch.configs import (chatglm3_6b, granite_20b, internvl2_76b, qwen2_1_5b,
+                                 recurrentgemma_9b, smollm_360m, stlt_base, whisper_base)
+from repro_torch.configs.base import DTYPES, SHAPES, ModelConfig, ShapeConfig, TrainConfig
 
-ARCHS = {"stlt-base": stlt_base.CONFIG, "smollm-360m": smollm_360m.CONFIG,
-         "whisper-base": whisper_base.CONFIG, "qwen2-1.5b": qwen2_1_5b.CONFIG}
+# every arch id of the JAX package, in its order
+ARCH_IDS = ("qwen3-moe-235b-a22b", "arctic-480b", "chatglm3-6b", "qwen2-1.5b",
+            "granite-20b", "smollm-360m", "xlstm-350m", "whisper-base",
+            "internvl2-76b", "recurrentgemma-9b", "stlt-base")
 
-# the ported archs whose attention the paper's STLT can replace
-STLT_APPLICABLE = {"smollm-360m", "whisper-base", "qwen2-1.5b"}
+# the ported ones
+ARCHS = {"chatglm3-6b": chatglm3_6b.CONFIG, "qwen2-1.5b": qwen2_1_5b.CONFIG,
+         "granite-20b": granite_20b.CONFIG, "smollm-360m": smollm_360m.CONFIG,
+         "whisper-base": whisper_base.CONFIG, "internvl2-76b": internvl2_76b.CONFIG,
+         "recurrentgemma-9b": recurrentgemma_9b.CONFIG, "stlt-base": stlt_base.CONFIG}
+
+# archs whose mixer the paper's STLT can replace
+STLT_APPLICABLE = {
+    "qwen3-moe-235b-a22b", "arctic-480b", "chatglm3-6b", "qwen2-1.5b",
+    "granite-20b", "smollm-360m", "internvl2-76b", "whisper-base",
+    "recurrentgemma-9b",  # local-attention layers only
+}
+
+# archs that are intrinsically sub-quadratic in their native form
+NATIVE_SUBQUADRATIC = {"xlstm-350m", "recurrentgemma-9b"}
+
+
+def list_archs():
+    return [a for a in ARCH_IDS if a != "stlt-base"]
 
 
 def get_config(arch: str, variant: str = "native") -> ModelConfig:
@@ -35,5 +62,49 @@ def get_config(arch: str, variant: str = "native") -> ModelConfig:
     return dataclasses.replace(cfg, mixer="stlt")
 
 
-__all__ = ["ARCHS", "DTYPES", "ModelConfig", "STLT_APPLICABLE", "TrainConfig",
-           "get_config"]
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: ShapeConfig
+    variant: str           # which variant the canonical roofline table uses
+    skip: Optional[str] = None  # reason, if this cell is skipped
+
+    @property
+    def key(self) -> str:
+        return f"{self.arch}__{self.shape.name}__{self.variant}"
+
+
+def cells_for(arch: str) -> list:
+    """The four assigned shapes for one arch id (ported or not), with the
+    JAX package's skip rules.
+
+    long_500k policy: runs with the paper's STLT variant for attention-based
+    archs (that's the point of the paper), natively for sub-quadratic archs;
+    the only skip is whisper (bounded enc-dec audio context).
+    """
+    cells = []
+    for sname in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        shape = SHAPES[sname]
+        variant, skip = "native", None
+        if sname == "long_500k":
+            if arch == "whisper-base":
+                skip = ("enc-dec audio model: decoder context is bounded by the "
+                        "task (<=448 tokens vs 30s audio); 512k-token decode is "
+                        "undefined for this arch (DESIGN.md skip rule)")
+            elif arch in NATIVE_SUBQUADRATIC:
+                variant = "native"
+            elif arch in STLT_APPLICABLE:
+                variant = "stlt"   # full attention at 512k is the pathology the paper removes
+            else:
+                skip = "pure full-attention arch at 512k context"
+        cells.append(Cell(arch=arch, shape=shape, variant=variant, skip=skip))
+    return cells
+
+
+def all_cells() -> list:
+    return [c for a in list_archs() for c in cells_for(a)]
+
+
+__all__ = ["ARCHS", "ARCH_IDS", "Cell", "DTYPES", "ModelConfig", "NATIVE_SUBQUADRATIC",
+           "SHAPES", "STLT_APPLICABLE", "ShapeConfig", "TrainConfig", "all_cells",
+           "cells_for", "get_config", "list_archs"]

@@ -1,5 +1,6 @@
 """Model and training configuration for the PyTorch port: the
-``ModelConfig`` fields the STLT and attention paths read, ``stlt_config()``, the
+``ModelConfig`` fields the STLT, attention and rg-LRU paths read,
+``stlt_config()``, the assigned shape set (``ShapeConfig``, ``SHAPES``), the
 ``TrainConfig`` of the trainer, and the dtype-string map.
 
 This is the port's own copy of ``repro/configs/base.py`` (the port imports
@@ -27,7 +28,7 @@ def _dt(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # lm | encdec
+    family: str                      # lm | encdec | hybrid
     vocab: int
     num_layers: int
     d_model: int
@@ -43,7 +44,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_fraction: float = 1.0       # 0.0 disables RoPE; 0.5 rotates half
     rope_theta: float = 10000.0
-    input_mode: str = "tokens"       # tokens | embeddings (the frame stub)
+    input_mode: str = "tokens"       # tokens | embeddings | both (vlm/audio stubs)
     tie_embeddings: bool = True
     # --- STLT (the paper) ---------------------------------------------------
     stlt_nodes: int = 32
@@ -141,6 +142,24 @@ class ModelConfig:
             small["layer_types"] = tuple(self.layer_types[:small["num_layers"]])
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# The assigned LM-transformer shape set (applies to every arch; per-arch skip
+# rules live in configs/__init__.py::cells_for).
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

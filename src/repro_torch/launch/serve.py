@@ -9,6 +9,8 @@ one device (the colocated part of the JAX package's ``launch/serve.py``).
       --prefill-chunk 512 --spec-k 4 --spec-draft nodes --spec-draft-nodes 8
   python -m repro_torch.launch.serve --arch smollm-360m --max-len 2048 \
       --prefill-chunk 512 --spec-k 4
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --variant stlt \
+      --prefill-chunk 512 --max-len 4096
 
 (with ``src`` on ``PYTHONPATH``). ``--mode continuous`` (default) is the
 slot-level scheduler, ``--mode wave`` the admission-wave baseline.
@@ -19,10 +21,11 @@ shared K-token system prompt to every request, warms it into the prefix
 cache and reports the prefill skipped. ``--variant native`` (default)
 serves the architecture as published (``smollm-360m``: softmax attention
 with RoPE and a KV cache of ``--max-len`` positions, which every request's
-prompt and budget must fit), ``--variant stlt`` its STLT form. For a bf16
-config (``smollm-360m``, ``qwen2-1.5b``), as in the JAX CLI, the matrices
-of more than 65,536 elements are cast to the activation dtype; the nodes,
-norms, biases and small params stay fp32.
+prompt and budget must fit; a ``local_attn`` ring, as in
+``recurrentgemma-9b``, does not bound them), ``--variant stlt`` its STLT
+form. For a bf16 config (every arch but ``stlt-base``), as in the JAX CLI,
+the matrices of more than 65,536 elements are cast to the activation dtype;
+the nodes, norms, biases, small params and the rg-LRU's conv taps stay fp32.
 ``--spec-k K`` turns on speculative decoding (greedy, continuous mode; the
 ``--spec-*`` flags pick the draft and the adaptive window), ``--slo-degrade
 16,8,4`` the node-budget ladder with its triggers ``--slo-gap-ms`` and

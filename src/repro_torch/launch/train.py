@@ -23,6 +23,8 @@ takes them.
       --steps 5 --batch 2 --seq 64
   python -m repro_torch.launch.train --arch stlt-base --reduced --device cpu \
       --steps 5 --batch 2 --seq 64
+  python -m repro_torch.launch.train --arch recurrentgemma-9b --reduced --device cpu \
+      --steps 5 --batch 2 --seq 64
 
 (with ``src`` on ``PYTHONPATH``). Runs on CUDA unless ``--device`` names
 another device.

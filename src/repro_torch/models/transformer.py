@@ -1,9 +1,10 @@
 """Decoder-only LM with STLT or softmax-attention token mixers: forward,
 loss and serving.
 
-Parameters mirror the JAX pytree keys (``embed/embed``, ``layers``,
-``final_norm``; per block ``norm1``, ``stlt`` or ``attn``, ``norm2``,
-``ffn``) with one
+Parameters mirror the JAX pytree keys (``embed/embed`` for token inputs,
+``layers``, ``final_norm``, ``lm_head/kernel`` for an untied head or
+embedding inputs; per block ``norm1``, ``stlt``, ``attn`` or ``rec``,
+``norm2``, ``ffn``) with one
 difference: ``params["layers"]`` always holds one dict per layer. The JAX
 package stacks runs of equal blocks on a leading axis when
 ``scan_layers=True``; ``convert.from_jax_params`` unstacks them along
@@ -17,11 +18,13 @@ parameters in ``cfg.param_dtype``, products promoted as JAX promotes them
 
 Ported block types: ``stlt`` (factorized), ``stlt_rel`` (the relevance
 readout, ``mixer="stlt_relevance"``), ``attn`` (GQA softmax attention with
-RoPE, ``models/attention.py``) and ``local_attn`` (the same in a window of
-``cfg.local_window`` keys, a ring-buffer KV cache). Other block types raise
-NotImplementedError. An attention block's decode state is its KV cache
-(``k``, ``v`` [B, size, Hkv, dh] in the activation dtype, ``pos`` [B]); the
-STLT's is O(S*d). A relevance block has no streaming state, so
+RoPE, ``models/attention.py``), ``local_attn`` (the same in a window of
+``cfg.local_window`` keys, a ring-buffer KV cache) and ``rglru`` (Griffin's
+recurrent block, ``models/rglru.py``; with ``local_attn`` it makes the
+hybrid family). Other block types raise NotImplementedError. An attention
+block's decode state is its KV cache (``k``, ``v`` [B, size, Hkv, dh] in the
+activation dtype, ``pos`` [B]); the STLT's is O(S*d), the rg-LRU's O(d)
+(``h`` [B, d], ``conv_buf`` [B, 3, d], fp32). A relevance block has no streaming state, so
 ``init_decode_state``, ``prefill``, ``prefill_chunk`` and ``decode_step``
 raise ValueError on such a model, as the JAX package asserts.
 """
@@ -35,10 +38,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import stlt as stlt_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.utils import default_generator, resolve_device, trunc_normal
 
 AUX_KEYS = ("reg", "aux_loss", "router_z", "s_eff")
-_PORTED_BLOCKS = ("stlt", "stlt_rel", "attn", "local_attn")
+_PORTED_BLOCKS = ("stlt", "stlt_rel", "attn", "local_attn", "rglru")
 _ATTN_BLOCKS = ("attn", "local_attn")
 _STLT_BLOCKS = ("stlt", "stlt_rel")
 
@@ -88,6 +92,8 @@ def init_block(generator, cfg: ModelConfig, block_type: str, device=None) -> dic
     if block_type in _ATTN_BLOCKS:
         mixer = {"attn": attn_lib.init_attention(generator, _attn_cfg(cfg, block_type),
                                                  device=device)}
+    elif block_type == "rglru":
+        mixer = {"rec": rglru_lib.init_rglru_block(generator, cfg, device=device)}
     else:
         mixer = {"stlt": stlt_lib.init_stlt(generator, cfg.stlt_config(), device=device)}
     return {
@@ -102,16 +108,22 @@ def init_block(generator, cfg: ModelConfig, block_type: str, device=None) -> dic
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             device=None) -> dict:
     """Random parameters drawn from ``generator`` (seed 0 when None), on
-    ``device`` (CUDA unless the caller names another)."""
+    ``device`` (CUDA unless the caller names another). ``embed`` exists for
+    token inputs (``input_mode`` "tokens" or "both"); ``lm_head`` for an
+    untied head or embedding inputs, drawn last."""
     device = resolve_device(device)
     gen = generator if generator is not None else default_generator(device)
-    if cfg.input_mode != "tokens" or not cfg.tie_embeddings:
-        raise NotImplementedError("only tied token embeddings are ported")
-    params = {"embed": {"embed": trunc_normal(gen, (cfg.vocab, cfg.d_model),
-                                              stddev=0.02, dtype=cfg.p_dtype,
-                                              device=device)}}
+    params = {}
+    if cfg.input_mode in ("tokens", "both"):
+        params["embed"] = {"embed": trunc_normal(gen, (cfg.vocab, cfg.d_model),
+                                                 stddev=0.02, dtype=cfg.p_dtype,
+                                                 device=device)}
     params["layers"] = [init_block(gen, cfg, bt, device) for bt in cfg.block_types()]
     params["final_norm"] = L.init_norm(cfg.norm, cfg.d_model, cfg.p_dtype, device)
+    if not cfg.tie_embeddings or cfg.input_mode == "embeddings":
+        params["lm_head"] = {"kernel": trunc_normal(gen, (cfg.d_model, cfg.vocab),
+                                                    stddev=0.02, dtype=cfg.p_dtype,
+                                                    device=device)}
     return params
 
 
@@ -130,7 +142,12 @@ def _with_pe(cfg: ModelConfig, x, offset=0):
 
 
 def _head(params, cfg: ModelConfig, x):
-    return L.unembed(params["embed"], L.apply_norm(cfg.norm, params["final_norm"], x))
+    """Final norm and the LM head: ``lm_head`` when the model has one, else
+    the tied read-out through ``embed``."""
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    if "lm_head" in params:
+        return L.matmul(x, params["lm_head"]["kernel"])
+    return L.unembed(params["embed"], x)
 
 
 def _block_ffn(params, cfg: ModelConfig, x):
@@ -145,6 +162,9 @@ def apply_block(params: dict, cfg: ModelConfig, block_type: str, x, *,
     zero = torch.zeros((), device=x.device)
     if block_type in _ATTN_BLOCKS:
         mixed = attn_lib.apply_attention(params["attn"], _attn_cfg(cfg, block_type), h)
+        aux = {k: zero for k in AUX_KEYS}
+    elif block_type == "rglru":
+        mixed = rglru_lib.apply_rglru_block(params["rec"], cfg, h)
         aux = {k: zero for k in AUX_KEYS}
     else:
         mixed, sa = stlt_lib.apply_stlt(params["stlt"], cfg.stlt_config(), h,
@@ -216,7 +236,7 @@ def apply_lm(params: dict, cfg: ModelConfig, inputs, *,
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
             deterministic: bool = False,
             draws: Optional[Sequence[torch.Tensor]] = None, tau=None):
-    """batch: {"inputs": [B, N], "labels": [B, N], optional "mask"}.
+    """batch: {"inputs": [B, N] or [B, N, d], "labels": [B, N], optional "mask"}.
     Differentiable on both devices: factorized blocks through the scan's
     autograd Function (K1 forward and anti-causal on the card), relevance
     blocks through K2's. ``aux_loss`` and ``router_z`` are 0 for STLT blocks
@@ -238,6 +258,8 @@ def _init_block_state(cfg: ModelConfig, btype: str, batch: int, max_len: int, de
     if btype in _ATTN_BLOCKS:
         return attn_lib.init_kv_cache(_attn_cfg(cfg, btype), batch, max_len,
                                       dtype=cfg.act_dtype, device=device)
+    if btype == "rglru":
+        return rglru_lib.init_rglru_state(cfg, batch, device=device)
     return stlt_lib.init_stlt_state(cfg.stlt_config(), batch, device=device)
 
 
@@ -263,6 +285,8 @@ def _block_prefill_chunk(params, cfg: ModelConfig, btype: str, x, state,
     if btype in _ATTN_BLOCKS:
         mixed, state = attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h,
                                               state, valid=valid)
+    elif btype == "rglru":
+        mixed, state = rglru_lib.rglru_prefill(params["rec"], cfg, h, state, valid=valid)
     else:
         mixed, state = stlt_lib.stlt_prefill(params["stlt"], cfg.stlt_config(), h,
                                              state, valid=valid, node_cap=node_cap)
@@ -277,7 +301,7 @@ def _block_prefill_chunk(params, cfg: ModelConfig, btype: str, x, state,
 def _block_prefill(params, cfg: ModelConfig, btype: str, x, max_len: int):
     """One block's whole-prompt forward and its state: attention through
     ``prefill_kv_cache`` (blockwise for long prompts; ``max_len`` sizes the
-    cache), the STLT as the fresh case of the chunk prefill."""
+    cache), the STLT and the rg-LRU as the fresh case of the chunk prefill."""
     if btype not in _ATTN_BLOCKS:
         return _block_prefill_chunk(params, cfg, btype, x, None)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
@@ -333,14 +357,17 @@ def prefill_chunk(params: dict, cfg: ModelConfig, inputs, state: dict,
 def _block_state_at(params, cfg: ModelConfig, btype: str, x, state, q):
     """One block's state after the first ``q[b]`` tokens of its input window
     x [B, L, d], the rollback half of ``spec_verify``, no outputs: the STLT's
-    closed-form carry snapshot (``stlt.stlt_state_at``), attention's masked
-    chunk prefill (``valid=q``: only the accepted keys are written). ``q ==
-    0`` rows keep their old state exactly (a per-row select)."""
+    closed-form carry snapshot (``stlt.stlt_state_at``), attention's and the
+    rg-LRU's masked chunk prefill (``valid=q``: only the accepted tokens
+    enter). ``q == 0`` rows keep their old state exactly (a per-row
+    select)."""
     _check_block(btype)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
     if btype in _ATTN_BLOCKS:
         _, new = attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h, state,
                                         valid=q)
+    elif btype == "rglru":
+        _, new = rglru_lib.rglru_prefill(params["rec"], cfg, h, state, valid=q)
     else:
         new = stlt_lib.stlt_state_at(params["stlt"], cfg.stlt_config(), h, state, q)
     keep = q > 0
@@ -392,6 +419,8 @@ def _block_step(params, cfg: ModelConfig, btype: str, x_t, state, node_cap=None)
     if btype in _ATTN_BLOCKS:
         mixed, state = attn_lib.apply_attention_step(params["attn"],
                                                      _attn_cfg(cfg, btype), h, state)
+    elif btype == "rglru":
+        mixed, state = rglru_lib.apply_rglru_step(params["rec"], cfg, h, state)
     else:
         mixed, state = stlt_lib.apply_stlt_step(params["stlt"], cfg.stlt_config(),
                                                 h, state, node_cap=node_cap)
@@ -400,9 +429,9 @@ def _block_step(params, cfg: ModelConfig, btype: str, x_t, state, node_cap=None)
 
 def decode_step(params: dict, cfg: ModelConfig, token_t, state: dict,
                 node_cap: Optional[torch.Tensor] = None):
-    """One token for the whole stack. token_t [B] ints. ``node_cap`` [B] is
-    the per-row node budget of the STLT blocks (cap == S rows run unmasked);
-    attention blocks ignore it."""
+    """One token for the whole stack. token_t [B] ints (or embeddings
+    [B, d]). ``node_cap`` [B] is the per-row node budget of the STLT blocks
+    (cap == S rows run unmasked); other blocks ignore it."""
     pos = state["pos"]
     x_t = _embed(params, cfg, token_t)
     if cfg.mixer != "attention":

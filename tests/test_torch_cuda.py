@@ -1,7 +1,8 @@
 """K1 and K2 on the card: the Hopper kernels against their plain PyTorch
-versions, the scan's VJP (K1 forward and anti-causal) against float64
-autograd through the plain version, and continuous serve on the card
-against the same serve on the CPU.
+versions (K1 at head dims up to 256), the scan's VJP (K1 forward and
+anti-causal) against float64 autograd through the plain version, and
+continuous serve on the card against the same serve on the CPU (stlt-base,
+and each arch added with the untied head and the hybrid family).
 
 These tests need a CUDA device and ``nvcc`` (they build the kernel from
 ``src/repro_torch/kernels/csrc``); elsewhere they skip. Run them on an H100
@@ -90,6 +91,11 @@ def _assert_close(got, want):
     (15, 512, 64, 32, 128),  # SmolLM-360M-stlt (15 heads, S = 32): [1, 512]
     (60, 512, 64, 32, 128),  # ... [4, 512] admission
     (60, 5, 64, 32, 128),    # ... the node draft's commit at [4, k + 1]
+    (64, 512, 256, 32, 128),  # recurrentgemma-9b-stlt (16 heads, dh 256): [4, 512]
+    (16, 512, 256, 32, 128),  # ... [1, 512] admission
+    (64, 5, 256, 32, 128),    # ... the verify window [4, k + 1]
+    (32, 1024, 256, 32, 128),  # ... the 2 x 1024 training step
+    (64, 512, 128, 32, 128),  # chatglm3-6b-stlt (32 heads, dh 128): 2 x 512
 ])
 def test_kernel_matches_plain_version(dev, BH, N, d, S, C):
     args = _k1_args(*_operands(dev, BH, N, d, S, C), C)
@@ -627,3 +633,45 @@ def test_attention_bf16_on_the_card_is_near_fp32(dev, layer_types):
     assert low.dtype == torch.bfloat16 and bool(torch.isfinite(low).all())
     gap = float((low.float() - ref).abs().max())
     assert gap <= ATTN_BF16_TOL * (1 + float(ref.abs().max())), gap
+
+
+NEW_ARCHS = [("recurrentgemma-9b", "native"), ("recurrentgemma-9b", "stlt"),
+             ("chatglm3-6b", "native"), ("chatglm3-6b", "stlt"),
+             ("granite-20b", "native"), ("granite-20b", "stlt"),
+             ("internvl2-76b", "native"), ("internvl2-76b", "stlt")]
+
+
+@pytest.mark.parametrize("arch,variant", NEW_ARCHS, ids=[f"{a}-{v}" for a, v in NEW_ARCHS])
+def test_new_archs_on_the_card_match_the_cpu(dev, arch, variant):
+    """Each new arch at ``reduced()`` widths (fp32; the untied head; the
+    hybrid's rg-LRU blocks): ``apply_lm`` logits over 2 x 40 tokens on the
+    card against the CPU within RTOL_SCALE of the scale, and a continuous
+    serve (coalesced chunked admission, staggered arrivals) with the same
+    streams on both, K1 launched once per STLT layer per admission
+    dispatch and never by a native model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.utils import tree_map
+
+    cfg = get_config(arch, variant).reduced()
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        cpu, _ = T.apply_lm(params, cfg, toks)
+        card, _ = T.apply_lm(tree_map(lambda t: t.to(dev), params), cfg, toks.to(dev))
+    _assert_close(card.cpu(), cpu)
+    rng = np.random.default_rng(2)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m, id=i)
+            for i, (n, m) in enumerate([(30, 5), (9, 3), (21, 6), (2, 4)])]
+    results = []
+    for where in ("cpu", dev):
+        eng = ServeEngine(params, cfg, max_len=64, prefill_chunk=16, device=where)
+        before = k1.stlt_scan_kernel.launches
+        results.append(eng.serve(reqs, slots=3, arrivals=[0, 0, 1, 4]))
+        torch.cuda.synchronize()
+    n_stlt = sum(bt == "stlt" for bt in cfg.block_types())
+    assert k1.stlt_scan_kernel.launches - before == (
+        n_stlt * eng.serve_stats["admission_dispatches"])
+    for r in reqs:
+        np.testing.assert_array_equal(results[1][r.id], results[0][r.id])

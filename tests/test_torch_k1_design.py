@@ -206,6 +206,25 @@ def test_k1_bound_reads_only_the_window_of_each_operator(N):
         assert nbytes < chip_smoke.k1_bound(BH, C, d, C, s, valid)[4]
 
 
+@pytest.mark.parametrize("shape", chip_smoke.K1_HYBRID, ids=lambda s: "x".join(map(str, s)))
+def test_k1_bound_at_phase_h_head_dims(shape):
+    """At phase H's shapes (head dims 256 and 128) the bound's flops and the
+    bytes of x, z and the carries grow with d while the operators' bytes do
+    not: against the same call at d = 64, flops scale by d / 64 exactly and
+    the bytes by the x/z/carry share only; each bound is named by its
+    larger term."""
+    BH, N, s, d = shape
+    valid = np.array([(0, 1, min(C, N), N)[i % 4] for i in range(BH)], np.int32)
+    bound, fp32, by, flops, nbytes = chip_smoke.k1_bound(BH, N, d, C, s, valid)
+    flops64, nbytes64 = chip_smoke.k1_bound(BH, N, 64, C, s, valid)[3:]
+    assert flops == pytest.approx(flops64 * d / 64, rel=1e-12)
+    x_z_carries = 4 * BH * (2 * N + 4 * s)
+    assert nbytes - nbytes64 == x_z_carries * (d - 64)
+    t_bytes = 1e3 * nbytes / chip_smoke.PEAK_BYTES_PER_S
+    assert bound >= t_bytes and (bound == t_bytes) == (by == "bytes")
+    assert fp32 >= bound
+
+
 @pytest.mark.parametrize("N", [37, 64])
 def test_k1_bound_counts_the_operators_nonzero_products(N):
     """``k1_bound``'s flops are the products with an operator entry that is

@@ -720,4 +720,4 @@ def test_get_config_variant_switch():
     with pytest.raises(ValueError, match="unknown variant"):
         t_configs.get_config("smollm-360m", "hybrid")
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_configs.get_config("granite-20b", "stlt")
+        t_configs.get_config("qwen3-moe-235b-a22b", "stlt")

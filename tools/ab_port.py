@@ -87,7 +87,7 @@ def measure(tree: Tree, dev, prompts, long_toks) -> dict:
     cfg, T, ops, k1 = tree.cfg, tree.T, tree.ops, tree.k1
     C, d = cfg.stlt_chunk, cfg.dh
     out = {}
-    for BH, n, S in cs.K1_SHAPES:
+    for BH, n, S, d in cs.K1_SHAPES:
         args, _, raw = cs.k1_case(k1, ops, dev, BH, n, C, S, d, seed=5)
         x, lm, th, ur, ui, h0r, h0i, valid = raw
         iters = 50 if n <= 1000 else 5

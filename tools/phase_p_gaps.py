@@ -45,7 +45,7 @@ def main() -> int:
     cs.K1_SHAPES = (cs.K1_VERIFY,)
     cfg = get_config("smollm-360m", "stlt")
     dev = torch.device("cuda")
-    rows = cs.k1_timings(k1, ops, dev, cfg.stlt_chunk, cfg.dh)
+    rows = cs.k1_timings(k1, ops, dev, cfg.stlt_chunk)
     out = cs.spec_phase(T, k1, cfg, dev, rows)
     cs.log(f"[gaps] {time.time() - t0:.1f} s [{cs.smi_line()}]")
     print(json.dumps({k: out[k] for k in ("gap", "ties", "tie_gap", "same")}))

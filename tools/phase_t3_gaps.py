@@ -45,8 +45,8 @@ def main() -> int:
     build.build_kernels(echo=False)
     cfg = get_config("smollm-360m", "stlt")
     dev = torch.device("cuda")
-    BH, N, S = cs.K1_TRAIN
-    args, _, _ = cs.k1_case(k1, ops, dev, BH, N, cfg.stlt_chunk, S, cfg.dh, seed=1)
+    BH, N, S, d = cs.K1_TRAIN
+    args, _, _ = cs.k1_case(k1, ops, dev, BH, N, cfg.stlt_chunk, S, d, seed=1)
     for name, a, b in zip(("z", "h_re", "h_im"), k1.stlt_scan_kernel(*args, chunk=cfg.stlt_chunk),
                           k1.stlt_scan_reference(*args, chunk=cfg.stlt_chunk)):
         err, scale = float((a - b).abs().max()), 1.0 + float(b.abs().max())
@@ -55,7 +55,7 @@ def main() -> int:
             raise AssertionError(f"K1 {name} at {cs.K1_TRAIN}: {err}")
     del args
     cs.K1_SHAPES = (cs.K1_TRAIN,)
-    rows = cs.k1_timings(k1, ops, dev, cfg.stlt_chunk, cfg.dh)
+    rows = cs.k1_timings(k1, ops, dev, cfg.stlt_chunk)
     vjp = max(cs.scan_vjp_check(k1, ops, dev, cs.T3_B, cfg.num_heads, cs.T3_N,
                                 cfg.stlt_nodes, cfg.dh, cfg.stlt_chunk, rev)
               for rev in (False, True))

@@ -51,8 +51,8 @@ def main() -> int:
     cfg = get_config("whisper-base", "stlt")
     dev = torch.device("cuda")
     C, H, dh = cfg.stlt_chunk, cfg.num_heads, cfg.dh
-    for BH, N, S in cs.K1_WHISPER:
-        x, lm, th, ur, ui, _ = cs.vjp_case(dev, BH // H, H, N, S, dh, C, seed=3)
+    for BH, N, S, d in cs.K1_WHISPER:
+        x, lm, th, ur, ui, _ = cs.vjp_case(dev, BH // H, H, N, S, d, C, seed=3)
         operators = ops._operators(lm, th, ur, ui, C)
         for rev in (False, True):
             got = ops._pass(x, operators, C, rev, k1.stlt_scan_kernel)[0]
@@ -63,7 +63,7 @@ def main() -> int:
             if not err <= cs.K1_TOL * scale:
                 raise AssertionError(f"K1 at {BH} x {N} reverse={rev}: {err}")
     cs.K1_SHAPES = cs.K1_WHISPER
-    rows = cs.k1_timings(k1, ops, dev, C, dh)
+    rows = cs.k1_timings(k1, ops, dev, C)
     direction = cs.k1_direction_timings(k1, ops, dev, C, dh)
     cs.W_GAP_CAP = cs.W_TIE_TOL = cs.W_FP32_GAP_CAP = cs.W_CPU_TOL = cs.W_FP32_STEP_TOL = 1e9
     cs.TRAIN_LOSS_TOL = cs.TRAIN_GRAD_TOL = cs.W_BF16_LOSS_TOL = cs.W_BF16_GRAD_TOL = 1e9
