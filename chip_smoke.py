@@ -78,7 +78,21 @@ teacher-forced forward, the card against the CPU); H4 trains that period
 at 2 x 1024 (remat against off, 3 K1 launches a step in the STLT form, the
 peak memory, step 0 against the CPU at reduced widths); H5 generates with
 chatglm3-6b-stlt (28 K1 launches at head dim 128), held to the
-teacher-forced forward. It
+teacher-forced forward. Phase X runs xlstm-350m (24 layers: 21 mLSTM, 3
+sLSTM; d_model 1024; no K1 launch): X1 serves it at full width and depth in
+bf16 on phase P's requests, plain and n-gram, each stream against its
+request run alone under the near-tie rule, the per-slot state (88.8 MB);
+X2 checks one period (7 mLSTM + 1 sLSTM) in fp32 as H3 does; X3 trains that
+period at 8 x 1024 in bf16 with remat (against remat off and fp32 compute,
+5 AdamW steps, their peak, a profile). Phase M runs the MoE family at full
+width with its depth cut: M1 serves qwen3-moe-235b-a22b at 4 of 94 layers
+native and STLT (K1 at head dim 64; the choices each admission drops), M2
+holds 1 layer in fp32 to the CPU (apply_moe on a dispatch that drops, bit
+for bit on two card calls; a greedy serve's streams) and runs H3's checks
+at capacity E / K (nothing drops), M3 trains 1 layer at 2 x 1024 with
+adafactor, M4 builds arctic-480b at 1 of 35 layers leaf by leaf (each
+matrix cast as drawn) and generates 2 x (512 + 16) in both forms (K1 at
+head dim 128), held to the teacher-forced forward at capacity E / K. It
 checks chunked prefill and card-vs-CPU agreement on both models, then
 times the kernels (each also
 without its host work; K1 at each of its phase 2 shapes, K2 at
@@ -145,9 +159,16 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 K1_WHISPER = ((32, 1500, 32, 64), (64, 1500, 32, 64), (64, 448, 32, 64))
 K1_HYBRID = ((64, 512, 32, 256), (16, 512, 32, 256), (64, 5, 32, 256),
              (32, 1024, 32, 256), (64, 512, 32, 128))
+# Last, phase M's STLT variants: qwen3-moe-stlt (64 heads, S = 32, d = 64)
+# at [4, 512] and [1, 512] admission, a [4, k + 1] = 256 x 5 verify window
+# and the 2 x 1024 training step, and arctic-stlt (56 heads, d = 128) at its
+# 2 x 512 prompt.
+K1_MOE = ((256, 512, 32, 64), (64, 512, 32, 64), (256, 5, 32, 64), (128, 1024, 32, 64),
+          (112, 512, 32, 128))
 K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
              (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
-             (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64)) + K1_WHISPER + K1_HYBRID
+             (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64)) + K1_WHISPER \
+    + K1_HYBRID + K1_MOE
 K1_VERIFY = (60, 5, 32, 64)
 K1_TRAIN = (120, 1024, 32, 64)
 H_K1_VERIFY = (64, 5, 32, 256)
@@ -847,8 +868,9 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N, tag="T3", compare=T3_COMPAR
     against the runs in ``compare`` (remat off: K1 launches 3L and 2L;
     fp32 compute from the same masters): loss and every grad leaf, finite
     and non-zero, within the stated tolerances. Then 5 AdamW steps, timed
-    by CUDA events (3L K1 launches each; none for attention), one step's
-    peak memory in each of ``remat_modes``, and one profiled step."""
+    by CUDA events (3L K1 launches each; none for attention) and their
+    peak memory, one step's peak memory in each of ``remat_modes``, and one
+    profiled step (its device kernels only when no STLT layer calls K1)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import lm_batch_stream
 
@@ -896,6 +918,8 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N, tag="T3", compare=T3_COMPAR
     opt, step_fn = train.make_step(cfg, tcfg)
     opt_state = opt.init(params)
     ev_ms, walls, counts = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for step in range(tcfg.total_steps):
         b = batch(step)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -916,10 +940,12 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N, tag="T3", compare=T3_COMPAR
         if counts[-1] != k1_calls_per_step(cfg) or not np.isfinite(loss):
             raise AssertionError(f"{tag} step {step}: {counts[-1]} K1 launches, loss {loss}")
     med = float(np.median(ev_ms[1:]))
+    steps_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag} train] {B} x {N} tokens a step: median step {med:.3f} ms by CUDA events "
         f"over steps 1-4 ({[round(t, 3) for t in ev_ms[1:]]}), wall "
         f"{float(np.median(walls[1:])):.3f} ms; {B * N / (med / 1e3):.1f} training "
-        f"tokens/s")
+        f"tokens/s; peak over the 5 steps {steps_peak:.2f} GiB (remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}) [{smi_line()}]")
 
     b = batch(tcfg.total_steps)
     memory = {}
@@ -939,9 +965,23 @@ def smollm_train_phase(T, train, k1, cfg, dev, B, N, tag="T3", compare=T3_COMPAR
         log(f"[{tag} memory] remat {mode}: peak {peak / 2**30:.2f} GiB over a step (params "
             f"and AdamW state held: {held / 2**30:.2f} GiB), step {ms:.3f} ms (events, "
             f"mean of 2) [{smi_line()}]")
-    prof = train_profile(lambda: step_fn(params, opt_state, b, tcfg.total_steps), cfg, tag)
+    one_step = lambda: step_fn(params, opt_state, b, tcfg.total_steps)  # noqa: E731
+    if stlt_layers(cfg):
+        prof = train_profile(one_step, cfg, tag)
+    else:
+        # no K1 to split by launch order and no param-grads span: the
+        # device's kernels only (a step's host events took over a minute to
+        # read back for xLSTM's sLSTM loop)
+        prof = serve_profile(one_step, 1, 0) or {}
+        if prof:
+            log(f"[{tag} profile] one step: wall {prof['wall_ms']:.2f} ms (profiled), device "
+                f"busy {prof['busy_ms']:.2f} ms = {100 * prof['busy']:.1f}% of wall, "
+                f"{prof['launches']} kernel launches (device kernels only)")
+            log_top_kernels(tag, prof["top"], prof["busy_ms"])
+        else:
+            log(f"[{tag} profile] one step: not measured (every profile dropped kernels)")
     return {"step_ms": med, "tok_s": B * N / (med / 1e3), "launches_per_step": counts[-1],
-            "gaps": gaps, "memory": memory, **prof}
+            "gaps": gaps, "memory": memory, "steps_peak_gib": steps_peak, **prof}
 
 
 class Preempted(Exception):
@@ -2339,10 +2379,11 @@ H5_TIE_TOL = 2 * H5_GAP_CAP
 H_PROFILE_REQUESTS = 4
 
 
-def period_cfg(cfg, **kw):
-    """``cfg`` cut to one period of its layer pattern (H_PERIOD layers)."""
-    return dataclasses.replace(cfg, num_layers=H_PERIOD,
-                               layer_types=cfg.layer_types[:H_PERIOD], **kw)
+def period_cfg(cfg, layers=H_PERIOD, **kw):
+    """``cfg`` cut to one period of its layer pattern (``layers`` layers:
+    H_PERIOD for the hybrid, X_PERIOD for xLSTM)."""
+    return dataclasses.replace(cfg, num_layers=layers,
+                               layer_types=cfg.layer_types[:layers], **kw)
 
 
 def forward_at(T, cfg, params, seq, positions):
@@ -2356,9 +2397,9 @@ def forward_at(T, cfg, params, seq, positions):
     return T._head(params, cfg, x[:, positions])
 
 
-def hybrid_check_phase(T, k1, cfg, dev, tag="H3") -> dict:
-    """Phase H3 for one form of the hybrid (``cfg`` at full width): in fp32
-    at H_PERIOD layers, chunked against monolithic prefill (row 0's last
+def hybrid_check_phase(T, k1, cfg, dev, tag="H3", layers=H_PERIOD) -> dict:
+    """Phase H3 for one form of the hybrid (and X2 for xLSTM; ``cfg`` at
+    full width): in fp32 at ``layers`` layers (one period), chunked against monolithic prefill (row 0's last
     logits; row 1, which ends in the first chunk, against its own
     monolithic prefill), row 1's state bit for bit through the dispatch in
     which its valid length is 0, H_NEW decode steps against the
@@ -2369,7 +2410,7 @@ def hybrid_check_phase(T, k1, cfg, dev, tag="H3") -> dict:
     from repro_torch.utils import tree_map
 
     smi = smi_line()
-    c = period_cfg(cfg, dtype="float32")
+    c = period_cfg(cfg, layers, dtype="float32")
     params = T.init_lm(c, torch.Generator(device=dev).manual_seed(0), device=dev)
     g = torch.Generator(device=dev).manual_seed(11)
     toks = torch.randint(0, c.vocab, (2, H_PROMPT + H_NEW), generator=g, device=dev)
@@ -2437,7 +2478,7 @@ def hybrid_check_phase(T, k1, cfg, dev, tag="H3") -> dict:
             res[where] = torch.stack(got, 1)
             del p, s2
         out["cpu_err"] = float((res["card"] - res["cpu"]).abs().max())
-        log(f"[{tag}] card vs CPU, fp32, {H_PERIOD} layers: prefill of 1 x {H_CPU_N} and 4 "
+        log(f"[{tag}] card vs CPU, fp32, {layers} layers: prefill of 1 x {H_CPU_N} and 4 "
             f"decode steps, logits max abs err {out['cpu_err']:.3e} (tolerance {LOGIT_TOL}) "
             f"[{smi}]")
         if not out["cpu_err"] <= LOGIT_TOL:
@@ -2445,61 +2486,59 @@ def hybrid_check_phase(T, k1, cfg, dev, tag="H3") -> dict:
     return out
 
 
-def chatglm3_generate_phase(T, k1, get_config, dev, tag="H5") -> dict:
-    """Phase H5: chatglm3-6b's STLT variant at full width in bf16 (the
+def generate_check_phase(T, k1, cfg, params, dev, tag, B, prompt, new, gap_cap, tie_tol,
+                         seed) -> dict:
+    """Phase H5 (and M4): ``cfg`` at full width in bf16 with ``params`` (the
     matrices cast as the serve CLI casts them), one greedy ``generate`` of
-    H5_B x (H5_PROMPT + H5_NEW) through the engine (K1 launches = 28, the
+    B x (prompt + new) through the engine (K1 launches = STLT layers, the
     prefill's, none in decode); the decode form rerun on the generated
     tokens and held to the teacher-forced forward: every generated token
-    within H5_TIE_TOL of the teacher's max logit, the forms' largest gap
-    within H5_GAP_CAP."""
+    within ``tie_tol`` of the teacher's max logit, the forms' largest gap
+    within ``gap_cap``. The init peak is the device's peak since the
+    caller's last ``reset_peak_memory_stats``."""
     from repro_torch.serving import ServeEngine
-    from repro_torch.utils import cast_params_for_compute
 
     smi = smi_line()
-    cfg = get_config(H5_ARCH, "stlt")
-    torch.cuda.reset_peak_memory_stats()
-    params = cast_params_for_compute(
-        T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
     torch.cuda.synchronize()
     peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
-    engine = ServeEngine(params, cfg, max_len=H5_PROMPT + H5_NEW, device=dev)
-    prompts = np.random.default_rng(5).integers(0, cfg.vocab, size=(H5_B, H5_PROMPT))
+    engine = ServeEngine(params, cfg, max_len=prompt + new, device=dev)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, size=(B, prompt))
     engine.generate(prompts, 2)   # first call: one-time costs
     torch.cuda.synchronize()
     k1.stlt_scan_kernel.launches = 0
     t0 = time.time()
-    tokens = engine.generate(prompts, H5_NEW)
+    tokens = engine.generate(prompts, new)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = k1.stlt_scan_kernel.launches
-    if launches != stlt_layers(cfg) or tokens.shape != (H5_B, H5_NEW):
+    if launches != stlt_layers(cfg) or tokens.shape != (B, new):
         raise AssertionError(f"{tag}: {launches} K1 launches, tokens {tokens.shape}")
     toks = torch.from_numpy(prompts).to(dev)
     gen = torch.from_numpy(np.asarray(tokens)).to(dev)
     with torch.no_grad():
-        lg, st = T.prefill(params, cfg, toks, H5_PROMPT + H5_NEW)
+        lg, st = T.prefill(params, cfg, toks, prompt + new)
         rows = [lg]
-        for i in range(H5_NEW - 1):
+        for i in range(new - 1):
             lg, st = T.decode_step(params, cfg, gen[:, i], st)
             rows.append(lg)
         steps = torch.stack(rows, 1).float()
         seq = torch.cat([toks, gen[:, :-1]], 1)
         teacher = forward_at(T, cfg, params, seq,
-                             torch.arange(H5_PROMPT - 1, seq.shape[1])).float()
+                             torch.arange(prompt - 1, seq.shape[1])).float()
     gap = float((steps - teacher).abs().max())
-    ties = sum(near_tie(teacher[b, i], int(gen[b, i]), f"{tag}: row {b} step {i}", H5_TIE_TOL)
-               for b in range(H5_B) for i in range(H5_NEW))
-    log(f"[{tag}] {cfg.name} STLT variant, bf16, {cfg.num_layers} layers, dh {cfg.dh}: "
-        f"generate {H5_B} x ({H5_PROMPT} + {H5_NEW}) {wall:.3f} s "
-        f"({H5_B * H5_NEW / wall:.1f} new tok/s), {launches} K1 launches; init peak "
-        f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB held; decode form vs teacher-forced "
-        f"max logit gap {gap:.4g} (cap {H5_GAP_CAP}), near ties {ties} (tolerance "
-        f"{H5_TIE_TOL}; logit scale {float(teacher.abs().max()):.3f}) [{smi}]")
-    if not gap <= H5_GAP_CAP:
-        raise AssertionError(f"{tag}: decode vs teacher-forced gap {gap} > {H5_GAP_CAP}")
+    ties = sum(near_tie(teacher[b, i], int(gen[b, i]), f"{tag}: row {b} step {i}", tie_tol)
+               for b in range(B) for i in range(new))
+    log(f"[{tag}] {cfg.name} ({cfg.mixer}), bf16, {cfg.num_layers} layers, dh {cfg.dh}: "
+        f"generate {B} x ({prompt} + {new}) {wall:.3f} s ({B * new / wall:.1f} new tok/s), "
+        f"{launches} K1 launches; init peak {peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB "
+        f"held; decode form vs teacher-forced max logit gap {gap:.4g} (cap {gap_cap}), near "
+        f"ties {ties} (tolerance {tie_tol}; logit scale {float(teacher.abs().max()):.3f}) "
+        f"[{smi}]")
+    if not gap <= gap_cap:
+        raise AssertionError(f"{tag}: decode vs teacher-forced gap {gap} > {gap_cap}")
     return {"wall_s": wall, "k1_launches": launches, "gap": gap, "ties": ties,
-            "init_peak_gib": peak / 2**30, "held_gib": held / 2**30}
+            "init_peak_gib": peak / 2**30, "held_gib": held / 2**30,
+            "tokens": np.asarray(tokens)}
 
 
 def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
@@ -2511,8 +2550,9 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
     pattern (``hybrid_check_phase``); H4 trains that period at full width
     (``smollm_train_phase``: 3 K1 calls a step in the STLT form, none in
     the native) and holds step 0 to the CPU at ``reduced()`` widths; H5 is
-    chatglm3-6b's STLT variant (``chatglm3_generate_phase``)."""
+    chatglm3-6b's STLT variant (``generate_check_phase``)."""
     from repro_torch.serving.prefix_cache import pytree_nbytes
+    from repro_torch.utils import cast_params_for_compute
 
     t_all, smi = time.time(), smi_line()
     out = {"times": {}}
@@ -2553,10 +2593,497 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
         out["times"][tag] = time.time() - t0
         free_cuda()
     t0 = time.time()
-    out["H5"] = chatglm3_generate_phase(T, k1, get_config, dev)
+    cfg = get_config(H5_ARCH, "stlt")
+    torch.cuda.reset_peak_memory_stats()
+    params = cast_params_for_compute(
+        T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg.act_dtype)
+    out["H5"] = generate_check_phase(T, k1, cfg, params, dev, "H5", H5_B, H5_PROMPT, H5_NEW,
+                                     H5_GAP_CAP, H5_TIE_TOL, seed=5)
+    del params
     out["times"]["H5"] = time.time() - t0
     free_cuda()
     log(f"[H time] phase H {time.time() - t_all:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["times"].items()) + f" [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase X: xLSTM (xlstm-350m)
+# ---------------------------------------------------------------------------
+
+# xlstm-350m at full width and depth (24 layers, d_model 1024, 4 heads,
+# mLSTM head dim 512, sLSTM at layers 8, 16 and 24, a tied 50,304-token
+# embedding; native only: attention-free, its STLT variant is undefined).
+# X1 serves it in bf16 (matrices cast as the serve CLI casts them; the
+# mLSTM's conv taps and gate projections and the sLSTM's biases stay fp32)
+# on phase P's requests, plain and with the n-gram draft, through
+# spec_phase (the plain serve of the first X1_PROFILE_REQUESTS profiled:
+# reading back the ~176k kernel events of 2 requests took 38 s); X2
+# checks it in fp32 at one period of the pattern (7 mLSTM + 1 sLSTM)
+# through hybrid_check_phase; X3 trains that period at full width,
+# X3_B x X3_N in bf16 with remat (AdamW), through smollm_train_phase. K1
+# makes no launch. The sLSTM is a true recurrence, one Python step per
+# token in every form (as JAX's lax.scan): all 24 layers took 14.5 s a
+# train step at 8 x 1024 on an H100 (PERF.md, phase X), so X3 trains one
+# period (a third of the depth) and reads the peak memory over its timed
+# steps instead of extra steps per remat mode.
+X_ARCH, X_PERIOD = "xlstm-350m", 8
+X3_B, X3_N = 8, 1024
+X1_PROFILE_REQUESTS = 1
+# The bf16 chunk-form vs recurrent-form logit gap X1 accepts, and its
+# near-tie tolerance (twice the cap), as phase P's. In bf16 the mLSTM's
+# two forms differ by more than rounding, in the JAX package as in the
+# port: its [4, 2048] conv taps and [2048, 4] gate projections stay fp32
+# under the serving cast, so the chunk form's conv output enters wq, wk and
+# the gates in fp32 and the step's in bf16 (tests/test_torch_xlstm.py pins
+# it). Set from tools/phase_xm_gaps.py's reading on an H100 (PERF.md, phase
+# X): the gap read 0.0625 at full depth, the largest served-vs-argmax gap
+# 0.03125; the cap is the first sixteenth at or above 1.6x the gap.
+X1_GAP_CAP = 0.125
+X1_TIE_TOL = 2 * X1_GAP_CAP
+# X3 step 0, bf16 compute vs fp32 compute from the same fp32 masters (as
+# T3's gates): loss relative (a quarter of a bf16 ulp), each grad leaf
+# ||g_bf16 - g_fp32|| / ||g_fp32||, 1.6x the worst leaf that
+# tools/phase_xm_gaps.py read at one period on an H100 (PERF.md, phase X):
+# loss 1.1e-6, worst leaf 0.1061 (layers/2/cell/b_i, the mLSTM input-gate
+# bias, whose grad is nearly invariant: h = C q / max(|n q|, e^-m)).
+X3_BF16_LOSS_TOL = 1e-3
+X3_BF16_GRAD_TOL = 0.17
+
+
+def xlstm_phase(T, train, k1, dev, get_config) -> dict:
+    """Phase X: xlstm-350m on the card. X1 serves it at full width and depth
+    in bf16 (``spec_phase``, plain and the n-gram draft: each stream against
+    its request run alone under the near-tie rule at X1_TIE_TOL, the
+    chunk-form vs recurrent-form gap at most X1_GAP_CAP, verify against
+    decode dispatches, 0 K1 launches, the per-slot state's bytes, timed, the
+    plain serve of the first 4 requests profiled); X2 checks one period in
+    fp32 (``hybrid_check_phase`` at X_PERIOD layers: chunked vs monolithic,
+    the idle row bit for bit, decode vs teacher-forced, the card vs the CPU);
+    X3 trains that period at X3_B x X3_N in bf16 with remat
+    (``smollm_train_phase``: remat against off and against fp32 compute, 5
+    AdamW steps and their peak memory, a profiled step)."""
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+
+    t_all, smi = time.time(), smi_line()
+    cfg = get_config(X_ARCH)
+    out = {"times": {}}
+    free_cuda()
+    t0 = time.time()
+    out["X1"] = spec_phase(T, k1, cfg, dev, None, runs=A_RUNS, tag="X1", profiled="plain",
+                           gap_cap=X1_GAP_CAP, tie_tol=X1_TIE_TOL, require_accept=False,
+                           profile_requests=X1_PROFILE_REQUESTS)
+    kinds = {bt: cfg.block_types().count(bt) for bt in ("mlstm", "slstm")}
+    states = {bt: T._init_block_state(cfg, bt, 1, P_MAX_LEN, dev) for bt in kinds}
+    per = {bt: pytree_nbytes(st) for bt, st in states.items()}
+    log(f"[X1 serve] decode state of one slot: {out['X1']['slot_bytes']} bytes "
+        f"({out['X1']['slot_bytes'] / 2**20:.2f} MiB: {kinds['mlstm']} mLSTM states of "
+        f"{per['mlstm']} bytes, C {list(states['mlstm']['C'].shape[1:])}, n, m and the conv "
+        f"window, and {kinds['slstm']} sLSTM states of {per['slstm']} bytes, all fp32, "
+        f"whatever the length) [{smi}]")
+    out["times"]["X1"] = time.time() - t0
+    free_cuda()
+    t0 = time.time()
+    out["X2"] = hybrid_check_phase(T, k1, cfg, dev, tag="X2", layers=X_PERIOD)
+    out["times"]["X2"] = time.time() - t0
+    free_cuda()
+    t0 = time.time()
+    compare = (("no remat", TRAIN_LOSS_TOL, TRAIN_GRAD_TOL),
+               ("fp32 compute", X3_BF16_LOSS_TOL, X3_BF16_GRAD_TOL))
+    out["X3"] = smollm_train_phase(T, train, k1, period_cfg(cfg, X_PERIOD), dev, X3_B, X3_N,
+                                   tag="X3", compare=compare, remat_modes=())
+    out["times"]["X3"] = time.time() - t0
+    free_cuda()
+    log(f"[X time] phase X {time.time() - t_all:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["times"].items()) + f" [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase M: the MoE family (qwen3-moe-235b-a22b, arctic-480b)
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads, 4 KV heads, dh
+# 64, 128 experts of d_ff 1536, top-8, an untied 151,936-token head), its
+# depth cut from 94 layers to M1_LAYERS (2.45B params a layer, 11.05B at 4
+# layers: 22.1 GB in bf16). M1 serves it native and as its STLT variant (K1
+# at dh 64) on phase P's requests, plain, in bf16, the matrices cast as they
+# are drawn (``init_cast``). M2 runs 1 layer in fp32, the card against the
+# CPU on the same calls: apply_moe alone on 1 x M2_APPLY_N tokens (capacity
+# 40 for a mean load of 32: it drops), a greedy serve of phase P's requests
+# M2_REQUESTS (M2_NEW tokens each, 2 slots, streams equal), and H3's checks
+# (hybrid_check_phase) at capacity E / K, where nothing can drop. M3
+# trains 1 layer at M3_B x M3_N in bf16 with adafactor (its config's
+# optimizer) and remat. M4 runs arctic-480b (d_model 7168, 56 heads, 8 KV
+# heads, dh 128, 128 experts of d_ff 4864, top-2 and the dense residual
+# branch, an untied 32,000-token head) at 1 of its 35 layers: 14.07B params,
+# 52.4 GiB as an fp32 tree, so it is built leaf by leaf, each large matrix
+# cast to bf16 as it is drawn (the values of a whole-tree init and then the
+# cast; checked at reduced widths on the card), and generates
+# M4_B x (M4_PROMPT + M4_NEW) greedily in both forms (K1 at dh 128), held to
+# the teacher-forced forward at capacity E / K (generate_check_phase, as
+# H5), then once at the config's capacity with its drops printed.
+M_ARCH, M4_ARCH = "qwen3-moe-235b-a22b", "arctic-480b"
+M1_LAYERS = 4
+M2_APPLY_N, M2_REQUESTS, M2_NEW = 512, (1, 2), 16
+# apply_moe alone, card vs CPU in fp32 (cuBLAS's and the CPU's summation
+# orders), where no token's choices differ: max abs error over (1 + max |y|)
+M2_MOE_TOL = 1e-4
+M3_B, M3_N = 2, 1024
+M4_B, M4_PROMPT, M4_NEW = 2, 512, 16
+# M4's bf16 decode-form vs teacher-forced gap and its near-tie tolerance,
+# at capacity E / K (no call drops), bf16 rounding through one layer at a
+# logit scale of ~7: tools/phase_xm_gaps.py read 0.0625 (native) and
+# 0.0391 (STLT) on an H100 (PERF.md, phase M); the cap is the first
+# sixteenth at or above 1.6x the larger.
+M4_GAP_CAP = 0.125
+M4_TIE_TOL = 2 * M4_GAP_CAP
+
+
+def init_cast(T, cfg, dev, seed=0, min_size=65536):
+    """``T.init_lm(cfg)`` from seed ``seed`` as ``cast_params_for_compute``
+    leaves it, built leaf by leaf: every matrix of more than ``min_size``
+    elements is cast to the activation dtype as soon as it is drawn
+    (``utils.trunc_normal`` wrapped for the call), the rest at the end. The
+    same generator draws in the same order, so the values are those of a
+    whole fp32 tree cast afterwards, without ever holding that tree."""
+    from repro_torch import utils as U
+
+    draw = U.trunc_normal
+
+    def cast_as_drawn(*args, **kwargs):
+        x = draw(*args, **kwargs)
+        if x.ndim >= 2 and x.numel() > min_size and x.is_floating_point():
+            return x.to(cfg.act_dtype)
+        return x
+    U.trunc_normal = T.trunc_normal = cast_as_drawn
+    try:
+        params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    finally:
+        U.trunc_normal = T.trunc_normal = draw
+    return U.cast_params_for_compute(params, cfg.act_dtype, min_size=min_size)
+
+
+def init_cast_check(T, cfg, dev, tag):
+    """``init_cast`` against a whole-tree init and cast, leaf for leaf bit
+    for bit, at ``cfg.reduced()`` widths with a cast threshold of 1,024
+    elements (so the experts, the attention and the head are cast)."""
+    from repro_torch.utils import cast_params_for_compute, tree_flatten_with_paths
+
+    c = cfg.reduced(dtype="bfloat16")
+    got = init_cast(T, c, dev, min_size=1024)
+    want = cast_params_for_compute(
+        T.init_lm(c, torch.Generator(device=dev).manual_seed(0), device=dev), c.act_dtype,
+        min_size=1024)
+    pairs = list(zip(tree_flatten_with_paths(got), tree_flatten_with_paths(want)))
+    cast = sum(x.dtype == torch.bfloat16 for (_, x), _ in pairs)
+    if not (len(pairs) == len(tree_flatten_with_paths(want)) and cast > 0 and all(
+            p == q and x.dtype == y.dtype and torch.equal(x, y) for (p, x), (q, y) in pairs)):
+        raise AssertionError(f"{tag}: init_cast differs from a whole-tree init and cast")
+    log(f"[{tag} init] leaf-by-leaf cast init equals the whole-tree init then the cast at "
+        f"reduced widths: {len(pairs)} leaves bit for bit, {cast} of them cast")
+
+
+class DropLog:
+    """Per call of the serving entry points (``prefill``, ``prefill_chunk``,
+    ``decode_step``, ``spec_verify``, looked up on the transformer module
+    by the engine) made inside the ``with``: (entry point, tokens, MoE
+    choices dropped). Reading the count syncs once a call."""
+
+    NAMES = ("prefill", "prefill_chunk", "decode_step", "spec_verify")
+
+    def __init__(self, T, moe):
+        self.T, self.moe, self.calls, self.saved = T, moe, [], {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.T, name)
+            setattr(self.T, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.T, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(params, cfg, inputs, *args, **kwargs):
+            self.moe.DROPS.reset()
+            result = fn(params, cfg, inputs, *args, **kwargs)
+            self.calls.append((name, int(np.prod(inputs.shape[:2])),
+                               self.moe.DROPS.read()["dropped"]))
+            return result
+        return call
+
+    def of(self, name) -> list:
+        return [c for c in self.calls if c[0] == name]
+
+
+def moe_serve_phase(T, k1, moe, cfg, dev, tag) -> dict:
+    """Phase M1 for one form of qwen3-moe at M1_LAYERS layers (``cfg``):
+    built by ``init_cast``, served on phase P's requests (plain, 4 slots,
+    chunk 512): every request's tokens, K1 launches = STLT layers x the
+    admission dispatches (0 native), the choices each dispatch dropped (a
+    decode tick of at most 4 tokens never drops: capacity 8), the per-slot
+    state's bytes, timed (the drop count read after each dispatch)."""
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+
+    smi = smi_line()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_cast(T, cfg, dev)
+    torch.cuda.synchronize()
+    init_s, peak, held = time.time() - t0, torch.cuda.max_memory_allocated(), \
+        torch.cuda.memory_allocated()
+    engine = ServeEngine(params, cfg, max_len=P_MAX_LEN, prefill_chunk=P_CHUNK, device=dev)
+    reqs = spec_requests(cfg, Request)
+    arrivals = [spec[3] for spec in P_SPEC]
+    engine.serve(reqs[:2], slots=P_SLOTS, arrivals=arrivals[:2])   # one-time costs
+    torch.cuda.synchronize()
+    k1.stlt_scan_kernel.launches = 0
+    with DropLog(T, moe) as drops:
+        t0 = time.time()
+        res, stats = engine.serve(reqs, slots=P_SLOTS, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches, ss, L = k1.stlt_scan_kernel.launches, dict(engine.serve_stats), stlt_layers(cfg)
+    if (L and launches == 0) or launches != L * k1_dispatches(ss):
+        raise AssertionError(f"{tag}: {launches} K1 launches for {ss}")
+    for r in reqs:
+        if len(res[r.id]) != r.max_new_tokens or not ((res[r.id] >= 0)
+                                                      & (res[r.id] < cfg.vocab)).all():
+            raise AssertionError(f"{tag}: request {r.id} gave {res[r.id]}")
+    adm, dec = drops.of("prefill_chunk"), drops.of("decode_step")
+    if len(adm) != ss["admission_dispatches"] or len(dec) != ss["decode_dispatches"]:
+        raise AssertionError(f"{tag}: {len(adm)} + {len(dec)} recorded calls for {ss}")
+    if any(d for _, _, d in dec):
+        raise AssertionError(f"{tag}: a decode tick dropped choices: {dec}")
+    m = serve_metrics(res, stats, reqs, wall)
+    slot_bytes = pytree_nbytes(T.init_decode_state(cfg, 1, P_MAX_LEN, device=dev))
+    per_dispatch = [d for _, _, d in adm]
+    choices = [n * cfg.top_k for _, n, _ in adm]
+    log(f"[{tag} serve] {cfg.name} ({cfg.mixer}), {cfg.num_layers} layers, bf16: init "
+        f"{init_s:.1f} s, peak {peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB held; wall "
+        f"{wall:.3f} s, {m['tokens']} tokens, {m['tok_s']:.1f} generated tok/s; TTFT "
+        f"p50/p99 {m['ttft_ms'][0]:.2f}/{m['ttft_ms'][1]:.2f} ms; inter-token gap p50/p99 "
+        f"{m['gap_ms'][0]:.3f}/{m['gap_ms'][1]:.3f} ms; {launches} K1 launches = {L} STLT "
+        f"layers x {k1_dispatches(ss)} dispatches; {ss} [{smi}]")
+    log(f"[{tag} serve] dropped (token, expert) choices per admission dispatch (of "
+        f"{choices[0] if choices else 0} choices x {cfg.num_layers} layers each, capacity "
+        f"{moe._capacity(adm[0][1], cfg.moe_config()) if adm else 0} an expert): "
+        f"{per_dispatch}; decode ticks {len(dec)}, none dropped; per-slot decode state "
+        f"{slot_bytes} bytes ({slot_bytes / 2**20:.2f} MiB) [{smi}]")
+    return {"k1_launches": launches, "serve_stats": ss, "drops": per_dispatch,
+            "slot_bytes": slot_bytes, "init_peak_gib": peak / 2**30, "held_gib": held / 2**30,
+            **m}
+
+
+def moe_routing_flips(moe, params_a, params_b, x, k: int) -> int:
+    """Tokens whose chosen experts differ between two copies of a router
+    (card and CPU) on the same input x [T, d] (fp32)."""
+    ia = moe._top_k(torch.softmax(x.to(params_a.device) @ params_a, -1), k)[1].sort(-1)[0]
+    ib = moe._top_k(torch.softmax(x.to(params_b.device) @ params_b, -1), k)[1].sort(-1)[0]
+    return int((ia.cpu() != ib.cpu()).any(-1).sum())
+
+
+def moe_check_phase(T, k1, moe, cfg, dev, tag) -> dict:
+    """Phase M2 for one form of qwen3-moe (``cfg`` at full width) at 1 layer
+    in fp32: (a) apply_moe alone on 1 x M2_APPLY_N tokens, twice on the card
+    (bit for bit) and once on the CPU (max abs error within M2_MOE_TOL of
+    1 + max |y| where no token's choices differ; the routing flips and the
+    drops of each side printed); (b) a greedy serve of phase P's requests
+    M2_REQUESTS, M2_NEW tokens each on 2 slots, on the card and the CPU
+    (streams equal; each admission's drops at the config's capacity
+    printed); (c) ``hybrid_check_phase`` at capacity E / K, where no call
+    can drop (asserted): chunked vs monolithic prefill, the idle row's state
+    bit for bit, decode vs the teacher-forced forward, the card against the
+    CPU, K1 launches in the STLT form."""
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.utils import tree_map
+
+    smi = smi_line()
+    c = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    params = T.init_lm(c, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu = tree_map(torch.Tensor.cpu, params)
+    out = {}
+    mc = c.moe_config()
+    with torch.no_grad():
+        # (a) apply_moe alone
+        g = torch.Generator(device=dev).manual_seed(12)
+        x = torch.randn(1, M2_APPLY_N, c.d_model, generator=g, device=dev)
+        pm, pc = params["layers"][0]["moe"], cpu["layers"][0]["moe"]
+        moe.DROPS.reset()
+        y1, a1 = moe.apply_moe(pm, mc, x)
+        y2, _ = moe.apply_moe(pm, mc, x)
+        card_drops = moe.DROPS.read()["dropped"] // 2
+        moe.DROPS.reset()
+        yc, ac = moe.apply_moe(pc, mc, x.cpu())
+        cpu_drops = moe.DROPS.read()["dropped"]
+        flips = moe_routing_flips(moe, pm["router"], pc["router"], x[0], mc.top_k)
+        err = float((y1.cpu() - yc).abs().max())
+        scale = 1.0 + float(yc.abs().max())
+        same = torch.equal(y1, y2)
+        out["apply"] = {"err": err, "flips": flips, "drops": (card_drops, cpu_drops),
+                        "deterministic": same}
+        log(f"[{tag} apply_moe] 1 x {M2_APPLY_N} tokens, fp32 (capacity "
+            f"{moe._capacity(M2_APPLY_N, mc)} an expert, mean load "
+            f"{M2_APPLY_N * mc.top_k / mc.num_experts:.0f}): dropped choices card "
+            f"{card_drops}, CPU {cpu_drops}; tokens routed differently {flips}; card vs CPU "
+            f"max abs err {err:.3e} (gate {M2_MOE_TOL} x {scale:.3f} where no token's "
+            f"choices differ); aux_loss {float(a1['aux_loss']):.6f} / "
+            f"{float(ac['aux_loss']):.6f}, router_z {float(a1['router_z']):.6f} / "
+            f"{float(ac['router_z']):.6f}; two card calls bit for bit {same} [{smi}]")
+        if not same:
+            raise AssertionError(f"{tag}: apply_moe is not deterministic on the card")
+        if not card_drops > 0:
+            raise AssertionError(f"{tag}: apply_moe at 1 x {M2_APPLY_N} dropped nothing")
+        if flips == 0 and not (err <= M2_MOE_TOL * scale and card_drops == cpu_drops):
+            raise AssertionError(f"{tag}: apply_moe card vs CPU {err}, drops "
+                                 f"{card_drops} / {cpu_drops}")
+        del x, y1, y2, yc
+
+    # (b) a short greedy serve on both
+    reqs = spec_requests(c, Request)
+    picked = [dataclasses.replace(reqs[i], max_new_tokens=M2_NEW) for i in M2_REQUESTS]
+    streams = {}
+    for where, p, d in (("card", params, dev), ("cpu", cpu, torch.device("cpu"))):
+        eng = ServeEngine(p, c, max_len=P_MAX_LEN, prefill_chunk=P_CHUNK, device=d)
+        with DropLog(T, moe) as dl:
+            streams[where] = eng.serve(picked, slots=2)
+        streams[where + " drops"] = [dd for name, _, dd in dl.calls if name == "prefill_chunk"]
+    same = all(np.array_equal(streams["card"][r.id], streams["cpu"][r.id]) for r in picked)
+    log(f"[{tag} serve] phase P's requests {list(M2_REQUESTS)} ({[len(r.prompt) for r in picked]} "
+        f"prompt tokens, {M2_NEW} new each, 2 slots), fp32, 1 layer: card and CPU streams "
+        f"equal {same}; admission drops card {streams['card drops']}, CPU "
+        f"{streams['cpu drops']} [{smi}]")
+    if not same:
+        raise AssertionError(f"{tag}: card and CPU serve streams differ: {streams}")
+    del params, cpu, eng
+    free_cuda()
+
+    # (c) the forms and the CPU at capacity E / K: no call drops
+    moe.DROPS.reset()
+    out.update(hybrid_check_phase(T, k1, dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k), dev, tag=tag, layers=1))
+    drops = moe.DROPS.read()
+    log(f"[{tag}] capacity E / K: {drops['dropped']} choices dropped over "
+        f"{drops['calls']} apply_moe calls [{smi}]")
+    if drops["dropped"]:
+        raise AssertionError(f"{tag}: a call dropped at capacity E / K: {drops}")
+    return out
+
+
+def moe_train_phase(T, train, k1, moe, cfg, dev, tag="M3") -> dict:
+    """Phase M3: qwen3-moe at 1 layer, full width, trained at M3_B x M3_N in
+    bf16 with remat and adafactor (``smollm_train_phase``: remat against
+    off, 5 steps, the peak memory with remat on and off, a profiled step),
+    step 0's aux_loss and router_z finite, positive and in the loss
+    (loss = ce + reg + aux_loss + router_z), and step 0 card against CPU at
+    ``reduced()`` widths (``train_cpu_check``)."""
+    from repro_torch.data import lm_batch_stream
+
+    c = dataclasses.replace(cfg, num_layers=1)
+    out = smollm_train_phase(T, train, k1, c, dev, M3_B, M3_N, tag=tag,
+                             compare=T3_COMPARE[:1], remat_modes=("full", "off"))
+    free_cuda()
+    params = init_cast(T, c, dev)   # bf16 matrices: only the loss's terms are read
+    b = {k: torch.from_numpy(v).to(dev) for k, v in lm_batch_stream(0, 0, M3_B, M3_N,
+                                                                    c.vocab).items()}
+    with torch.no_grad():
+        _, m = T.lm_loss(params, c, b, deterministic=True)
+    m = {k: float(v) for k, v in m.items()}
+    parts = m["ce"] + m["reg"] + m["aux_loss"] + m["router_z"]
+    log(f"[{tag} loss] {c.name}, 1 layer, bf16, {M3_B} x {M3_N}: loss {m['loss']:.6f} = ce "
+        f"{m['ce']:.6f} + reg {m['reg']:.6f} + aux_loss {m['aux_loss']:.6f} + router_z "
+        f"{m['router_z']:.6f} ({parts:.6f}) [{smi_line()}]")
+    if not (all(np.isfinite(v) for v in m.values()) and m["aux_loss"] > 0
+            and m["router_z"] > 0 and abs(m["loss"] - parts) <= 1e-5 * abs(m["loss"])):
+        raise AssertionError(f"{tag}: loss terms {m}")
+    del params
+    free_cuda()
+    out["cpu"] = train_cpu_check(T, train, cfg.reduced(), dev, tag=tag)
+    out["loss_terms"] = m
+    return out
+
+
+def arctic_generate_phase(T, k1, moe, get_config, dev, variant, tag) -> dict:
+    """Phase M4 for one form of arctic-480b at 1 layer, full width, bf16
+    (built by ``init_cast``): at capacity E / K, where no call can drop
+    (asserted), ``generate_check_phase`` (M4_B x (M4_PROMPT + M4_NEW), every
+    token held to the teacher-forced forward at M4_GAP_CAP and M4_TIE_TOL);
+    then the same generate at the config's capacity, its drops per call
+    and its tokens' agreement with the teacher-forced forward's argmax and
+    with the first generate printed."""
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_config(M4_ARCH, variant), num_layers=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_cast(T, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    moe.DROPS.reset()
+    out = generate_check_phase(T, k1, dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k), params, dev, tag, M4_B, M4_PROMPT,
+        M4_NEW, M4_GAP_CAP, M4_TIE_TOL, seed=6)
+    if moe.DROPS.read()["dropped"]:
+        raise AssertionError(f"{tag}: a call dropped at capacity E / K: {moe.DROPS.read()}")
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, size=(M4_B, M4_PROMPT))
+    engine = ServeEngine(params, cfg, max_len=M4_PROMPT + M4_NEW, device=dev)
+    with DropLog(T, moe) as dl:
+        tokens = np.asarray(engine.generate(prompts, M4_NEW))
+    gen = torch.from_numpy(tokens).to(dev)
+    seq = torch.cat([torch.from_numpy(prompts).to(dev), gen[:, :-1]], 1)
+    moe.DROPS.reset()
+    with torch.no_grad():
+        teacher = forward_at(T, cfg, params, seq, torch.arange(M4_PROMPT - 1, seq.shape[1]))
+    out.update(init_s=init_s, drops=[d for _, _, d in dl.calls],
+               teacher_drops=moe.DROPS.read()["dropped"],
+               agree=float((teacher.argmax(-1) == gen).double().mean()),
+               agree_e_k=float((tokens == out["tokens"]).mean()))
+    log(f"[{tag}] {cfg.name} ({cfg.mixer}) at the config's capacity ("
+        f"{moe._capacity(M4_B * M4_PROMPT, cfg.moe_config())} an expert for the prefill): "
+        f"dropped choices per generate call {out['drops']}, teacher-forced forward "
+        f"{out['teacher_drops']}; generated tokens equal to the teacher's argmax "
+        f"{100 * out['agree']:.1f}%, to capacity E / K's {100 * out['agree_e_k']:.1f}%; init "
+        f"{init_s:.1f} s [{smi_line()}]")
+    del engine, params, teacher
+    return out
+
+
+def moe_phase(T, train, k1, dev, get_config) -> dict:
+    """Phase M: M1 serves qwen3-moe at M1_LAYERS layers in both forms
+    (``moe_serve_phase``), M2 checks both forms at 1 layer in fp32 against
+    the CPU (``moe_check_phase``), M3 trains 1 layer (``moe_train_phase``),
+    M4 runs arctic-480b at 1 layer in both forms (``arctic_generate_phase``,
+    after ``init_cast_check``)."""
+    from repro_torch.models import moe
+
+    t_all, smi = time.time(), smi_line()
+    out = {"times": {}}
+    free_cuda()
+    init_cast_check(T, get_config(M4_ARCH), dev, "M")
+    for tag, variant in (("M1 native", "native"), ("M1 stlt", "stlt")):
+        t0 = time.time()
+        cfg = dataclasses.replace(get_config(M_ARCH, variant), num_layers=M1_LAYERS)
+        out[tag] = moe_serve_phase(T, k1, moe, cfg, dev, tag)
+        out["times"][tag] = time.time() - t0
+        free_cuda()
+    for tag, variant in (("M2 native", "native"), ("M2 stlt", "stlt")):
+        t0 = time.time()
+        out[tag] = moe_check_phase(T, k1, moe, get_config(M_ARCH, variant), dev, tag)
+        out["times"][tag] = time.time() - t0
+        free_cuda()
+    t0 = time.time()
+    out["M3"] = moe_train_phase(T, train, k1, moe, get_config(M_ARCH), dev)
+    out["times"]["M3"] = time.time() - t0
+    free_cuda()
+    for tag, variant in (("M4 native", "native"), ("M4 stlt", "stlt")):
+        t0 = time.time()
+        out[tag] = arctic_generate_phase(T, k1, moe, get_config, dev, variant, tag)
+        out["times"][tag] = time.time() - t0
+        free_cuda()
+    log(f"[M time] phase M {time.time() - t_all:.1f} s: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in out["times"].items()) + f" [{smi}]")
     return out
 
@@ -3044,6 +3571,23 @@ def main(argv) -> int:
             f"call {r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound "
             f"{r['bound']:.4f} ms ({r['bound_by']})")
         del h_args
+
+    # X. xLSTM: xlstm-350m served, checked, trained (no K1 launch)
+    xl = xlstm_phase(T, train, k1, dev, get_config)
+    # M. the MoE family: qwen3-moe served at 4 layers in both forms (K1 at
+    # head dim 64 in the STLT variant), checked against the CPU and trained
+    # at 1 layer; arctic generates at 1 layer (K1 at head dim 128)
+    mo = moe_phase(T, train, k1, dev, get_config)
+    for shape in K1_MOE:
+        m_args, _, _ = k1_case(k1, ops, dev, *shape[:2], C, *shape[2:], seed=5)
+        k1_rows[shape]["plain"] = time_cuda(
+            lambda: k1.stlt_scan_reference(*m_args, chunk=C), iters=5)
+        r = k1_rows[shape]
+        log(f"[6 timing] K1 at phase M's shape BH={shape[0]} N={shape[1]} S={shape[2]} "
+            f"d={shape[3]}: kernel alone {r['alone']:.4f} ms, device time {r['device']} ms, "
+            f"call {r['call']:.4f} ms, ops.stlt_scan {r['scan']:.4f} ms, plain version "
+            f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
+        del m_args
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
 
     print(smi_line())
@@ -3118,7 +3662,21 @@ def main(argv) -> int:
         "launches_per_chatglm3_generate": hyb["H5"]["k1_launches"],
         "hybrid_shapes": {"x".join(map(str, sh)): {
             k: k1_rows[sh][k] for k in ("device", "alone", "call", "plain", "bound",
-                                        "bound_by")} for sh in K1_HYBRID}}, {
+                                        "bound_by")} for sh in K1_HYBRID},
+        # phase X: xlstm-350m makes no K1 launch (serve, train step); phase
+        # M: K1 launches in qwen3-moe's native (0) and STLT serves at 4
+        # layers (4 x the admission dispatches), per qwen3-moe train step at
+        # 1 layer (0, native), in arctic's STLT generate at 1 layer (1); K1
+        # at phase M's shapes (d = 64 and 128)
+        "launches_per_xlstm_serve": xl["X1"]["runs"]["plain"]["k1_launches"],
+        "launches_per_xlstm_train_step": xl["X3"]["launches_per_step"],
+        "launches_per_moe_native_serve": mo["M1 native"]["k1_launches"],
+        "launches_per_moe_stlt_serve": mo["M1 stlt"]["k1_launches"],
+        "launches_per_moe_train_step": mo["M3"]["launches_per_step"],
+        "launches_per_arctic_stlt_generate": mo["M4 stlt"]["k1_launches"],
+        "moe_shapes": {"x".join(map(str, sh)): {
+            k: k1_rows[sh][k] for k in ("device", "alone", "call", "scan", "plain", "bound",
+                                        "bound_by")} for sh in K1_MOE}}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

@@ -2,33 +2,34 @@
 assigned shape set, and the cell enumeration with its per-cell skip rules.
 
 Variants, as in the JAX package:
-  native -- the architecture as published (softmax attention, rg-LRU);
+  native -- the architecture as published (softmax attention, rg-LRU,
+            xLSTM, experts);
   stlt   -- every attention block replaced by the learnable STLT (defined
             for the archs in ``STLT_APPLICABLE``; recurrentgemma keeps its
-            rg-LRU blocks and replaces only its local-attention third).
-The arch ids and their order are the JAX package's, so ``all_cells()``
-names the same cells. An architecture that is not ported raises
-NotImplementedError from ``get_config``.
+            rg-LRU blocks and replaces only its local-attention third; the
+            MoE archs keep their experts; undefined for the attention-free
+            xlstm-350m).
+The arch ids, their order and the refusals are the JAX package's, so
+``all_cells()`` names the same cells.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.configs import (chatglm3_6b, granite_20b, internvl2_76b, qwen2_1_5b,
-                                 recurrentgemma_9b, smollm_360m, stlt_base, whisper_base)
+from repro_torch.configs import (arctic_480b, chatglm3_6b, granite_20b, internvl2_76b,
+                                 qwen2_1_5b, qwen3_moe_235b_a22b, recurrentgemma_9b,
+                                 smollm_360m, stlt_base, whisper_base, xlstm_350m)
 from repro_torch.configs.base import DTYPES, SHAPES, ModelConfig, ShapeConfig, TrainConfig
 
-# every arch id of the JAX package, in its order
-ARCH_IDS = ("qwen3-moe-235b-a22b", "arctic-480b", "chatglm3-6b", "qwen2-1.5b",
-            "granite-20b", "smollm-360m", "xlstm-350m", "whisper-base",
-            "internvl2-76b", "recurrentgemma-9b", "stlt-base")
-
-# the ported ones
-ARCHS = {"chatglm3-6b": chatglm3_6b.CONFIG, "qwen2-1.5b": qwen2_1_5b.CONFIG,
+# every arch of the JAX package, in its order
+ARCHS = {"qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.CONFIG, "arctic-480b": arctic_480b.CONFIG,
+         "chatglm3-6b": chatglm3_6b.CONFIG, "qwen2-1.5b": qwen2_1_5b.CONFIG,
          "granite-20b": granite_20b.CONFIG, "smollm-360m": smollm_360m.CONFIG,
-         "whisper-base": whisper_base.CONFIG, "internvl2-76b": internvl2_76b.CONFIG,
+         "xlstm-350m": xlstm_350m.CONFIG, "whisper-base": whisper_base.CONFIG,
+         "internvl2-76b": internvl2_76b.CONFIG,
          "recurrentgemma-9b": recurrentgemma_9b.CONFIG, "stlt-base": stlt_base.CONFIG}
+ARCH_IDS = tuple(ARCHS)
 
 # archs whose mixer the paper's STLT can replace
 STLT_APPLICABLE = {
@@ -46,16 +47,17 @@ def list_archs():
 
 
 def get_config(arch: str, variant: str = "native") -> ModelConfig:
-    """A ported architecture's config by its id (the JAX package's ids)."""
-    if arch not in ARCHS:
-        raise NotImplementedError(f"arch {arch!r} is not ported (ported: {sorted(ARCHS)})")
+    """An architecture's config by its id (the JAX package's ids)."""
     cfg = ARCHS[arch]
     if variant == "native":
         return cfg
     if variant != "stlt":
         raise ValueError(f"unknown variant {variant!r}")
     if arch not in STLT_APPLICABLE:
-        raise ValueError(f"STLT variant undefined for {arch}")
+        raise ValueError(
+            f"STLT variant undefined for {arch} (attention-free arch; "
+            "see DESIGN.md section Arch-applicability)"
+        )
     if cfg.layer_types:  # hybrid: replace only the attention layers
         return dataclasses.replace(cfg, mixer="stlt", layer_types=tuple(
             "stlt" if t in ("attn", "local_attn") else t for t in cfg.layer_types))
@@ -75,8 +77,8 @@ class Cell:
 
 
 def cells_for(arch: str) -> list:
-    """The four assigned shapes for one arch id (ported or not), with the
-    JAX package's skip rules.
+    """The four assigned shapes for one arch id, with the JAX package's
+    skip rules.
 
     long_500k policy: runs with the paper's STLT variant for attention-based
     archs (that's the point of the paper), natively for sub-quadratic archs;

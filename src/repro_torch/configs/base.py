@@ -1,6 +1,6 @@
 """Model and training configuration for the PyTorch port: the
-``ModelConfig`` fields the STLT, attention and rg-LRU paths read,
-``stlt_config()``, the assigned shape set (``ShapeConfig``, ``SHAPES``), the
+``ModelConfig`` fields the STLT, attention, rg-LRU, xLSTM and MoE paths
+read, ``stlt_config()``, ``moe_config()``, the assigned shape set (``ShapeConfig``, ``SHAPES``), the
 ``TrainConfig`` of the trainer, and the dtype-string map.
 
 This is the port's own copy of ``repro/configs/base.py`` (the port imports
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.stlt import STLTConfig
+from repro_torch.models.moe import MoEConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -28,7 +29,7 @@ def _dt(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # lm | encdec | hybrid
+    family: str                      # lm | encdec | xlstm | hybrid
     vocab: int
     num_layers: int
     d_model: int
@@ -46,6 +47,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     input_mode: str = "tokens"       # tokens | embeddings | both (vlm/audio stubs)
     tie_embeddings: bool = True
+    # --- MoE -----------------------------------------------------------------
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    dense_residual: bool = False
+    dense_ff: int = 0
+    moe_dispatch: str = "gather"     # gather | shard_map (gather without a mesh)
     # --- STLT (the paper) ---------------------------------------------------
     stlt_nodes: int = 32
     stlt_window: str = "exponential"
@@ -63,6 +71,8 @@ class ModelConfig:
     stlt_hard_eval: bool = False
     # --- enc-dec (whisper) ------------------------------------------------------
     num_decoder_layers: int = 0
+    # --- xlstm ------------------------------------------------------------------
+    slstm_every: int = 8             # every k-th layer is sLSTM (rest mLSTM)
     # --- execution ------------------------------------------------------------
     scan_layers: bool = True         # JAX param layout only (see convert.py)
     remat: bool = True               # recompute each block in backward
@@ -85,11 +95,18 @@ class ModelConfig:
     def p_dtype(self) -> torch.dtype:
         return _dt(self.param_dtype)
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
     def block_types(self) -> Tuple[str, ...]:
         """Resolve the per-layer block list."""
         if self.layer_types:
             assert len(self.layer_types) == self.num_layers, self.name
             return self.layer_types
+        if self.family == "xlstm":
+            return tuple("slstm" if (i + 1) % self.slstm_every == 0 else "mlstm"
+                         for i in range(self.num_layers))
         base = {"attention": "attn", "stlt": "stlt",
                 "stlt_relevance": "stlt_rel"}[self.mixer]
         return (base,) * self.num_layers
@@ -116,6 +133,20 @@ class ModelConfig:
             param_dtype=self.p_dtype,
         )
 
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model,
+            d_ff=self.d_ff,
+            num_experts=self.num_experts,
+            top_k=self.top_k,
+            capacity_factor=self.capacity_factor,
+            dense_residual=self.dense_residual,
+            dense_ff=self.dense_ff,
+            act=self.act,
+            param_dtype=self.p_dtype,
+            dispatch=self.moe_dispatch,
+        )
+
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant: same block structure, tiny sizes (the same
         sizes as the JAX ``ModelConfig.reduced``)."""
@@ -127,10 +158,14 @@ class ModelConfig:
             d_ff=128,
             head_dim=0,
             vocab=256,
+            num_experts=min(self.num_experts, 4) if self.is_moe else 0,
+            top_k=min(self.top_k, 2) if self.is_moe else 0,
+            dense_ff=64 if self.dense_residual else 0,
             stlt_nodes=8,
             stlt_chunk=16,
             num_decoder_layers=min(self.num_decoder_layers, 2),
             local_window=min(self.local_window, 8) if self.local_window else 0,
+            slstm_every=min(self.slstm_every, 2),
             layer_types=(),
             scan_layers=False,
             remat=False,

@@ -11,6 +11,9 @@ one device (the colocated part of the JAX package's ``launch/serve.py``).
       --prefill-chunk 512 --spec-k 4
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --variant stlt \
       --prefill-chunk 512 --max-len 4096
+  python -m repro_torch.launch.serve --arch xlstm-350m --prefill-chunk 512 --spec-k 4
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --variant stlt --reduced \
+      --device cpu --requests 4 --slots 2 --max-new 8 --prefill-chunk 16
 
 (with ``src`` on ``PYTHONPATH``). ``--mode continuous`` (default) is the
 slot-level scheduler, ``--mode wave`` the admission-wave baseline.
@@ -25,7 +28,11 @@ prompt and budget must fit; a ``local_attn`` ring, as in
 ``recurrentgemma-9b``, does not bound them), ``--variant stlt`` its STLT
 form. For a bf16 config (every arch but ``stlt-base``), as in the JAX CLI,
 the matrices of more than 65,536 elements are cast to the activation dtype;
-the nodes, norms, biases, small params and the rg-LRU's conv taps stay fp32.
+the nodes, norms, biases, small params, the rg-LRU's and the mLSTM's conv
+taps and the mLSTM's gate projections stay fp32. A MoE model routes the
+tokens of each dispatch together: an expert's capacity depends on the
+dispatch's token count, so a stream need not equal its request served
+alone once a dispatch drops (``models/moe.py``).
 ``--spec-k K`` turns on speculative decoding (greedy, continuous mode; the
 ``--spec-*`` flags pick the draft and the adaptive window), ``--slo-degrade
 16,8,4`` the node-budget ladder with its triggers ``--slo-gap-ms`` and

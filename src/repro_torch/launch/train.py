@@ -25,9 +25,15 @@ takes them.
       --steps 5 --batch 2 --seq 64
   python -m repro_torch.launch.train --arch recurrentgemma-9b --reduced --device cpu \
       --steps 5 --batch 2 --seq 64
+  python -m repro_torch.launch.train --arch xlstm-350m --reduced --device cpu \
+      --steps 5 --batch 2 --seq 64
+  python -m repro_torch.launch.train --arch qwen3-moe-235b-a22b --variant stlt --reduced \
+      --device cpu --steps 5 --batch 2 --seq 64
 
 (with ``src`` on ``PYTHONPATH``). Runs on CUDA unless ``--device`` names
-another device.
+another device. The optimizer is the config's (``cfg.optimizer``: adafactor
+for the MoE archs); a MoE model's log lines add its ``aux_loss`` and
+``router_z``, which its loss includes.
 """
 from __future__ import annotations
 
@@ -191,8 +197,10 @@ def main(argv=None):
             m = tree_map(float, metrics)
             dt = time.time() - t_last
             t_last = time.time()
+            moe = (f"aux_loss {m['aux_loss']:.4f} router_z {m['router_z']:.4f} "
+                   if cfg.is_moe else "")
             print(f"[train] step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                  f"gnorm {m['grad_norm']:.2f} s_eff {m['s_eff']:.1f} "
+                  f"gnorm {m['grad_norm']:.2f} s_eff {m['s_eff']:.1f} {moe}"
                   f"({tok_per_step * args.log_every / max(dt, 1e-9):.0f} tok/s)")
         if mgr and step % args.save_every == 0 and step > 0:
             mgr.save(step, state)

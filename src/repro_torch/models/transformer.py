@@ -1,10 +1,10 @@
-"""Decoder-only LM with STLT or softmax-attention token mixers: forward,
-loss and serving.
+"""Decoder-only LM with pluggable token mixers: forward, loss and serving.
 
 Parameters mirror the JAX pytree keys (``embed/embed`` for token inputs,
 ``layers``, ``final_norm``, ``lm_head/kernel`` for an untied head or
-embedding inputs; per block ``norm1``, ``stlt``, ``attn`` or ``rec``,
-``norm2``, ``ffn``) with one
+embedding inputs; per block ``norm1``, one of ``stlt``, ``attn``, ``rec``
+or ``cell``, then ``norm2`` and ``ffn`` or ``moe``, which xLSTM blocks
+lack) with one
 difference: ``params["layers"]`` always holds one dict per layer. The JAX
 package stacks runs of equal blocks on a leading axis when
 ``scan_layers=True``; ``convert.from_jax_params`` unstacks them along
@@ -16,15 +16,23 @@ state to its accepted length. Activations run in ``cfg.dtype`` over
 parameters in ``cfg.param_dtype``, products promoted as JAX promotes them
 (``layers.matmul``): a bf16 model's logits come out fp32.
 
-Ported block types: ``stlt`` (factorized), ``stlt_rel`` (the relevance
-readout, ``mixer="stlt_relevance"``), ``attn`` (GQA softmax attention with
-RoPE, ``models/attention.py``), ``local_attn`` (the same in a window of
-``cfg.local_window`` keys, a ring-buffer KV cache) and ``rglru`` (Griffin's
-recurrent block, ``models/rglru.py``; with ``local_attn`` it makes the
-hybrid family). Other block types raise NotImplementedError. An attention
+Block types, all of the JAX package's: ``stlt`` (factorized), ``stlt_rel``
+(the relevance readout, ``mixer="stlt_relevance"``), ``attn`` (GQA softmax
+attention with RoPE, ``models/attention.py``), ``local_attn`` (the same in
+a window of ``cfg.local_window`` keys, a ring-buffer KV cache), ``rglru``
+(Griffin's recurrent block, ``models/rglru.py``; with ``local_attn`` it
+makes the hybrid family), and ``mlstm`` and ``slstm`` (the xLSTM cells,
+``models/xlstm.py``, ``family="xlstm"``: no FFN). With ``cfg.num_experts``
+the FFN of every block that has one is a mixture of experts
+(``models/moe.py``), whose ``aux_loss`` and ``router_z`` enter the loss; the
+serving paths discard them. An attention
 block's decode state is its KV cache (``k``, ``v`` [B, size, Hkv, dh] in the
 activation dtype, ``pos`` [B]); the STLT's is O(S*d), the rg-LRU's O(d)
-(``h`` [B, d], ``conv_buf`` [B, 3, d], fp32). A relevance block has no streaming state, so
+(``h`` [B, d], ``conv_buf`` [B, 3, d], fp32), the mLSTM's O(d^2/H) (``C``,
+``n``, ``m``, ``conv_buf``) and the sLSTM's O(d) (``h``, ``c``, ``n``,
+``m``), all fp32. The sinusoidal PE is added at the input unless the mixer
+is attention, and always for ``family="xlstm"``, as in the JAX package. A
+relevance block has no streaming state, so
 ``init_decode_state``, ``prefill``, ``prefill_chunk`` and ``decode_step``
 raise ValueError on such a model, as the JAX package asserts.
 """
@@ -38,18 +46,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import stlt as stlt_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.utils import default_generator, resolve_device, trunc_normal
 
 AUX_KEYS = ("reg", "aux_loss", "router_z", "s_eff")
-_PORTED_BLOCKS = ("stlt", "stlt_rel", "attn", "local_attn", "rglru")
 _ATTN_BLOCKS = ("attn", "local_attn")
 _STLT_BLOCKS = ("stlt", "stlt_rel")
-
-
-def _check_block(btype: str):
-    if btype not in _PORTED_BLOCKS:
-        raise NotImplementedError(f"block type {btype!r} is not ported yet")
+_XLSTM_BLOCKS = ("mlstm", "slstm")
 
 
 def _attn_cfg(cfg: ModelConfig, btype: str) -> attn_lib.AttentionConfig:
@@ -87,22 +92,31 @@ def execution_plan(cfg: ModelConfig):
 
 
 def init_block(generator, cfg: ModelConfig, block_type: str, device=None) -> dict:
-    _check_block(block_type)
+    """One block's params: the mixer's, then (but for an xLSTM cell, which
+    embeds its projections) ``norm2`` and the FFN or the MoE."""
     d = cfg.d_model
+    p = {"norm1": L.init_norm(cfg.norm, d, cfg.p_dtype, device)}
     if block_type in _ATTN_BLOCKS:
-        mixer = {"attn": attn_lib.init_attention(generator, _attn_cfg(cfg, block_type),
-                                                 device=device)}
+        p["attn"] = attn_lib.init_attention(generator, _attn_cfg(cfg, block_type),
+                                            device=device)
+    elif block_type in _STLT_BLOCKS:
+        p["stlt"] = stlt_lib.init_stlt(generator, cfg.stlt_config(), device=device)
     elif block_type == "rglru":
-        mixer = {"rec": rglru_lib.init_rglru_block(generator, cfg, device=device)}
+        p["rec"] = rglru_lib.init_rglru_block(generator, cfg, device=device)
+    elif block_type == "mlstm":
+        p["cell"] = xlstm_lib.init_mlstm(generator, cfg, device=device)
+    elif block_type == "slstm":
+        p["cell"] = xlstm_lib.init_slstm(generator, cfg, device=device)
     else:
-        mixer = {"stlt": stlt_lib.init_stlt(generator, cfg.stlt_config(), device=device)}
-    return {
-        "norm1": L.init_norm(cfg.norm, d, cfg.p_dtype, device),
-        **mixer,
-        "norm2": L.init_norm(cfg.norm, d, cfg.p_dtype, device),
-        "ffn": L.init_ffn(generator, d, cfg.d_ff, act=cfg.act,
-                          dtype=cfg.p_dtype, device=device),
-    }
+        raise ValueError(block_type)
+    if block_type not in _XLSTM_BLOCKS:
+        p["norm2"] = L.init_norm(cfg.norm, d, cfg.p_dtype, device)
+        if cfg.is_moe:
+            p["moe"] = moe_lib.init_moe(generator, cfg.moe_config(), device=device)
+        else:
+            p["ffn"] = L.init_ffn(generator, d, cfg.d_ff, act=cfg.act,
+                                  dtype=cfg.p_dtype, device=device)
+    return p
 
 
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -133,9 +147,15 @@ def _embed(params, cfg: ModelConfig, inputs):
     return L.embed(params["embed"], inputs).to(cfg.act_dtype)
 
 
+def _has_pe(cfg: ModelConfig) -> bool:
+    """STLT and xLSTM paths carry no RoPE: they get the absolute sinusoidal
+    PE (paper: X + P), as the JAX package's test ``cfg.mixer != "attention"
+    or cfg.family in ("xlstm",)`` gives it."""
+    return cfg.mixer != "attention" or cfg.family == "xlstm"
+
+
 def _with_pe(cfg: ModelConfig, x, offset=0):
-    """STLT paths carry no RoPE -> absolute sinusoidal PE (paper: X + P)."""
-    if cfg.mixer == "attention":
+    if not _has_pe(cfg):
         return x
     return x + L.sinusoidal_pe(x.shape[1], cfg.d_model, offset=offset,
                                dtype=x.dtype, device=x.device)
@@ -150,29 +170,57 @@ def _head(params, cfg: ModelConfig, x):
     return L.unembed(params["embed"], x)
 
 
-def _block_ffn(params, cfg: ModelConfig, x):
+def _ffn_aux(params, cfg: ModelConfig, x):
+    """The post-mixer half of a block (norm2, then the FFN or the MoE, as a
+    residual) and the MoE's aux losses (None without experts); an xLSTM
+    block has none and returns x."""
+    if "norm2" not in params:
+        return x, None
     h2 = L.apply_norm(cfg.norm, params["norm2"], x)
-    return x + L.ffn(params["ffn"], h2, act=cfg.act).to(x.dtype)
+    if cfg.is_moe:
+        y, aux = moe_lib.apply_moe(params["moe"], cfg.moe_config(), h2)
+    else:
+        y, aux = L.ffn(params["ffn"], h2, act=cfg.act), None
+    return x + y.to(x.dtype), aux
+
+
+def _block_ffn(params, cfg: ModelConfig, x):
+    """``_ffn_aux`` with the aux losses discarded: the serving paths'."""
+    return _ffn_aux(params, cfg, x)[0]
+
+
+def _mixer(params, cfg: ModelConfig, block_type: str, h):
+    """A block's mixer over a whole sequence from a zero state (not the
+    STLT, whose forward also returns its aux terms)."""
+    if block_type in _ATTN_BLOCKS:
+        return attn_lib.apply_attention(params["attn"], _attn_cfg(cfg, block_type), h)
+    if block_type == "rglru":
+        return rglru_lib.apply_rglru_block(params["rec"], cfg, h)
+    if block_type == "mlstm":
+        return xlstm_lib.apply_mlstm(params["cell"], cfg, h)
+    if block_type == "slstm":
+        return xlstm_lib.apply_slstm(params["cell"], cfg, h)
+    raise ValueError(block_type)
 
 
 def apply_block(params: dict, cfg: ModelConfig, block_type: str, x, *,
                 deterministic: bool = True, draws=None, tau=None):
-    _check_block(block_type)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
     zero = torch.zeros((), device=x.device)
-    if block_type in _ATTN_BLOCKS:
-        mixed = attn_lib.apply_attention(params["attn"], _attn_cfg(cfg, block_type), h)
-        aux = {k: zero for k in AUX_KEYS}
-    elif block_type == "rglru":
-        mixed = rglru_lib.apply_rglru_block(params["rec"], cfg, h)
-        aux = {k: zero for k in AUX_KEYS}
-    else:
+    aux = {k: zero for k in AUX_KEYS}
+    if block_type in _STLT_BLOCKS:
         mixed, sa = stlt_lib.apply_stlt(params["stlt"], cfg.stlt_config(), h,
                                         deterministic=deterministic, draws=draws,
                                         tau=tau)
-        aux = {"reg": sa["reg"].float(), "aux_loss": zero, "router_z": zero,
-               "s_eff": sa["s_eff"].mean().float()}
-    return _block_ffn(params, cfg, x + mixed.to(x.dtype)), aux
+        aux["reg"] = sa["reg"].float()
+        aux["s_eff"] = sa["s_eff"].mean().float()
+    else:
+        mixed = _mixer(params, cfg, block_type, h)
+    x, ma = _ffn_aux(params, cfg, x + mixed.to(x.dtype))
+    if ma is not None:
+        aux["aux_loss"] = ma["aux_loss"].float()
+        aux["router_z"] = ma["router_z"].float()
+    return x, aux
 
 
 _SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -239,8 +287,8 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     """batch: {"inputs": [B, N] or [B, N, d], "labels": [B, N], optional "mask"}.
     Differentiable on both devices: factorized blocks through the scan's
     autograd Function (K1 forward and anti-causal on the card), relevance
-    blocks through K2's. ``aux_loss`` and ``router_z`` are 0 for STLT blocks
-    and enter the loss as in the JAX package."""
+    blocks through K2's. ``aux_loss`` and ``router_z`` (summed over the MoE
+    blocks, 0 without experts) enter the loss as in the JAX package."""
     logits, aux = apply_lm(params, cfg, batch["inputs"],
                            deterministic=deterministic, draws=draws, tau=tau)
     ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
@@ -254,19 +302,25 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
 
 
 def _init_block_state(cfg: ModelConfig, btype: str, batch: int, max_len: int, device):
-    _check_block(btype)
     if btype in _ATTN_BLOCKS:
         return attn_lib.init_kv_cache(_attn_cfg(cfg, btype), batch, max_len,
                                       dtype=cfg.act_dtype, device=device)
+    if btype in _STLT_BLOCKS:
+        return stlt_lib.init_stlt_state(cfg.stlt_config(), batch, device=device)
     if btype == "rglru":
         return rglru_lib.init_rglru_state(cfg, batch, device=device)
-    return stlt_lib.init_stlt_state(cfg.stlt_config(), batch, device=device)
+    if btype == "mlstm":
+        return xlstm_lib.init_mlstm_state(cfg, batch, device=device)
+    if btype == "slstm":
+        return xlstm_lib.init_slstm_state(cfg, batch, device=device)
+    raise ValueError(btype)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Per-layer streaming states and per-row positions [batch]. ``max_len``
     sizes the attention blocks' KV caches (a ``local_attn`` ring holds
-    ``min(max_len, local_window)`` slots); STLT states are O(S*d)."""
+    ``min(max_len, local_window)`` slots); STLT states are O(S*d), xLSTM
+    and rg-LRU states do not depend on it."""
     device = resolve_device(device)
     layers = [_init_block_state(cfg, bt, batch, max_len, device)
               for bt in cfg.block_types()]
@@ -274,22 +328,36 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def _mixer_prefill(params, cfg: ModelConfig, btype: str, h, state, valid=None,
+                   node_cap=None):
+    """A block's mixer over a chunk from ``state`` (None: fresh), positions
+    past ``valid[b]`` kept out of row b's state: (outputs, new state).
+    ``node_cap`` reaches the STLT only."""
+    if btype in _ATTN_BLOCKS:
+        return attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h, state,
+                                      valid=valid)
+    if btype in _STLT_BLOCKS:   # a relevance block raises: it has no streaming state
+        return stlt_lib.stlt_prefill(params["stlt"], cfg.stlt_config(), h, state,
+                                     valid=valid, node_cap=node_cap)
+    if btype == "rglru":
+        return rglru_lib.rglru_prefill(params["rec"], cfg, h, state, valid=valid)
+    if btype == "mlstm":
+        return xlstm_lib.mlstm_prefill(params["cell"], cfg, h, state, valid=valid)
+    if btype == "slstm":
+        return xlstm_lib.slstm_prefill(params["cell"], cfg, h, state, valid=valid)
+    raise ValueError(f"prefill unsupported for block type {btype!r}")
+
+
 def _block_prefill_chunk(params, cfg: ModelConfig, btype: str, x, state,
                          valid=None, node_cap=None):
     """Advance one block's state by one prompt chunk (state=None: a fresh
     prefill). With ``valid``, rows whose valid length is 0 keep their old
-    state exactly (a per-row select)."""
-    _check_block(btype)
+    state exactly (a per-row select: a fresh mLSTM row, whose stabilizer is
+    -1e30, would not survive the gates' neutralization of pad-only steps)."""
     h = L.apply_norm(cfg.norm, params["norm1"], x)
     old_state = state
-    if btype in _ATTN_BLOCKS:
-        mixed, state = attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h,
-                                              state, valid=valid)
-    elif btype == "rglru":
-        mixed, state = rglru_lib.rglru_prefill(params["rec"], cfg, h, state, valid=valid)
-    else:
-        mixed, state = stlt_lib.stlt_prefill(params["stlt"], cfg.stlt_config(), h,
-                                             state, valid=valid, node_cap=node_cap)
+    mixed, state = _mixer_prefill(params, cfg, btype, h, state, valid=valid,
+                                  node_cap=node_cap)
     if valid is not None and old_state is not None:
         keep = valid > 0
         state = {k: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)),
@@ -301,7 +369,7 @@ def _block_prefill_chunk(params, cfg: ModelConfig, btype: str, x, state,
 def _block_prefill(params, cfg: ModelConfig, btype: str, x, max_len: int):
     """One block's whole-prompt forward and its state: attention through
     ``prefill_kv_cache`` (blockwise for long prompts; ``max_len`` sizes the
-    cache), the STLT and the rg-LRU as the fresh case of the chunk prefill."""
+    cache), every other mixer as the fresh case of the chunk prefill."""
     if btype not in _ATTN_BLOCKS:
         return _block_prefill_chunk(params, cfg, btype, x, None)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
@@ -357,19 +425,15 @@ def prefill_chunk(params: dict, cfg: ModelConfig, inputs, state: dict,
 def _block_state_at(params, cfg: ModelConfig, btype: str, x, state, q):
     """One block's state after the first ``q[b]`` tokens of its input window
     x [B, L, d], the rollback half of ``spec_verify``, no outputs: the STLT's
-    closed-form carry snapshot (``stlt.stlt_state_at``), attention's and the
-    rg-LRU's masked chunk prefill (``valid=q``: only the accepted tokens
+    closed-form carry snapshot (``stlt.stlt_state_at``), every other
+    mixer's masked chunk prefill (``valid=q``: only the accepted tokens
     enter). ``q == 0`` rows keep their old state exactly (a per-row
     select)."""
-    _check_block(btype)
     h = L.apply_norm(cfg.norm, params["norm1"], x)
-    if btype in _ATTN_BLOCKS:
-        _, new = attn_lib.prefill_chunk(params["attn"], _attn_cfg(cfg, btype), h, state,
-                                        valid=q)
-    elif btype == "rglru":
-        _, new = rglru_lib.rglru_prefill(params["rec"], cfg, h, state, valid=q)
-    else:
+    if btype in _STLT_BLOCKS:
         new = stlt_lib.stlt_state_at(params["stlt"], cfg.stlt_config(), h, state, q)
+    else:
+        _, new = _mixer_prefill(params, cfg, btype, h, state, valid=q)
     keep = q > 0
     return {k: torch.where(keep.reshape((-1,) + (1,) * (n.ndim - 1)),
                            n.to(state[k].dtype), state[k])
@@ -414,17 +478,24 @@ def spec_verify(params: dict, cfg: ModelConfig, inputs, state: dict, valid_len,
 
 
 def _block_step(params, cfg: ModelConfig, btype: str, x_t, state, node_cap=None):
-    _check_block(btype)
     h = L.apply_norm(cfg.norm, params["norm1"], x_t)
     if btype in _ATTN_BLOCKS:
         mixed, state = attn_lib.apply_attention_step(params["attn"],
                                                      _attn_cfg(cfg, btype), h, state)
-    elif btype == "rglru":
-        mixed, state = rglru_lib.apply_rglru_step(params["rec"], cfg, h, state)
-    else:
+    elif btype in _STLT_BLOCKS:
         mixed, state = stlt_lib.apply_stlt_step(params["stlt"], cfg.stlt_config(),
                                                 h, state, node_cap=node_cap)
-    return _block_ffn(params, cfg, x_t + mixed.to(x_t.dtype)), state
+    elif btype == "rglru":
+        mixed, state = rglru_lib.apply_rglru_step(params["rec"], cfg, h, state)
+    elif btype == "mlstm":
+        mixed, state = xlstm_lib.apply_mlstm_step(params["cell"], cfg, h, state)
+    elif btype == "slstm":
+        mixed, state = xlstm_lib.apply_slstm_step(params["cell"], cfg, h, state)
+    else:
+        raise ValueError(btype)
+    # the MoE sees the B tokens as [B, 1, d]
+    x_t = _block_ffn(params, cfg, (x_t + mixed.to(x_t.dtype))[:, None])[:, 0]
+    return x_t, state
 
 
 def decode_step(params: dict, cfg: ModelConfig, token_t, state: dict,
@@ -434,7 +505,7 @@ def decode_step(params: dict, cfg: ModelConfig, token_t, state: dict,
     (cap == S rows run unmasked); other blocks ignore it."""
     pos = state["pos"]
     x_t = _embed(params, cfg, token_t)
-    if cfg.mixer != "attention":
+    if _has_pe(cfg):
         x_t = x_t + L.sinusoidal_pe(1, cfg.d_model, offset=pos, dtype=x_t.dtype,
                                     device=x_t.device)[:, 0]
     new_states = []

@@ -90,7 +90,7 @@ def trunc_normal(generator: torch.Generator, shape, stddev: float = 0.02,
     """``stddev`` times a standard normal truncated to [-2, 2]."""
     out = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (stddev * out).to(dtype)
+    return out.mul_(stddev).to(dtype)     # in place: one fp32 copy of a large leaf
 
 
 def lecun_normal(generator: torch.Generator, shape, fan_in: Optional[int] = None,

@@ -1,7 +1,8 @@
 """The port's arch registry, the assigned shape set and the untied LM head
 against the JAX package on the CPU: chatglm3-6b, granite-20b, internvl2-76b
-and recurrentgemma-9b field for field (native and STLT, full and reduced),
-the unported archs' refusals, ``all_cells()`` and ``input_specs``, the head
+recurrentgemma-9b, xlstm-350m, qwen3-moe-235b-a22b and arctic-480b field for
+field (native and STLT, full and reduced), xlstm-350m's STLT refusal,
+``all_cells()`` and ``input_specs``, the head
 drawn last by ``init_lm``, and reduced chatglm3-6b, granite-20b and
 internvl2-76b in both variants: logits, loss and every grad leaf through
 the untied head, with token inputs and, for ``input_mode`` "both" and
@@ -37,8 +38,8 @@ from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 RTOL, ATOL = 2e-4, 1e-5
-NEW_ARCHS = ("chatglm3-6b", "granite-20b", "internvl2-76b", "recurrentgemma-9b")
-UNPORTED = ("qwen3-moe-235b-a22b", "arctic-480b", "xlstm-350m")
+NEW_ARCHS = ("chatglm3-6b", "granite-20b", "internvl2-76b", "recurrentgemma-9b",
+             "xlstm-350m", "qwen3-moe-235b-a22b", "arctic-480b")
 
 
 def _np(x):
@@ -57,10 +58,19 @@ def _close(got, want, what="", rtol=RTOL, atol=ATOL):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 @pytest.mark.parametrize("variant", ["native", "stlt"])
 def test_new_configs_match_jax_field_for_field(arch, variant):
-    """get_config and .reduced() of the four new archs, every port field as
-    the JAX package's (the port drops only the sharding hints ``fsdp`` and
-    ``dp_only``); the hybrid's STLT variant replaces only its local-attention
-    third."""
+    """get_config and .reduced() of the archs ported after the attention
+    mixer, every port field as the JAX package's (the port drops only the
+    sharding hints ``fsdp`` and ``dp_only``; the MoE fields and
+    ``slstm_every`` included, with their reduced sizes); the hybrid's STLT
+    variant replaces only its local-attention third; xlstm-350m's STLT
+    variant is refused with JAX's ValueError."""
+    if (arch, variant) == ("xlstm-350m", "stlt"):
+        with pytest.raises(ValueError) as want:
+            j_configs.get_config(arch, variant)
+        with pytest.raises(ValueError) as got:
+            t_configs.get_config(arch, variant)
+        assert str(got.value) == str(want.value)
+        return
     for got, want in ((t_configs.get_config(arch, variant), j_configs.get_config(arch, variant)),
                       (t_configs.get_config(arch, variant).reduced(),
                        j_configs.get_config(arch, variant).reduced())):
@@ -70,27 +80,41 @@ def test_new_configs_match_jax_field_for_field(arch, variant):
         types = t_configs.get_config(arch, variant).block_types()
         assert types.count("rglru") == 26
         assert types.count("stlt" if variant == "stlt" else "local_attn") == 12
+    if arch == "xlstm-350m":
+        types = t_configs.get_config(arch).block_types()
+        assert types.count("slstm") == 3 and types[7::8] == ("slstm",) * 3
+    if arch in ("qwen3-moe-235b-a22b", "arctic-480b"):
+        assert t_configs.get_config(arch, variant).is_moe
+        assert t_configs.get_config(arch, variant).optimizer == "adafactor"
 
 
 def test_unported_archs_are_refused_and_registry_order_matches_jax():
-    """The port keeps JAX's arch ids in JAX's order; get_config raises
-    NotImplementedError for the three archs still unported; the shape set
+    """The port has every arch of the JAX package, in JAX's order, none
+    refused; the one undefined variant (xlstm-350m's STLT form) and an
+    unknown one are refused as the JAX package refuses them; the shape set
     is JAX's."""
-    assert list(t_configs.ARCH_IDS) == list(j_configs.ARCHS)
+    assert list(t_configs.ARCH_IDS) == list(t_configs.ARCHS) == list(j_configs.ARCHS)
     assert t_configs.list_archs() == j_configs.list_archs()
     assert t_configs.STLT_APPLICABLE == j_configs.STLT_APPLICABLE
     assert t_configs.NATIVE_SUBQUADRATIC == j_configs.NATIVE_SUBQUADRATIC
-    assert set(t_configs.ARCHS) == set(j_configs.ARCHS) - set(UNPORTED)
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_configs.get_config(arch)
+    for arch in j_configs.ARCHS:
+        for variant in ("native", "stlt"):
+            if arch in j_configs.STLT_APPLICABLE or variant == "native":
+                assert t_configs.get_config(arch, variant).name == arch
+                continue
+            with pytest.raises(ValueError, match="STLT variant undefined"):
+                j_configs.get_config(arch, variant)
+            with pytest.raises(ValueError, match="STLT variant undefined"):
+                t_configs.get_config(arch, variant)
+    with pytest.raises(ValueError, match="unknown variant"):
+        t_configs.get_config("xlstm-350m", "hybrid")
     for name, shape in j_configs.SHAPES.items():
         assert dataclasses.astuple(t_configs.SHAPES[name]) == dataclasses.astuple(shape)
 
 
 def test_all_cells_match_jax():
     """Every cell's key, shape, variant and skip reason as the JAX
-    package's, the unported archs' included."""
+    package's, for all eleven archs."""
     got = [(c.key, dataclasses.astuple(c.shape), c.variant, c.skip)
            for c in t_configs.all_cells()]
     want = [(c.key, dataclasses.astuple(c.shape), c.variant, c.skip)
@@ -101,11 +125,10 @@ def test_all_cells_match_jax():
 _DTYPES = {"int32": torch.int32, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-@pytest.mark.parametrize("cell", [c for c in t_configs.all_cells()
-                                  if not c.skip and c.arch in t_configs.ARCHS],
+@pytest.mark.parametrize("cell", [c for c in t_configs.all_cells() if not c.skip],
                          ids=lambda c: c.key)
 def test_input_specs_match_jax(cell):
-    """input_specs of every cell the port can build: the same names,
+    """input_specs of every cell that is not skipped: the same names,
     shapes and dtypes as the JAX package's ShapeDtypeStructs, as tensors on
     the meta device (no storage)."""
     want = j_steps.input_specs(cell.arch, cell.shape.name, cell.variant)

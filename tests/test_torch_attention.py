@@ -679,7 +679,8 @@ def test_wd_mask_on_the_qkv_biases_matches_jax(scan):
 def test_configs_match_jax_field_for_field(arch, variant):
     """get_config and .reduced() (local_window, blockwise_threshold 64) of
     the native configs and qwen2-1.5b's STLT variant, every port field as
-    the JAX package's; an unported arch still raises."""
+    the JAX package's; so are xlstm-350m's, once a refused arch, whose STLT
+    variant raises JAX's ValueError."""
     for got, want in ((t_configs.get_config(arch, variant), j_get_config(arch, variant)),
                       (t_configs.get_config(arch, variant).reduced(),
                        j_get_config(arch, variant).reduced())):
@@ -688,8 +689,13 @@ def test_configs_match_jax_field_for_field(arch, variant):
     local = dataclasses.replace(t_configs.get_config(arch), local_window=2048,
                                 layer_types=("local_attn",) * t_configs.get_config(arch).num_layers)
     assert local.reduced().local_window == 8 and local.reduced().layer_types == ("local_attn",) * 4
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_configs.get_config("xlstm-350m")
+    for got, want in ((t_configs.get_config("xlstm-350m"), j_get_config("xlstm-350m")),
+                      (t_configs.get_config("xlstm-350m").reduced(),
+                       j_get_config("xlstm-350m").reduced())):
+        for f in dataclasses.fields(TModelConfig):
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    with pytest.raises(ValueError, match="STLT variant undefined for xlstm-350m"):
+        t_configs.get_config("xlstm-350m", "stlt")
 
 
 def test_qwen2_reduced_logits_with_bias_match_jax():

@@ -2,7 +2,9 @@
 versions (K1 at head dims up to 256), the scan's VJP (K1 forward and
 anti-causal) against float64 autograd through the plain version, and
 continuous serve on the card against the same serve on the CPU (stlt-base,
-and each arch added with the untied head and the hybrid family).
+each arch added with the untied head and the hybrid family, and the xLSTM
+and MoE archs, whose train step is also held to the CPU's; the MoE
+combine gives the same output on two calls, bit for bit).
 
 These tests need a CUDA device and ``nvcc`` (they build the kernel from
 ``src/repro_torch/kernels/csrc``); elsewhere they skip. Run them on an H100
@@ -21,6 +23,7 @@ moves z by up to ~1e-3 x |v|, so K2 is held elementwise within
 2e-3 + 2e-3 |z|, the JAX package's own tiled-vs-materialized tolerance;
 gradients within 2e-3 of the largest entry, for the same reason.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -638,17 +641,21 @@ def test_attention_bf16_on_the_card_is_near_fp32(dev, layer_types):
 NEW_ARCHS = [("recurrentgemma-9b", "native"), ("recurrentgemma-9b", "stlt"),
              ("chatglm3-6b", "native"), ("chatglm3-6b", "stlt"),
              ("granite-20b", "native"), ("granite-20b", "stlt"),
-             ("internvl2-76b", "native"), ("internvl2-76b", "stlt")]
+             ("internvl2-76b", "native"), ("internvl2-76b", "stlt"),
+             ("xlstm-350m", "native"), ("qwen3-moe-235b-a22b", "native"),
+             ("qwen3-moe-235b-a22b", "stlt"), ("arctic-480b", "native"),
+             ("arctic-480b", "stlt")]
+XLSTM_MOE = NEW_ARCHS[-5:]
 
 
 @pytest.mark.parametrize("arch,variant", NEW_ARCHS, ids=[f"{a}-{v}" for a, v in NEW_ARCHS])
 def test_new_archs_on_the_card_match_the_cpu(dev, arch, variant):
     """Each new arch at ``reduced()`` widths (fp32; the untied head; the
-    hybrid's rg-LRU blocks): ``apply_lm`` logits over 2 x 40 tokens on the
-    card against the CPU within RTOL_SCALE of the scale, and a continuous
-    serve (coalesced chunked admission, staggered arrivals) with the same
-    streams on both, K1 launched once per STLT layer per admission
-    dispatch and never by a native model."""
+    hybrid's rg-LRU blocks; xLSTM cells; experts): ``apply_lm`` logits over
+    2 x 40 tokens on the card against the CPU within RTOL_SCALE of the
+    scale, and a continuous serve (coalesced chunked admission, staggered
+    arrivals) with the same streams on both, K1 launched once per STLT
+    layer per admission dispatch and never by a native model."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving import Request, ServeEngine
@@ -675,3 +682,63 @@ def test_new_archs_on_the_card_match_the_cpu(dev, arch, variant):
         n_stlt * eng.serve_stats["admission_dispatches"])
     for r in reqs:
         np.testing.assert_array_equal(results[1][r.id], results[0][r.id])
+
+
+@pytest.mark.parametrize("arch,variant", XLSTM_MOE, ids=[f"{a}-{v}" for a, v in XLSTM_MOE])
+def test_xlstm_and_moe_train_step_on_the_card_matches_the_cpu(dev, arch, variant):
+    """One ``make_step`` (the config's optimizer: AdamW for xLSTM,
+    adafactor for the MoE archs) at ``reduced()`` widths in fp32 on 2 x 32
+    tokens, card against CPU: loss, ce, aux_loss, router_z and grad_norm
+    within 1e-5 relative, the updated params within 1e-5; with the MoE's
+    dropped choices counted the same on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_flatten_with_paths, tree_map
+
+    cfg = get_config(arch, variant).reduced()
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=10)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = lm_batch_stream(0, 0, 2, 32, cfg.vocab)
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where), params)
+        opt, step = train.make_step(cfg, tcfg)
+        moe.DROPS.reset()
+        p, _, m = step(p, opt.init(p), {k: torch.from_numpy(v).to(where)
+                                        for k, v in batch.items()}, 0)
+        out[str(where)] = (tree_map(lambda t: t.cpu(), p), {k: float(v) for k, v in m.items()},
+                           moe.DROPS.read()["dropped"])
+    (pc, mc, dc), (pg, mg, dg) = out["cpu"], out[str(dev)]
+    assert dc == dg
+    for k in ("loss", "ce", "aux_loss", "router_z", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]) + 1e-12, (k, mg[k], mc[k])
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(pg), tree_flatten_with_paths(pc)):
+        assert float((a - b).abs().max()) <= 1e-5, path
+
+
+def test_moe_combine_is_deterministic_on_the_card(dev):
+    """apply_moe at reduced qwen3-moe widths (capacity factor 0.5) in bf16
+    on 4 x 64 tokens, a dispatch that drops: two calls on the card give the same output bit
+    for bit (the K contributions of a token are summed in slot order, not
+    by atomics); in fp32 the card's output is the CPU's within RTOL_SCALE
+    of the scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced().moe_config(),
+                              capacity_factor=0.5)     # capacity 64 for a mean load of 128
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    pb = {k: v.to(dev, torch.bfloat16) for k, v in p.items()}
+    moe.DROPS.reset()
+    y1, _ = moe.apply_moe(pb, cfg, x.to(dev, torch.bfloat16))
+    y2, _ = moe.apply_moe(pb, cfg, x.to(dev, torch.bfloat16))
+    assert moe.DROPS.read()["dropped"] > 0
+    assert torch.equal(y1, y2)
+    y, _ = moe.apply_moe(p, cfg, x)
+    y_card, _ = moe.apply_moe({k: v.to(dev) for k, v in p.items()}, cfg, x.to(dev))
+    _assert_close(y_card.cpu(), y)

@@ -225,6 +225,23 @@ def test_k1_bound_at_phase_h_head_dims(shape):
     assert fp32 >= bound
 
 
+@pytest.mark.parametrize("shape", chip_smoke.K1_MOE, ids=lambda s: "x".join(map(str, s)))
+def test_k1_bound_at_phase_m_shapes(shape):
+    """At phase M's shapes (qwen3-moe-stlt, 64 heads at d = 64; arctic-stlt,
+    56 heads at d = 128) the bound is the larger of its two times, named by
+    it: the bytes at every one of these shapes (a few flops per byte), the
+    flops 3xTF32 products plus the carries' decays, d / 64 of the same call
+    at d = 64."""
+    BH, N, s, d = shape
+    valid = np.array([(0, 1, min(C, N), N)[i % 4] for i in range(BH)], np.int32)
+    bound, fp32, by, flops, nbytes = chip_smoke.k1_bound(BH, N, d, C, s, valid)
+    flops64 = chip_smoke.k1_bound(BH, N, 64, C, s, valid)[3]
+    assert flops == pytest.approx(flops64 * d / 64, rel=1e-12)
+    t_bytes = 1e3 * nbytes / chip_smoke.PEAK_BYTES_PER_S
+    assert by == "bytes" and bound == pytest.approx(t_bytes, rel=1e-12)
+    assert fp32 >= bound * (1 - 1e-12)
+
+
 @pytest.mark.parametrize("N", [37, 64])
 def test_k1_bound_counts_the_operators_nonzero_products(N):
     """``k1_bound``'s flops are the products with an operator entry that is

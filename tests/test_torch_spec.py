@@ -704,8 +704,9 @@ def test_cast_params_for_compute_matches_jax(min_size):
 def test_get_config_variant_switch():
     """``variant="stlt"`` swaps SmolLM-360M's attention for the STLT, field
     for field as the JAX package does; the native form is the published
-    config (attention, ported); undefined variants and unported archs are
-    refused; stlt-base is unchanged."""
+    config (attention, ported); undefined variants are refused; the MoE
+    archs' STLT variants, once refused, swap their attention as the JAX
+    package does and keep their experts; stlt-base is unchanged."""
     got = t_configs.get_config("smollm-360m", "stlt")
     want = j_get_config("smollm-360m", "stlt")
     for f in dataclasses.fields(TModelConfig):
@@ -719,5 +720,8 @@ def test_get_config_variant_switch():
         t_configs.get_config("stlt-base", "stlt")
     with pytest.raises(ValueError, match="unknown variant"):
         t_configs.get_config("smollm-360m", "hybrid")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_configs.get_config("qwen3-moe-235b-a22b", "stlt")
+    for arch in ("qwen3-moe-235b-a22b", "arctic-480b"):
+        got, want = t_configs.get_config(arch, "stlt"), j_get_config(arch, "stlt")
+        for f in dataclasses.fields(TModelConfig):
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+        assert got.block_types() == ("stlt",) * got.num_layers and got.is_moe
