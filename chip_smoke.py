@@ -33,7 +33,16 @@ the n-gram and the node-subset draft and the adaptive window, and the SLO
 node ladder; each stream against its request run alone under the near-tie
 rule at a bf16 tolerance it measures, verify against plain decode
 dispatches, K1 launches against the dispatches that call it, the ladder's
-steps; timed, one serve profiled. Phase T3 trains full-width
+steps; timed, a serve of one short request profiled. Phase D serves phase P's model and
+requests through the disaggregated prefill and decode fleets
+(``serving.disagg``; 2 prefill hosts, 2 decode hosts x 2 slots, K1 on the
+prefill fleet only): D1 over the loopback transport (each stream against
+P's plain one under the near-tie rule, K1 launches per fleet, handoff bytes
+flat in prompt length, a shipped state unpacked bit for bit, the bf16 wire,
+a compressed blob, TTFT and gaps on the fleet clocks), D2 under seeded
+message faults with a prefill and a decode host killed, D3 through a prefill
+worker process over a socket, D4 the native model's KV state's blob beside
+the STLT state's. Phase T3 trains full-width
 SmolLM-360M-stlt in bf16 (fp32 masters, remat) at 8 x 1024 tokens a step:
 step 0 with remat against remat off and against fp32 compute (loss and
 every grad leaf), 5 AdamW steps (96 K1 launches each), timed, the peak
@@ -55,10 +64,10 @@ compute, 5 AdamW steps (54 K1 launches each), the peak memory with remat
 on and off, one step profiled. K1 is also checked and timed at phase W's
 shapes, in both directions. Phase A runs the paper's baseline, native
 softmax attention (plain torch, no kernel of the port: K1 must make no
-launch): A1 serves native SmolLM-360M in bf16 (phase P's requests, plain
-and the n-gram draft; streams against each request run alone, verify
-against decode dispatches, the per-slot KV state beside the STLT
-variant's), A2 holds chunked against monolithic prefill and decode against
+launch): A1 serves native SmolLM-360M, its depth cut to 8 of 32 layers,
+in bf16 (phase P's requests, plain and the n-gram draft; streams against
+each request run alone, verify against decode dispatches, the per-slot KV
+state at full depth beside the STLT variant's), A2 holds chunked against monolithic prefill and decode against
 the teacher-forced forward in fp32, the blockwise path against the dense
 one at 1 x 8192, the card against the CPU at 2 layers, and times one
 layer's attention beside ``F.scaled_dot_product_attention`` (a yardstick;
@@ -66,12 +75,13 @@ the port never calls it), A3 trains it at 8 x 1024 in bf16 with remat (step
 0 against remat off and, at 2 layers in fp32, against the CPU; 5 AdamW
 steps; peak memory), A4 runs native whisper-base through phase W's checks.
 Phase H runs the hybrid family and the untied head at full width in bf16:
-H1 and H2 serve recurrentgemma-9b (38 layers, d_model 4096, 26 rg-LRU and
-12 local-attention blocks, a 256,000-token untied head) native and as its
-STLT variant (the local-attention third through K1 at head dim 256) on
-phase P's requests, plain and with the n-gram draft, each stream against
-its request run alone under the near-tie rule, K1 launches 0 and 12 x the
-dispatches that call it, the per-slot decode state of both; H3 checks both
+H1 and H2 serve recurrentgemma-9b (d_model 4096, a 256,000-token untied
+head; its depth cut from 38 layers to two periods: 4 rg-LRU and 2
+local-attention blocks) native and as its STLT variant (the
+local-attention third through K1 at head dim 256) on phase P's requests,
+plain and with the n-gram draft, each stream against its request run
+alone under the near-tie rule, K1 launches 0 and 2 x the dispatches that
+call it, the per-slot decode state of both at full depth; H3 checks both
 forms in fp32 at one period of the pattern (chunked against monolithic
 prefill, an idle row's state bit for bit, decode against the
 teacher-forced forward, the card against the CPU); H4 trains that period
@@ -79,11 +89,11 @@ at 2 x 1024 (remat against off, 3 K1 launches a step in the STLT form, the
 peak memory, step 0 against the CPU at reduced widths); H5 generates with
 chatglm3-6b-stlt (28 K1 launches at head dim 128), held to the
 teacher-forced forward. Phase X runs xlstm-350m (24 layers: 21 mLSTM, 3
-sLSTM; d_model 1024; no K1 launch): X1 serves it at full width and depth in
-bf16 on phase P's requests, plain and n-gram, each stream against its
-request run alone under the near-tie rule, the per-slot state (88.8 MB);
-X2 checks one period (7 mLSTM + 1 sLSTM) in fp32 as H3 does; X3 trains that
-period at 8 x 1024 in bf16 with remat (against remat off and fp32 compute,
+sLSTM; d_model 1024; no K1 launch): X1 serves it at full width, one period
+(7 mLSTM + 1 sLSTM) deep, in bf16 on phase P's requests, plain and n-gram,
+each stream against its request run alone under the near-tie rule, the
+per-slot state at full depth (88.8 MB); X2 checks that period in fp32 as
+H3 does; X3 trains that period at 8 x 1024 in bf16 with remat (against remat off and fp32 compute,
 5 AdamW steps, their peak, a profile). Phase M runs the MoE family at full
 width with its depth cut: M1 serves qwen3-moe-235b-a22b at 4 of 94 layers
 native and STLT (K1 at head dim 64; the choices each admission drops), M2
@@ -114,9 +124,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1357,6 +1369,13 @@ P_SPEC = ((1024, True, 48, 0), (200, False, 32, 0), (64, True, 16, 0),
 # served-vs-argmax gap 0.0313; the cap is 1.6 x the gap read.
 P_GAP_CAP = 0.0625
 P_TIE_TOL = 2 * P_GAP_CAP
+# Every spec_phase profiles a serve of phase P's requests SERVE_PROFILE_REQUESTS
+# only (request 2: a 64-token prompt, one admission chunk, then 16 tokens of
+# decode or verify): reading back a whole serve's ~280k kernel events took
+# 65-70 s (phases P and A1 on an H100), a serve of request 0 (1024 + 48
+# tokens, 149k events) 39 s (PERF.md, phase D), and the script must finish
+# within its time limit.
+SERVE_PROFILE_REQUESTS = (2,)
 P_RUNS = (("plain", {}),
           ("ngram", dict(spec_k=P_K, spec_draft="ngram")),
           ("nodes", dict(spec_k=P_K, spec_draft="nodes", spec_draft_nodes=P_DRAFT_NODES)),
@@ -1429,7 +1448,7 @@ P_MAX_LEN = 4096   # the engine's default: bounds an attention model's requests
 
 def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram",
                verify=K1_VERIFY, gap_cap=None, tie_tol=None, require_accept=True,
-               profile_requests=None) -> dict:
+               profile_requests=SERVE_PROFILE_REQUESTS, keep=False) -> dict:
     """Phase P (and A1 with the native config and ``runs`` plain and
     n-gram): continuous serve of full-width SmolLM-360M (bf16) in the modes
     of ``runs`` (plain, n-gram draft, node draft, adaptive n-gram, the SLO
@@ -1450,11 +1469,12 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram",
     hybrid's greedy streams need not follow the prompts' motifs, and the
     H100 read 0 of 912 drafts accepted), (b) asks only that verify replace
     decode without taking more ticks, and the accept rate is logged.
-    ``profile_requests`` profiles a serve of only the first that many
-    requests (phase H: reading back a whole serve's ~300k kernel events
-    takes a minute). A stream equal to the plain run's is held to the plain
+    ``profile_requests`` (indices into phase P's requests) profiles a serve
+    of only those requests (None: the whole serve). A stream equal to the plain run's is held to the plain
     run's teacher-forced rows (the same tokens give the same rows). The fp32
-    masters are dropped once cast; their peak is logged."""
+    masters are dropped once cast; their peak is logged. With ``keep`` the
+    result also holds what phase D compares with: the cast params, the plain
+    run's streams and their teacher-forced rows."""
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.serving.prefix_cache import pytree_nbytes
     from repro_torch.utils import cast_params_for_compute
@@ -1486,19 +1506,23 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram",
     if "slo" in engines:
         row_caps = engines["slo"]._row_caps
 
-        def logged_caps(sched):
-            caps = row_caps(sched)
-            for local in np.flatnonzero(sched.live):
-                slo_caps.setdefault(sched.req[local].id, []).append(int(caps[local]))
+        def logged_caps(hosts, K):
+            caps = row_caps(hosts, K)
+            for h, host in enumerate(hosts):
+                for local in np.flatnonzero(host.sched.live):
+                    slo_caps.setdefault(host.sched.req[local].id, []).append(
+                        int(caps[h * K + local]))
             return caps
         engines["slo"]._row_caps = logged_caps
 
-    def serve(name, n_reqs=None):
+    def serve(name, picked=None):
         eng = engines[name]
         torch.cuda.synchronize()
         k1.stlt_scan_kernel.launches = 0
         t0 = time.time()
-        res, stats = eng.serve(reqs[:n_reqs], slots=P_SLOTS, arrivals=arrivals[:n_reqs],
+        sub = range(len(reqs)) if picked is None else picked
+        res, stats = eng.serve([reqs[i] for i in sub], slots=P_SLOTS,
+                               arrivals=[arrivals[i] for i in sub],
                                return_stats=True)
         torch.cuda.synchronize()
         return res, stats, time.time() - t0, k1.stlt_scan_kernel.launches
@@ -1607,7 +1631,7 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram",
     if profile_requests is not None:
         serve(profiled, profile_requests)
         pss = dict(engines[profiled].serve_stats)
-        what += f" of the first {profile_requests} requests"
+        what += f" of request(s) {list(profile_requests)}"
     ticks = pss.get("verify_dispatches", 0) + pss["decode_dispatches"]
     prof = serve_profile(lambda: serve(profiled, profile_requests), ticks,
                          L * k1_dispatches(pss))
@@ -1634,11 +1658,327 @@ def spec_phase(T, k1, cfg, dev, k1_rows, runs=P_RUNS, tag="P", profiled="ngram",
             f"operators + launch), K1 device time {device}, kernel alone {vrow['alone']:.4f} ms, plain "
             f"version {vrow['plain']:.4f} ms, bound {vrow['bound']:.5f} ms "
             f"({vrow['bound_by']}) [{smi}]")
+    kept = {}
+    if keep:
+        kept = {"params": params, "plain": done["plain"]["res"],
+                "plain_rows": {r.id: checks[("plain", r.id)] for r in reqs}}
     for name in done:
         del done[name]["res"]
     return {"runs": done, "profile": prof, "tol": tol, "gap": gap, "ties": ties,
             "tie_gap": tie_gap, "same": same, "slot_bytes": slot_bytes,
-            "init_peak_gib": init_peak / 2**30, "held_gib": held / 2**30}
+            "init_peak_gib": init_peak / 2**30, "held_gib": held / 2**30, **kept}
+
+
+# ---------------------------------------------------------------------------
+# Phase D: disaggregated prefill/decode serving of phase P's model
+# ---------------------------------------------------------------------------
+# Phase P's SmolLM-360M-stlt (its cast params) and requests served by
+# serving.disagg.DisaggController on the one card: 2 prefill hosts and 2
+# decode hosts x 2 slots (phase P's 4 decode rows), chunk 512, over the
+# loopback transport. D2's chaos: a seeded schedule of message faults
+# (D_FAULTS, seed D_CHAOS_SEED) plus one prefill host and one decode host
+# killed at the ticks of D_KILLS (mid-trace: prompts are still being
+# admitted at tick 6, every request is decoding or queued at tick 12). D3:
+# one prefill worker process on the same card over a 127.0.0.1 socket; its
+# one host holds the prefill fleet's D_PREFILL x D_SLOTS rows, so its K1
+# calls have the admission shapes phase 2 holds (60 and 15 x 512).
+D_PREFILL, D_DECODE, D_SLOTS = 2, 2, 2
+D_WORKER_SLOTS = D_PREFILL * D_SLOTS
+D_FAULTS = dict(drop=0.05, dup=0.05, delay=0.05, corrupt=0.05)
+D_CHAOS_SEED = 1
+D_KILLS = {6: ("prefill/1",), 12: ("decode/0",)}
+D_WORKER_WAIT_S = 180    # the worker's start (imports, params) and its serve
+
+
+def fleet_k1(k1, engine) -> dict:
+    """Counts the K1 launches made inside an engine's tick phases (its
+    fleet's launches): wraps its ``_tick_admission`` and ``_tick_decode``."""
+    counts = {"k1": 0}
+    for name in ("_tick_admission", "_tick_decode"):
+        real = getattr(engine, name)
+
+        def counted(run, real=real):
+            before = k1.stlt_scan_kernel.launches
+            out = real(run)
+            counts["k1"] += k1.stlt_scan_kernel.launches - before
+            return out
+        setattr(engine, name, counted)
+    return counts
+
+
+def fleet_metrics(res, stats, reqs, wall) -> dict:
+    """Wall, tok/s, and TTFT and gap percentiles on the fleet clocks: a
+    request's TTFT is its prefill-fleet span (``prefill_s``: admit queue to
+    handoff, 0 when it was prefilled on the decode fleet) plus its
+    decode-fleet span (first token's wall minus its ``arrival_wall``, both
+    on the decode clock); gaps are between its decode-clock token walls."""
+    n_tok = sum(len(v) for v in res.values())
+    ttft = [1e3 * (stats[r.id].get("prefill_s", 0.0) + stats[r.id]["token_walls"][0]
+                   - stats[r.id]["arrival_wall"]) for r in reqs]
+    gaps = [1e3 * (b - a) for r in reqs
+            for a, b in zip(stats[r.id]["token_walls"], stats[r.id]["token_walls"][1:])]
+    return {"wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+            "ttft_ms": np.percentile(ttft, [50, 99]).tolist(),
+            "gap_ms": np.percentile(gaps, [50, 99]).tolist()}
+
+
+def disagg_stream_check(T, cfg, params, dev, reqs, res, plain, plain_rows, what) -> dict:
+    """Every stream of ``res`` in full and held to phase P's plain colocated
+    run under the near-tie rule: a stream equal to the plain one passes (P
+    held it to each request run alone); another is fed to ``decode_step``
+    from its request run alone (``teacher_forced``) and every served token
+    must be the alone argmax or trail it by less than P_TIE_TOL. Returns the
+    equal streams, the near-tie steps and their largest logit gap."""
+    equal, ties, worst = 0, 0, 0.0
+    for r in reqs:
+        stream = res[r.id]
+        if len(stream) != r.max_new_tokens or not ((stream >= 0) & (stream < cfg.vocab)).all():
+            raise AssertionError(f"{what}: request {r.id} gave {stream}")
+        if np.array_equal(stream, plain[r.id]):
+            equal += 1
+            continue
+        logits, state = prompt_alone(T, cfg, params, dev, r.prompt, P_CHUNK, P_MAX_LEN)
+        rows, _ = teacher_forced(T, cfg, params, dev, state, logits, stream)
+        for step, ((best, d), tok) in enumerate(zip(rows, stream)):
+            if best != int(tok):
+                if not d < P_TIE_TOL:
+                    raise AssertionError(f"{what}: request {r.id} step {step}: served "
+                                         f"{int(tok)}, alone argmax {best}, logit gap {d} "
+                                         f">= {P_TIE_TOL}")
+                ties += 1
+                worst = max(worst, d)
+    return {"equal": equal, "ties": ties, "tie_gap": worst}
+
+
+def disagg_phase(T, k1, cfg, dev, p_out, tag="D") -> dict:
+    """Phase D: phase P's SmolLM-360M-stlt served by the disaggregated
+    controller at full width, its plain run (``p_out``, ``spec_phase(...,
+    keep=True)``) the reference. D1 (loopback, f32 wire): every stream
+    against P's plain stream under the near-tie rule; the prefill fleet's
+    K1 launches = STLT layers x its admission dispatches and the decode
+    fleet's 0 (no admission dispatch there); handoff bytes equal across
+    prompt lengths, beside the state's bytes; one shipped state unpacked bit
+    for bit equal to the state the prefill engine packed; fleet-clock TTFT
+    and gaps beside P's. Then the bf16 wire (byte ratio, streams) and a
+    compressed blob (the codec that ran, the round trip). D2: chaos and two
+    kills; every request completes under the near-tie rule, at least 2
+    failures detected. D3: a socket prefill worker process; streams under
+    the near-tie rule, no failure detected, the worker exits 0 after
+    ``bye`` and reports K1 launches = STLT layers x its admission
+    dispatches > 0 (none in this process). D4: the native SmolLM-360M decode state's blob beside D1's."""
+    from repro_torch.serving import DisaggController, FaultSchedule, Request
+    from repro_torch.serving.disagg import wire
+    from repro_torch.serving.disagg import worker as worker_lib
+    from repro_torch.serving.disagg.transport import Message, SocketTransport
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+    from repro_torch.utils import tree_flatten_with_paths
+
+    smi = smi_line()
+    params, plain, plain_rows = p_out["params"], p_out["plain"], p_out["plain_rows"]
+    reqs = spec_requests(cfg, Request)
+    arrivals = [s[3] for s in P_SPEC]
+    L = stlt_layers(cfg)
+    state_bytes = pytree_nbytes(T.init_decode_state(cfg, 1, P_MAX_LEN, device=dev))
+    out = {"state_bytes": state_bytes}
+
+    def controller(**kw):
+        return DisaggController(params, cfg, n_prefill=D_PREFILL, n_decode=D_DECODE,
+                                slots=D_SLOTS, max_len=P_MAX_LEN, prefill_chunk=P_CHUNK,
+                                device=dev, **kw)
+
+    def serve(ctl, name):
+        counts = {"prefill": fleet_k1(k1, ctl.prefill), "decode": fleet_k1(k1, ctl.decode)}
+        torch.cuda.synchronize()
+        k1.stlt_scan_kernel.launches = 0
+        t0 = time.time()
+        res, stats = ctl.serve(reqs, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = k1.stlt_scan_kernel.launches
+        pe, de = ctl.prefill.serve_stats, ctl.decode.serve_stats
+        p_k1, d_k1 = counts["prefill"]["k1"], counts["decode"]["k1"]
+        if not (launches == p_k1 == L * pe["admission_dispatches"] > 0 and d_k1 == 0
+                and de["admission_dispatches"] == 0):
+            raise AssertionError(f"{tag} {name}: {launches} K1 launches, prefill fleet "
+                                 f"{p_k1} for {pe}, decode fleet {d_k1} for {de}")
+        rep = ctl.report()
+        check = disagg_stream_check(T, cfg, params, dev, reqs, res, plain, plain_rows,
+                                    f"{tag} {name}")
+        row = {"k1_launches": launches, "prefill_k1": p_k1, "decode_k1": d_k1,
+               "prefill_stats": dict(pe), "decode_stats": dict(de),
+               "handoff_bytes": dict(ctl.handoff_bytes), "res": res,
+               "prefill_clock_s": rep["prefill_clock_s"],
+               "decode_clock_s": rep["decode_clock_s"], **check,
+               **fleet_metrics(res, stats, reqs, wall)}
+        log(f"[{tag} {name}] wall {wall:.3f} s, {row['tokens']} tokens, {row['tok_s']:.1f} "
+            f"tok/s; fleet clocks prefill {row['prefill_clock_s']:.3f} s, decode "
+            f"{row['decode_clock_s']:.3f} s; TTFT p50/p99 {row['ttft_ms'][0]:.2f}/"
+            f"{row['ttft_ms'][1]:.2f} ms, gap p50/p99 {row['gap_ms'][0]:.3f}/"
+            f"{row['gap_ms'][1]:.3f} ms on the fleet clocks (P plain colocated: TTFT "
+            f"{p_plain['ttft_ms'][0]:.2f}/{p_plain['ttft_ms'][1]:.2f} ms, gap "
+            f"{p_plain['gap_ms'][0]:.3f}/{p_plain['gap_ms'][1]:.3f} ms, wall "
+            f"{p_plain['wall_s']:.3f} s); K1 launches {launches} = prefill fleet {p_k1} "
+            f"= {L} layers x {pe['admission_dispatches']} admission dispatches, decode fleet "
+            f"{d_k1} ({de['decode_dispatches']} decode dispatches); streams equal to P's "
+            f"plain {check['equal']}/{len(reqs)}, near-tie steps {check['ties']} (largest gap "
+            f"{check['tie_gap']:.4g} < {P_TIE_TOL}) [{smi}]")
+        return row
+
+    p_plain = p_out["runs"]["plain"]
+    t_phase = time.time()
+    controller().serve(reqs, arrivals=arrivals)   # first call: one-time costs
+    # D1: loopback, f32 wire; capture one shipped state and its blob
+    ctl = controller()
+    shipped = {}
+    real_promote, real_accept = ctl.prefill._handoff_promote, ctl._accept_handoff
+
+    def capture_state(run, h, local, ent, logits1, st1):
+        if "rid" not in shipped:
+            shipped["rid"] = ent["req"].id
+            shipped["state"] = [(k, t.clone()) for k, t in tree_flatten_with_paths(st1)]
+        return real_promote(run, h, local, ent, logits1, st1)
+
+    def capture_blob(msg, j, d_run, receiver):
+        if msg.payload["req"].id == shipped.get("rid") and "blob" not in shipped:
+            shipped["blob"] = msg.payload["blob"]
+        return real_accept(msg, j, d_run, receiver)
+    ctl.prefill._handoff_promote, ctl._accept_handoff = capture_state, capture_blob
+    d1 = serve(ctl, "D1 loopback f32")
+    hb = d1["handoff_bytes"]
+    if sorted(hb) != [r.id for r in reqs] or len(set(hb.values())) != 1:
+        raise AssertionError(f"{tag} D1: handoff bytes {hb}")
+    blob_bytes = next(iter(hb.values()))
+    got = dict(tree_flatten_with_paths(wire.unpack_state(shipped["blob"], device=dev)[0]))
+    for k, t in shipped["state"]:
+        if not (got[k].dtype == t.dtype and torch.equal(got[k], t)):
+            raise AssertionError(f"{tag} D1: request {shipped['rid']}'s shipped {k} differs "
+                                 "from the state the prefill engine packed")
+    lens = sorted(len(r.prompt) for r in reqs)
+    log(f"[{tag} D1] handoff bytes per request {blob_bytes} for every prompt of "
+        f"{lens[0]}-{lens[-1]} tokens (the state: {state_bytes} bytes; header and meta "
+        f"{blob_bytes - state_bytes}); request {shipped['rid']}'s shipped state unpacks bit "
+        f"for bit to the state the prefill engine packed ({len(shipped['state'])} leaves) "
+        f"[{smi}]")
+    # the bf16 wire, and a compressed blob
+    d1b = serve(controller(wire_store="bf16"), "D1 loopback bf16 wire")
+    ratio = next(iter(d1b["handoff_bytes"].values())) / blob_bytes
+    if len(set(d1b["handoff_bytes"].values())) != 1 or not ratio < 0.75:
+        raise AssertionError(f"{tag} D1 bf16: handoff bytes {d1b['handoff_bytes']}")
+    packed = wire.pack_state(wire.unpack_state(shipped["blob"])[0], compress="zstd")
+    fixed = len(wire.MAGIC) + 12
+    hlen = int.from_bytes(packed[len(wire.MAGIC) + 4:len(wire.MAGIC) + 8], "little")
+    codec = json.loads(packed[fixed:fixed + hlen])["codec"]
+    same = wire.unpack_state(packed)[1] == wire.unpack_state(shipped["blob"])[1]
+    if codec != wire.wire_codec("zstd") or not same:
+        raise AssertionError(f"{tag} D1: compressed blob codec {codec}, digest equal {same}")
+    log(f"[{tag} D1] bf16 wire: {next(iter(d1b['handoff_bytes'].values()))} bytes per "
+        f"request = {ratio:.4f} of the f32 wire's; compress='zstd' ran codec {codec!r}: "
+        f"{len(packed)} bytes ({len(packed) / blob_bytes:.4f} of the plain blob), unpacks "
+        f"to the same digest [{smi}]")
+    log(f"[{tag} time] D1: {time.time() - t_phase:.1f} s")
+
+    # D2: chaos, one prefill and one decode host killed mid-trace
+    t_phase = time.time()
+    ctl = controller(faults=FaultSchedule(D_CHAOS_SEED, kills=D_KILLS, **D_FAULTS))
+    d2 = serve(ctl, "D2 chaos")
+    fs = ctl.fault_stats()
+    d2["equal_d1"] = sum(np.array_equal(d2["res"][r.id], d1["res"][r.id]) for r in reqs)
+    if fs["detected_failures"] < 2 or fs["outbox_unacked"]:
+        raise AssertionError(f"{tag} D2: fault_stats {fs}")
+    d2["fault_stats"] = fs
+    log(f"[{tag} D2] chaos seed {D_CHAOS_SEED} {D_FAULTS}, kills {D_KILLS}: every request "
+        f"completed; streams bit-equal to D1's {d2['equal_d1']}/{len(reqs)}; fault_stats "
+        f"{json.dumps(fs)} [{smi}]")
+    log(f"[{tag} time] D2: {time.time() - t_phase:.1f} s")
+
+    # D3: one prefill worker process on the same card, over a socket
+    t_phase = time.time()
+    tr = SocketTransport("controller", listen=("127.0.0.1", 0))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.serving.disagg.worker",
+                             "--connect", f"127.0.0.1:{tr._server.getsockname()[1]}",
+                             "--name", "prefill/0", "--max-idle-s", str(D_WORKER_WAIT_S)],
+                            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    timer = threading.Timer(D_WORKER_WAIT_S, lambda: proc.poll() is None and proc.kill())
+    timer.daemon = True
+    timer.start()
+    try:
+        hello = False
+        while not hello and time.time() - t0 < D_WORKER_WAIT_S and proc.poll() is None:
+            hello = any(m.kind == "hello" for m in tr.recv("controller", timeout=0.2))
+        if not hello:
+            raise AssertionError(f"{tag} D3: the worker never said hello: "
+                                 f"{proc.stderr.read().decode()[-2000:] if proc.poll() is not None else ''}")
+        hello_s = time.time() - t0
+        tr.send(Message("config", "controller", "prefill/0", {
+            "cfg": worker_lib.cfg_to_wire(cfg), "seed": 0, "max_len": P_MAX_LEN,
+            "prefill_chunk": P_CHUNK, "slots": D_WORKER_SLOTS, "prompt_len": None,
+            "wire_store": "f32"}))
+        ctl = DisaggController(params, cfg, n_prefill=1, n_decode=D_DECODE, slots=D_SLOTS,
+                               max_len=P_MAX_LEN, prefill_chunk=P_CHUNK, device=dev,
+                               transport=tr, remote_prefill=["prefill/0"],
+                               heartbeat_deadline_s=D_WORKER_WAIT_S / 2)
+        counts = fleet_k1(k1, ctl.decode)
+        k1.stlt_scan_kernel.launches = 0
+        t1 = time.time()
+        res, stats = ctl.serve(reqs, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+        fs = ctl.fault_stats()
+        if fs["detected_failures"] or k1.stlt_scan_kernel.launches or counts["k1"]:
+            raise AssertionError(f"{tag} D3: {k1.stlt_scan_kernel.launches} K1 launches in "
+                                 f"the controller's process; fault_stats {fs}")
+        check = disagg_stream_check(T, cfg, params, dev, reqs, res, plain, plain_rows,
+                                    f"{tag} D3")
+        tr.send(Message("bye", "controller", "prefill/0", {}))
+        err = proc.communicate(timeout=D_WORKER_WAIT_S)[1].decode()
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} D3: the worker exited {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        # the worker's report after bye: its K1 launches and dispatches
+        wk = next((json.loads(line) for line in reversed(err.splitlines())
+                   if line.startswith('{"worker"')), None)
+        if wk is None or not (wk["k1_launches"] == L * wk["admission_dispatches"] > 0):
+            raise AssertionError(f"{tag} D3: the worker's report {wk}: K1 launches must be "
+                                 f"{L} x its admission dispatches > 0: {err[-2000:]}")
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        tr.close()
+    d3 = {"hello_s": hello_s, "handoff_bytes": dict(ctl.handoff_bytes), **check,
+          "worker_k1": wk["k1_launches"], "worker_stats": wk,
+          "equal_d1": sum(np.array_equal(res[r.id], d1["res"][r.id]) for r in reqs),
+          "decode_clock_s": ctl.decode.clock, **fleet_metrics(res, stats, reqs, wall)}
+    log(f"[{tag} D3] socket worker: start-up {hello_s:.2f} s to its hello (process, "
+        f"imports, connect), serve wall {wall:.3f} s (the worker's params and first "
+        f"dispatches included), {len(d3['handoff_bytes'])} handoffs of "
+        f"{sorted(set(d3['handoff_bytes'].values()))} bytes; 0 K1 launches in the "
+        f"controller's process, {wk['k1_launches']} in the worker's = {L} layers x "
+        f"{wk['admission_dispatches']} admission dispatches ({D_WORKER_SLOTS} rows); "
+        f"streams equal to P's plain "
+        f"{check['equal']}/{len(reqs)}, to D1's {d3['equal_d1']}/{len(reqs)}, near-tie "
+        f"steps {check['ties']}; the worker exited 0 after bye [{smi}]")
+    log(f"[{tag} time] D3: {time.time() - t_phase:.1f} s")
+
+    # D4: the native SmolLM-360M decode state (a KV cache of P_MAX_LEN) as a blob
+    from repro_torch.configs import get_config
+    native = get_config("smollm-360m")
+    kv_state = T.init_decode_state(native, 1, P_MAX_LEN, device=dev)
+    kv_blob = len(wire.pack_state(kv_state))
+    log(f"[{tag} D4] native SmolLM-360M decode state at max_len {P_MAX_LEN}: "
+        f"{pytree_nbytes(kv_state)} bytes, blob {kv_blob} bytes = {kv_blob / blob_bytes:.2f}x "
+        f"D1's STLT blob ({blob_bytes} bytes) [{smi}]")
+    del kv_state
+    for row in (d1, d1b, d2):
+        del row["res"]
+    out.update(D1=d1, D1_bf16=d1b, D2=d2, D3=d3, blob_bytes=blob_bytes,
+               bf16_ratio=ratio, codec=codec, compressed_bytes=len(packed),
+               kv_blob_bytes=kv_blob, kv_ratio=kv_blob / blob_bytes)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2053,6 +2393,10 @@ def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N,
 # A1 serves phase P's requests with the native config: plain and with the
 # n-gram draft (the node draft and the SLO ladder act on STLT blocks only).
 A_RUNS = (("plain", {}), ("ngram", dict(spec_k=P_K, spec_draft="ngram")))
+# A1's depth, cut from 32 layers to fit the script's time limit (A1 took
+# 125 s at 32 layers on an H100, PERF.md, phase D); its per-slot bytes are
+# read at full depth.
+A1_LAYERS = 8
 # A2: a prompt of A_PROMPT tokens (3 chunks of P_CHUNK and a tail), fp32,
 # chunked against monolithic prefill and A_NEW decode steps against the
 # teacher-forced forward; the blockwise path against the dense one on one
@@ -2269,7 +2613,8 @@ def train_cpu_check(T, train, c, dev, tag="A3", B=A_CPU_B, N=A_CPU_N) -> dict:
 def attention_phase(T, train, W, steps, k1, dev, get_config) -> dict:
     """Phase A: the paper's baseline, native softmax attention, at full
     width (plain torch; no kernel of the port on its path: K1 must make 0
-    launches in every part). A1 serves native SmolLM-360M (bf16, matrices
+    launches in every part). A1 serves native SmolLM-360M at A1_LAYERS
+    layers (bf16, matrices
     cast as the serve CLI casts them) through ``spec_phase`` (plain and the
     n-gram draft; the plain serve profiled: fewer launches to read back than
     the n-gram serve's 332k), with the per-slot decode state beside the
@@ -2285,15 +2630,17 @@ def attention_phase(T, train, W, steps, k1, dev, get_config) -> dict:
     cfg = get_config("smollm-360m")
     out = {"times": {}}
     t0 = time.time()
-    out["A1"] = spec_phase(T, k1, cfg, dev, None, runs=A_RUNS, tag="A1", profiled="plain")
-    stlt_bytes = pytree_nbytes(T.init_decode_state(get_config("smollm-360m", "stlt"), 1,
-                                                   P_MAX_LEN, device=dev))
-    out["A1"]["stlt_slot_bytes"] = stlt_bytes
-    log(f"[A1 serve] decode state of one slot: native {out['A1']['slot_bytes']} bytes "
-        f"({out['A1']['slot_bytes'] / 2**20:.2f} MiB: bf16 K and V, {cfg.num_layers} layers x "
+    out["A1"] = spec_phase(T, k1, period_cfg(cfg, A1_LAYERS), dev, None, runs=A_RUNS,
+                           tag="A1", profiled="plain")
+    native_bytes, stlt_bytes = (
+        pytree_nbytes(T.init_decode_state(c, 1, P_MAX_LEN, device=dev))
+        for c in (cfg, get_config("smollm-360m", "stlt")))
+    out["A1"]["full_slot_bytes"], out["A1"]["stlt_slot_bytes"] = native_bytes, stlt_bytes
+    log(f"[A1 serve] decode state of one slot at full depth: native {native_bytes} bytes "
+        f"({native_bytes / 2**20:.2f} MiB: bf16 K and V, {cfg.num_layers} layers x "
         f"{P_MAX_LEN} positions x {cfg.num_kv_heads} KV heads x {cfg.dh}), STLT variant "
         f"{stlt_bytes} bytes ({stlt_bytes / 2**20:.2f} MiB: fp32 carries, O(S d), any "
-        f"length); ratio {out['A1']['slot_bytes'] / stlt_bytes:.1f} [{smi}]")
+        f"length); ratio {native_bytes / stlt_bytes:.1f} [{smi}]")
     out["times"]["A1"] = time.time() - t0
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -2375,8 +2722,12 @@ H2_GAP_CAP = 0.25
 H2_TIE_TOL = 2 * H2_GAP_CAP
 H5_GAP_CAP = 0.125
 H5_TIE_TOL = 2 * H5_GAP_CAP
-# H1 and H2 profile a serve of phase P's first 4 requests (of 8).
-H_PROFILE_REQUESTS = 4
+# H1 and H2 serve recurrentgemma-9b cut to H_SERVE_LAYERS layers (two
+# periods: 4 rg-LRU and 2 local-attention or STLT blocks) to fit the
+# script's time limit; at 38 layers H1 and H2 took 98 and 86 s (PERF.md,
+# phase D). The caps above were read at full depth, where the gaps are
+# largest.
+H_SERVE_LAYERS = 2 * H_PERIOD
 
 
 def period_cfg(cfg, layers=H_PERIOD, **kw):
@@ -2543,10 +2894,10 @@ def generate_check_phase(T, k1, cfg, params, dev, tag, B, prompt, new, gap_cap, 
 
 def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
     """Phase H: recurrentgemma-9b in both forms at full width on the card.
-    H1 serves the native form and H2 the STLT variant (``spec_phase``,
-    plain and the n-gram draft, at H1_ and H2_GAP_CAP; K1 launches 0 in
-    H1, 12 x the dispatches that call it in H2), with the per-slot decode
-    state of each; H3 checks both forms in fp32 at one period of the
+    H1 serves the native form and H2 the STLT variant at H_SERVE_LAYERS
+    layers (``spec_phase``, plain and the n-gram draft, at H1_ and
+    H2_GAP_CAP; K1 launches 0 in H1, 2 x the dispatches that call it in
+    H2), with the per-slot decode state of each at full depth; H3 checks both forms in fp32 at one period of the
     pattern (``hybrid_check_phase``); H4 trains that period at full width
     (``smollm_train_phase``: 3 K1 calls a step in the STLT form, none in
     the native) and holds step 0 to the CPU at ``reduced()`` widths; H5 is
@@ -2560,18 +2911,19 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
     for tag, variant, cap, tol in (("H1", "native", H1_GAP_CAP, H1_TIE_TOL),
                                    ("H2", "stlt", H2_GAP_CAP, H2_TIE_TOL)):
         t0 = time.time()
-        cfg = get_config(H_ARCH, variant)
+        cfg = period_cfg(get_config(H_ARCH, variant), H_SERVE_LAYERS)
         out[tag] = spec_phase(T, k1, cfg, dev, k1_rows if variant == "stlt" else None,
                               runs=A_RUNS, tag=tag, profiled="plain", verify=H_K1_VERIFY,
-                              gap_cap=cap, tie_tol=tol, require_accept=False,
-                              profile_requests=H_PROFILE_REQUESTS)
+                              gap_cap=cap, tie_tol=tol, require_accept=False)
         out["times"][tag] = time.time() - t0
         free_cuda()
-    n_bytes, s_bytes = out["H1"]["slot_bytes"], out["H2"]["slot_bytes"]
     native = get_config(H_ARCH)
+    n_bytes, s_bytes = (pytree_nbytes(T.init_decode_state(c, 1, P_MAX_LEN, device=dev))
+                        for c in (native, get_config(H_ARCH, "stlt")))
     rec = pytree_nbytes(T._init_block_state(native, "rglru", 1, P_MAX_LEN, dev))
     n_attn, n_rec = (native.block_types().count(bt) for bt in ("local_attn", "rglru"))
-    log(f"[H serve] decode state of one slot at max_len {P_MAX_LEN}: native {n_bytes} bytes "
+    log(f"[H serve] decode state of one slot at max_len {P_MAX_LEN}, full depth: native "
+        f"{n_bytes} bytes "
         f"({n_bytes / 2**20:.2f} MiB: {n_attn} bf16 rings of "
         f"{min(P_MAX_LEN, native.local_window)} positions x {native.num_kv_heads} KV head x "
         f"{native.dh}, K and V, and {n_rec} fp32 rg-LRU states of {rec} bytes), STLT variant "
@@ -2617,10 +2969,10 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
 # X1 serves it in bf16 (matrices cast as the serve CLI casts them; the
 # mLSTM's conv taps and gate projections and the sLSTM's biases stay fp32)
 # on phase P's requests, plain and with the n-gram draft, through
-# spec_phase (the plain serve of the first X1_PROFILE_REQUESTS profiled:
-# reading back the ~176k kernel events of 2 requests took 38 s); X2
-# checks it in fp32 at one period of the pattern (7 mLSTM + 1 sLSTM)
-# through hybrid_check_phase; X3 trains that period at full width,
+# spec_phase at X1_LAYERS, one period of the pattern (7 mLSTM + 1 sLSTM;
+# 111 s at 24 layers on an H100, PERF.md, phase D, so its depth is cut to fit
+# the script's time limit); X2 checks that period in fp32 through
+# hybrid_check_phase; X3 trains it at full width,
 # X3_B x X3_N in bf16 with remat (AdamW), through smollm_train_phase. K1
 # makes no launch. The sLSTM is a true recurrence, one Python step per
 # token in every form (as JAX's lax.scan): all 24 layers took 14.5 s a
@@ -2628,8 +2980,8 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
 # period (a third of the depth) and reads the peak memory over its timed
 # steps instead of extra steps per remat mode.
 X_ARCH, X_PERIOD = "xlstm-350m", 8
+X1_LAYERS = X_PERIOD
 X3_B, X3_N = 8, 1024
-X1_PROFILE_REQUESTS = 1
 # The bf16 chunk-form vs recurrent-form logit gap X1 accepts, and its
 # near-tie tolerance (twice the cap), as phase P's. In bf16 the mLSTM's
 # two forms differ by more than rounding, in the JAX package as in the
@@ -2652,12 +3004,12 @@ X3_BF16_GRAD_TOL = 0.17
 
 
 def xlstm_phase(T, train, k1, dev, get_config) -> dict:
-    """Phase X: xlstm-350m on the card. X1 serves it at full width and depth
-    in bf16 (``spec_phase``, plain and the n-gram draft: each stream against
+    """Phase X: xlstm-350m on the card. X1 serves it at full width,
+    X1_LAYERS deep, in bf16 (``spec_phase``, plain and the n-gram draft: each stream against
     its request run alone under the near-tie rule at X1_TIE_TOL, the
     chunk-form vs recurrent-form gap at most X1_GAP_CAP, verify against
-    decode dispatches, 0 K1 launches, the per-slot state's bytes, timed, the
-    plain serve of the first 4 requests profiled); X2 checks one period in
+    decode dispatches, 0 K1 launches, timed, a plain serve profiled; the
+    per-slot state's bytes at full depth); X2 checks one period in
     fp32 (``hybrid_check_phase`` at X_PERIOD layers: chunked vs monolithic,
     the idle row bit for bit, decode vs teacher-forced, the card vs the CPU);
     X3 trains that period at X3_B x X3_N in bf16 with remat
@@ -2670,14 +3022,16 @@ def xlstm_phase(T, train, k1, dev, get_config) -> dict:
     out = {"times": {}}
     free_cuda()
     t0 = time.time()
-    out["X1"] = spec_phase(T, k1, cfg, dev, None, runs=A_RUNS, tag="X1", profiled="plain",
-                           gap_cap=X1_GAP_CAP, tie_tol=X1_TIE_TOL, require_accept=False,
-                           profile_requests=X1_PROFILE_REQUESTS)
+    out["X1"] = spec_phase(T, k1, period_cfg(cfg, X1_LAYERS), dev, None, runs=A_RUNS,
+                           tag="X1", profiled="plain", gap_cap=X1_GAP_CAP, tie_tol=X1_TIE_TOL,
+                           require_accept=False)
+    out["X1"]["full_slot_bytes"] = slot_bytes = pytree_nbytes(
+        T.init_decode_state(cfg, 1, P_MAX_LEN, device=dev))
     kinds = {bt: cfg.block_types().count(bt) for bt in ("mlstm", "slstm")}
     states = {bt: T._init_block_state(cfg, bt, 1, P_MAX_LEN, dev) for bt in kinds}
     per = {bt: pytree_nbytes(st) for bt, st in states.items()}
-    log(f"[X1 serve] decode state of one slot: {out['X1']['slot_bytes']} bytes "
-        f"({out['X1']['slot_bytes'] / 2**20:.2f} MiB: {kinds['mlstm']} mLSTM states of "
+    log(f"[X1 serve] decode state of one slot at full depth: {slot_bytes} bytes "
+        f"({slot_bytes / 2**20:.2f} MiB: {kinds['mlstm']} mLSTM states of "
         f"{per['mlstm']} bytes, C {list(states['mlstm']['C'].shape[1:])}, n, m and the conv "
         f"window, and {kinds['slstm']} sLSTM states of {per['slstm']} bytes, all fp32, "
         f"whatever the length) [{smi}]")
@@ -3134,11 +3488,17 @@ def main(argv) -> int:
     H, S, C, dh = cfg.num_heads, cfg.stlt_nodes, cfg.stlt_chunk, cfg.dh
     B, N, NEW = 4, 1000, 32
     t_all = time.time()
+    laps, t_lap = {}, [t_all]
+
+    def lap(name):
+        """Record the seconds since the previous lap under ``name``."""
+        laps[name], t_lap[0] = time.time() - t_lap[0], time.time()
 
     # 1. build -----------------------------------------------------------------
     t0 = time.time()
     build.build_kernels(echo=True)
     log(f"[1 build] kernels built in {time.time() - t0:.1f} s")
+    lap("1")
 
     # 2. K1 vs its plain version at the main path's shapes, at batch 1 and
     # over a long row -----------------------------------------------------------
@@ -3226,6 +3586,7 @@ def main(argv) -> int:
             if not torch.isfinite(got).all():
                 raise AssertionError("K2 returned non-finite values")
 
+    lap("2")
     # T1. the scan's VJP on the card: K1 forward and anti-causal (dx), the
     # analytic pole/mixer grads, against float64 autograd -----------------------
     vjp_err = max(scan_vjp_check(k1, ops, dev, B, H, n_t, S, dh, C, rev)
@@ -3236,6 +3597,7 @@ def main(argv) -> int:
         scan_vjp_check(k1, ops, dev, T3_B, smollm.num_heads, T3_N, smollm.stlt_nodes,
                        smollm.dh, smollm.stlt_chunk, rev) for rev in (False, True)])
 
+    lap("T1")
     # 3. the main path: full-width stlt-base generate --------------------------
     params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     engine = ServeEngine(params, cfg, max_len=N + NEW, device=dev)
@@ -3395,8 +3757,10 @@ def main(argv) -> int:
                                  f"argmax agreement {agree}")
 
     del cpu_params
+    lap("3-8")
     # T2. the training path: full-width stlt-base, AdamW steps on the card ----------
     tr = train_phase(T, train, k1, cfg, dev, B, N)
+    lap("T2")
 
     # 6. timing -------------------------------------------------------------------
     k1_rows = k1_timings(k1, ops, dev, C)
@@ -3520,23 +3884,37 @@ def main(argv) -> int:
         k2.relevance_flash(*ins[:4], masks=ins[4], kmask=a[5]), ins, dz),
         "one K2 forward + backward (backward: autograd through the plain version)")
 
+    lap("6")
     # S. the serving path: continuous serve with chunked admission through K1
     # and the prefix cache, against each request run alone; wave mode. Last,
     # so that its long profile cannot disturb the kernel timings' profiles.
     srv = serve_phase(T, k1, cfg, engine.params, dev)
+    lap("S")
     del engine, params, rparams
     torch.cuda.empty_cache()
 
     # P. SmolLM-360M's STLT variant in bf16: speculative decoding and the SLO
     # node ladder through K1 at S = 32
-    spec = spec_phase(T, k1, smollm, dev, k1_rows)
+    spec = spec_phase(T, k1, smollm, dev, k1_rows, keep=True)
     torch.cuda.empty_cache()
+    lap("P")
+
+    # D. the same model and requests served by the disaggregated prefill and
+    # decode fleets (K1 on the prefill fleet only): loopback, chaos, a socket
+    # worker process; the native KV state's blob beside the STLT state's
+    disagg = disagg_phase(T, k1, smollm, dev, spec)
+    for key in ("params", "plain", "plain_rows"):
+        del spec[key]
+    free_cuda()
+    lap("D")
 
     # T3. SmolLM-360M-stlt trained in bf16 with remat through K1, and the
     # paper-small preset through the CLI with a checkpoint and a resume
     t3 = smollm_train_phase(T, train, k1, smollm, dev, T3_B, T3_N)
+    lap("T3")
     cli = cli_resume_phase(train)
     torch.cuda.empty_cache()
+    lap("CLI")
 
     # W. whisper-base's STLT variant: encode and greedy decode (W1, card vs
     # CPU at 2 + 2 layers), training in bf16 with remat (W2), through K1
@@ -3549,12 +3927,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     w2 = whisper_train_phase(W, train, k1, wcfg, dev, steps.WHISPER_ENC_FRAMES)
     torch.cuda.empty_cache()
+    lap("W")
 
     # A. native attention, the paper's baseline: SmolLM-360M served (plain
     # and n-gram spec), checked, timed beside SDPA, trained; native
     # whisper-base encoded, decoded and trained. No K1 launch.
     attention_phase(T, train, W, steps, k1, dev, get_config)
     torch.cuda.empty_cache()
+    lap("A")
 
     # H. the hybrid family: recurrentgemma-9b served in both forms at full
     # width (K1 at head dim 256 in the STLT variant, none in the native),
@@ -3571,9 +3951,11 @@ def main(argv) -> int:
             f"call {r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound "
             f"{r['bound']:.4f} ms ({r['bound_by']})")
         del h_args
+    lap("H")
 
     # X. xLSTM: xlstm-350m served, checked, trained (no K1 launch)
     xl = xlstm_phase(T, train, k1, dev, get_config)
+    lap("X")
     # M. the MoE family: qwen3-moe served at 4 layers in both forms (K1 at
     # head dim 64 in the STLT variant), checked against the CPU and trained
     # at 1 layer; arctic generates at 1 layer (K1 at head dim 128)
@@ -3588,7 +3970,9 @@ def main(argv) -> int:
             f"call {r['call']:.4f} ms, ops.stlt_scan {r['scan']:.4f} ms, plain version "
             f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
         del m_args
-    log(f"[6 timing] whole script {time.time() - t_all:.1f} s")
+    lap("M")
+    log(f"[6 timing] whole script {time.time() - t_all:.1f} s; by phase: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in laps.items()))
 
     print(smi_line())
     print(json.dumps({"kernels": [{
@@ -3628,6 +4012,15 @@ def main(argv) -> int:
         # shape: device time, ops.stlt_scan's time, its bound
         "launches_per_spec_serve": spec["runs"]["nodes"]["k1_launches"],
         "launches_per_ngram_spec_serve": spec["runs"]["ngram"]["k1_launches"],
+        # phase D: K1 launches in the disaggregated serve's prefill fleet
+        # (layers x its admission dispatches) and decode fleet (0), and in
+        # the chaos serve's prefill fleet (re-prefills included)
+        "launches_per_disagg_serve": disagg["D1"]["prefill_k1"],
+        "launches_per_disagg_decode_fleet": disagg["D1"]["decode_k1"],
+        "launches_per_disagg_chaos_serve": disagg["D2"]["prefill_k1"],
+        # and in the socket prefill worker's process (layers x its admission
+        # dispatches, from the report it prints after bye)
+        "launches_per_disagg_worker_serve": disagg["D3"]["worker_k1"],
         "verify_shape": list(K1_VERIFY), "verify_device_ms": k1_rows[K1_VERIFY]["device"],
         "verify_alone_ms": k1_rows[K1_VERIFY]["alone"],
         "verify_scan_ms": k1_rows[K1_VERIFY]["scan"],

@@ -26,7 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils import tree_flatten_with_paths, tree_unflatten
+from repro_torch.utils import jax_order, tree_flatten_with_paths, tree_unflatten
 
 MANIFEST = "MANIFEST.json"
 SHARD_LEAVES = 256  # leaves per npz shard file
@@ -54,17 +54,6 @@ def to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _jax_order(tree):
-    """``tree`` with each dict's keys sorted: the order in which JAX flattens
-    a dict, so that leaves, keys and shards fall as the JAX package writes
-    them."""
-    if isinstance(tree, dict):
-        return {k: _jax_order(tree[k]) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return [_jax_order(v) for v in tree]
-    return tree
-
-
 def step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
@@ -78,7 +67,7 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> str:
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": [], "num_shards": 0}
     shard, shard_idx = {}, 0
-    for i, (name, leaf) in enumerate(tree_flatten_with_paths(_jax_order(tree))):
+    for i, (name, leaf) in enumerate(tree_flatten_with_paths(jax_order(tree))):
         arr, dtype = host_array(leaf)
         key = f"leaf_{i:06d}"
         shard[key] = arr

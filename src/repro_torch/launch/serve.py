@@ -1,5 +1,6 @@
 """Serving command line of the port: requests through ``ServeEngine.serve`` on
-one device (the colocated part of the JAX package's ``launch/serve.py``).
+one device, or through the disaggregated prefill/decode fleets (the JAX
+package's ``launch/serve.py`` without its sharded ``--mesh-data``).
 
   python -m repro_torch.launch.serve --arch stlt-base --requests 8 \
       --prompt-len 512 --max-new 32 --prefill-chunk 512 --system-prompt-len 512
@@ -38,6 +39,27 @@ alone once a dispatch drops (``models/moe.py``).
 16,8,4`` the node-budget ladder with its triggers ``--slo-gap-ms`` and
 ``--slo-queue-depth``. Runs on CUDA unless ``--device`` names another
 device.
+
+``--role disagg`` serves through ``serving.disagg.DisaggController``:
+``--prefill-hosts``/``--decode-hosts`` size the two fleets (``--slots``
+rows each) on the one device, each finished prompt's state ships to the
+decode fleet as an O(S*d) wire blob (flat in prompt length; ``--wire-store
+bf16`` narrows its float32 carries, ``--wire-compress zstd`` deflates it),
+``--steal-threshold`` turns on cross-role work stealing and
+``--chaos-seed`` injects a seeded message-fault schedule; the report block
+prints the handoff bytes per request, steals, gossip, the fleet clocks,
+the transport's messages and the fault counters. ``--role controller
+--listen HOST:PORT --workers N`` waits for N socket prefill workers instead
+of prefilling in process; start each with ``--role prefill --connect
+HOST:PORT [--worker-name prefill/1]`` (the model config and init seed
+cross the wire, weights never do):
+
+  python -m repro_torch.launch.serve --arch smollm-360m --variant stlt --role disagg \
+      --prefill-hosts 2 --decode-hosts 2 --slots 2 --prefill-chunk 512 \
+      --prompt-len 1024 --wire-store bf16
+  python -m repro_torch.launch.serve --arch smollm-360m --variant stlt \
+      --role controller --listen 127.0.0.1:18631 --workers 1 --prefill-chunk 512 &
+  python -m repro_torch.launch.serve --role prefill --connect 127.0.0.1:18631
 """
 from __future__ import annotations
 
@@ -49,7 +71,8 @@ import torch
 
 from repro_torch import configs as configs_lib
 from repro_torch.models import transformer as T
-from repro_torch.serving import PrefixCache, Request, ServeEngine
+from repro_torch.serving import (DisaggController, FaultSchedule, PrefixCache, Request,
+                                 ServeEngine)
 from repro_torch.utils import cast_params_for_compute, resolve_device, tree_leaves
 
 
@@ -111,8 +134,46 @@ def main(argv=None):
                     help="comma-separated node-budget ladder for SLO "
                          "degradation, e.g. '16,8,4' (requires a trigger: "
                          "--slo-gap-ms or --slo-queue-depth)")
+    ap.add_argument("--role", default="colocated",
+                    choices=["colocated", "disagg", "controller", "prefill"],
+                    help="colocated: one engine (default). disagg: prefill and "
+                         "decode fleets over an in-process transport. "
+                         "controller: disagg with socket prefill workers "
+                         "(--listen, --workers). prefill: one worker (--connect)")
+    ap.add_argument("--prefill-hosts", type=int, default=1)
+    ap.add_argument("--decode-hosts", type=int, default=1)
+    ap.add_argument("--steal-threshold", type=int, default=0,
+                    help="steal queued prefill work onto idle decode hosts "
+                         "when the unadmitted backlog reaches this (0 = off)")
+    ap.add_argument("--wire-store", default="f32", choices=["f32", "bf16"],
+                    help="handoff state dtype on the wire (bf16 halves the "
+                         "float32 carries; logits always cross as float32)")
+    ap.add_argument("--wire-compress", default="", choices=["", "zstd"],
+                    help="compress handoff blobs (zstd, or zlib where the "
+                         "zstandard module is absent)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="inject a seeded message-fault schedule (drop, dup, "
+                         "delay, corrupt) into the disagg transport; streams "
+                         "stay token-exact")
+    ap.add_argument("--listen", default="127.0.0.1:18631",
+                    help="controller bind address (--role controller)")
+    ap.add_argument("--connect", default="127.0.0.1:18631",
+                    help="controller address (--role prefill)")
+    ap.add_argument("--worker-name", default="prefill/0")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="remote prefill workers to wait for (--role controller)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+
+    if args.role == "prefill":
+        # a worker builds everything from the controller's config message
+        from repro_torch.serving.disagg import worker
+        worker.main(["--connect", args.connect, "--name", args.worker_name]
+                    + (["--device", args.device] if args.device else []))
+        return None
+    disagg = args.role in ("disagg", "controller")
+    if disagg and args.mode == "wave":
+        raise SystemExit("--role disagg serves continuous mode only")
 
     if args.spec_k and args.mode == "wave":
         raise SystemExit("--spec-k applies to continuous mode only (the "
@@ -138,25 +199,54 @@ def main(argv=None):
         print("[serve] note: --prefill-chunk/--system-prompt-len apply to "
               "continuous mode only; ignored for --mode wave")
     use_cache = args.system_prompt_len and args.mode == "continuous"
-    cache = None
-    if use_cache:
-        cache = PrefixCache(capacity=args.prefix_cache_capacity,
-                            max_bytes=int(args.prefix_cache_max_mb * 2**20) or None,
-                            ttl_ticks=args.prefix_cache_ttl or None)
-    eng = ServeEngine(params, cfg, max_len=args.max_len,
-                      temperature=args.temperature,
-                      prefill_chunk=args.prefill_chunk, prefix_cache=cache,
-                      serve_nodes=args.serve_nodes or None,
-                      spec_k=args.spec_k, spec_draft=args.spec_draft,
-                      spec_draft_nodes=args.spec_draft_nodes,
-                      spec_adaptive=args.spec_adaptive,
-                      spec_accept_floor=args.spec_accept_floor,
-                      spec_adapt_window=args.spec_adapt_window,
-                      spec_adapt_recovery=args.spec_adapt_recovery,
-                      slo_gap_ms=args.slo_gap_ms, slo_queue_depth=args.slo_queue_depth,
-                      slo_degrade=tuple(int(m) for m in args.slo_degrade.split(",")
-                                        if m.strip()),
-                      device=device)
+    cache_kw = dict(capacity=args.prefix_cache_capacity,
+                    max_bytes=int(args.prefix_cache_max_mb * 2**20) or None,
+                    ttl_ticks=args.prefix_cache_ttl or None,
+                    # the content digest reads every leaf back: right for
+                    # O(S*d) STLT states, not for KV-cache entries
+                    dedup=not any(bt in ("attn", "local_attn") for bt in cfg.block_types()))
+    engine_kw = dict(serve_nodes=args.serve_nodes or None,
+                     spec_k=args.spec_k, spec_draft=args.spec_draft,
+                     spec_draft_nodes=args.spec_draft_nodes,
+                     spec_adaptive=args.spec_adaptive,
+                     spec_accept_floor=args.spec_accept_floor,
+                     spec_adapt_window=args.spec_adapt_window,
+                     spec_adapt_recovery=args.spec_adapt_recovery,
+                     slo_gap_ms=args.slo_gap_ms, slo_queue_depth=args.slo_queue_depth,
+                     slo_degrade=tuple(int(m) for m in args.slo_degrade.split(",")
+                                       if m.strip()),
+                     device=device)
+    cache = ctl = remote = None
+    if disagg:
+        transport = None
+        if args.role == "controller":
+            if use_cache:
+                raise SystemExit("--system-prompt-len with remote prefill workers is not "
+                                 "supported yet (warm_prefix does not cross the wire)")
+            transport, remote = _connect_workers(args, cfg)
+        ctl = DisaggController(
+            params, cfg, n_prefill=args.prefill_hosts, n_decode=args.decode_hosts,
+            slots=args.slots, max_len=args.max_len, temperature=args.temperature,
+            prefill_chunk=args.prefill_chunk or 64, transport=transport,
+            steal_threshold=args.steal_threshold, wire_store=args.wire_store,
+            wire_compress=args.wire_compress or None,
+            faults=(None if args.chaos_seed is None else
+                    FaultSchedule(args.chaos_seed, drop=0.05, dup=0.05, delay=0.05,
+                                  corrupt=0.05)),
+            prefix_cache_factory=(lambda: PrefixCache(**cache_kw)) if use_cache else None,
+            remote_prefill=remote, **engine_kw)
+        eng = ctl.decode
+        if use_cache:
+            cache = ctl.prefill.caches[0]
+        print(f"[serve] disagg: {args.prefill_hosts} prefill x {args.decode_hosts} decode "
+              f"hosts ({args.slots} slots each), wire={args.wire_store}"
+              + (f"+{args.wire_compress}" if args.wire_compress else "")
+              + (f", chaos seed={args.chaos_seed}" if args.chaos_seed is not None else ""))
+    else:
+        if use_cache:
+            cache = PrefixCache(**cache_kw)
+        eng = ServeEngine(params, cfg, max_len=args.max_len, temperature=args.temperature,
+                          prefill_chunk=args.prefill_chunk, prefix_cache=cache, **engine_kw)
     rng = np.random.default_rng(0)
     sys_len = args.system_prompt_len if use_cache else 0
     sys_prompt = rng.integers(3, cfg.vocab, sys_len).astype(np.int32)
@@ -168,14 +258,17 @@ def main(argv=None):
         for i in range(args.requests)
     ]
     if cache is not None:
-        warmed = eng.warm_prefix(sys_prompt, chunk=args.prefill_chunk or None)
+        warmed = (ctl or eng).warm_prefix(sys_prompt, chunk=args.prefill_chunk or None)
         print(f"[serve] prefix cache warmed: {warmed} tokens")
     t0 = time.time()
-    results, stats = eng.serve(
-        reqs, slots=args.slots,
-        prompt_len=None if use_cache else args.prompt_len,
-        mode=args.mode, return_stats=True,
-        coalesce=not args.sequential_admission)
+    if ctl is not None:
+        results, stats = ctl.serve(reqs, return_stats=True)
+    else:
+        results, stats = eng.serve(
+            reqs, slots=args.slots,
+            prompt_len=None if use_cache else args.prompt_len,
+            mode=args.mode, return_stats=True,
+            coalesce=not args.sequential_admission)
     dt = time.time() - t0
     n_tok = sum(len(v) for v in results.values())
     for rid in sorted(results):
@@ -186,6 +279,8 @@ def main(argv=None):
     print(f"[serve] mode={args.mode}: {len(reqs)} requests, {n_tok} tokens in "
           f"{dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s), "
           f"latency p50={p50} p99={p99} ticks; {eng.serve_stats}")
+    if ctl is not None:
+        _report(ctl, args, remote)
     if args.spec_k:
         print(f"[serve] spec: {eng.spec_stats}")
     if eng.slo_degrade:
@@ -197,6 +292,58 @@ def main(argv=None):
               f"{prefilled}/{total} prompt tokens "
               f"({100 * (1 - prefilled / max(total, 1)):.1f}% skipped)")
     return results, stats
+
+
+def _connect_workers(args, cfg):
+    """Listen for ``--workers`` socket prefill workers and send each the
+    model config and init seed; returns (transport, worker names)."""
+    from repro_torch.serving.disagg.transport import Message, SocketTransport
+    from repro_torch.serving.disagg.worker import cfg_to_wire
+
+    host, port = args.listen.rsplit(":", 1)
+    transport = SocketTransport("controller", listen=(host, int(port)))
+    names: list[str] = []
+    deadline = time.monotonic() + 120
+    while len(names) < args.workers and time.monotonic() < deadline:
+        names += [m.src for m in transport.recv("controller", timeout=0.2) if m.kind == "hello"]
+    if len(names) < args.workers:
+        transport.close()
+        raise SystemExit(f"only {len(names)}/{args.workers} prefill workers connected")
+    payload = {"cfg": cfg_to_wire(cfg), "seed": 0, "max_len": args.max_len,
+               "prefill_chunk": args.prefill_chunk or 64, "slots": args.slots,
+               "prompt_len": None, "wire_store": args.wire_store,
+               "wire_compress": args.wire_compress or None}
+    for n in names:
+        transport.send(Message("config", "controller", n, payload))
+    print(f"[serve] controller: remote prefill workers {names}")
+    return transport, names
+
+
+def _report(ctl, args, remote):
+    """The disaggregated serve's report block; says goodbye to remote workers."""
+    rep = ctl.report()
+    print(f"[serve] disagg role={args.role}: {rep['handoff_requests']} handoffs, "
+          f"bytes/request [{rep['handoff_bytes_min']}, {rep['handoff_bytes_max']}] "
+          + ("(compressed) " if args.wire_compress else "(flat in prompt length) ")
+          + f"steals={rep['steal_count']}, gossip sent={rep['gossip_sent']} "
+          f"hit-rate={rep['gossip_hit_rate']}")
+    print(f"[serve] fleet clocks: prefill={rep['prefill_clock_s']} "
+          f"decode={rep['decode_clock_s']} s; prefill dispatches "
+          f"{None if ctl.prefill is None else ctl.prefill.serve_stats}; "
+          f"transport msgs={rep['transport']['msgs']}")
+    fs = rep["fault_stats"]
+    if fs["detected_failures"] or fs["retries"] or any(fs["injected"].values()):
+        print(f"[serve] faults: injected={fs['injected']} "
+              f"detected={fs['detected_failures']} recovered={fs['recovered_requests']} "
+              f"requeued-tokens={fs['requeued_tokens']} "
+              f"corrupt-rejected={fs['corrupt_blobs_rejected']} "
+              f"dups-ignored={fs['dup_msgs_ignored']} retries={fs['retries']} "
+              f"degraded={fs['degraded_colocated']}")
+    if remote:
+        from repro_torch.serving.disagg.transport import Message
+        for n in remote:
+            ctl.transport.send(Message("bye", "controller", n, {}))
+        ctl.transport.close()
 
 
 if __name__ == "__main__":

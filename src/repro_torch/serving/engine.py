@@ -46,7 +46,17 @@ on a breach and back up after ``slo_recovery_ticks`` healthy ticks.
 ``serve_stats`` counts every dispatch by kind; ``spec_stats`` and
 ``node_stats`` describe the last serve's drafts and ladder.
 
-Not ported: the sharded and disaggregated engines (ROADMAP Queue 1 item 7).
+The tick body works over a list of hosts (``_Host``: a queue, a Scheduler
+over K rows and its pending prefills) on one pool of B = hosts x K rows,
+global row g = h * K + local; ``serve`` is the one-host case. The
+disaggregated controller (``serving/disagg``) drives a prefill fleet and a
+decode fleet through the same phases (``_tick_admission``,
+``_tick_decode``) with four hooks: ``_now`` (the fleet's clock),
+``_handoff_promote`` (ship a finished prefill instead of decoding it),
+``_ready_state`` (admit a state prefilled elsewhere) and
+``_evacuate_host`` (a lost host's work, for requeueing).
+
+Not ported: the sharded engine (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -139,27 +149,32 @@ class Scheduler:
 
 
 class _Host:
-    """The serving state of the device: its admission queue, its Scheduler
-    over the slot rows and its in-flight chunked prefills."""
+    """One host's serving state: its admission queue, its Scheduler over
+    its K rows and its in-flight chunked prefills. The tick body works over
+    a list of these; a single-device serve is the one-element case."""
 
     def __init__(self, n_slots: int):
         self.sched = Scheduler(n_slots)
         self.queue: list = []                # (arrival, Request), FIFO
-        self.pending: dict[int, dict] = {}   # row -> in-flight prefill
+        self.pending: dict[int, dict] = {}   # local row -> in-flight prefill
 
 
 class _ServeRun:
     """Mutable state of one continuous serve run, threaded through the tick
-    phases (``_serve_start`` -> ``_serve_tick``* -> ``_serve_finish``)."""
+    phases (``_serve_start`` -> ``_serve_tick``* -> ``_serve_finish``), so
+    the disaggregated controller can drive a fleet's admission and decode
+    phases from outside, between its transport's messages."""
 
-    def __init__(self, host: _Host, queue, chunk_size, coalesce, prompt_len,
+    def __init__(self, hosts, queue, chunk_size, coalesce, prompt_len,
                  draws, temperature: float):
-        self.host = host
-        self.B = host.sched.n_slots
+        self.hosts = hosts
+        self.K = hosts[0].sched.n_slots
+        self.B = len(hosts) * self.K
         self.queue = queue               # (arrival, Request), arrival-sorted
         self.results: dict[int, list[int]] = {}
-        # the decode pool is built at the first promote, the prefill pool
-        # at the first coalesced admission (and dropped when it drains)
+        # the decode pool is built at the first promote (a prefill fleet
+        # never builds it), the prefill pool at the first coalesced
+        # admission (and dropped when it drains)
         self.pool = None
         self.prefill_pool = None
         self.spec = None          # the draft (speculative serving)
@@ -171,13 +186,29 @@ class _ServeRun:
         self.chunk_size = chunk_size
         self.coalesce = coalesce
         self.prompt_len = prompt_len
-        # request id -> wall clock when it reached the queue (TTFT in time)
+        # request id -> the clock (``_now``) when it reached a host queue
         self.arrival_walls: dict[int, float] = {}
+        # a standalone run fast-forwards idle gaps to the next arrival; the
+        # disaggregated controller owns the clock and turns this off
+        self.fast_forward = True
 
-    def active(self):
-        host = self.host
-        return bool(self.queue or host.queue or host.pending
-                    or host.sched.live.any())
+    @property
+    def host(self) -> _Host:
+        """The first host: the whole pool of a single-host run."""
+        return self.hosts[0]
+
+    def any_live(self) -> bool:
+        return any(h.sched.live.any() for h in self.hosts)
+
+    def any_pending(self) -> bool:
+        return any(h.pending for h in self.hosts)
+
+    def any_queued(self) -> bool:
+        return any(h.queue for h in self.hosts)
+
+    def active(self) -> bool:
+        return (bool(self.queue) or self.any_queued() or self.any_pending()
+                or self.any_live())
 
 
 class ServeEngine:
@@ -529,9 +560,11 @@ class ServeEngine:
         return greedy.cpu().numpy(), commit.cpu().numpy(), pool
 
     def _sample(self, draws, logits, rows, temps) -> np.ndarray:
-        """Tokens [B] (numpy) from logits [B, V]: greedy rows by argmax,
-        sampled rows by argmax(logits / T + their Gumbel draw). ``rows[b]``
-        is (request id, token index) of a live row, None for the others."""
+        """Tokens [B] (numpy) from logits [B, V] (a tensor, or numpy off the
+        wire): greedy rows by argmax, sampled rows by argmax(logits / T +
+        their Gumbel draw). ``rows[b]`` is (request id, token index) of a
+        live row, None for the others."""
+        logits = torch.as_tensor(logits, device=self.device)
         temps = np.asarray(temps, np.float32)
         hot = [b for b, r in enumerate(rows) if r is not None and temps[b] > 0]
         noise = None
@@ -545,21 +578,56 @@ class ServeEngine:
                                  self.top_k)
         return tok.cpu().numpy()
 
-    def _row_caps(self, sched: Scheduler) -> np.ndarray:
+    # The tick body calls the slot-pool and prefix-cache operations through
+    # these primitives (with ``_run_prefill_chunk``, ``_run_decode`` and
+    # ``_run_verify``, the JAX package's ``_ops_prefill_pool``,
+    # ``_ops_decode`` and ``_ops_verify``); the disaggregated prefill
+    # engine swaps in a prefix cache per host.
+
+    def _ops_insert(self, pool, st1, g: int):
+        return T.insert_slot(pool, st1, g, self.cfg)
+
+    def _ops_extract(self, pool, g: int):
+        return T.extract_slot(pool, g, self.cfg)
+
+    def _ops_reset(self, pool, g: int):
+        return T.reset_slot(pool, g, self.cfg, self.max_len,
+                            template=self._fresh_template())
+
+    def _ops_lookup(self, prompt, h: int):
+        return self._lookup_prefix(prompt)
+
+    def _ops_cache_insert(self, prompt, n, state, logits, h: int):
+        self._cache_insert(prompt, n, state, logits)
+
+    def _enqueue(self, run: _ServeRun, h: int, arrival: int, req: Request):
+        """Put a request in host ``h``'s queue, stamping its arrival on the
+        engine's clock (the TTFT's start)."""
+        run.arrival_walls[req.id] = self._now()
+        run.hosts[h].queue.append((arrival, req))
+
+    def _route_arrivals(self, run: _ServeRun):
+        """Move every arrived request into a host queue (one host: FIFO)."""
+        while run.queue and run.queue[0][0] <= run.tick:
+            self._enqueue(run, 0, *run.queue.pop(0))
+
+    def _row_caps(self, hosts, K: int) -> np.ndarray:
         """Per-row node budgets [B] of a decode tick: request override ->
         engine default -> full S, clamped by the SLO ladder's current level.
         Free and pending rows get full S."""
         S = self.cfg.stlt_nodes
-        caps = np.full(sched.n_slots, S, np.int32)
+        caps = np.full(len(hosts) * K, S, np.int32)
         ladder_cap = self.slo_degrade[self._slo_level] if self._slo_level >= 0 else S
-        for local in np.flatnonzero(sched.live):
-            req = sched.req[local]
-            base = req.serve_nodes if req.serve_nodes is not None else self.serve_nodes
-            base = S if base is None else base
-            caps[local] = max(1, min(base, ladder_cap, S))
+        for h, host in enumerate(hosts):
+            sched = host.sched
+            for local in np.flatnonzero(sched.live):
+                req = sched.req[local]
+                base = req.serve_nodes if req.serve_nodes is not None else self.serve_nodes
+                base = S if base is None else base
+                caps[h * K + local] = max(1, min(base, ladder_cap, S))
         return caps
 
-    def _slo_update(self, host: _Host, gap_ms: Optional[float]):
+    def _slo_update(self, hosts, gap_ms: Optional[float]):
         """One step of the degrade/restore ladder after a tick: a breach
         (the decode tick's wall gap, or the queue depth after admission)
         steps one level down and resets the healthy streak;
@@ -567,10 +635,10 @@ class ServeEngine:
         if not self.slo_degrade:
             return
         ns = self.node_stats
+        qdepth = sum(len(h.queue) for h in hosts)
         gap_breach = bool(self.slo_gap_ms > 0 and gap_ms is not None
                           and gap_ms > self.slo_gap_ms)
-        queue_breach = bool(self.slo_queue_depth > 0
-                            and len(host.queue) >= self.slo_queue_depth)
+        queue_breach = bool(self.slo_queue_depth > 0 and qdepth >= self.slo_queue_depth)
         if gap_breach:
             ns["gap_breaches"] += 1
         if queue_breach:
@@ -604,20 +672,79 @@ class ServeEngine:
         if self.prefix_cache is not None and n > 0:
             self.prefix_cache.tick(n)
 
+    # ------------------------------------------------------- disagg hooks
+    def _now(self) -> float:
+        """The clock of token walls, arrival walls and SLO gaps. A
+        disaggregated role engine reads its fleet's own clock instead."""
+        return time.perf_counter()
+
+    def _handoff_promote(self, run: _ServeRun, h: int, local: int, ent: dict,
+                         logits1, st1) -> bool:
+        """Return True to take a finished prefill (its state and first-token
+        logits) away instead of decoding it here: the row is then released.
+        The disaggregated prefill engine ships the state here."""
+        return False
+
+    def _ready_state(self, req: Request):
+        """(state, logits) of a request prefilled elsewhere (a shipped
+        state on a disaggregated decode host), or None for the normal
+        admission path. A hit admits like a full-prompt cache hit."""
+        return None
+
+    def _evacuate_host(self, run: _ServeRun, h: int) -> list:
+        """Host ``h`` is lost: forget its rows and queue and return what was
+        in flight as ``(kind, arrival, request, progress)``, kind "queued",
+        "pending" (progress: the prefilled tokens lost) or "live" (the
+        caller owns ``run.results``). Rows are cleared without release (the
+        requests did not finish) and reset in the pool, so a reused row
+        never sees the lost host's state. A requeued request gives the same
+        tokens: its stream depends on (rng_seed, request id, step) only."""
+        host = run.hosts[h]
+        sched = host.sched
+        lost = [("queued", arrival, req, 0) for arrival, req in host.queue]
+        host.queue = []
+        for ent in host.pending.values():
+            req = ent["req"]
+            st = sched.stats.get(req.id, {})
+            lost.append(("pending", st.get("arrival", run.tick), req,
+                         max(0, ent["done"] - st.get("cached_tokens", 0))))
+        host.pending = {}
+        for local in range(sched.n_slots):
+            req = sched.req[local]
+            if req is not None:
+                if sched.live[local]:
+                    lost.append(("live", sched.stats.get(req.id, {}).get("arrival", run.tick),
+                                 req, 0))
+                sched.stats.pop(req.id, None)
+            sched.req[local] = None
+            sched.live[local] = False
+            sched.pending[local] = False
+            sched.emitted[local] = 0
+            if run.pool is not None:
+                run.pool = self._ops_reset(run.pool, h * run.K + local)
+        return lost
+
     # ------------------------------------------------------------- continuous
     def _serve_continuous(self, requests, slots, prompt_len, arrivals,
                           rng_seed, return_stats, coalesce=True):
-        """The serve tick body: per tick, in order, route arrivals ->
-        admission -> at most one masked prefill dispatch -> one decode step
-        -> release/reset finished rows."""
-        run = self._serve_start(requests, slots, prompt_len, arrivals,
-                                rng_seed, coalesce)
+        return self._serve_ticks([_Host(slots)], requests, prompt_len, arrivals,
+                                 rng_seed, return_stats, self.prefill_chunk, coalesce)
+
+    def _serve_ticks(self, hosts, requests, prompt_len, arrivals, rng_seed,
+                     return_stats, chunk_size, coalesce=True):
+        """The serve tick body over ``hosts``: per tick, in order, route
+        arrivals -> admission -> at most one masked prefill dispatch -> one
+        decode step -> release/reset finished rows."""
+        run = self._serve_start(hosts, requests, prompt_len, arrivals, rng_seed,
+                                chunk_size, coalesce)
         while run.active():
             self._serve_tick(run)
         return self._serve_finish(run, return_stats)
 
-    def _serve_start(self, requests, slots, prompt_len, arrivals, rng_seed,
-                     coalesce) -> _ServeRun:
+    def _serve_start(self, hosts, requests, prompt_len, arrivals, rng_seed,
+                     chunk_size, coalesce=True) -> _ServeRun:
+        """Validate the requests and build a run's state. ``requests`` may be
+        empty: the disaggregated controller feeds its fleets' host queues."""
         queue = self._queue(requests, arrivals, prompt_len)
         if self.spec_k:
             if self.temperature and self.temperature > 0:
@@ -629,7 +756,7 @@ class ServeEngine:
                     raise ValueError(
                         f"request {r.id}: speculative decoding is greedy-only "
                         f"(temperature={r.temperature})")
-        run = _ServeRun(_Host(slots), queue, self.prefill_chunk, coalesce, prompt_len,
+        run = _ServeRun(hosts, queue, chunk_size, coalesce, prompt_len,
                         self.noise(rng_seed), self.temperature)
         self.serve_stats = {"admission_dispatches": 0, "decode_dispatches": 0}
         run.spec = self._make_draft(run.B)
@@ -661,116 +788,143 @@ class ServeEngine:
                                            device=self.device)
         return run.pool
 
-    def _reset(self, pool, slot: int):
-        return T.reset_slot(pool, slot, self.cfg, self.max_len,
-                            template=self._fresh_template())
-
-    def _promote(self, run: _ServeRun, local: int, ent: dict, logits1, st1):
-        """Prefill complete: sample the first token, splice the state into
-        the decode pool and go live (or finish, for a one-token request)."""
-        sched = run.host.sched
+    def _promote(self, run: _ServeRun, h: int, local: int, ent: dict, logits1, st1):
+        """Prefill complete on host h: sample the first token, splice the
+        state into the decode pool and go live (or finish, for a one-token
+        request), unless ``_handoff_promote`` takes the state away."""
+        sched = run.hosts[h].sched
         req = ent["req"]
+        if self._handoff_promote(run, h, local, ent, logits1, st1):
+            sched.release(local, run.tick)   # shipped: free the row
+            return
+        g = h * run.K + local
         temp = self.temperature if req.temperature is None else req.temperature
         t0 = int(self._sample(run.draws, logits1, [(req.id, 0)], [temp])[0])
-        run.pool = T.insert_slot(self._ensure_pool(run), st1, local, self.cfg)
-        run.tok[local] = t0
-        run.temps[local] = temp
+        run.pool = self._ops_insert(self._ensure_pool(run), st1, g)
+        run.tok[g] = t0
+        run.temps[g] = temp
         sched.activate(local, run.tick)
         run.results[req.id] = [t0]
-        sched.stats[req.id]["token_walls"].append(time.perf_counter())
+        sched.stats[req.id]["token_walls"].append(self._now())
         sched.emitted[local] = 1
         if sched.emitted[local] >= sched.budgets[local] or t0 == self.eos_id:
             sched.release(local, run.tick)   # prefill-only request
-            run.pool = self._reset(run.pool, local)
+            run.pool = self._ops_reset(run.pool, g)
         elif run.spec is not None:
-            run.spec.on_promote(local, ent["prompt"], t0)
+            run.spec.on_promote(g, ent["prompt"], t0)
             if run.spec_adapt is not None:
-                run.spec_adapt.reset(local)
+                run.spec_adapt.reset(g)
 
     def _tick_admission(self, run: _ServeRun):
-        """Admission phase of one tick: fill free rows from the queue, then
-        advance every pending chunked prefill with at most one masked
-        dispatch. Completed prefills promote within the same tick."""
+        """Admission phase of one tick: fill free rows from the host queues,
+        then advance every pending chunked prefill with at most one masked
+        dispatch. Completed prefills promote (or hand off) within the same
+        tick."""
         cfg = self.cfg
-        host, B = run.host, run.B
-        sched = host.sched
+        hosts, K, B = run.hosts, run.K, run.B
         chunk_size, coalesce = run.chunk_size, run.coalesce
-        for local in sched.free_slots():
-            if not host.queue:
-                break
-            arrival, req = host.queue.pop(0)
-            prompt = self._padded(req.prompt, run.prompt_len)
-            offset, pstate, plogits = self._lookup_prefix(prompt)
-            # per-request boundary snapshots are cached only where they
-            # EXTEND a cached prefix (a unique prompt's boundaries would
-            # churn the LRU); warm_prefix covers first-contact prompts
-            ent = {"req": req, "prompt": prompt, "done": offset,
-                   "resumed": offset > 0}
-            sched.hold(local, req, arrival, run.tick,
-                       prompt_tokens=len(prompt), cached_tokens=offset)
-            sched.stats[req.id]["arrival_wall"] = run.arrival_walls[req.id]
-            if offset == len(prompt):
-                # full-prompt hit: the stored last-token logits stand in
-                # for the skipped prefill
-                self._promote(run, local, ent, plogits, pstate)
-            elif chunk_size and coalesce:
-                if run.prefill_pool is None:
-                    run.prefill_pool = T.init_decode_state(cfg, B, self.max_len,
-                                                           device=self.device)
-                T.insert_slot(run.prefill_pool,
-                              self._fresh_template() if pstate is None else pstate,
-                              local, cfg)
-                host.pending[local] = ent
-            elif chunk_size:
-                ent["state"] = self._fresh_template() if pstate is None else pstate
-                host.pending[local] = ent
-            else:  # monolithic
-                if pstate is None:
-                    logits1, st1 = self._run_prefill(prompt[None])
-                else:
-                    logits1, st1 = self._run_prefill_chunk(prompt[None, offset:], pstate)
-                self._cache_insert(prompt, len(prompt), st1, logits1)
-                self._promote(run, local, ent, logits1, st1)
+        for h, host in enumerate(hosts):
+            sched = host.sched
+            for local in sched.free_slots():
+                if not host.queue:
+                    break
+                arrival, req = host.queue.pop(0)
+                prompt = self._padded(req.prompt, run.prompt_len)
+                ready = self._ready_state(req)
+                if ready is not None:
+                    # prefilled elsewhere (a disaggregated handoff): splice
+                    # and promote with no local prefill, the whole prompt
+                    # counted as cached, as a full-prompt hit is
+                    st1, logits1 = ready
+                    ent = {"req": req, "prompt": prompt, "done": len(prompt),
+                           "resumed": False}
+                    sched.hold(local, req, arrival, run.tick, prompt_tokens=len(prompt),
+                               cached_tokens=len(prompt))
+                    sched.stats[req.id].update(host=h,
+                                               arrival_wall=run.arrival_walls.get(req.id))
+                    self._promote(run, h, local, ent, logits1, st1)
+                    continue
+                g = h * K + local
+                offset, pstate, plogits = self._ops_lookup(prompt, h)
+                # per-request boundary snapshots are cached only where they
+                # EXTEND a cached prefix (a unique prompt's boundaries would
+                # churn the LRU); warm_prefix covers first-contact prompts
+                ent = {"req": req, "prompt": prompt, "done": offset,
+                       "resumed": offset > 0}
+                sched.hold(local, req, arrival, run.tick,
+                           prompt_tokens=len(prompt), cached_tokens=offset)
+                sched.stats[req.id].update(host=h,
+                                           arrival_wall=run.arrival_walls.get(req.id))
+                if offset == len(prompt):
+                    # full-prompt hit: the stored last-token logits stand in
+                    # for the skipped prefill
+                    self._promote(run, h, local, ent, plogits, pstate)
+                elif chunk_size and coalesce:
+                    if run.prefill_pool is None:
+                        run.prefill_pool = T.init_decode_state(cfg, B, self.max_len,
+                                                               device=self.device)
+                    self._ops_insert(run.prefill_pool,
+                                     self._fresh_template() if pstate is None else pstate,
+                                     g)
+                    host.pending[local] = ent
+                elif chunk_size:
+                    ent["state"] = self._fresh_template() if pstate is None else pstate
+                    host.pending[local] = ent
+                else:  # monolithic
+                    if pstate is None:
+                        logits1, st1 = self._run_prefill(prompt[None])
+                    else:
+                        logits1, st1 = self._run_prefill_chunk(prompt[None, offset:], pstate)
+                    self._ops_cache_insert(prompt, len(prompt), st1, logits1, h)
+                    self._promote(run, h, local, ent, logits1, st1)
 
         # mixed step: ONE masked chunk dispatch advances every pending
         # admission, at [1, chunk] for a lone pending row, else [B, chunk]
-        if len(host.pending) == 1 and coalesce and B > 1:
+        n_pending = sum(len(host.pending) for host in hosts)
+        if n_pending == 1 and coalesce and B > 1:
+            h, host = next((h, host) for h, host in enumerate(hosts) if host.pending)
             (local, ent), = host.pending.items()
+            g = h * K + local
             n = min(chunk_size, len(ent["prompt"]) - ent["done"])
             buf = np.zeros((1, chunk_size), np.int32)
             buf[0, :n] = ent["prompt"][ent["done"]:ent["done"] + n]
-            st1 = T.extract_slot(run.prefill_pool, local, cfg)
+            st1 = self._ops_extract(run.prefill_pool, g)
             logits1, st1 = self._run_prefill_chunk(buf, st1, [n])
             ent["done"] += n
             finished = ent["done"] == len(ent["prompt"])
             if ent["resumed"] or finished:
-                self._cache_insert(ent["prompt"], ent["done"], st1, logits1)
+                self._ops_cache_insert(ent["prompt"], ent["done"], st1, logits1, h)
             if finished:
                 del host.pending[local]
-                self._promote(run, local, ent, logits1, st1)
+                self._promote(run, h, local, ent, logits1, st1)
             else:
-                T.insert_slot(run.prefill_pool, st1, local, cfg)
-        elif host.pending and coalesce:
+                self._ops_insert(run.prefill_pool, st1, g)
+        elif n_pending and coalesce:
             chunk_tok = np.zeros((B, chunk_size), np.int32)
             valid = np.zeros((B,), np.int32)
-            for local, ent in host.pending.items():
-                n = min(chunk_size, len(ent["prompt"]) - ent["done"])
-                chunk_tok[local, :n] = ent["prompt"][ent["done"]:ent["done"] + n]
-                valid[local] = n
+            for h, host in enumerate(hosts):
+                for local, ent in host.pending.items():
+                    g = h * K + local
+                    n = min(chunk_size, len(ent["prompt"]) - ent["done"])
+                    chunk_tok[g, :n] = ent["prompt"][ent["done"]:ent["done"] + n]
+                    valid[g] = n
             logits_all, run.prefill_pool = self._run_prefill_chunk(
                 chunk_tok, run.prefill_pool, valid)
-            for local in list(host.pending):
-                ent = host.pending[local]
-                ent["done"] += int(valid[local])
-                finished = ent["done"] == len(ent["prompt"])
-                if ent["resumed"] or finished:
-                    st1 = T.extract_slot(run.prefill_pool, local, cfg)
-                    logits1 = logits_all[local:local + 1].clone()
-                    self._cache_insert(ent["prompt"], ent["done"], st1, logits1)
-                if finished:
-                    del host.pending[local]
-                    self._promote(run, local, ent, logits1, st1)
-        elif host.pending:  # one batch-1 chunk per pending row
+            for h, host in enumerate(hosts):
+                for local in list(host.pending):
+                    ent = host.pending[local]
+                    g = h * K + local
+                    ent["done"] += int(valid[g])
+                    finished = ent["done"] == len(ent["prompt"])
+                    if ent["resumed"] or finished:
+                        st1 = self._ops_extract(run.prefill_pool, g)
+                        logits1 = logits_all[g:g + 1].clone()
+                        self._ops_cache_insert(ent["prompt"], ent["done"], st1, logits1, h)
+                    if finished:
+                        del host.pending[local]
+                        self._promote(run, h, local, ent, logits1, st1)
+        elif n_pending:  # one batch-1 chunk per pending row (one host)
+            host = hosts[0]
             for local in list(host.pending):
                 ent = host.pending[local]
                 n = min(chunk_size, len(ent["prompt"]) - ent["done"])
@@ -779,15 +933,15 @@ class ServeEngine:
                 ent["done"] += n
                 finished = ent["done"] == len(ent["prompt"])
                 if ent["resumed"] or finished:
-                    self._cache_insert(ent["prompt"], ent["done"], ent["state"],
-                                       logits1)
+                    self._ops_cache_insert(ent["prompt"], ent["done"], ent["state"],
+                                           logits1, 0)
                 if finished:
                     del host.pending[local]
-                    self._promote(run, local, ent, logits1, ent["state"])
+                    self._promote(run, 0, local, ent, logits1, ent["state"])
 
         # drop the prefill pool once every admission has drained; the next
         # chunked admission rebuilds it
-        if run.prefill_pool is not None and not host.pending:
+        if run.prefill_pool is not None and not run.any_pending():
             run.prefill_pool = None
 
     def _tick_decode(self, run: _ServeRun) -> bool:
@@ -795,30 +949,35 @@ class ServeEngine:
         (or, with ``spec_k``, one draft-verify round), one host sync for the
         tokens, then release/reset finished rows. Returns whether a decode
         dispatch ran."""
-        sched = run.host.sched
-        decoded = bool(sched.live.any())
+        hosts, K = run.hosts, run.K
+        decoded = run.any_live()
         if decoded and run.spec is not None:
-            self._spec_tick(run, self._row_caps(sched))
+            self._spec_tick(run, self._row_caps(hosts, K))
         elif decoded:
-            logits, run.pool = self._run_decode(run.tok, run.pool,
-                                                self._row_caps(sched))
-            rows = [(sched.req[b].id, int(sched.emitted[b])) if sched.live[b] else None
-                    for b in range(run.B)]
+            logits, run.pool = self._run_decode(run.tok, run.pool, self._row_caps(hosts, K))
+            rows = [None] * run.B
+            for h, host in enumerate(hosts):
+                sched = host.sched
+                for local in np.flatnonzero(sched.live):
+                    rows[h * K + local] = (sched.req[local].id, int(sched.emitted[local]))
             nxt = self._sample(run.draws, logits, rows, run.temps)
             run.tick += 1
-            now = time.perf_counter()
-            new_live, new_emitted = advance_slots(
-                nxt, sched.live, sched.emitted, sched.budgets, self.eos_id)
-            for local in np.flatnonzero(sched.live):
-                rid = sched.req[local].id
-                run.results[rid].append(int(nxt[local]))
-                sched.stats[rid]["token_walls"].append(now)
-            sched.emitted = new_emitted
-            for local in np.flatnonzero(sched.live & ~new_live):
-                sched.release(local, run.tick)
-                run.pool = self._reset(run.pool, local)
+            now = self._now()
+            for h, host in enumerate(hosts):
+                sched = host.sched
+                row = nxt[h * K:(h + 1) * K]
+                new_live, new_emitted = advance_slots(
+                    row, sched.live, sched.emitted, sched.budgets, self.eos_id)
+                for local in np.flatnonzero(sched.live):
+                    rid = sched.req[local].id
+                    run.results[rid].append(int(row[local]))
+                    sched.stats[rid]["token_walls"].append(now)
+                sched.emitted = new_emitted
+                for local in np.flatnonzero(sched.live & ~new_live):
+                    sched.release(local, run.tick)
+                    run.pool = self._ops_reset(run.pool, h * K + local)
             run.tok = nxt
-        elif run.host.pending:
+        elif run.any_pending():
             run.tick += 1  # prefill-only tick (nothing decoding yet)
         return decoded
 
@@ -828,81 +987,88 @@ class ServeEngine:
         token plus the model's bonus token, and keep each row's state at
         exactly its committed length. A row's verified window is capped by
         its remaining budget and, with ``spec_adaptive``, by 1 + its
-        current k (data, not shape: the dispatch is always [slots, k + 1])."""
-        sched = run.host.sched
+        current k (data, not shape: the dispatch is always [B, k + 1])."""
+        hosts, K = run.hosts, run.K
         spec, adapt = run.spec, run.spec_adapt
         L = self.spec_k + 1
+        live = np.concatenate([host.sched.live for host in hosts])
         inputs = np.zeros((run.B, L), np.int32)
         inputs[:, 0] = run.tok
-        inputs[:, 1:] = spec.propose(run.tok, sched.live)
+        inputs[:, 1:] = spec.propose(run.tok, live)
         valid = np.zeros(run.B, np.int32)
-        for local in np.flatnonzero(sched.live):
-            remaining = int(sched.budgets[local] - sched.emitted[local])
-            win = L if adapt is None else min(L, 1 + adapt.k_for(local))
-            valid[local] = min(win, remaining)
+        for h, host in enumerate(hosts):
+            sched = host.sched
+            for local in np.flatnonzero(sched.live):
+                g = h * K + local
+                remaining = int(sched.budgets[local] - sched.emitted[local])
+                win = L if adapt is None else min(L, 1 + adapt.k_for(g))
+                valid[g] = min(win, remaining)
         greedy, commit, run.pool = self._run_verify(inputs, valid, run.pool, caps)
         run.tick += 1
-        now = time.perf_counter()
+        now = self._now()
         ss = self.spec_stats
         ss["verify_calls"] += 1
-        for local in np.flatnonzero(sched.live):
-            rid = sched.req[local].id
-            ss["drafted"] += int(valid[local]) - 1
-            ss["accepted"] += int(commit[local]) - 1
-            if adapt is not None and valid[local] > 1:
-                adapt.observe(local, int(valid[local]) - 1, int(commit[local]) - 1)
-            emitted_now = []
-            for t in greedy[local, :commit[local]]:
-                emitted_now.append(int(t))
-                if int(t) == self.eos_id:
-                    break   # tokens past EOS are never emitted
-            run.results[rid].extend(emitted_now)
-            sched.stats[rid]["token_walls"].extend([now] * len(emitted_now))
-            sched.emitted[local] += len(emitted_now)
-            ss["emitted"] += len(emitted_now)
-            if (sched.emitted[local] >= sched.budgets[local]
-                    or emitted_now[-1] == self.eos_id):
-                sched.release(local, run.tick)
-                run.pool = self._reset(run.pool, local)
-            else:
-                run.tok[local] = emitted_now[-1]
-                spec.on_emit(local, emitted_now)
+        for h, host in enumerate(hosts):
+            sched = host.sched
+            for local in np.flatnonzero(sched.live):
+                g = h * K + local
+                rid = sched.req[local].id
+                ss["drafted"] += int(valid[g]) - 1
+                ss["accepted"] += int(commit[g]) - 1
+                if adapt is not None and valid[g] > 1:
+                    adapt.observe(g, int(valid[g]) - 1, int(commit[g]) - 1)
+                emitted_now = []
+                for t in greedy[g, :commit[g]]:
+                    emitted_now.append(int(t))
+                    if int(t) == self.eos_id:
+                        break   # tokens past EOS are never emitted
+                run.results[rid].extend(emitted_now)
+                sched.stats[rid]["token_walls"].extend([now] * len(emitted_now))
+                sched.emitted[local] += len(emitted_now)
+                ss["emitted"] += len(emitted_now)
+                if (sched.emitted[local] >= sched.budgets[local]
+                        or emitted_now[-1] == self.eos_id):
+                    sched.release(local, run.tick)
+                    run.pool = self._ops_reset(run.pool, g)
+                else:
+                    run.tok[g] = emitted_now[-1]
+                    spec.on_emit(g, emitted_now)
         # the node draft rolls its pool forward by the committed tokens
         spec.commit(inputs, commit)
 
     def _serve_tick(self, run: _ServeRun):
         """One scheduler tick: idle fast-forward -> route arrivals ->
         admission -> decode -> SLO ladder -> cache TTL clock."""
-        host = run.host
         tick_was = run.tick
-        if (not host.sched.live.any() and not host.pending and not host.queue
-                and run.queue and run.queue[0][0] > run.tick):
+        if (run.fast_forward and not run.any_live() and not run.any_pending()
+                and not run.any_queued() and run.queue and run.queue[0][0] > run.tick):
             run.tick = run.queue[0][0]  # idle: fast-forward to the next arrival
             # sweep the TTL clock across the jump BEFORE this tick's lookups
             self._cache_tick(run.tick - tick_was)
             tick_was = run.tick
-        now = time.perf_counter()
-        while run.queue and run.queue[0][0] <= run.tick:
-            arrival, req = run.queue.pop(0)
-            run.arrival_walls[req.id] = now
-            host.queue.append((arrival, req))
+        self._route_arrivals(run)
         self._tick_admission(run)
         decoded = self._tick_decode(run)
         if self.slo_degrade:
             gap_ms = None
             if decoded:
-                now_slo = time.perf_counter()
+                now_slo = self._now()
                 if self._slo_last_wall is not None:
                     gap_ms = (now_slo - self._slo_last_wall) * 1e3
                 self._slo_last_wall = now_slo
-            self._slo_update(host, gap_ms)
+            self._slo_update(run.hosts, gap_ms)
         self._cache_tick(run.tick - tick_was)
 
     def _serve_finish(self, run: _ServeRun, return_stats):
         out = {rid: np.array(toks, np.int32) for rid, toks in run.results.items()}
         if run.spec_adapt is not None:
             self.spec_stats.update(run.spec_adapt.stats())
-        return (out, run.host.sched.stats) if return_stats else out
+        if not return_stats:
+            return out
+        stats: dict[int, dict] = {}
+        for host in run.hosts:
+            stats.update(host.sched.stats)
+        return out, stats
 
     # ------------------------------------------------------------- wave
     @torch.no_grad()
@@ -947,7 +1113,7 @@ class ServeEngine:
             while sched.live.any():
                 new_live, new_emitted = advance_slots(
                     tok, sched.live, sched.emitted, sched.budgets, self.eos_id)
-                now = time.perf_counter()
+                now = self._now()
                 for i in np.flatnonzero(sched.live):
                     results[sched.req[i].id].append(int(tok[i]))
                     sched.stats[sched.req[i].id]["token_walls"].append(now)

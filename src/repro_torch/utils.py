@@ -52,6 +52,17 @@ def tree_flatten_with_paths(tree, prefix: str = "") -> list:
             for pair in tree_flatten_with_paths(v, f"{prefix}/{k}" if prefix else str(k))]
 
 
+def jax_order(tree):
+    """``tree`` with each dict's keys sorted: the order in which JAX flattens
+    a dict (the port's trees keep insertion order), so that leaves fall as
+    the JAX package's do."""
+    if isinstance(tree, dict):
+        return {k: jax_order(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [jax_order(v) for v in tree]
+    return tree
+
+
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_paths(tree)]
 

@@ -4,7 +4,8 @@ anti-causal) against float64 autograd through the plain version, and
 continuous serve on the card against the same serve on the CPU (stlt-base,
 each arch added with the untied head and the hybrid family, and the xLSTM
 and MoE archs, whose train step is also held to the CPU's; the MoE
-combine gives the same output on two calls, bit for bit).
+combine gives the same output on two calls, bit for bit), and the
+disaggregated fleets' serve against the colocated card serve.
 
 These tests need a CUDA device and ``nvcc`` (they build the kernel from
 ``src/repro_torch/kernels/csrc``); elsewhere they skip. Run them on an H100
@@ -259,6 +260,55 @@ def test_serve_on_the_card_matches_the_cpu(dev):
     for r in reqs:
         np.testing.assert_array_equal(results[1][r.id], results[0][r.id])
         assert len(results[1][r.id]) == r.max_new_tokens
+
+
+def test_disagg_serve_on_the_card_matches_colocated(dev):
+    """A reduced stlt-base served by the disaggregated fleets on the card (2
+    prefill hosts, 2 decode hosts x 2 rows, loopback transport, f32 wire):
+    the streams of the colocated card serve; K1 launched once per layer per
+    prefill-fleet admission dispatch and never by the decode fleet; a
+    shipped blob unpacks bit for bit to the state the prefill engine
+    packed."""
+    from repro_torch.configs.stlt_base import CONFIG
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import DisaggController, Request, ServeEngine
+    from repro_torch.serving.disagg import wire
+    from repro_torch.utils import tree_flatten_with_paths
+
+    cfg = CONFIG.reduced(num_layers=2)
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m, id=i)
+            for i, (n, m) in enumerate([(40, 5), (9, 3), (21, 6), (50, 4), (16, 7)])]
+    arrivals = [0, 0, 1, 4, 4]
+    base = ServeEngine(params, cfg, prefill_chunk=16, device=dev).serve(
+        reqs, slots=4, arrivals=arrivals)
+    ctl = DisaggController(params, cfg, n_prefill=2, n_decode=2, slots=2, prefill_chunk=16,
+                           device=dev)
+    packed, blobs = {}, {}
+    real_promote, real_accept = ctl.prefill._handoff_promote, ctl._accept_handoff
+
+    def capture_state(run, h, local, ent, logits1, st1):
+        packed[ent["req"].id] = [(k, t.clone()) for k, t in tree_flatten_with_paths(st1)]
+        return real_promote(run, h, local, ent, logits1, st1)
+
+    def capture_blob(msg, j, d_run, receiver):
+        blobs.setdefault(msg.payload["req"].id, msg.payload["blob"])
+        return real_accept(msg, j, d_run, receiver)
+    ctl.prefill._handoff_promote, ctl._accept_handoff = capture_state, capture_blob
+    before = k1.stlt_scan_kernel.launches
+    out = ctl.serve(reqs, arrivals=arrivals)
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches - before == (
+        cfg.num_layers * ctl.prefill.serve_stats["admission_dispatches"]) > 0
+    assert ctl.decode.serve_stats["admission_dispatches"] == 0
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.id], base[r.id])
+    assert sorted(blobs) == sorted(packed) == [r.id for r in reqs]
+    for rid, leaves in packed.items():
+        got = dict(tree_flatten_with_paths(wire.unpack_state(blobs[rid], device=dev)[0]))
+        for k, t in leaves:
+            assert got[k].dtype == t.dtype and torch.equal(got[k], t), (rid, k)
 
 
 def test_full_width_spec_verify_on_the_card_matches_the_cpu(dev):

@@ -7,8 +7,9 @@ opened.
 Builds the kernels, holds K1 against its plain version at phase H's shapes
 (``chip_smoke.K1_HYBRID``: head dims 256 and 128) and times it there, then
 runs ``chip_smoke.hybrid_phase`` alone (recurrentgemma-9b in both forms at
-full width, chatglm3-6b-stlt; random weights from seed 0) with the gap
-caps ``H1_GAP_CAP``, ``H2_GAP_CAP``, ``H5_GAP_CAP`` and their tie
+full width and, unlike the script's H1 and H2, at full depth, 38 layers,
+where the gaps are largest; chatglm3-6b-stlt; random weights from seed 0)
+with the gap caps ``H1_GAP_CAP``, ``H2_GAP_CAP``, ``H5_GAP_CAP`` and their tie
 tolerances raised out of the way. Every other gate of the phase still
 holds (the fp32 checks of H3, the train-step checks of H4, the K1 launch
 counts). The last line is a JSON
@@ -63,6 +64,7 @@ def main() -> int:
     rows = cs.k1_timings(k1, ops, dev, C)
     cs.H1_GAP_CAP = cs.H2_GAP_CAP = cs.H5_GAP_CAP = 1e9
     cs.H1_TIE_TOL = cs.H2_TIE_TOL = cs.H5_TIE_TOL = 1e9
+    cs.H_SERVE_LAYERS = get_config(cs.H_ARCH).num_layers
     out = cs.hybrid_phase(T, train, k1, dev, get_config, rows)
     cs.log(f"[gaps] {time.time() - t0:.1f} s [{cs.smi_line()}]")
     print(json.dumps({

@@ -7,6 +7,7 @@ opened.
 Builds the kernels, holds K1 against its plain version at phase M's shapes
 (``chip_smoke.K1_MOE``: head dims 64 and 128) and times it there, then runs
 ``chip_smoke.xlstm_phase`` and ``chip_smoke.moe_phase`` alone (xlstm-350m,
+X1 at full depth (24 layers) where the script serves one period,
 qwen3-moe-235b-a22b and arctic-480b; random weights from seed 0) with the
 gaps ``X1_GAP_CAP``, ``X3_BF16_GRAD_TOL``, ``M4_GAP_CAP`` and their tie
 tolerances raised out of the way. Every other gate of the phases still
@@ -63,6 +64,7 @@ def main() -> int:
     cs.k1_timings(k1, ops, dev, C)
     cs.X1_GAP_CAP = cs.X1_TIE_TOL = cs.X3_BF16_GRAD_TOL = 1e9
     cs.M4_GAP_CAP = cs.M4_TIE_TOL = 1e9
+    cs.X1_LAYERS = get_config(cs.X_ARCH).num_layers
     t1 = time.time()
     xl = cs.xlstm_phase(T, train, k1, dev, get_config)
     t2 = time.time()
