@@ -27,7 +27,20 @@ Phase S serves 12 requests of 100-3000 prompt tokens through
 ``ServeEngine.serve`` (4 slots, chunked admission at 512 tokens through K1,
 a warmed 512-token system prompt in the prefix cache): each stream against
 its request run alone, K1 launches against the admission dispatches, the
-cache hits, wave mode; timed and profiled. Phase P serves full-width
+cache hits, wave mode; timed and profiled. Phase F runs stlt-base in its
+hann form (the finite-support window: an FFT convolution, no kernel) on the
+same weights: F1 card vs CPU (lm_loss and logits at 4 x 1000, the layer in
+both directions), chunked vs monolithic prefill and decode vs the
+teacher-forced forward; F2 serves phase S's requests (each stream against
+its request run alone, 0 K1 and K2 launches, the per-slot state beside the
+exponential one, both as predicted from the layout); F3 times the
+131,072-token prefill. Phase SH serves phase S's requests through the
+sharded engine (2 hosts x 2 slots, a replicated warmed prefix): streams
+equal to S's under the near-tie rule, each request's host, the pinned
+count per shard, K1 = 6 x the admission dispatches; an n-gram spec serve
+sharded against single-host; the serve CLI with --mesh-data 2. Phase T1
+also holds param_grads="recompute" against the analytic grads and times
+both backwards. Phase P serves full-width
 SmolLM-360M-stlt in bf16 (8 requests, 4 slots): plain, speculative with
 the n-gram and the node-subset draft and the adaptive window, and the SLO
 node ladder; each stream against its request run alone under the near-tie
@@ -167,7 +180,8 @@ K1_TOL = 2e-4         # max abs error / (1 + max |reference|)
 # Last, phase H's rows: recurrentgemma-9b-stlt (16 heads, S = 32, d = 256)
 # at [4, 512] and [1, 512] admission, the [4, k + 1] = 64 x 5 verify
 # window and the 2 x 1024 training step, and chatglm3-6b-stlt (32 heads,
-# d = 128) at its 2 x 512 prompt.
+# d = 128) at its 2 x 512 prompt. Phase SH's n-gram serve of stlt-base adds
+# its verify window, [4, k + 1] = 32 x 5 at S = 64.
 K1_WHISPER = ((32, 1500, 32, 64), (64, 1500, 32, 64), (64, 448, 32, 64))
 K1_HYBRID = ((64, 512, 32, 256), (16, 512, 32, 256), (64, 5, 32, 256),
              (32, 1024, 32, 256), (64, 512, 32, 128))
@@ -179,7 +193,8 @@ K1_MOE = ((256, 512, 32, 64), (64, 512, 32, 64), (256, 5, 32, 64), (128, 1024, 3
           (112, 512, 32, 128))
 K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
              (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
-             (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64)) + K1_WHISPER \
+             (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64),
+             (32, 5, 64, 64)) + K1_WHISPER \
     + K1_HYBRID + K1_MOE
 K1_VERIFY = (60, 5, 32, 64)
 K1_TRAIN = (120, 1024, 32, 64)
@@ -485,6 +500,7 @@ def long_prefill(T, cfg, params, dev, scan_ms, k1_counter):
             f"{cfg.num_layers} x K1 ({scan_ms:.4f} ms an ops.stlt_scan call) = "
             f"{100 * cfg.num_layers * scan_ms / ms:.1f}% of it")
         profile(lambda: T.prefill(params, cfg, toks, LONG_N), f"prefill 1 x {LONG_N}")
+    return ms
 
 
 def k2_inputs(dev, BH, N, dh, S, seed, adversarial: bool, x_scale: float = 1.0):
@@ -659,6 +675,42 @@ def scan_vjp_check(k1, ops, dev, B, H, N, S, d, C, reverse) -> float:
     log(f"[T1 scan VJP] BH={B * H} N={N} reverse={reverse}: " + ", ".join(parts)
         + f"; worst {worst:.3e} of the scale (gate {K1_TOL})")
     return worst
+
+
+def recompute_check(k1, ops, dev, B, H, N, S, d, C, reverse) -> dict:
+    """Phase T1, ``param_grads="recompute"`` (the legacy backward: K1
+    forward and dx, the pole and mixer grads by autograd through the plain
+    version) against ``"analytic"`` on the same inputs: dx bit for bit (the
+    same K1 pass), the pole and mixer grads within K1_TOL of (1 + the
+    analytic grad's largest entry); 2 K1 launches each; each mode's
+    backward timed by CUDA events."""
+    x, lm, th, ur, ui, dz = vjp_case(dev, B, H, N, S, d, C, seed=11)
+    grads, ms = {}, {}
+    for mode in ("analytic", "recompute"):
+        ins = [t.clone().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+        k1.stlt_scan_kernel.launches = 0
+        z = ops.stlt_scan(*ins, chunk=C, reverse=reverse, param_grads=mode)
+        grads[mode] = torch.autograd.grad(z, ins, dz, retain_graph=True)
+        torch.cuda.synchronize()
+        if k1.stlt_scan_kernel.launches != 2:
+            raise AssertionError(f"T1 {mode}: {k1.stlt_scan_kernel.launches} K1 launches")
+        ms[mode] = time_cuda(lambda: torch.autograd.grad(z, ins, dz, retain_graph=True), 5)
+        del z, ins
+    if not torch.equal(grads["recompute"][0], grads["analytic"][0]):
+        raise AssertionError("T1 recompute: dx differs from the analytic mode's")
+    worst, parts = 0.0, []
+    for name, a, b in zip(("dlog_mag", "dtheta", "du_re", "du_im"), grads["recompute"][1:],
+                          grads["analytic"][1:]):
+        err, scale = float((a - b).abs().max()), 1.0 + float(b.abs().max())
+        worst = max(worst, err / scale)
+        parts.append(f"{name} {err:.3e} (scale {scale:.3e})")
+        if not err <= K1_TOL * scale:
+            raise AssertionError(f"T1 recompute: {name} {err} > {K1_TOL} * {scale}")
+    log(f"[T1 param_grads] BH={B * H} N={N} reverse={reverse}: recompute vs analytic "
+        + ", ".join(parts) + f"; dx equal; backward {ms['analytic']:.3f} ms analytic, "
+        f"{ms['recompute']:.3f} ms recompute (events) [{smi_line()}]")
+    return {"worst": worst, "analytic_bwd_ms": ms["analytic"],
+            "recompute_bwd_ms": ms["recompute"]}
 
 
 ANNOTATIONS = ("stlt_scan.param_grads",)   # ops._StltScan's record_function
@@ -1278,7 +1330,7 @@ def serve_phase(T, k1, cfg, params, dev) -> dict:
     gaps = [1e3 * (b - a) for r in reqs
             for a, b in zip(stats[r.id]["token_walls"], stats[r.id]["token_walls"][1:])]
     out = {"wall_s": wall, "tok_s": n_tok / wall, "tokens": n_tok, "ties": ties,
-           "k1_launches": launches, **dispatches,
+           "k1_launches": launches, **dispatches, "streams": res,
            "ttft_ticks": np.percentile(ttft_ticks, [50, 99]).tolist(),
            "ttft_ms": np.percentile(ttft_ms, [50, 99]).tolist(),
            "gap_ms": np.percentile(gaps, [50, 99]).tolist()}
@@ -1346,6 +1398,309 @@ def serve_phase(T, k1, cfg, params, dev) -> dict:
     log(f"[S profile] one decode_step at batch {SERVE_SLOTS}: {out['capped_step_launches']} "
         f"launches with node caps (continuous mode), {out['uncapped_step_launches']} "
         f"without (wave mode) [{smi}]")
+    return out
+
+
+# Phase F: stlt-base in its hann form (the finite-support window, W = 128 =
+# 2S: an FFT convolution over the last W values and a ring of them, no
+# kernel of the port) at full width, on phase 3's weights (the parameter
+# tree does not depend on the window). F1 checks it (card vs CPU, both
+# directions, chunked vs monolithic, decode vs teacher-forced), F2 serves
+# phase S's requests, F3 times the 131,072-token prefill.
+F_STEPS = 16   # decode steps held to the teacher-forced forward
+
+
+def hann_check_phase(T, k1, k2, cfg, params, dev, prompts) -> dict:
+    """F1: ``lm_loss`` and ``apply_lm`` logits at B x N on the card against
+    the CPU, ``apply_stlt`` of the first layer in both directions card vs
+    CPU, and with the adaptive masks off (one mask per chunk or step is a
+    streaming approximation of one per prompt, as phase 4 states) chunked
+    prefill at SERVE_CHUNK (the ring carried as left context) against
+    monolithic and F_STEPS decode steps against the teacher-forced forward,
+    each within LOGIT_TOL. No K1 or K2 launch."""
+    from repro_torch.core import stlt as stlt_lib
+    from repro_torch.utils import tree_map
+
+    B, N = prompts.shape
+    toks = torch.from_numpy(prompts).to(dev)
+    batch = {"inputs": toks, "labels": torch.roll(toks, -1, dims=1)}
+    cpu_params = tree_map(torch.Tensor.cpu, params)
+    out = {}
+    k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
+    with torch.no_grad():
+        loss, _ = T.lm_loss(params, cfg, batch, deterministic=True)
+        lg, _ = T.apply_lm(params, cfg, toks)
+        loss_c, _ = T.lm_loss(cpu_params, cfg, tree_map(torch.Tensor.cpu, batch),
+                              deterministic=True)
+        lg_c, _ = T.apply_lm(cpu_params, cfg, toks.cpu())
+        out["logit_err"] = float((lg.cpu() - lg_c).abs().max())
+        out["loss_err"] = abs(float(loss) - float(loss_c))
+        del lg, lg_c
+        scfg = cfg.stlt_config()
+        x = torch.randn(B, N, cfg.d_model, generator=torch.Generator().manual_seed(3))
+        for bi in (False, True):
+            c = dataclasses.replace(scfg, bidirectional=bi)
+            y, _ = stlt_lib.apply_stlt(params["layers"][0]["stlt"], c, x.to(dev))
+            y_c, _ = stlt_lib.apply_stlt(cpu_params["layers"][0]["stlt"], c, x)
+            out[f"apply_{'bilateral' if bi else 'causal'}_err"] = float(
+                (y.cpu() - y_c).abs().max())
+        plain = dataclasses.replace(cfg, stlt_adaptive=False)
+        mono, st_m = T.prefill(params, plain, toks, 0)
+        st = T.init_decode_state(plain, B, 0, device=dev)
+        for off in range(0, N, SERVE_CHUNK):
+            lgc, st = T.prefill_chunk(params, plain, toks[:, off:off + SERVE_CHUNK], st)
+        out["chunked_err"] = float((lgc - mono).abs().max())
+        same = bool((lgc.argmax(-1) == mono.argmax(-1)).all())
+        extra = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab, (B, F_STEPS))).to(dev)
+        full, _ = T.apply_lm(params, plain, torch.cat([toks, extra], 1))
+        step_err = float((mono - full[:, N - 1]).abs().max())
+        for i in range(F_STEPS - 1):
+            lgs, st_m = T.decode_step(params, plain, extra[:, i], st_m)
+            step_err = max(step_err, float((lgs - full[:, N + i]).abs().max()))
+        out["step_err"] = step_err
+        torch.cuda.synchronize()
+    launches = (k1.stlt_scan_kernel.launches, k2.relevance_flash_kernel.launches)
+    errs = {k: v for k, v in out.items() if k.endswith("_err")}
+    log(f"[F1 hann check] {B} x {N} at full width: lm_loss card {float(loss):.6f} vs CPU "
+        f"{float(loss_c):.6f}; max abs errors " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                          errs.items())
+        + f" (gate {LOGIT_TOL}); chunked first tokens equal {same}; K1/K2 launches "
+        f"{launches}")
+    if not (all(v <= LOGIT_TOL for v in errs.values()) and same and launches == (0, 0)
+            and torch.isfinite(loss)):
+        raise AssertionError(f"F1: {errs}, first tokens equal {same}, launches {launches}")
+    return out
+
+
+def slot_bytes(T, cfg, dev) -> int:
+    """Bytes of one slot's decode state (every leaf of a batch-1 state)."""
+    from repro_torch.serving.prefix_cache import pytree_nbytes
+
+    return pytree_nbytes(T.init_decode_state(cfg, 1, 0, device=dev))
+
+
+def predicted_slot_bytes(cfg) -> int:
+    """One slot's state from the layout: per layer the exponential carry
+    h_re, h_im (2 x H S dh fp32) or the hann ring buf (H W dh fp32) and its
+    int32 pos, plus asum (d fp32) and acnt under adaptive masks; the model's
+    int32 pos."""
+    H, S, dh = cfg.num_heads, cfg.stlt_nodes, cfg.dh
+    W = cfg.stlt_config().hann_support
+    layer = 4 * H * W * dh + 4 if cfg.stlt_window == "hann" else 4 * 2 * H * S * dh
+    if cfg.stlt_adaptive:
+        layer += 4 * cfg.d_model + 4
+    return cfg.num_layers * layer + 4
+
+
+def hann_serve_phase(T, k1, k2, cfg, params, dev, exp_cfg) -> dict:
+    """F2: phase S's requests (4 slots, chunk SERVE_CHUNK, the warmed
+    system prompt) served in the hann form: each stream against its request
+    run alone (near-tie rule), no K1 or K2 launch, cache hits as phase S's;
+    TTFT, gaps, tok/s, the device's busy share; the per-slot state beside
+    the exponential form's, both against their layout's prediction."""
+    from repro_torch.serving import PrefixCache, Request, ServeEngine
+
+    smi = smi_line()
+    sys_prompt, reqs = serve_requests(cfg, Request)
+    arrivals = [s[4] for s in SERVE_SPEC]
+    eng = ServeEngine(params, cfg, prefill_chunk=SERVE_CHUNK, device=dev)
+
+    def run():
+        eng.prefix_cache = PrefixCache()
+        eng.warm_prefix(sys_prompt)
+        torch.cuda.synchronize()
+        k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
+        t0 = time.time()
+        res = eng.serve(reqs, slots=SERVE_SLOTS, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        return res, time.time() - t0
+
+    run()   # first call: one-time costs (FFT plans)
+    (res, stats), wall = run()
+    launches = (k1.stlt_scan_kernel.launches, k2.relevance_flash_kernel.launches)
+    if launches != (0, 0):
+        raise AssertionError(f"F2: the hann serve launched K1/K2 {launches} times")
+    for r in reqs:
+        if len(res[r.id]) != r.max_new_tokens:
+            raise AssertionError(f"F2: request {r.id} gave {res[r.id]}")
+    cached = [stats[r.id]["cached_tokens"] for r in reqs]
+    if any((c != SERVE_SYS) if s[1] else c for c, s in zip(cached, SERVE_SPEC)):
+        raise AssertionError(f"F2: cached tokens {cached}")
+    with torch.no_grad():
+        ties = sum(alone_stream_check(T, cfg, params, dev, r, res[r.id]) for r in reqs)
+    out = serve_metrics(res, stats, reqs, wall)
+    out.update(ties=ties, launches=launches, dispatches=dict(eng.serve_stats))
+    prof = serve_profile(lambda: run(), eng.serve_stats["decode_dispatches"], 0)
+    out["busy"] = None if prof is None else prof["busy"]
+    out["slot_bytes"] = {"hann": slot_bytes(T, cfg, dev), "exponential": slot_bytes(T, exp_cfg, dev)}
+    want = {"hann": predicted_slot_bytes(cfg), "exponential": predicted_slot_bytes(exp_cfg)}
+    if out["slot_bytes"] != want:
+        raise AssertionError(f"F2: slot bytes {out['slot_bytes']}, predicted {want}")
+    busy = "not measured" if prof is None else f"{100 * prof['busy']:.1f}%"
+    log(f"[F2 hann serve] {len(reqs)} requests, {SERVE_SLOTS} slots, chunk {SERVE_CHUNK}: "
+        f"every stream equals its request run alone ({ties} near-tie steps within "
+        f"{LOGIT_TOL}); K1/K2 launches {launches}; cached tokens {cached}; "
+        f"{out['dispatches']} [{smi}]")
+    log(f"[F2 hann serve] wall {wall:.3f} s, {out['tokens']} tokens, {out['tok_s']:.1f} "
+        f"generated tok/s; TTFT p50/p99 {out['ttft_ms'][0]:.2f}/{out['ttft_ms'][1]:.2f} ms; "
+        f"inter-token gap p50/p99 {out['gap_ms'][0]:.3f}/{out['gap_ms'][1]:.3f} ms; device "
+        f"busy {busy} of a profiled serve; per-slot state {out['slot_bytes']['hann']} bytes "
+        f"(exponential {out['slot_bytes']['exponential']}; both as predicted from the "
+        f"layout) [{smi}]")
+    return out
+
+
+def hann_long_prefill(T, k1, cfg, params, dev, exp_ms) -> float:
+    """F3: one batch-1 prefill of LONG_N tokens in the hann form by CUDA
+    events beside phase 6's exponential one (``exp_ms``); no K1 launch,
+    finite logits."""
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(1, LONG_N))).to(dev)
+    with torch.no_grad():
+        k1.stlt_scan_kernel.launches = 0
+        logits, _ = T.prefill(params, cfg, toks, LONG_N)
+        torch.cuda.synchronize()
+        if k1.stlt_scan_kernel.launches or not torch.isfinite(logits).all():
+            raise AssertionError(f"F3: {k1.stlt_scan_kernel.launches} K1 launches, finite "
+                                 f"logits {bool(torch.isfinite(logits).all())}")
+        ms = time_cuda(lambda: T.prefill(params, cfg, toks, LONG_N), iters=3, warmup=1)
+    log(f"[F3 hann prefill] 1 x {LONG_N} tokens: {ms:.3f} ms (events), the exponential "
+        f"form's {exp_ms:.3f} ms (phase 6) [{smi_line()}]")
+    return ms
+
+
+def hann_phase(T, k1, k2, cfg, params, dev, prompts, exp_long_ms) -> dict:
+    """Phase F: F1, F2 and F3 on stlt-base's hann form."""
+    hcfg = dataclasses.replace(cfg, stlt_window="hann")
+    t0 = time.time()
+    out = {"F1": hann_check_phase(T, k1, k2, hcfg, params, dev, prompts)}
+    t1 = time.time()
+    out["F2"] = hann_serve_phase(T, k1, k2, hcfg, params, dev, cfg)
+    t2 = time.time()
+    out["F3_ms"] = hann_long_prefill(T, k1, hcfg, params, dev, exp_long_ms)
+    log(f"[F time] F1 {t1 - t0:.1f} s, F2 {t2 - t1:.1f} s, F3 {time.time() - t2:.1f} s")
+    return out
+
+
+# Phase SH: stlt-base (exponential: K1 on every admission) served by the
+# sharded engine, phase S's requests on SH_HOSTS x SH_SLOTS (S's 4 slots),
+# chunk SERVE_CHUNK, a ReplicatedPrefixCache warmed with the system prompt;
+# then an n-gram spec serve (spec_k SH_SPEC_K; spec refuses adaptive masks,
+# so with them off) sharded against single-host; then the serve CLI with
+# --mesh-data.
+SH_HOSTS, SH_SLOTS, SH_SPEC_K = 2, 2, 4
+
+
+def near_tie_streams(T, cfg, params, dev, reqs, got, want, tag) -> tuple:
+    """(streams equal to ``want``, near-tie steps): a stream that differs
+    from ``want`` must pass ``alone_stream_check`` (each token the alone
+    run's argmax or within LOGIT_TOL of it)."""
+    same, ties = 0, 0
+    with torch.no_grad():
+        for r in reqs:
+            if np.array_equal(got[r.id], want[r.id]):
+                same += 1
+            else:
+                log(f"[{tag}] request {r.id} differs from the reference stream: held to "
+                    "its request run alone")
+                ties += alone_stream_check(T, cfg, params, dev, r, got[r.id])
+    return same, ties
+
+
+def sharded_phase(T, k1, cfg, params, dev, s_streams) -> dict:
+    """Phase SH: (a) each sharded stream equals phase S's single-host one
+    under the near-tie rule; (b) every request's host, both hosts serving;
+    (c) the replicated cache: the same pinned count on every shard, every
+    request's cached tokens as phase S's; (d) K1 launches = layers x the
+    [H*K, chunk] admission dispatches; (e) the n-gram spec serve sharded
+    against single-host, K1 = layers x (admission + verify dispatches);
+    (f) ``python -m repro_torch.launch.serve --mesh-data`` exits 0 with its
+    per-host line."""
+    from repro_torch.serving import ReplicatedPrefixCache, Request, ServeEngine, ShardedServeEngine
+
+    smi = smi_line()
+    sys_prompt, reqs = serve_requests(cfg, Request)
+    arrivals = [s[4] for s in SERVE_SPEC]
+    t0 = time.time()
+    cache = ReplicatedPrefixCache(SH_HOSTS)
+    eng = ShardedServeEngine(params, cfg, n_hosts=SH_HOSTS, slots_per_host=SH_SLOTS,
+                             prefill_chunk=SERVE_CHUNK, prefix_cache=cache, device=dev)
+    eng.warm_prefix(sys_prompt)
+    torch.cuda.synchronize()
+    k1.stlt_scan_kernel.launches = 0
+    t1 = time.time()
+    res, stats = eng.serve(reqs, arrivals=arrivals, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    launches, dispatches = k1.stlt_scan_kernel.launches, dict(eng.serve_stats)
+    predicted = cfg.num_layers * dispatches["admission_dispatches"]
+    hosts = {r.id: stats[r.id]["host"] for r in reqs}
+    per_host = {h: sum(v == h for v in hosts.values()) for h in range(SH_HOSTS)}
+    cs = cache.stats()
+    pinned = [sh["pinned"] for sh in cs["shards"]]
+    cached = [stats[r.id]["cached_tokens"] for r in reqs]
+    same, ties = near_tie_streams(T, cfg, params, dev, reqs, res, s_streams, "SH (a)")
+    out = serve_metrics(res, stats, reqs, wall)
+    out.update(k1_launches=launches, predicted_k1=predicted, dispatches=dispatches,
+               per_host=per_host, pinned=pinned, same=same, ties=ties)
+    log(f"[SH sharded serve] {SH_HOSTS} hosts x {SH_SLOTS} slots, chunk {SERVE_CHUNK}: (a) "
+        f"{same} of {len(reqs)} streams equal phase S's, the rest equal their request run "
+        f"alone ({ties} near-tie steps); (b) hosts {hosts}, per host {per_host}; (c) pinned "
+        f"per shard {pinned}, cached tokens {cached}; (d) {launches} K1 launches, predicted "
+        f"{cfg.num_layers} layers x {dispatches['admission_dispatches']} admission "
+        f"dispatches = {predicted}; {dispatches}; wall {wall:.3f} s, {out['tok_s']:.1f} "
+        f"generated tok/s, TTFT p50/p99 {out['ttft_ms'][0]:.2f}/{out['ttft_ms'][1]:.2f} ms "
+        f"[{smi}]")
+    if (launches != predicted or launches == 0 or set(per_host.values()) & {0}
+            or len(set(pinned)) != 1 or pinned[0] == 0 or not cs["replication_ok"]
+            or any((c != SERVE_SYS) if s[1] else c for c, s in zip(cached, SERVE_SPEC))
+            or any(len(res[r.id]) != r.max_new_tokens for r in reqs)):
+        raise AssertionError(f"SH: launches {launches}/{predicted}, per host {per_host}, "
+                             f"pinned {pinned}, cached {cached}")
+
+    # (e) n-gram spec, sharded against single-host (adaptive masks off)
+    plain = dataclasses.replace(cfg, stlt_adaptive=False)
+    t2 = time.time()
+    spec = {}
+    for name, make in (("single", lambda: ServeEngine(
+            params, plain, prefill_chunk=SERVE_CHUNK, spec_k=SH_SPEC_K, spec_draft="ngram",
+            device=dev)), ("sharded", lambda: ShardedServeEngine(
+            params, plain, n_hosts=SH_HOSTS, slots_per_host=SH_SLOTS,
+            prefill_chunk=SERVE_CHUNK, spec_k=SH_SPEC_K, spec_draft="ngram", device=dev))):
+        e = make()
+        k1.stlt_scan_kernel.launches = 0
+        kw = {} if name == "sharded" else {"slots": SH_HOSTS * SH_SLOTS}
+        got = e.serve(reqs, arrivals=arrivals, **kw)
+        torch.cuda.synchronize()
+        spec[name] = {"streams": got, "k1": k1.stlt_scan_kernel.launches,
+                      "predicted": cfg.num_layers * k1_dispatches(e.serve_stats),
+                      "dispatches": dict(e.serve_stats), "stats": dict(e.spec_stats)}
+    spec_same, spec_ties = near_tie_streams(T, plain, params, dev, reqs,
+                                            spec["sharded"]["streams"],
+                                            spec["single"]["streams"], "SH (e)")
+    log(f"[SH spec] n-gram k={SH_SPEC_K}, adaptive masks off: {spec_same} of {len(reqs)} "
+        f"sharded streams equal the single-host spec serve's ({spec_ties} near-tie steps); "
+        + "; ".join(f"{n}: K1 {v['k1']} (predicted {v['predicted']}), {v['dispatches']}, "
+                    f"{v['stats']}" for n, v in spec.items()) + f" [{smi}]")
+    if any(v["k1"] != v["predicted"] or v["k1"] == 0 or v["dispatches"]["decode_dispatches"]
+           for v in spec.values()):
+        raise AssertionError(f"SH (e): {[(v['k1'], v['predicted']) for v in spec.values()]}")
+    out.update(spec_k1=spec["sharded"]["k1"], spec_same=spec_same, spec_ties=spec_ties)
+
+    # (f) the CLI
+    t3 = time.time()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mesh-data", str(SH_HOSTS),
+           "--slots-per-host", str(SH_SLOTS), "--prefill-chunk", str(SERVE_CHUNK)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        log(f"[SH cli] {ln}")
+    if cli.returncode or not any(ln.startswith("[serve] per-host requests: ") for ln in lines):
+        raise AssertionError(f"SH (f): the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    log(f"[SH time] serve and checks {t2 - t0:.1f} s, spec {t3 - t2:.1f} s, CLI "
+        f"{time.time() - t3:.1f} s")
     return out
 
 
@@ -3596,6 +3951,8 @@ def main(argv) -> int:
     vjp_err = max([vjp_err] + [
         scan_vjp_check(k1, ops, dev, T3_B, smollm.num_heads, T3_N, smollm.stlt_nodes,
                        smollm.dh, smollm.stlt_chunk, rev) for rev in (False, True)])
+    # param_grads="recompute", the analytic grads' A/B baseline, at T1's shape
+    recompute = [recompute_check(k1, ops, dev, B, H, N, S, dh, C, rev) for rev in (False, True)]
 
     lap("T1")
     # 3. the main path: full-width stlt-base generate --------------------------
@@ -3808,8 +4165,8 @@ def main(argv) -> int:
             f"{r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound {r['bound']:.4f} "
             f"ms ({r['bound_by']})")
         del w_args
-    long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S, dh)]["scan"],
-                 k1.stlt_scan_kernel)
+    long_ms = long_prefill(T, cfg, engine.params, dev, k1_rows[(8, LONG_N, S, dh)]["scan"],
+                           k1.stlt_scan_kernel)
     with torch.no_grad():
         tok = torch.from_numpy(prompts).to(dev)
         prefill_ms = time_cuda(lambda: T.prefill(engine.params, cfg, tok, N), iters=5)
@@ -3890,6 +4247,16 @@ def main(argv) -> int:
     # so that its long profile cannot disturb the kernel timings' profiles.
     srv = serve_phase(T, k1, cfg, engine.params, dev)
     lap("S")
+
+    # F. stlt-base's hann form (no kernel): checked, served, a long prefill
+    hann = hann_phase(T, k1, k2, cfg, engine.params, dev, prompts, long_ms)
+    free_cuda()
+    lap("F")
+    # SH. the sharded engine: phase S's requests on 2 hosts x 2 slots with a
+    # replicated prefix cache (K1 on every admission), n-gram spec, the CLI
+    sharded = sharded_phase(T, k1, cfg, engine.params, dev, srv["streams"])
+    free_cuda()
+    lap("SH")
     del engine, params, rparams
     torch.cuda.empty_cache()
 
@@ -4029,6 +4396,17 @@ def main(argv) -> int:
         "train_fwd_ms": train_k1["fwd_ms"], "dx_ms": train_k1["dx_ms"],
         "dx_device_ms": train_k1["dx_device_ms"], "dx_bound_ms": train_k1["bound"],
         "vjp_max_err_over_scale": vjp_err,
+        # phase T1: param_grads="recompute" against "analytic" (worst error
+        # over the scale) and both backwards' times, causal and anti-causal
+        "recompute_max_err_over_scale": max(r["worst"] for r in recompute),
+        "recompute_bwd_ms": [r["recompute_bwd_ms"] for r in recompute],
+        "analytic_bwd_ms": [r["analytic_bwd_ms"] for r in recompute],
+        # phase F: K1 launches in the hann form's serve (0: no kernel), and
+        # phase SH: in the sharded serve (layers x [4, chunk] admission
+        # dispatches) and its n-gram spec serve (+ verify dispatches)
+        "launches_per_hann_serve": hann["F2"]["launches"][0],
+        "launches_per_sharded_serve": sharded["k1_launches"],
+        "launches_per_sharded_spec_serve": sharded["spec_k1"],
         # phase W (whisper-base-stlt): K1 launches in one encode (2 a
         # bilateral encoder layer) and in one bf16 train step with remat;
         # K1 at the encode's shape (32 rows x 1500 frames, S = 32) and the

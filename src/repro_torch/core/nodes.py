@@ -60,3 +60,10 @@ def node_poles(params: dict, delta: float = 1.0, fold_window: bool = True, *,
     log_mag = -sigma_eff * delta
     theta = -omega * delta
     return log_mag, theta, sigma, T
+
+
+def hann_window(t: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Symmetric Hann taper w(t;T) = 0.5*(1+cos(pi t / T)) for |t| <= T, zero
+    outside; T is clamped at 1e-6."""
+    inside = (t.abs() <= T).to(t.dtype)
+    return 0.5 * (1.0 + torch.cos(math.pi * t / torch.clamp(T, min=1e-6))) * inside

@@ -43,7 +43,14 @@ encoder's: ``apply_cross_stlt`` for a whole sequence, ``cross_stlt_context``
 and ``cross_stlt_step`` for decoding. The JAX package computes it in plain
 ``jnp`` (no Pallas kernel), so it is plain torch here.
 
-The hann window is not ported yet and raises ``NotImplementedError``.
+Windows: ``exponential`` (an exact one-state recurrence; the learnable T
+folds into the pole) or ``hann`` (finite support W = ``hann_support``): the
+combined real filter g[h, t] = Re(sum_k u_hk lambda_hk^t) w(t; T_h) of
+``_hann_filters`` is applied as an FFT convolution (``_hann_conv``,
+``torch.fft``, as the JAX package computes it with ``jnp.fft`` outside any
+Pallas kernel), so the hann form runs no kernel of the port on any engine
+name. Its streaming state is a newest-first ring of the last W values
+``buf`` [B, H, W, dh] fp32 and the per-row position ``pos`` [B] int32.
 """
 from __future__ import annotations
 
@@ -106,8 +113,6 @@ def _check_ported(cfg: STLTConfig, streaming: bool = False):
         return
     if cfg.mode != "factorized":
         raise NotImplementedError(f"STLT mode {cfg.mode!r} is not ported yet")
-    if cfg.window != "exponential":
-        raise NotImplementedError(f"STLT window {cfg.window!r} is not ported yet")
     if cfg.bidirectional and streaming:
         raise ValueError("the bilateral STLT has no streaming state: prefill and "
                          "decode are causal")
@@ -313,6 +318,83 @@ def _relevance_materialized(cfg: STLTConfig, x, v, log_mag, theta, masks,
 
 
 # ---------------------------------------------------------------------------
+# hann window (finite support; FFT convolution)
+# ---------------------------------------------------------------------------
+
+
+def _hann_filters(params: dict, cfg: STLTConfig, masks=None):
+    """The combined real causal filter per head, g[h, t] =
+    Re(sum_k u_hk lambda_hk^t) w(t; T_h), t < W: [H, W], or [B, H, W] under
+    adaptive masks [B, H, S]. The window is not folded into the poles."""
+    log_mag, theta, _, T = _poles(params, cfg)
+    t = torch.arange(cfg.hann_support, dtype=torch.float32, device=log_mag.device)
+    mag = torch.exp(t[:, None, None] * log_mag[None])           # [W, H, S]
+    ang = t[:, None, None] * theta[None]
+    u_re, u_im = _masked_u(params, masks)
+    if u_re.ndim == 2:
+        g = (u_re[None] * mag * torch.cos(ang) - u_im[None] * mag * torch.sin(ang)).sum(-1)
+        g = g * nodes_lib.hann_window(t[:, None], T[None, :])  # [W, H]
+        return g.transpose(0, 1)
+    g = (u_re[:, None] * mag[None] * torch.cos(ang)[None]
+         - u_im[:, None] * mag[None] * torch.sin(ang)[None]).sum(-1)   # [B, W, H]
+    g = g * nodes_lib.hann_window(t[None, :, None], T[None, None, :])
+    return g.transpose(1, 2)
+
+
+def _next_fast_len(n: int) -> int:
+    """Smallest 5-smooth (2^a 3^b 5^c) integer >= n: the FFT length, the
+    JAX package's, so both packages transform at the same length."""
+    if n <= 1:
+        return 1
+    best = 1 << (n - 1).bit_length()
+    f5 = 1
+    while f5 < best:
+        f35 = f5
+        while f35 < best:
+            x = f35
+            while x < n:
+                x *= 2
+            best = min(best, x)
+            f35 *= 3
+        f5 *= 5
+    return best
+
+
+def _hann_conv(v: torch.Tensor, g: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Causal (anti-causal with ``reverse``) depthwise FFT convolution of v
+    [B, H, N, dh] with g [H, W] or [B, H, W], in fp32, cast back to v's
+    dtype. Anti-causal conjugates the real filter's spectrum (circular
+    correlation), whose first N samples line up because the FFT length
+    covers N + W."""
+    N, W = v.shape[2], g.shape[-1]
+    L = _next_fast_len(N + W)
+    vf = torch.fft.rfft(v.float(), n=L, dim=2)                  # [B, H, Lf, dh]
+    gf = torch.fft.rfft(g.float(), n=L, dim=-1)                 # [(B,) H, Lf]
+    if g.ndim == 2:
+        gf = gf[None]
+    if reverse:
+        gf = gf.conj()
+    z = torch.fft.irfft(vf * gf[..., None], n=L, dim=2)[:, :, :N]
+    return z.to(v.dtype)
+
+
+def _ring_gather(ext: torch.Tensor, W: int, q: torch.Tensor) -> torch.Tensor:
+    """The newest-first ring after the first ``q[b]`` tokens of the chunk in
+    ext [B, H, W + N, dh] (its first W positions the old ring, oldest
+    first): slot w holds ext index W + q - 1 - w, in fp32. Positions past
+    W + q are never read, and a q == 0 row gets its old ring back."""
+    B, H, _, dh = ext.shape
+    idx = (W + q.long()[:, None] - 1) - torch.arange(W, device=ext.device)[None, :]
+    return torch.gather(ext.float(), 2, idx[:, None, :, None].expand(B, H, W, dh))
+
+
+def _ring_context(state: dict, v: torch.Tensor) -> torch.Tensor:
+    """The old ring as chronological left context before v: [B, H, W + N, dh]
+    in v's dtype (slots past the true depth hold zeros: no input before 0)."""
+    return torch.cat([state["buf"].flip(2).to(v.dtype), v], dim=2)
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
@@ -349,6 +431,12 @@ def apply_stlt(params: dict, cfg: STLTConfig, x: torch.Tensor, *,
     v = _split_heads(matmul(x, params["w_v"]), cfg.num_heads)
     if cfg.mode == "relevance":
         z = _relevance_readout(cfg, x, v, log_mag, theta, masks, pad_mask)
+    elif cfg.window == "hann":   # every engine name: the FFT convolution
+        g = _hann_filters(params, cfg, masks)
+        z = _hann_conv(v, g, reverse=False)
+        if cfg.bidirectional:
+            z = z + _hann_conv(v, g, reverse=True)
+            z = z - g[..., 0][..., None, None] * v   # the centre tap, counted twice
     else:
         u_re, u_im = _masked_u(params, masks)
         z = _factorized(v, log_mag, theta, u_re, u_im, cfg, reverse=False)
@@ -410,19 +498,45 @@ def stlt_prefill(params: dict, cfg: STLTConfig, x: torch.Tensor,
         masks = _serve_node_masks(params, cfg, pooled, node_cap, log_mag)
     u_re, u_im = _masked_u(params, masks)
 
-    z, new_state = _scan(v, log_mag, theta, u_re, u_im, cfg, state=state,
-                         valid=valid, return_state=True)
+    if cfg.window == "hann":
+        W = cfg.hann_support
+        g = _hann_filters(params, cfg, masks)
+        if state is None:
+            z = _hann_conv(v, g, reverse=False)
+            ext = v
+            pos = torch.zeros((B,), dtype=torch.int32, device=x.device)
+        else:
+            ext = _ring_context(state, v)
+            z = _hann_conv(ext, g, reverse=False)[:, :, W:]
+            pos = state["pos"]
+        if valid is not None:
+            new_state = {"buf": _ring_gather(ext, W, valid),
+                         "pos": pos + valid.to(pos.dtype)}
+        else:
+            take = min(W, ext.shape[2])
+            buf = torch.zeros((B, cfg.num_heads, W, cfg.head_dim), device=x.device)
+            buf[:, :, :take] = ext.flip(2)[:, :, :take].float()
+            new_state = {"buf": buf, "pos": pos + N}
+    else:
+        z, new_state = _scan(v, log_mag, theta, u_re, u_im, cfg, state=state,
+                             valid=valid, return_state=True)
     return _readout(params, cfg, x, z), {**new_state, **sum_state}
 
 
 def init_stlt_state(cfg: STLTConfig, batch: int, dtype=torch.float32,
                     device=None) -> dict:
-    """O(S*d) streaming state; adaptive configs also carry the running input
-    sum ``asum`` [batch, d_model] and count ``acnt`` [batch]."""
+    """O(S*d) streaming state (the hann window's: its ring ``buf`` [batch, H,
+    W, dh] and ``pos`` [batch] int32); adaptive configs also carry the
+    running input sum ``asum`` [batch, d_model] and count ``acnt`` [batch]."""
     _check_ported(cfg, streaming=True)
     H, S, dh = cfg.num_heads, cfg.num_nodes, cfg.head_dim
-    st = {"h_re": torch.zeros((batch, H, S, dh), dtype=dtype, device=device),
-          "h_im": torch.zeros((batch, H, S, dh), dtype=dtype, device=device)}
+    if cfg.window == "hann":
+        st = {"buf": torch.zeros((batch, H, cfg.hann_support, dh), dtype=dtype,
+                                 device=device),
+              "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    else:
+        st = {"h_re": torch.zeros((batch, H, S, dh), dtype=dtype, device=device),
+              "h_im": torch.zeros((batch, H, S, dh), dtype=dtype, device=device)}
     if cfg.adaptive.enabled:
         st["asum"] = torch.zeros((batch, cfg.d_model), device=device)
         st["acnt"] = torch.zeros((batch,), device=device)
@@ -454,6 +568,9 @@ def stlt_state_at(params: dict, cfg: STLTConfig, x: torch.Tensor, state: dict,
         acnt = (state["acnt"] if "acnt" in state
                 else torch.zeros((B,), device=x.device))
         sum_state = {"asum": asum + csum, "acnt": acnt + q.to(torch.float32)}
+    if cfg.window == "hann":   # the ring by the prefill's per-row gather
+        buf = _ring_gather(_ring_context(state, v), cfg.hann_support, q)
+        return {"buf": buf, "pos": state["pos"] + q.to(state["pos"].dtype), **sum_state}
     log_mag, theta, _, _ = _poles(params, cfg)
     h_re, h_im = scan_lib.stlt_window_state(
         v.reshape(B * H, N, dh).float(),
@@ -494,12 +611,20 @@ def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
         masks = _serve_node_masks(params, cfg, pooled, node_cap, log_mag)
     u_re, u_im = _masked_u(params, masks)
 
-    z, h_re, h_im = scan_lib.stlt_decode_step(
-        v_t, state["h_re"], state["h_im"], log_mag, theta, u_re, u_im)
+    if cfg.window == "hann":   # roll the ring, the new value at slot 0, read out
+        g = _hann_filters(params, cfg, masks)                 # [H, W] or [B, H, W]
+        buf = torch.roll(state["buf"], 1, dims=2)
+        buf[:, :, 0] = v_t
+        z = torch.einsum("bhwd,bhw->bhd" if g.ndim == 3 else "bhwd,hw->bhd", buf, g)
+        new_state = {"buf": buf, "pos": state["pos"] + 1}
+    else:
+        z, h_re, h_im = scan_lib.stlt_decode_step(
+            v_t, state["h_re"], state["h_im"], log_mag, theta, u_re, u_im)
+        new_state = {"h_re": h_re, "h_im": h_im}
     z = z.reshape(B, d)
     if cfg.gate:
         z = z * F.silu(matmul(x_t, params["w_g"]))
-    return matmul(z, params["w_o"]), {"h_re": h_re, "h_im": h_im, **sum_state}
+    return matmul(z, params["w_o"]), {**new_state, **sum_state}
 
 
 # ---------------------------------------------------------------------------

@@ -222,21 +222,39 @@ def _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
     return tuple(g.to(t.dtype) for g, t in zip(grads, (log_mag, theta, u_re, u_im)))
 
 
+def _recompute_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
+                           reverse: bool):
+    """dL/d(log_mag, theta, u_re, u_im) by autograd through the plain version
+    of the pass, re-run on the detached x (``param_grads="recompute"``)."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        poles = [t.detach().to(f32).requires_grad_(True)
+                 for t in (log_mag, theta, u_re, u_im)]
+        z = _pass(x.detach().to(f32), _operators(*poles, chunk), chunk, reverse,
+                  stlt_scan_reference)[0]
+        grads = torch.autograd.grad(z, poles, dz.to(f32))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (log_mag, theta, u_re, u_im)))
+
+
+PARAM_GRADS = {"analytic": _analytic_param_grads, "recompute": _recompute_param_grads}
+
+
 class _StltScan(torch.autograd.Function):
     """The training scan: z = pass(x) with a zero carry; backward runs the
     same pass anti-causally over dz for dx (K1 again on the card) and
-    ``_analytic_param_grads`` for the poles and mixers. Grads come back per
-    row ([BH, S]); a caller that repeats poles over the batch sums them by
-    autograd."""
+    ``PARAM_GRADS[param_grads]`` for the poles and mixers. Grads come back
+    per row ([BH, S]); a caller that repeats poles over the batch sums them
+    by autograd."""
 
     @staticmethod
-    def forward(ctx, x, log_mag, theta, u_re, u_im, chunk: int, reverse: bool):
+    def forward(ctx, x, log_mag, theta, u_re, u_im, chunk: int, reverse: bool,
+                param_grads: str = "analytic"):
         f32 = torch.float32
         operators = _operators(log_mag.to(f32), theta.to(f32), u_re.to(f32),
                                u_im.to(f32), chunk)
         z = _pass(x.to(f32), operators, chunk, reverse, _runner(x))[0]
         ctx.save_for_backward(x, log_mag, theta, u_re, u_im, *operators)
-        ctx.chunk, ctx.reverse = chunk, reverse
+        ctx.chunk, ctx.reverse, ctx.param_grads = chunk, reverse, param_grads
         return z.to(x.dtype)
 
     @staticmethod
@@ -251,9 +269,9 @@ class _StltScan(torch.autograd.Function):
             # the annotation lets a profile read the param grads' device and
             # host time (chip_smoke.py, phase T2)
             with torch.profiler.record_function("stlt_scan.param_grads"):
-                dparams = _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im,
-                                                chunk, reverse)
-        return (dx, *(dparams or (None,) * 4), None, None)
+                dparams = PARAM_GRADS[ctx.param_grads](x, dz, log_mag, theta, u_re,
+                                                       u_im, chunk, reverse)
+        return (dx, *(dparams or (None,) * 4), None, None, None)
 
 
 def stlt_scan(
@@ -269,6 +287,7 @@ def stlt_scan(
     h0_im: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,   # [BH] per-row valid length
     return_state: bool = False,
+    param_grads: str = "analytic",          # analytic | recompute
 ):
     """Fused factorized STLT: z = Re(sum_k u_k * scan(lambda_k, x)),
     anti-causal with ``reverse``.
@@ -279,13 +298,19 @@ def stlt_scan(
     ``_StltScan``; the stateful serving call is not differentiated. Carry
     resume and per-row valid snapshots are forward-only, as the JAX package
     asserts; ``reverse`` with ``return_state`` returns the anti-causal
-    carry after all N tokens (the snapshot at N of the flipped pass)."""
+    carry after all N tokens (the snapshot at N of the flipped pass).
+    ``param_grads`` picks the training call's pole and mixer grads: the
+    analytic adjoints (default) or ``"recompute"``, the legacy baseline."""
+    if param_grads not in PARAM_GRADS:
+        raise ValueError(f"unknown param_grads {param_grads!r} "
+                         f"(expected one of {sorted(PARAM_GRADS)})")
     if reverse and (h0_re is not None or valid is not None):
         raise ValueError("carry resume / per-row valid snapshots are forward-only "
                          "(decoders are causal)")
     stateful = return_state or h0_re is not None or valid is not None
     if not stateful:
-        return _StltScan.apply(x, log_mag, theta, u_re, u_im, chunk, reverse)
+        return _StltScan.apply(x, log_mag, theta, u_re, u_im, chunk, reverse,
+                               param_grads)
     f32 = torch.float32
     lm, th = log_mag.to(f32), theta.to(f32)
     operators = _operators(lm, th, u_re.to(f32), u_im.to(f32), chunk)

@@ -1,6 +1,7 @@
 """Serving command line of the port: requests through ``ServeEngine.serve`` on
-one device, or through the disaggregated prefill/decode fleets (the JAX
-package's ``launch/serve.py`` without its sharded ``--mesh-data``).
+one device, through the sharded engine over a serve mesh (``--mesh-data``),
+or through the disaggregated prefill/decode fleets (the JAX package's
+``launch/serve.py``).
 
   python -m repro_torch.launch.serve --arch stlt-base --requests 8 \
       --prompt-len 512 --max-new 32 --prefill-chunk 512 --system-prompt-len 512
@@ -15,6 +16,8 @@ package's ``launch/serve.py`` without its sharded ``--mesh-data``).
   python -m repro_torch.launch.serve --arch xlstm-350m --prefill-chunk 512 --spec-k 4
   python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --variant stlt --reduced \
       --device cpu --requests 4 --slots 2 --max-new 8 --prefill-chunk 16
+  python -m repro_torch.launch.serve --arch stlt-base --mesh-data 2 --slots-per-host 2 \
+      --prefill-chunk 512 --system-prompt-len 512
 
 (with ``src`` on ``PYTHONPATH``). ``--mode continuous`` (default) is the
 slot-level scheduler, ``--mode wave`` the admission-wave baseline.
@@ -34,6 +37,12 @@ taps and the mLSTM's gate projections stay fp32. A MoE model routes the
 tokens of each dispatch together: an expert's capacity depends on the
 dispatch's token count, so a stream need not equal its request served
 alone once a dispatch drops (``models/moe.py``).
+``--mesh-data H`` serves through ``ShardedServeEngine``: the slot pool laid
+over a 1-D ("data",) mesh of H hosts (``--slots-per-host`` rows each,
+default ``--slots``; per-host admission queues, least-loaded routing, a
+``ReplicatedPrefixCache``), every host on the one device; continuous mode
+with ``--prefill-chunk`` only, and not with ``--role disagg``. It prints
+the fleet's shape and the requests each host served.
 ``--spec-k K`` turns on speculative decoding (greedy, continuous mode; the
 ``--spec-*`` flags pick the draft and the adaptive window), ``--slo-degrade
 16,8,4`` the node-budget ladder with its triggers ``--slo-gap-ms`` and
@@ -71,8 +80,9 @@ import torch
 
 from repro_torch import configs as configs_lib
 from repro_torch.models import transformer as T
-from repro_torch.serving import (DisaggController, FaultSchedule, PrefixCache, Request,
-                                 ServeEngine)
+from repro_torch.serving import (DisaggController, FaultSchedule, PrefixCache,
+                                 ReplicatedPrefixCache, Request, ServeEngine,
+                                 ShardedServeEngine)
 from repro_torch.utils import cast_params_for_compute, resolve_device, tree_leaves
 
 
@@ -140,6 +150,11 @@ def main(argv=None):
                          "decode fleets over an in-process transport. "
                          "controller: disagg with socket prefill workers "
                          "(--listen, --workers). prefill: one worker (--connect)")
+    ap.add_argument("--mesh-data", type=int, default=0,
+                    help="shard the slot pool over a ('data',) mesh of this many "
+                         "hosts (ShardedServeEngine; 0 = single-host engine)")
+    ap.add_argument("--slots-per-host", type=int, default=0,
+                    help="rows per host under --mesh-data (0 = --slots)")
     ap.add_argument("--prefill-hosts", type=int, default=1)
     ap.add_argument("--decode-hosts", type=int, default=1)
     ap.add_argument("--steal-threshold", type=int, default=0,
@@ -174,6 +189,21 @@ def main(argv=None):
     disagg = args.role in ("disagg", "controller")
     if disagg and args.mode == "wave":
         raise SystemExit("--role disagg serves continuous mode only")
+    if disagg and args.mesh_data:
+        raise SystemExit("--role disagg and --mesh-data are separate fleet "
+                         "layouts; pick one")
+    if args.mesh_data:
+        if args.mode == "wave":
+            raise SystemExit("--mesh-data shards the continuous engine only")
+        if args.sequential_admission:
+            raise SystemExit(
+                "--sequential-admission is the single-host legacy path; "
+                "sharded admission is always the coalesced two-shape dispatch")
+        if not args.prefill_chunk:
+            raise SystemExit(
+                "--mesh-data serves through the chunked two-shape admission "
+                "path only: pass --prefill-chunk N (monolithic admission "
+                "does not shard)")
 
     if args.spec_k and args.mode == "wave":
         raise SystemExit("--spec-k applies to continuous mode only (the "
@@ -242,6 +272,16 @@ def main(argv=None):
               f"hosts ({args.slots} slots each), wire={args.wire_store}"
               + (f"+{args.wire_compress}" if args.wire_compress else "")
               + (f", chaos seed={args.chaos_seed}" if args.chaos_seed is not None else ""))
+    elif args.mesh_data:
+        if use_cache:
+            cache = ReplicatedPrefixCache(args.mesh_data, **cache_kw)
+        eng = ShardedServeEngine(params, cfg, n_hosts=args.mesh_data,
+                                 slots_per_host=args.slots_per_host or args.slots,
+                                 max_len=args.max_len, temperature=args.temperature,
+                                 prefill_chunk=args.prefill_chunk, prefix_cache=cache,
+                                 **engine_kw)
+        print(f"[serve] sharded: {eng.n_hosts} hosts x {eng.slots_per_host} slots "
+              f"over mesh {dict(eng.mesh.shape)} on {eng.device}")
     else:
         if use_cache:
             cache = PrefixCache(**cache_kw)
@@ -263,6 +303,9 @@ def main(argv=None):
     t0 = time.time()
     if ctl is not None:
         results, stats = ctl.serve(reqs, return_stats=True)
+    elif args.mesh_data:
+        results, stats = eng.serve(reqs, prompt_len=None if use_cache else args.prompt_len,
+                                   return_stats=True)
     else:
         results, stats = eng.serve(
             reqs, slots=args.slots,
@@ -285,6 +328,11 @@ def main(argv=None):
         print(f"[serve] spec: {eng.spec_stats}")
     if eng.slo_degrade:
         print(f"[serve] slo: {eng.node_stats}")
+    if args.mesh_data:
+        per_host = {h: 0 for h in range(eng.n_hosts)}
+        for s in stats.values():
+            per_host[s["host"]] += 1
+        print(f"[serve] per-host requests: {per_host}")
     if cache is not None:
         prefilled = sum(s["prefilled_tokens"] for s in stats.values())
         total = sum(s["prompt_tokens"] for s in stats.values())

@@ -54,9 +54,9 @@ decode fleet through the same phases (``_tick_admission``,
 ``_tick_decode``) with four hooks: ``_now`` (the fleet's clock),
 ``_handoff_promote`` (ship a finished prefill instead of decoding it),
 ``_ready_state`` (admit a state prefilled elsewhere) and
-``_evacuate_host`` (a lost host's work, for requeueing).
-
-Not ported: the sharded engine (ROADMAP Queue 1 item 7).
+``_evacuate_host`` (a lost host's work, for requeueing). The sharded
+engine (``serving/multihost.py``) serves over H hosts of K rows through the
+same body, with its own routing and per-shard prefix cache.
 """
 from __future__ import annotations
 
@@ -342,6 +342,10 @@ class ServeEngine:
         self.serve_stats: dict = {}
         self.spec_stats: dict = {}
         self.node_stats: dict = {}
+
+    # take the [1, chunk] dispatch for a lone pending row (the sharded engine
+    # turns it off: its trace stays [B, chunk] plus warm_prefix's [1, chunk])
+    _fast_single_prefill = True
 
     # ------------------------------------------------------------------ simple
     @torch.no_grad()
@@ -881,7 +885,7 @@ class ServeEngine:
         # mixed step: ONE masked chunk dispatch advances every pending
         # admission, at [1, chunk] for a lone pending row, else [B, chunk]
         n_pending = sum(len(host.pending) for host in hosts)
-        if n_pending == 1 and coalesce and B > 1:
+        if n_pending == 1 and coalesce and B > 1 and self._fast_single_prefill:
             h, host = next((h, host) for h, host in enumerate(hosts) if host.pending)
             (local, ent), = host.pending.items()
             g = h * K + local

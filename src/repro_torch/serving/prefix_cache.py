@@ -30,9 +30,14 @@ rest (half their bytes, ``quant_bytes_saved``) and widens a hit's copy back
 to float32; logits are never narrowed. ``dedup=False`` skips the content
 digest (a host read of every leaf) for large attention-KV entries.
 
-The port of the JAX package's ``serving/prefix_cache.py``, without
-``ReplicatedPrefixCache`` (the sharded engine's). ``state_digest`` is the JAX
-package's digest: a converted state hashes to the same bytes.
+:class:`ReplicatedPrefixCache` is the sharded engine's layer: one
+:class:`PrefixCache` per shard (host), pinned inserts (warmed shared
+prompts) replicated to every shard, so each host serves a system-prompt hit
+from its own replica, unpinned per-request boundary snapshots to the owning
+shard only.
+
+The port of the JAX package's ``serving/prefix_cache.py``. ``state_digest``
+is the JAX package's digest: a converted state hashes to the same bytes.
 """
 from __future__ import annotations
 
@@ -326,3 +331,73 @@ class PrefixCache:
                 "quant_bytes_saved": self.quant_bytes_saved,
                 "ttl_evictions": self.ttl_evictions,
                 "clock": self._clock}
+
+
+class ReplicatedPrefixCache:
+    """Per-shard prefix caches with the multi-host replication contract:
+    PINNED inserts (warmed shared prompts) go to EVERY shard, digested once,
+    so any host admits a system-prompt hit from its own replica; unpinned
+    per-request boundary snapshots go to the owning shard (``shard=``) only,
+    whose host is the only one that resumes them.
+
+    Each shard does its own bytes/LRU/TTL accounting (every host holds its
+    own replica of the warmed entries, so replication costs bytes per
+    shard). ``lookup``/``insert`` default to shard 0, which makes this a
+    drop-in for the single cache that ``ServeEngine.warm_prefix`` drives
+    (its pinned inserts broadcast)."""
+
+    def __init__(self, n_shards: int, capacity: Optional[int] = None,
+                 max_bytes: Optional[int] = None,
+                 ttl_ticks: Optional[int] = None, dedup: bool = True,
+                 store_dtype: str = "f32"):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1 (got {n_shards})")
+        self.shards = [PrefixCache(capacity, max_bytes, ttl_ticks, dedup, store_dtype)
+                       for _ in range(n_shards)]
+        self.dedup = dedup
+        self.store_dtype = store_dtype
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def __len__(self) -> int:
+        return sum(len(c) for c in self.shards)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.nbytes for c in self.shards)
+
+    def insert(self, tokens, state, logits=None, pinned: bool = False,
+               shard: Optional[int] = None) -> None:
+        """Pinned inserts replicate to every shard; unpinned inserts go to
+        ``shard`` (default shard 0)."""
+        if pinned:
+            # digest once: the broadcast inserts ONE snapshot n_shards times
+            digest = state_digest(state) if self.dedup else None
+            for c in self.shards:
+                c.insert(tokens, state, logits, pinned=True, digest=digest)
+        else:
+            self.shards[shard or 0].insert(tokens, state, logits)
+
+    def lookup(self, prompt, shard: Optional[int] = None) -> Optional[PrefixEntry]:
+        return self.shards[shard or 0].lookup(prompt)
+
+    def tick(self, n: int = 1) -> int:
+        return sum(c.tick(n) for c in self.shards)
+
+    def stats(self) -> dict:
+        """Per-shard residency plus the replication invariant: every shard
+        holds the same pinned (warmed) entry count (``replicated_pinned``,
+        the smallest, and ``replication_ok``)."""
+        per = [c.stats() for c in self.shards]
+        pinned = [s["pinned"] for s in per]
+        return {"shards": per,
+                "entries": sum(s["entries"] for s in per),
+                "bytes": sum(s["bytes"] for s in per),
+                "hits": sum(s["hits"] for s in per),
+                "misses": sum(s["misses"] for s in per),
+                "store_dtype": self.store_dtype,
+                "quant_bytes_saved": sum(s["quant_bytes_saved"] for s in per),
+                "replicated_pinned": min(pinned) if pinned else 0,
+                "replication_ok": len(set(pinned)) <= 1}

@@ -4,8 +4,11 @@ anti-causal) against float64 autograd through the plain version, and
 continuous serve on the card against the same serve on the CPU (stlt-base,
 each arch added with the untied head and the hybrid family, and the xLSTM
 and MoE archs, whose train step is also held to the CPU's; the MoE
-combine gives the same output on two calls, bit for bit), and the
-disaggregated fleets' serve against the colocated card serve.
+combine gives the same output on two calls, bit for bit), the
+disaggregated fleets' and the sharded engine's serves against the
+colocated single-host card serve, the hann window's forward and decode step
+on the card against the CPU, and ``param_grads="recompute"`` against the
+analytic grads through K1.
 
 These tests need a CUDA device and ``nvcc`` (they build the kernel from
 ``src/repro_torch/kernels/csrc``); elsewhere they skip. Run them on an H100
@@ -90,6 +93,7 @@ def _assert_close(got, want):
     (8, 1000, 64, 64, 128),   # stlt-base at batch 1
     (8, 131072, 64, 64, 128),  # a 131,072-token prompt at batch 1
     (32, 512, 64, 64, 128),   # serve's [slots, chunk] admission, 4 slots
+    (32, 5, 64, 64, 128),     # ... the n-gram draft's verify window [4, k + 1]
     (3, 70, 72, 8, 16),      # d past one 64-column block
     (3, 50, 7, 4, 8),        # odd d, the smallest chunk and node count
     (15, 512, 64, 32, 128),  # SmolLM-360M-stlt (15 heads, S = 32): [1, 512]
@@ -260,6 +264,105 @@ def test_serve_on_the_card_matches_the_cpu(dev):
     for r in reqs:
         np.testing.assert_array_equal(results[1][r.id], results[0][r.id])
         assert len(results[1][r.id]) == r.max_new_tokens
+
+
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["causal", "bilateral"])
+def test_hann_forward_and_step_on_the_card_match_the_cpu(dev, bidirectional):
+    """The hann window (W = 128, an FFT convolution: no kernel of the port)
+    on the card against the CPU at stlt-base's layer widths and adaptive
+    masks: ``apply_stlt`` at 2 x 300 in either direction; causally also a
+    prefill, a padded resumed chunk (valid 0 keeps its ring bit for bit)
+    and 4 decode steps. No K1 launch; within RTOL_SCALE of the scale."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.utils import tree_map
+
+    cfg = stlt_lib.STLTConfig(d_model=512, num_heads=8, num_nodes=64, chunk=128,
+                              window="hann", bidirectional=bidirectional,
+                              adaptive=AdaptiveConfig(enabled=True))
+    params = stlt_lib.init_stlt(torch.Generator().manual_seed(0), cfg)
+    cuda = tree_map(lambda t: t.to(dev), params)
+    x = torch.randn(2, 300, 512, generator=torch.Generator().manual_seed(1))
+    before = k1.stlt_scan_kernel.launches
+    y, _ = stlt_lib.apply_stlt(cuda, cfg, x.to(dev))
+    _assert_close(y.cpu(), stlt_lib.apply_stlt(params, cfg, x)[0])
+    if not bidirectional:
+        outs = {}
+        for where, p in ((torch.device("cpu"), params), (dev, cuda)):
+            _, st = stlt_lib.stlt_prefill(p, cfg, x[:, :200].to(where))
+            valid = torch.tensor([100, 0], dtype=torch.int32, device=where)
+            y2, st2 = stlt_lib.stlt_prefill(p, cfg, x[:, 200:].to(where), state=st,
+                                            valid=valid)
+            assert torch.equal(st2["buf"][1], st["buf"][1])
+            steps = []
+            for t in range(4):
+                yt, st2 = stlt_lib.apply_stlt_step(p, cfg, x[:, 296 + t].to(where), st2)
+                steps.append(yt)
+            outs[where.type] = (y2[0, :100], torch.stack(steps), st2["buf"], st2["pos"])
+        for a, b in zip(outs[dev.type], outs["cpu"]):
+            if a.dtype == torch.int32:
+                assert torch.equal(a.cpu(), b)
+            else:
+                _assert_close(a.cpu(), b)
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches == before
+
+
+def test_sharded_serve_on_the_card_matches_single_host(dev):
+    """``ShardedServeEngine`` (2 hosts x 2 slots, a replicated warmed
+    prefix) on the card against the single-host engine on 4 slots, same
+    weights: the same streams, both hosts serving, the warmed prefix hit on
+    every request, and K1 once per layer per [4, chunk] admission dispatch."""
+    from repro_torch.configs.stlt_base import CONFIG
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (PrefixCache, ReplicatedPrefixCache, Request,
+                                     ServeEngine, ShardedServeEngine)
+
+    cfg = CONFIG.reduced(num_layers=2)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    reqs = [Request(np.concatenate([sys_prompt, rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+                    m, id=i) for i, (n, m) in enumerate([(40, 5), (9, 1), (21, 6), (50, 4),
+                                                         (16, 7), (33, 3)])]
+    arrivals = [0, 0, 1, 4, 4, 6]
+    single = ServeEngine(params, cfg, prefill_chunk=16, prefix_cache=PrefixCache(), device=dev)
+    single.warm_prefix(sys_prompt)
+    want = single.serve(reqs, slots=4, arrivals=arrivals)
+    cache = ReplicatedPrefixCache(2)
+    eng = ShardedServeEngine(params, cfg, n_hosts=2, slots_per_host=2, prefill_chunk=16,
+                             prefix_cache=cache, device=dev)
+    eng.warm_prefix(sys_prompt)
+    before = k1.stlt_scan_kernel.launches
+    got, stats = eng.serve(reqs, arrivals=arrivals, return_stats=True)
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches - before == (
+        cfg.num_layers * eng.serve_stats["admission_dispatches"]) > 0
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.id], want[r.id])
+        assert stats[r.id]["cached_tokens"] == len(sys_prompt)
+    assert {s["host"] for s in stats.values()} == {0, 1}
+    assert cache.stats()["replication_ok"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_recompute_param_grads_through_k1_match_analytic(dev, reverse):
+    """``param_grads="recompute"`` on the card (K1 forward and dx, the pole
+    and mixer grads by autograd through the plain version) against the
+    analytic grads at stlt-base's batch-4 shape: dx bit for bit (the same
+    K1 pass), the rest within RTOL_SCALE of the scale; 2 K1 launches each."""
+    x, lm, th, ur, ui, _, _, _ = _operands(dev, 32, 1000, 64, 64, 128, seed=6)
+    dz = torch.randn(32, 1000, 64, generator=torch.Generator().manual_seed(7)).to(dev)
+    grads = {}
+    for mode in ("analytic", "recompute"):
+        ins = [t.clone().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+        before = k1.stlt_scan_kernel.launches
+        z = ops.stlt_scan(*ins, chunk=128, reverse=reverse, param_grads=mode)
+        grads[mode] = torch.autograd.grad(z, ins, dz)
+        torch.cuda.synchronize()
+        assert k1.stlt_scan_kernel.launches == before + 2
+    assert torch.equal(grads["recompute"][0], grads["analytic"][0])
+    for a, b in zip(grads["recompute"][1:], grads["analytic"][1:]):
+        _assert_close(a.double(), b.double())
 
 
 def test_disagg_serve_on_the_card_matches_colocated(dev):

@@ -6,9 +6,11 @@ chunk 16) with JAX-initialized weights carried across as numpy; the
 adaptive gate's weights are scaled up so the node masks differ per row and
 per chunk. Every JAX engine name that computes the causal exponential scan
 (chunked, chunked_fused, pallas in interpret mode) is held to the port,
-which runs all three through ``ops.stlt_scan``. Tolerances: atol 1e-5 on
-layer outputs and carries (fp32 sums of O(1) terms), 1e-6 on elementwise
-layers.
+which runs all three through ``ops.stlt_scan``; the hann window (W = 16,
+an FFT convolution in both packages) in both directions, its grads and its
+ring through every streaming entry point. Tolerances: atol 1e-5 on layer
+outputs and carries (fp32 sums of O(1) terms), 1e-6 on elementwise layers,
+and the hann grads 1e-4 of each leaf's scale.
 """
 import dataclasses
 import functools
@@ -173,18 +175,127 @@ def test_init_stlt_layout_matches_jax():
     assert shapes(st) == shapes(sj)
 
 
-@pytest.mark.parametrize("kw", [dict(window="hann"),
-                                dict(window="hann", bidirectional=True),
-                                dict(window="hann", engine="associative"),
-                                dict(window="hann", engine="sequential")])
-def test_unported_stlt_variants_raise(kw):
-    """The hann window is not ported, in either direction and under every
-    engine name (the bilateral transform and the sequential/associative
-    engines are, held to the JAX package in tests/test_torch_encdec.py)."""
-    _, cfg_t = _cfgs(**kw)
-    pt = t_stlt.init_stlt(torch.Generator().manual_seed(0), cfg_t)
-    with pytest.raises(NotImplementedError):
-        t_stlt.apply_stlt(pt, cfg_t, torch.zeros(1, 4, D))
+# the hann window: its parity cases replace the refusal cases it had while
+# unported (hann; bilateral; under the associative and sequential engine
+# names, which the hann form ignores, as the JAX package's does), plus the
+# adaptive form in both directions
+HANN = {"causal": dict(adaptive=False),
+        "bidirectional": dict(adaptive=False, bidirectional=True),
+        "associative": dict(adaptive=False, engine="associative"),
+        "sequential": dict(adaptive=False, engine="sequential"),
+        "adaptive": dict(adaptive=True),
+        "adaptive_bidirectional": dict(adaptive=True, bidirectional=True)}
+# fp32 FFTs of length 64 (N + W = 40 + 16, rounded up to 5-smooth): torch's
+# and jnp's transforms round differently, ~1e-6 of O(1) outputs
+HANN_ATOL = 1e-5
+# grads: relative to each leaf's largest entry (sums over 3 x 40 tokens)
+HANN_GRAD_RTOL = 1e-4
+
+
+def _hann_cfgs(**kw):
+    return _cfgs(window="hann", hann_support=16, **kw)
+
+
+def _grads_t(pt, cfg_t, x, w):
+    """The port's grads of sum(apply_stlt(p, x) * w) w.r.t. every leaf and x."""
+    leaves = {}
+
+    def req(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = req(v, prefix + k + "/")
+            else:
+                out[k] = leaves.setdefault(prefix + k, v.clone().requires_grad_(True))
+        return out
+    p = req(pt)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, aux = t_stlt.apply_stlt(p, cfg_t, xt)
+    loss = (y * torch.from_numpy(w)).sum() + aux["reg"]
+    names = sorted(leaves)
+    g = torch.autograd.grad(loss, [leaves[n] for n in names] + [xt], allow_unused=True)
+    return dict(zip(names + ["x"], g))
+
+
+def _grads_j(pj, cfg_j, x, w):
+    def loss(p, xx):
+        y, aux = j_stlt.apply_stlt(p, cfg_j, xx)
+        return (y * w).sum() + aux["reg"]
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(pj, jnp.asarray(x))
+    flat = {"/".join(str(getattr(k, "key", k)) for k in path): v
+            for path, v in jax.tree_util.tree_flatten_with_path(gp)[0]}
+    return {**flat, "x": gx}
+
+
+@pytest.mark.parametrize("case", sorted(HANN))
+def test_hann_apply_stlt_and_grads_match_jax(case):
+    """``apply_stlt`` with the hann window (finite support W = 16 < N = 40,
+    T = 32 > W, so the support truncates the taper) against the JAX package:
+    outputs, aux, and the grads of a weighted sum (plus the Reg loss) w.r.t.
+    every param leaf and x. The engine name is ignored by the hann form."""
+    cfg_j, cfg_t = _hann_cfgs(**HANN[case])
+    pj, pt = _params(cfg_j, seed=2)
+    x, w = _x(1, B, N, D), _x(2, B, N, D)
+    yj, auxj = j_apply_stlt(pj, cfg_j, jnp.asarray(x))
+    yt, auxt = t_stlt.apply_stlt(pt, cfg_t, torch.from_numpy(x))
+    _close(yt, yj, atol=HANN_ATOL)
+    for k in ("reg", "s_eff", "T", "sigma"):
+        _close(auxt[k], auxj[k], atol=1e-6)
+    gt, gj = _grads_t(pt, cfg_t, x, w), _grads_j(pj, cfg_j, x, w)
+    assert sorted(gt) == sorted(gj)
+    for k, want in gj.items():
+        want = np.asarray(want)
+        got = np.zeros_like(want) if gt[k] is None else _np(gt[k])
+        _close(got, want, atol=HANN_GRAD_RTOL * (1.0 + float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_hann_streaming_matches_jax(adaptive):
+    """The hann ring through every streaming entry point against the JAX
+    package: a fresh prefill (the ring of the last W = 16 values), a resumed
+    padded chunk with valid {24, 0, 7} (the valid == 0 row's ring back bit
+    for bit), decode steps (roll, write slot 0, read out with g), and the
+    spec rollback ``stlt_state_at`` at q {0, 3, 5} (q == 0 bit for bit)."""
+    cfg_j, cfg_t = _hann_cfgs(adaptive=adaptive)
+    pj, pt = _params(cfg_j, seed=3)
+    st0 = t_stlt.init_stlt_state(cfg_t, B)
+    sj0 = j_stlt.init_stlt_state(cfg_j, B)
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in st0.items()} == {
+        k: (tuple(v.shape), str(v.dtype).replace("float", "torch.float").replace(
+            "int32", "torch.int32")) for k, v in sj0.items()}
+    x1, x2 = _x(4, B, N, D), _x(5, B, 24, D)
+    yj, sj = j_stlt_prefill(pj, cfg_j, jnp.asarray(x1))
+    yt, st = t_stlt.stlt_prefill(pt, cfg_t, torch.from_numpy(x1))
+    _close(yt, yj, atol=HANN_ATOL)
+    assert sorted(st) == sorted(sj)
+    for k in sj:
+        _close(st[k], sj[k], atol=1e-4 if k == "asum" else ATOL)
+    assert st["pos"].dtype == torch.int32 and st["buf"].dtype == torch.float32
+    valid = np.array([24, 0, 7], np.int32)
+    yj, sj = j_stlt_prefill(pj, cfg_j, jnp.asarray(x2), state=sj, valid=jnp.asarray(valid))
+    yt, st2 = t_stlt.stlt_prefill(pt, cfg_t, torch.from_numpy(x2), state=st,
+                                  valid=torch.from_numpy(valid))
+    for b, v in enumerate(valid):
+        _close(yt[b, :v], np.asarray(yj)[b, :v], atol=HANN_ATOL)
+    for k in sj:
+        _close(st2[k], sj[k], atol=1e-4 if k == "asum" else ATOL)
+    assert torch.equal(st2["buf"][1], st["buf"][1]) and int(st2["pos"][1]) == N
+    st = st2
+    for i in range(3):
+        xt = _x(20 + i, B, D)
+        yj, sj = j_apply_stlt_step(pj, cfg_j, jnp.asarray(xt), sj)
+        yt, st = t_stlt.apply_stlt_step(pt, cfg_t, torch.from_numpy(xt), st)
+        _close(yt, yj)
+        for k in sj:
+            _close(st[k], sj[k], atol=1e-4 if k == "asum" else ATOL)
+    q = np.array([0, 3, 5], np.int32)
+    x3 = _x(6, B, 5, D)
+    aj = j_stlt.stlt_state_at(pj, cfg_j, jnp.asarray(x3), sj, jnp.asarray(q))
+    at = t_stlt.stlt_state_at(pt, cfg_t, torch.from_numpy(x3), st, torch.from_numpy(q))
+    for k in aj:
+        _close(at[k], aj[k], atol=1e-4 if k == "asum" else ATOL)
+    assert torch.equal(at["buf"][0], st["buf"][0])
+    np.testing.assert_array_equal(_np(at["pos"]), _np(st["pos"]) + q)
 
 
 @pytest.mark.parametrize("entry", ["stlt_prefill", "init_stlt_state",

@@ -41,6 +41,8 @@ from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 KINDS = {
     "stlt": dict(mixer="stlt", stlt_nodes=4, stlt_chunk=8),
     "stlt_adaptive": dict(mixer="stlt", stlt_nodes=4, stlt_chunk=8, stlt_adaptive=True),
+    # the hann ring: buf [1, H, 128, dh] fp32 and an int32 pos leaf per layer
+    "stlt_hann": dict(mixer="stlt", stlt_window="hann", stlt_nodes=4, stlt_chunk=8),
     "attn": dict(mixer="attention"),
     "attn_bf16": dict(mixer="attention"),   # its KV cache cast to bf16 (_jax_state)
     "rglru": dict(layer_types=("rglru", "rglru")),
@@ -132,7 +134,7 @@ def test_port_blob_is_the_jax_blob(states, kind, store):
 
 
 @pytest.mark.parametrize("compress", [None, "zstd"])
-@pytest.mark.parametrize("kind", ["stlt_adaptive", "attn_bf16", "xlstm"])
+@pytest.mark.parametrize("kind", ["stlt_adaptive", "stlt_hann", "attn_bf16", "xlstm"])
 def test_blobs_cross_unpack(states, kind, compress):
     js, ts = states[kind]
     for store in ("f32", "bf16"):
@@ -247,7 +249,7 @@ def test_quantize_dequantize_helpers():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", ["attn_bf16", "stlt_adaptive", "xlstm"])
+@pytest.mark.parametrize("kind", ["attn_bf16", "stlt_adaptive", "stlt_hann", "xlstm"])
 def test_state_digest_equals_jax(states, kind):
     """The digest of a converted state is the JAX package's, bf16 leaves
     (hashed as "bfloat16" and their raw bits) and sorted key order too."""
