@@ -122,8 +122,16 @@ without its host work; K1 at each of its phase 2 shapes, K2 at
 batch 1 and at N = 8192; each beside its fp32 and 3xTF32 tensor-core
 bounds), their plain versions and the library yardstick, times a batch-1
 prefill of a 131,072-token prompt, and profiles it, one ``generate`` and
-one relevance forward. ``tools/ab_port.py`` compares two trees of the
-port on one card.
+one relevance forward. Phase DT (last; ``tools/phase_dt.py``) runs the
+multi-device training layer as 4 gloo ranks, processes sharing the card:
+DT1 trains stlt-base on a 2 x 2 (data, model) mesh at 4 x 1000 tokens for 3
+AdamW steps against the single-device step (loss, every param, 18 K1
+launches per rank per step), DT2 runs the context-parallel STLT over 8 x
+131,072 tokens against serial K1 (K1 is also checked and timed at its
+8 x 32,768 shard), DT3 pipelines the 6 blocks as 2 stages against the
+serial blocks (outputs, grads), DT4 crashes and restores the sharded loop
+and gets DT1's params bit for bit. ``tools/ab_port.py`` compares two
+trees of the port on one card.
 
 Output ends with three lines: the card's name and power limit (from
 ``nvidia-smi``), a JSON ``{"kernels": [...]}`` line, and the JSON result
@@ -191,10 +199,12 @@ K1_HYBRID = ((64, 512, 32, 256), (16, 512, 32, 256), (64, 5, 32, 256),
 # 2 x 512 prompt.
 K1_MOE = ((256, 512, 32, 64), (64, 512, 32, 64), (256, 5, 32, 64), (128, 1024, 32, 64),
           (112, 512, 32, 128))
+# Phase DT's context-parallel shard: 8 rows x 32,768 tokens with return_state
+K1_CP = (8, 32768, 64, 64)
 K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
              (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
              (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64),
-             (32, 5, 64, 64)) + K1_WHISPER \
+             (32, 5, 64, 64), K1_CP) + K1_WHISPER \
     + K1_HYBRID + K1_MOE
 K1_VERIFY = (60, 5, 32, 64)
 K1_TRAIN = (120, 1024, 32, 64)
@@ -305,10 +315,6 @@ W_FP32_GAP_CAP = 0.4
 # non-zero; the tight grad checks are the fp32 ones above).
 W_BF16_LOSS_TOL = 1e-3
 W_BF16_GRAD_TOL = 30.0
-# paper-small through the CLI: a run resumed at step 3 of 6 against an
-# uninterrupted one, as far apart as two uninterrupted runs (max abs over
-# params and moments) twice over, plus this (absolute; weights are O(1))
-RESUME_ATOL = 1e-6
 
 def log(msg: str):
     print(msg, flush=True)
@@ -1066,12 +1072,12 @@ def preempting_manager(base, at_step: int):
 
 def cli_resume_phase(train) -> dict:
     """The paper-small preset through ``launch.train.main`` on the card with
-    ``--ckpt-dir`` in a temporary directory: 6 steps straight, twice (how far
-    two uninterrupted runs are apart on this card), against a run of the
-    same command stopped after its checkpoint of step 2 (3 steps) and the
-    same command again, which resumes from there to 6. The resumed run's
-    params and moments are within 2x the straight runs' distance plus
-    RESUME_ATOL of the first."""
+    ``--ckpt-dir`` in a temporary directory: 6 steps straight, twice, against
+    a run of the same command stopped after its checkpoint of step 2 (3
+    steps) and the same command again, which resumes from there to 6. A
+    train step on the card is deterministic (no atomics: the analytic param
+    grads sum in a fixed order), so the second straight run and the resumed
+    run equal the first bit for bit, params and moments."""
     import contextlib
     import io
     import tempfile
@@ -1120,9 +1126,8 @@ def cli_resume_phase(train) -> dict:
     d_resumed, _ = distance(resumed, straight)
     log(f"[T3 cli] paper-small, 8 x 256 tokens: two straight 6-step runs max abs "
         f"{d_straight:.3e} apart, the run resumed at step 3 {d_resumed:.3e} from the "
-        f"first (largest |value| {scale:.3e}; gate 2 x {d_straight:.3e} + {RESUME_ATOL}); "
-        f"four runs {wall:.1f} s")
-    if not d_resumed <= 2 * d_straight + RESUME_ATOL:
+        f"first (largest |value| {scale:.3e}; gate: both bit for bit); four runs {wall:.1f} s")
+    if not (d_straight == 0.0 and d_resumed == 0.0):
         raise AssertionError(f"T3 cli: resumed run {d_resumed} from the straight one, "
                              f"straight runs {d_straight} apart")
     return {"straight": d_straight, "resumed": d_resumed}
@@ -3818,6 +3823,38 @@ def k1_direction_timings(k1, ops, dev, C, d) -> dict:
     return out
 
 
+def dt_phase() -> dict:
+    """Phase DT: the multi-device training layer (``tools/phase_dt.py``) as 4
+    gloo ranks, processes sharing this card: DT1 the 2 x 2 sharded step of
+    stlt-base against the single-device step, DT2 the context-parallel STLT
+    against serial K1, DT3 the 2-stage pipeline against the serial blocks,
+    DT4 the resilient loop bit for bit. Every rank is stopped before this
+    returns; any failed check raises."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import phase_dt
+
+    t0 = time.time()
+    res = phase_dt.check(phase_dt.launch("gloo", cards=1, timeout=400))
+    log(f"[DT1 sharded step] stlt-base 2 x 2 (data, model), 4 x 1000 tokens, 4 gloo ranks on "
+        f"one card: step ms per rank {res['step_ms']} (single-device {res['ref_step_ms']}); "
+        f"K1 per rank per step {res['k1_per_step']}; bytes per rank per step "
+        f"{res['bytes_per_step']}; step-0 loss gap {res['loss_gap']:.3e}; worst relative "
+        f"metric gaps {res['metric_rel_gap']}; worst param gap "
+        f"{res['param_gap_over_tol']:.3f} of its gate")
+    log(f"[DT2 context parallel] 8 x 131,072 over 4 ranks: ms per rank {res['cp_ms']} (serial "
+        f"K1 {res['cp_serial_ms']}); K1 per shard {res['cp_k1']}; exchanged "
+        f"{res['cp_bytes']}; error "
+        f"{res['cp_err_over_scale']:.3e} of the scale (gate {phase_dt.K1_TOL})")
+    log(f"[DT3 pipeline] 2 stages x 3 blocks, 4 microbatches of 1 x 1000: ms per rank "
+        f"{res['pipe_ms']} (serial {res['pipe_serial_ms']}); K1 {res['pipe_k1']}; outputs "
+        f"{res['pipe_out_err_over_scale']:.3e} of the scale, worst grad gap "
+        f"{res['pipe_grad_gap_over_tol']:.3f} of its gate")
+    log(f"[DT4 resilient loop] {res['resilient']} in {res['resilient_wall_s']:.1f} s, final "
+        f"params bit for bit DT1's; phase laps {res['phase_s']}; peak GiB per rank "
+        f"{res['peak_gib']}; phase DT {time.time() - t0:.1f} s")
+    return res
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4338,6 +4375,19 @@ def main(argv) -> int:
             f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
         del m_args
     lap("M")
+    # DT. the multi-device training layer: 4 gloo ranks sharing the card
+    # (sharded step, context parallel, pipeline, resilient loop)
+    free_cuda()
+    dt = dt_phase()
+    cp_args, _, _ = k1_case(k1, ops, dev, *K1_CP[:2], C, *K1_CP[2:], seed=5)
+    k1_rows[K1_CP]["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*cp_args, chunk=C),
+                                        iters=3)
+    r = k1_rows[K1_CP]
+    log(f"[6 timing] K1 at phase DT's CP shard BH={K1_CP[0]} N={K1_CP[1]}: kernel alone "
+        f"{r['alone']:.4f} ms, device time {r['device']} ms, call {r['call']:.4f} ms, plain "
+        f"version {r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
+    del cp_args
+    lap("DT")
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s; by phase: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in laps.items()))
 
@@ -4447,7 +4497,19 @@ def main(argv) -> int:
         "launches_per_arctic_stlt_generate": mo["M4 stlt"]["k1_launches"],
         "moe_shapes": {"x".join(map(str, sh)): {
             k: k1_rows[sh][k] for k in ("device", "alone", "call", "scan", "plain", "bound",
-                                        "bound_by")} for sh in K1_MOE}}, {
+                                        "bound_by")} for sh in K1_MOE},
+        # phase DT (4 gloo ranks on the card): K1 launches per rank per
+        # sharded train step (6 layers x 3 on 2 rows x 4 heads), per
+        # context-parallel shard (1, stateful, 8 x 32,768) and per pipeline
+        # stage's forward + backward (3 blocks x 4 microbatches x 2); K1 at
+        # the CP shard's shape
+        "launches_per_sharded_train_step_rank": dt["k1_per_step"][0],
+        "launches_per_cp_shard": dt["cp_k1"][0],
+        "launches_per_pipeline_stage": dt["pipe_k1"][0],
+        "cp_shard_shape": list(K1_CP), "cp_shard_device_ms": k1_rows[K1_CP]["device"],
+        "cp_shard_alone_ms": k1_rows[K1_CP]["alone"], "cp_shard_call_ms": k1_rows[K1_CP]["call"],
+        "cp_shard_plain_ms": k1_rows[K1_CP]["plain"],
+        "cp_shard_bound_ms": k1_rows[K1_CP]["bound"]}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

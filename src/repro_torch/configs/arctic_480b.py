@@ -3,7 +3,7 @@ config]. 35L d_model=7168 56H (GQA kv=8) expert-d_ff=4864 vocab=32000, MoE
 128 experts top-2 plus a parallel dense residual FFN branch, untied head,
 adafactor.
 
-The JAX package's config field by field, less its sharding hint ``fsdp``."""
+The JAX package's config field by field."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -23,5 +23,6 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     tie_embeddings=False,
     optimizer="adafactor",
+    fsdp=True,
     dtype="bfloat16",
 )

@@ -81,6 +81,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     blockwise_threshold: int = 8192  # attention: online softmax for N >= this
+    # sharding hints (distributed/sharding.py)
+    fsdp: bool = False               # shard params over the data axis (ZeRO-3)
+    dp_only: bool = False            # small arch: replicate params, DP over all axes
     optimizer: str = "adamw"         # adamw | adafactor
 
     @property
@@ -171,6 +174,7 @@ class ModelConfig:
             remat=False,
             dtype="float32",
             blockwise_threshold=64,
+            fsdp=False,
         )
         if self.layer_types:
             # keep the heterogeneous pattern at the reduced depth

@@ -1,7 +1,7 @@
 """ChatGLM3-6B [arXiv:2406.12793]. 28L d=4096 32H (GQA kv=2) d_ff=13696
 vocab=65024; 2d-RoPE = rotary on half the head dims (rope_fraction=0.5).
 
-The JAX package's config field by field, less its sharding hint ``fsdp``."""
+The JAX package's config field by field."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -17,5 +17,6 @@ CONFIG = ModelConfig(
     act="swiglu",
     norm="rmsnorm",
     tie_embeddings=False,
+    fsdp=True,
     dtype="bfloat16",
 )

@@ -1,7 +1,7 @@
 """Granite-20B code model [arXiv:2405.04324]. 52L d=6144 48H (MQA kv=1)
 d_ff=24576 vocab=49152; llama-style blocks.
 
-The JAX package's config field by field, less its sharding hint ``fsdp``."""
+The JAX package's config field by field."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -16,5 +16,6 @@ CONFIG = ModelConfig(
     act="swiglu",
     norm="rmsnorm",
     tie_embeddings=False,
+    fsdp=True,
     dtype="bfloat16",
 )

@@ -2,7 +2,7 @@
 76B side); the InternViT frontend is a STUB (input_specs provides patch
 embeddings). 80L d=8192 64H (GQA kv=8) d_ff=28672 vocab=128256.
 
-The JAX package's config field by field, less its sharding hint ``fsdp``."""
+The JAX package's config field by field."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -19,5 +19,6 @@ CONFIG = ModelConfig(
     input_mode="both",         # train on stub patch+text embeddings, decode tokens
     tie_embeddings=False,
     optimizer="adafactor",
+    fsdp=True,
     dtype="bfloat16",
 )

@@ -2,7 +2,7 @@
 94L d_model=4096 64H (GQA kv=4) expert-d_ff=1536 vocab=151936, MoE 128
 experts top-8, untied head, adafactor.
 
-The JAX package's config field by field, less its sharding hint ``fsdp``.
+The JAX package's config field by field.
 ``get_config("qwen3-moe-235b-a22b", "stlt")`` swaps every attention block
 for the STLT; the experts stay."""
 from repro_torch.configs.base import ModelConfig
@@ -22,5 +22,6 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     tie_embeddings=False,
     optimizer="adafactor",
+    fsdp=True,
     dtype="bfloat16",
 )

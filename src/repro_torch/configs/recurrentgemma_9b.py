@@ -2,7 +2,7 @@
 d_ff=12288 vocab=256000; RG-LRU recurrent blocks + local attention (window
 2048) in a 2:1 pattern (layers i with i % 3 == 2 are local attention).
 
-The JAX package's config field by field, less its sharding hint ``fsdp``.
+The JAX package's config field by field.
 ``get_config("recurrentgemma-9b", "stlt")`` swaps only the local-attention
 third for the STLT; the rg-LRU blocks stay."""
 from repro_torch.configs.base import ModelConfig
@@ -25,5 +25,6 @@ CONFIG = ModelConfig(
     act="swiglu",
     norm="rmsnorm",
     tie_embeddings=False,
+    fsdp=True,
     dtype="bfloat16",
 )

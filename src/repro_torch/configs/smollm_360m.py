@@ -1,8 +1,7 @@
 """SmolLM-360M [hf:HuggingFaceTB/SmolLM family]. 32L d=960 15H (GQA kv=5)
 d_ff=2560 vocab=49152; llama-arch small.
 
-The JAX package's config field by field, less ``dp_only`` (a sharding hint;
-the port runs on one device). ``get_config("smollm-360m", "stlt")`` swaps
+The JAX package's config field by field. ``get_config("smollm-360m", "stlt")`` swaps
 every attention block for the STLT."""
 from repro_torch.configs.base import ModelConfig
 
@@ -19,4 +18,5 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     tie_embeddings=True,
     dtype="bfloat16",
+    dp_only=True,
 )

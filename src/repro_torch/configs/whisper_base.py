@@ -2,8 +2,7 @@
 vocab=51865; enc-dec with conv frontend STUB (callers feed precomputed
 frame embeddings [B, 1500, d] to the encoder).
 
-The JAX package's config field by field, less ``dp_only`` (a sharding hint;
-the port runs on one device) and ``cross_attention`` (read by no code: the
+The JAX package's config field by field, less ``cross_attention`` (read by no code: the
 cross side is always present). The native form is a bidirectional
 attention encoder, a causal attention decoder and softmax cross-attention;
 ``get_config("whisper-base", "stlt")`` gives the paper's hybrid: a
@@ -27,4 +26,5 @@ CONFIG = ModelConfig(
     input_mode="embeddings",   # conv frontend stub: frames arrive embedded
     tie_embeddings=False,
     dtype="bfloat16",
+    dp_only=True,
 )

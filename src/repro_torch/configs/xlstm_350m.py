@@ -2,8 +2,7 @@
 sLSTM + mLSTM blocks (every 8th layer sLSTM, rest mLSTM: the paper's
 sparse-sLSTM ratio), no FFN.
 
-The JAX package's config field by field, less ``dp_only`` (a sharding hint;
-the port runs on one device). Attention-free: its STLT variant is
+The JAX package's config field by field. Attention-free: its STLT variant is
 undefined (``get_config`` raises ValueError, as the JAX package's does)."""
 from repro_torch.configs.base import ModelConfig
 
@@ -20,4 +19,5 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     tie_embeddings=True,
     dtype="bfloat16",
+    dp_only=True,
 )

@@ -211,13 +211,15 @@ def _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
     ddec = torch.stack([(Gr * R + Gi * I).sum((1, 3)),
                         (Gi * R - Gr * I).sum((1, 3))], dim=1)   # [BH, 2, S]
     # collapse the Toeplitz cotangent onto the filter: dg[t] = sum of the
-    # t-th lower diagonal of P
+    # t-th lower diagonal of P, in a fixed order (a scatter-add's atomics
+    # would make the grads differ from run to run on the card): with the
+    # columns flipped and each row padded by C, row i of the [C, 2C - 1]
+    # reshape is shifted right by i, so column t + C - 1 holds diagonal t
     idx = torch.arange(C, device=x.device)
     diff = idx[:, None] - idx[None, :]
-    dg = torch.zeros((BH, C), dtype=dt, device=x.device).scatter_add_(
-        1, diff.clamp(min=0).reshape(1, -1).expand(BH, -1),
-        torch.where(diff >= 0, P, torch.zeros((), dtype=dt, device=x.device)
-                    ).reshape(BH, -1))
+    lower = torch.where(diff >= 0, P, torch.zeros((), dtype=dt, device=x.device)).flip(-1)
+    skew = F.pad(lower, (0, C)).reshape(BH, -1)[:, :C * (2 * C - 1)].reshape(BH, C, 2 * C - 1)
+    dg = skew[:, :, C - 1:].sum(1)
     grads = torch.autograd.grad(ops_out, poles, (dg, dA, dB, dpre, dpim, ddec))
     return tuple(g.to(t.dtype) for g, t in zip(grads, (log_mag, theta, u_re, u_im)))
 

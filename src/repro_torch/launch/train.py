@@ -46,13 +46,11 @@ import torch
 
 from repro_torch import configs as configs_lib
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import DTYPES, ModelConfig, TrainConfig
-from repro_torch.core.adaptive import anneal_tau
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data import ByteCorpus, lm_batch_stream
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
-from repro_torch.optim import (apply_updates, clip_by_global_norm, default_wd_mask,
-                               make_optimizer, make_schedule)
+from repro_torch.optim import apply_updates, clip_by_global_norm, default_wd_mask
 from repro_torch.utils import (cast_params_for_compute, resolve_device, tree_leaves,
                                tree_map, tree_unflatten)
 
@@ -103,29 +101,20 @@ def make_step(cfg: ModelConfig, tcfg: TrainConfig):
     -> (params, opt_state, metrics). ``draws`` (per layer [B, H, S] uniform
     draws) replaces the step's own (``step_draws``, made only for an
     adaptive LM), so a test can feed in the JAX package's. An enc-dec batch
-    is {"enc_inputs", "dec_inputs", "labels"}. The optimizer is built as
-    the JAX package's ``launch/steps.py`` builds it: AdamW with ``tcfg``'s
-    betas and weight decay, its moments in ``cfg.opt_moment_dtype``;
-    adafactor without weight decay."""
-    if cfg.optimizer == "adamw":
-        opt = make_optimizer("adamw", b1=tcfg.beta1, b2=tcfg.beta2,
-                             weight_decay=tcfg.weight_decay,
-                             moment_dtype=DTYPES[cfg.opt_moment_dtype])
-    else:
-        opt = make_optimizer(cfg.optimizer, weight_decay=0.0)
-    sched = make_schedule(tcfg.schedule, tcfg.learning_rate, tcfg.warmup_steps,
-                          tcfg.total_steps)
+    is {"enc_inputs", "dec_inputs", "labels"}. The optimizer is
+    ``steps.train_optimizer``'s, the JAX package's choice."""
+    opt = steps.train_optimizer(cfg, tcfg)
+    schedules = steps.train_schedules(tcfg)
 
     def step_fn(params, opt_state, batch, step: int, draws=None):
-        tau = anneal_tau(step, tcfg.total_steps, tcfg.adaptive_tau_start,
-                         tcfg.adaptive_tau_end)
+        tau, lr = schedules(step)
         if draws is None and cfg.family == "lm" and cfg.stlt_adaptive:
             draws = step_draws(tcfg.seed, step, cfg, batch["inputs"].shape[0],
                                batch["inputs"].device)
         _, metrics, grads = loss_and_grads(params, cfg, batch, tau=tau, draws=draws)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, opt_state, params, sched(step),
+            updates, opt_state = opt.update(grads, opt_state, params, lr,
                                             default_wd_mask(params, cfg))
             params = apply_updates(params, updates)
         return params, opt_state, {**metrics, "grad_norm": gnorm}

@@ -74,14 +74,21 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def casts_for_compute(shape, min_size: int = 65536) -> bool:
+    """Whether a floating param of ``shape`` computes in the activation
+    dtype under the JAX package's mixed-precision policy: the FLOP-carrying
+    matrices (ndim >= 2, more than ``min_size`` elements) do; small and 1-D
+    params (norm scales, biases, the Laplace nodes) stay fp32, since the
+    poles' precision sets long half-lives."""
+    return len(shape) >= 2 and math.prod(shape) > min_size
+
+
 def cast_params_for_compute(tree, dtype: torch.dtype, min_size: int = 65536):
-    """The JAX package's mixed-precision policy: the FLOP-carrying matrices
-    (ndim >= 2, more than ``min_size`` elements, floating) in ``dtype``;
-    small and 1-D params (norm scales, biases, the Laplace nodes) stay fp32,
-    since the poles' precision sets long half-lives. Returns a new tree."""
+    """The tree with every floating leaf that ``casts_for_compute`` names in
+    ``dtype``, the rest as they are. Returns a new tree."""
     def cast(x):
-        if (isinstance(x, torch.Tensor) and x.ndim >= 2 and x.numel() > min_size
-                and x.is_floating_point()):
+        if (isinstance(x, torch.Tensor) and x.is_floating_point()
+                and casts_for_compute(tuple(x.shape), min_size)):
             return x.to(dtype)
         return x
     return tree_map(cast, tree)

@@ -59,9 +59,9 @@ def _close(got, want, what="", rtol=RTOL, atol=ATOL):
 @pytest.mark.parametrize("variant", ["native", "stlt"])
 def test_new_configs_match_jax_field_for_field(arch, variant):
     """get_config and .reduced() of the archs ported after the attention
-    mixer, every port field as the JAX package's (the port drops only the
-    sharding hints ``fsdp`` and ``dp_only``; the MoE fields and
-    ``slstm_every`` included, with their reduced sizes); the hybrid's STLT
+    mixer, every port field as the JAX package's (the sharding hints
+    ``fsdp`` and ``dp_only``, the MoE fields and ``slstm_every`` included,
+    with their reduced sizes); the hybrid's STLT
     variant replaces only its local-attention third; xlstm-350m's STLT
     variant is refused with JAX's ValueError."""
     if (arch, variant) == ("xlstm-350m", "stlt"):

@@ -895,3 +895,31 @@ def test_moe_combine_is_deterministic_on_the_card(dev):
     y, _ = moe.apply_moe(p, cfg, x)
     y_card, _ = moe.apply_moe({k: v.to(dev) for k, v in p.items()}, cfg, x.to(dev))
     _assert_close(y_card.cpu(), y)
+
+
+def test_context_parallel_matches_serial_k1_on_the_card(dev, tmp_path):
+    """``stlt_context_parallel`` on 4 gloo ranks sharing the card (K1's
+    stateful call on each rank's 4 x 1024 tokens, one exchange of end
+    states) against K1 over all 4096 tokens: within K1's gate, one K1
+    launch per rank."""
+    import os
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "torch_dist_worker.py"),
+                               str(tmp_path), str(r), "4", "cuda-cp"], env=env,
+                              stderr=subprocess.PIPE) for r in range(4)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err.decode()[-3000:]
+    for r in range(4):
+        res = torch.load(tmp_path / f"cp{r}.pt")
+        assert res["launches"] == 1
+        assert res["err"] <= RTOL_SCALE * res["scale"], (r, res)
