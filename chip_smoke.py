@@ -130,8 +130,14 @@ launches per rank per step), DT2 runs the context-parallel STLT over 8 x
 131,072 tokens against serial K1 (K1 is also checked and timed at its
 8 x 32,768 shard), DT3 pipelines the 6 blocks as 2 stages against the
 serial blocks (outputs, grads), DT4 crashes and restores the sharded loop
-and gets DT1's params bit for bit. ``tools/ab_port.py`` compares two
-trees of the port on one card.
+and gets DT1's params bit for bit. Phase DS, in the same rank job, serves
+sharded: DS1 runs the 2 x 2 prefill cell (4 x 1000 tokens, 6 K1 launches
+per rank) and 32 greedy decode-cell steps (0 K1) against the single-device
+``prefill``/``decode_step`` (logits, each rank's state slice, streams),
+with the bytes each rank exchanges; DS2 serves phase SH's requests
+through the process form of the sharded engine, one rank per host, against
+the one-process engine (hosts, ticks, streams). ``tools/ab_port.py``
+compares two trees of the port on one card.
 
 Output ends with three lines: the card's name and power limit (from
 ``nvidia-smi``), a JSON ``{"kernels": [...]}`` line, and the JSON result
@@ -201,10 +207,13 @@ K1_MOE = ((256, 512, 32, 64), (64, 512, 32, 64), (256, 5, 32, 64), (128, 1024, 3
           (112, 512, 32, 128))
 # Phase DT's context-parallel shard: 8 rows x 32,768 tokens with return_state
 K1_CP = (8, 32768, 64, 64)
+# Phase DS2's admission on one host rank of the process form: [2, 512] on
+# 8 heads (DS1's prefill runs K1 at 8 x 1000, the sharded train step's)
+K1_DS2 = (16, 512, 64, 64)
 K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
              (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
              (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64),
-             (32, 5, 64, 64), K1_CP) + K1_WHISPER \
+             (32, 5, 64, 64), K1_DS2, K1_CP) + K1_WHISPER \
     + K1_HYBRID + K1_MOE
 K1_VERIFY = (60, 5, 32, 64)
 K1_TRAIN = (120, 1024, 32, 64)
@@ -3824,12 +3833,15 @@ def k1_direction_timings(k1, ops, dev, C, d) -> dict:
 
 
 def dt_phase() -> dict:
-    """Phase DT: the multi-device training layer (``tools/phase_dt.py``) as 4
-    gloo ranks, processes sharing this card: DT1 the 2 x 2 sharded step of
-    stlt-base against the single-device step, DT2 the context-parallel STLT
-    against serial K1, DT3 the 2-stage pipeline against the serial blocks,
-    DT4 the resilient loop bit for bit. Every rank is stopped before this
-    returns; any failed check raises."""
+    """Phases DT and DS: the multi-device training and serving layers
+    (``tools/phase_dt.py``) as 4 gloo ranks, processes sharing this card:
+    DT1 the 2 x 2 sharded step of stlt-base against the single-device step,
+    DT2 the context-parallel STLT against serial K1, DT3 the 2-stage
+    pipeline against the serial blocks, DT4 the resilient loop bit for bit;
+    DS1 the 2 x 2 prefill and decode cells against the single-device
+    functions, DS2 the process form of the sharded engine against the
+    one-process engine. Every rank is stopped before this returns; any
+    failed check raises."""
     sys.path.insert(0, str(ROOT / "tools"))
     import phase_dt
 
@@ -3852,6 +3864,23 @@ def dt_phase() -> dict:
     log(f"[DT4 resilient loop] {res['resilient']} in {res['resilient_wall_s']:.1f} s, final "
         f"params bit for bit DT1's; phase laps {res['phase_s']}; peak GiB per rank "
         f"{res['peak_gib']}; phase DT {time.time() - t0:.1f} s")
+    log(f"[DS1 sharded cells] stlt-base 2 x 2, prefill 4 x 1000 then {phase_dt.DS1_NEW} greedy "
+        f"decode steps: prefill ms per rank {res['ds1_prefill_ms']} (single-device "
+        f"{res['ds1_ref_prefill_ms']}), median decode-step ms {res['ds1_decode_ms_median']} "
+        f"(single-device {res['ds1_ref_decode_ms_median']}); K1 per rank (prefill, decode "
+        f"step) {res['ds1_k1']}; "
+        f"bytes per rank per prefill {res['ds1_prefill_bytes']}, per decode step "
+        f"{res['ds1_decode_bytes']}; worst logit gap {res['ds1_logit_gap']:.3e} (gate "
+        f"{phase_dt.DS_LOGIT_TOL}), worst state gap {res['ds1_state_gap_over_tol']:.4f} of "
+        f"K1's gate; streams equal per rank {res['ds1_streams_equal']} "
+        f"({res['ds1_near_ties']} near ties) [{smi_line()}]")
+    log(f"[DS2 process-form engine] phase SH's {res['ds2_requests']} requests, 2 host ranks x "
+        f"{SH_SLOTS} slots: {res['ds2_same']} streams equal the one-process engine's "
+        f"({res['ds2_ties']} near ties), hosts {res['ds2_hosts']}, ticks equal; K1 per rank "
+        f"{res['ds2_k1']} = 6 x admission dispatches {res['ds2_dispatches']} (one-process "
+        f"{res['ds2_one_dispatches']}); bytes per rank {res['ds2_bytes']}; per host rank "
+        f"{res['ds2_metrics']}; the one-process engine {res['ds2_one_metrics']} "
+        f"[{smi_line()}]")
     return res
 
 
@@ -4375,8 +4404,9 @@ def main(argv) -> int:
             f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
         del m_args
     lap("M")
-    # DT. the multi-device training layer: 4 gloo ranks sharing the card
-    # (sharded step, context parallel, pipeline, resilient loop)
+    # DT. the multi-device training and serving layers: 4 gloo ranks sharing
+    # the card (sharded step, context parallel, pipeline, resilient loop;
+    # the sharded serving cells, the process-form engine)
     free_cuda()
     dt = dt_phase()
     cp_args, _, _ = k1_case(k1, ops, dev, *K1_CP[:2], C, *K1_CP[2:], seed=5)
@@ -4387,6 +4417,15 @@ def main(argv) -> int:
         f"{r['alone']:.4f} ms, device time {r['device']} ms, call {r['call']:.4f} ms, plain "
         f"version {r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
     del cp_args
+    ds_args, _, _ = k1_case(k1, ops, dev, *K1_DS2[:2], C, *K1_DS2[2:], seed=5)
+    k1_rows[K1_DS2]["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*ds_args, chunk=C),
+                                         iters=5)
+    r = k1_rows[K1_DS2]
+    log(f"[6 timing] K1 at phase DS2's host-rank admission BH={K1_DS2[0]} N={K1_DS2[1]}: "
+        f"kernel alone {r['alone']:.4f} ms, device time {r['device']} ms, call "
+        f"{r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+        f"({r['bound_by']})")
+    del ds_args
     lap("DT")
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s; by phase: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in laps.items()))
@@ -4509,7 +4548,17 @@ def main(argv) -> int:
         "cp_shard_shape": list(K1_CP), "cp_shard_device_ms": k1_rows[K1_CP]["device"],
         "cp_shard_alone_ms": k1_rows[K1_CP]["alone"], "cp_shard_call_ms": k1_rows[K1_CP]["call"],
         "cp_shard_plain_ms": k1_rows[K1_CP]["plain"],
-        "cp_shard_bound_ms": k1_rows[K1_CP]["bound"]}, {
+        "cp_shard_bound_ms": k1_rows[K1_CP]["bound"],
+        # phase DS: K1 launches per rank in one sharded prefill cell (6
+        # layers on 2 rows x 4 heads) and in one decode-cell step (0), and
+        # per host rank in the process-form serve (6 x its [2, 512]
+        # admission dispatches); K1 at that admission shape
+        "launches_per_sharded_prefill_rank": dt["ds1_k1"][0][0],
+        "launches_per_sharded_decode_step_rank": dt["ds1_k1"][0][1],
+        "launches_per_process_form_serve_rank": dt["ds2_k1"],
+        "ds2_shape": list(K1_DS2), "ds2_device_ms": k1_rows[K1_DS2]["device"],
+        "ds2_alone_ms": k1_rows[K1_DS2]["alone"], "ds2_plain_ms": k1_rows[K1_DS2]["plain"],
+        "ds2_bound_ms": k1_rows[K1_DS2]["bound"]}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

@@ -621,7 +621,7 @@ def apply_stlt_step(params: dict, cfg: STLTConfig, x_t: torch.Tensor,
         z, h_re, h_im = scan_lib.stlt_decode_step(
             v_t, state["h_re"], state["h_im"], log_mag, theta, u_re, u_im)
         new_state = {"h_re": h_re, "h_im": h_im}
-    z = z.reshape(B, d)
+    z = z.reshape(B, -1)   # H x dh (a rank's heads under TP: fewer than d)
     if cfg.gate:
         z = z * F.silu(matmul(x_t, params["w_g"]))
     return matmul(z, params["w_o"]), {**new_state, **sum_state}

@@ -24,12 +24,18 @@ stacks nothing and does not reproduce it.
 ``local_slices`` turns a tree into this rank's shards (the port's
 ``to_named``: a ``NamedSharding`` placement becomes the slice the rank
 holds); ``gather_full`` is its inverse, a collective over the mesh.
+``batch_rows`` and ``batch_gather`` move a decode state between the rank's
+shards and the rows a serving step computes on: a leaf replicated over the
+batch axes (``asum``, ``acnt``, ``pos``) is held whole and computed by
+rows.
 """
 from __future__ import annotations
 
 import math
 import re
 from typing import Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import comm
@@ -279,3 +285,44 @@ def gather_full(tree, specs, mesh):
     the mesh calls it and gets the whole tree)."""
     return tree_map(lambda x, sp: gather_leaf(x, sp, mesh) if hasattr(x, "ndim") else x,
                     tree, specs)
+
+
+def _rows_whole(x, spec: P) -> bool:
+    """Whether a leaf with a batch dim keeps it whole under ``spec`` (dim 0
+    replicated over the batch axes: an adaptive state's ``asum``/``acnt``,
+    ``pos``)."""
+    return getattr(x, "ndim", 0) > 0 and (len(spec) == 0 or tuple(spec)[0] is None)
+
+
+def batch_rows(tree, specs, bax: tuple, mesh):
+    """This rank's rows of a tree of its shards under ``specs`` (a decode
+    state under ``launch.steps.decode_state_specs``): a leaf that keeps its
+    batch dim whole is cut to the rank's rows over ``bax``, as a row-sharded
+    leaf already is (a view); 0-d leaves pass through."""
+    if not bax:
+        return tree
+    return tree_map(lambda x, sp: local_slice(x, P(bax), mesh) if _rows_whole(x, sp) else x,
+                    tree, specs)
+
+
+def batch_gather(tree, specs, bax: tuple, mesh):
+    """The inverse of ``batch_rows``: every leaf the specs keep whole over
+    the batch axes is gathered from the ranks' rows, in one all-gather over
+    ``bax`` per dtype (the leaves flattened side by side); the others pass
+    through."""
+    if not bax:
+        return tree
+    paths, leaves = zip(*tree_flatten_with_paths(tree))
+    spec = dict(tree_flatten_with_paths(specs))
+    leaves, buckets = list(leaves), {}
+    for i, (path, x) in enumerate(zip(paths, leaves)):
+        if _rows_whole(x, spec[path]):
+            buckets.setdefault(x.dtype, []).append(i)
+    group = mesh.group(bax)
+    for idx in buckets.values():
+        flat = torch.cat([leaves[i].reshape(leaves[i].shape[0], -1) for i in idx], 1)
+        whole = comm.all_gather(flat, 0, group)
+        widths = [leaves[i][0].numel() for i in idx]
+        for i, part in zip(idx, whole.split(widths, 1)):
+            leaves[i] = part.reshape((whole.shape[0],) + tuple(leaves[i].shape[1:]))
+    return tree_unflatten(tree, leaves)

@@ -1,5 +1,6 @@
-"""The sharded loss of the train step: tensor parallelism on the ``model``
-axis for the STLT-mixer LM, and the data-parallel loss of every arch.
+"""The sharded train loss and serving steps: tensor parallelism on the
+``model`` axis for the STLT-mixer LM, and the data-parallel loss of every
+arch.
 
 Where the JAX package's GSPMD places collectives implicitly, the port places
 them at these points (Megatron's convention on ``model``: every rank of the
@@ -8,20 +9,26 @@ group computes the same loss; ``comm`` documents the operators):
 * ``_embed``: the vocab-sharded embedding (``embed/embed`` ->
   ``P("model", fsdp)``) looks up the rank's rows, masks the others and
   all-reduces (``reduce_from``).
-* ``_stlt_block``: ``copy_to`` on the normed input, then the rank's heads:
-  the column-sharded ``w_v`` (and ``w_g``), its rows of ``nodes/*``,
-  ``adaptive/w_alpha`` and ``b_alpha``, and its slice of the replicated
-  per-head ``T_hat``; K1 runs on the rank's B_loc x H_loc rows; the
-  row-sharded ``w_o`` and an all-reduce. The adaptive masks' batch mean in
-  the (Reg) loss is over the global batch (``all_reduce_sum`` over the batch
-  axes) and the loss's per-head terms are summed over ``model``.
+* ``_stlt_block``, the one block body of the train loss, the prefill and
+  the decode step: ``copy_to`` on the normed input, then the rank's heads
+  (``_local_stlt``): the column-sharded ``w_v`` (and ``w_g``), its rows of
+  ``nodes/*``, ``adaptive/w_alpha`` and ``b_alpha``, and its slice of the
+  replicated per-head ``T_hat``; the mixer runs K1 on the rank's B_loc x
+  H_loc rows (the train loss through the scan's VJP, the prefill through
+  ``stlt.stlt_prefill``'s stateful call; the decode step through
+  ``stlt.apply_stlt_step``, no K1); the row-sharded ``w_o`` and an
+  all-reduce. In the train loss the adaptive masks' batch mean in the (Reg)
+  loss is over the global batch (``all_reduce_sum`` over the batch axes)
+  and the loss's per-head terms are summed over ``model``; the serving
+  steps' masks are the deterministic ones, from the running input mean.
 * The FFN: ``w1`` (and ``w3``) column-sharded, ``w2`` row-sharded; ``b1``,
   replicated by the rules below 4096 entries but used sliced, comes through
   ``slice_replicated``, whose backward gathers the slices' grads.
 * ``_head`` and ``_nll``: vocab-parallel logits (tied through the embedding
   shard, or an ``lm_head`` shard), then cross entropy with the max and the
   sum of exp taken over ``model`` and the label's logit from the rank that
-  owns it.
+  owns it; the serving steps all-gather the last token's logits over
+  ``model`` instead.
 
 A leaf the rules shard on ``data`` (``cfg.fsdp``) is gathered before use
 (``gather_shards``: its grad comes back reduce-scattered). Each rank's loss
@@ -34,11 +41,14 @@ The TP path takes an LM whose every block is the factorized STLT with the
 exponential window and a dense FFN (stlt-base); ``tp_refusal`` names what
 else a ``model`` axis > 1 refuses, and the ROADMAP item that ports it. Any
 other arch runs the data axes only, through its own loss on the rank's rows
-(``dp_lm_loss``); there, a loss that couples rows (MoE's balance losses and
-capacity, the adaptive masks' batch mean) refuses more than one batch shard.
+(``dp_lm_loss``; its serving steps through the family's own prefill and
+decode, ``launch.steps``); there, a loss that couples rows (MoE's balance
+losses and capacity, the adaptive masks' batch mean) refuses more than one
+batch shard.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -157,39 +167,41 @@ def _embed(ctx: ShardCtx, params, inputs):
     return comm.reduce_from(rows, ctx.tp_group).to(cfg.act_dtype)
 
 
-def _stlt_block(ctx: ShardCtx, p: dict, li: int, x, draws, tau):
-    """One block on the rank's heads: (x, the (Reg) loss summed over every
-    head, the masks' sum over the rank's rows and heads for s_eff)."""
+def _local_stlt(ctx: ShardCtx, sp: dict, spre: str):
+    """The rank's heads of one STLT layer: (its params, the ``STLTConfig`` of
+    H_loc heads over H_loc x dh value channels). The column-sharded ``w_v``
+    (and ``w_g``), its rows of ``nodes/*``, ``adaptive/w_alpha`` and
+    ``b_alpha`` and of the replicated per-head ``T_hat``, the row-sharded
+    ``w_o``. The input stays the whole (replicated) normed activation, so
+    the adaptive masks' pooled mean is every rank's own."""
+    scfg = ctx.cfg.stlt_config()
+    heads = scfg.num_heads // ctx.tp_size
+    loc = {"nodes": {k: ctx.cols(v, f"{spre}/nodes/{k}", 0) for k, v in sp["nodes"].items()},
+           "w_v": ctx.cols(sp["w_v"], spre + "/w_v", 1),
+           "w_o": ctx.cols(sp["w_o"], spre + "/w_o", 0)}
+    if scfg.gate:
+        loc["w_g"] = ctx.cols(sp["w_g"], spre + "/w_g", 1)
+    if scfg.adaptive.enabled:
+        loc["adaptive"] = {
+            "w_alpha": ctx.cols(sp["adaptive"]["w_alpha"], spre + "/adaptive/w_alpha", 1),
+            "b_alpha": ctx.cols(sp["adaptive"]["b_alpha"], spre + "/adaptive/b_alpha", 0)}
+    return loc, dataclasses.replace(scfg, num_heads=heads,
+                                    d_model=heads * scfg.head_dim)
+
+
+def _stlt_block(ctx: ShardCtx, p: dict, li: int, x, mixer):
+    """One block on the rank's heads, the body the train loss and both
+    serving steps share: norm1, ``copy_to``, ``mixer(sp, scfg, h)`` on the
+    rank's heads (``_local_stlt``) giving (its partial readout through its
+    rows of ``w_o``, anything else), the all-reduce, the residual and the
+    FFN. Returns (x, the mixer's extra)."""
     cfg = ctx.cfg
-    scfg = cfg.stlt_config()
-    acfg = scfg.adaptive if tau is None else scfg.adaptive._replace(tau=tau)
     pre = f"layers/{li}"
-    spre = pre + "/stlt"
-    sp = p["stlt"]
     h = L.apply_norm(cfg.norm, ctx.whole(p["norm1"], pre + "/norm1"), x)
     hf = comm.copy_to(h, ctx.tp_group)
-    nodes = {k: ctx.cols(v, f"{spre}/nodes/{k}", 0) for k, v in sp["nodes"].items()}
-    masks, s_sum = None, torch.zeros((), device=x.device)
-    if acfg.enabled:
-        ad = {"w_alpha": ctx.cols(sp["adaptive"]["w_alpha"], spre + "/adaptive/w_alpha", 1),
-              "b_alpha": ctx.cols(sp["adaptive"]["b_alpha"], spre + "/adaptive/b_alpha", 0)}
-        masks, _ = adaptive_lib.node_masks(ad, hf, acfg, deterministic=False, draws=draws)
-        s_sum = masks.detach().float().sum()
-    log_mag, theta, sigma, _ = stlt_lib._poles({"nodes": nodes}, scfg)
-    heads = scfg.num_heads // ctx.tp_size
-    v = stlt_lib._split_heads(L.matmul(hf, ctx.cols(sp["w_v"], spre + "/w_v", 1)), heads)
-    u_re, u_im = stlt_lib._masked_u({"nodes": nodes}, masks)
-    z = stlt_lib._merge_heads(stlt_lib._factorized(v, log_mag, theta, u_re, u_im, scfg,
-                                                   reverse=False))
-    if scfg.gate:
-        z = z * F.silu(L.matmul(hf, ctx.cols(sp["w_g"], spre + "/w_g", 1)))
-    y = comm.reduce_from(L.matmul(z, ctx.cols(sp["w_o"], spre + "/w_o", 0)), ctx.tp_group)
-    m_mean = None
-    if masks is not None:   # the batch mean over the global batch
-        m_mean = (comm.all_reduce_sum(masks.sum(0), ctx.batch_group) / ctx.global_batch)[None]
-    reg = comm.reduce_from(
-        adaptive_lib.regularization(sigma, nodes["omega"], m_mean, acfg).float(), ctx.tp_group)
-    x = x + y.to(x.dtype)
+    sp, scfg = _local_stlt(ctx, p["stlt"], pre + "/stlt")
+    y, extra = mixer(sp, scfg, hf)
+    x = x + comm.reduce_from(y, ctx.tp_group).to(x.dtype)
     fpre = pre + "/ffn"
     f = p["ffn"]
     h2 = comm.copy_to(L.apply_norm(cfg.norm, ctx.whole(p["norm2"], pre + "/norm2"), x),
@@ -203,7 +215,36 @@ def _stlt_block(ctx: ShardCtx, p: dict, li: int, x, draws, tau):
                    + ctx.cols(f["b1"], fpre + "/b1", 0), approximate="tanh")
         y2 = (comm.reduce_from(L.matmul(a, ctx.cols(f["w2"], fpre + "/w2", 0)), ctx.tp_group)
               + ctx.whole({"b2": f["b2"]}, fpre)["b2"])
-    return x + y2.to(x.dtype), reg, s_sum
+    return x + y2.to(x.dtype), extra
+
+
+def _train_mixer(ctx: ShardCtx, draws, tau):
+    """The train loss's mixer: stochastic masks from ``draws`` (the rank's
+    rows and heads), K1 through the scan's VJP; its extra is (the (Reg)
+    loss summed over every head, the masks' sum over the rank's rows and
+    heads for s_eff). The masks' batch mean in (Reg) is over the global
+    batch."""
+    def mixer(sp, scfg, hf):
+        acfg = scfg.adaptive if tau is None else scfg.adaptive._replace(tau=tau)
+        masks, s_sum = None, torch.zeros((), device=hf.device)
+        if acfg.enabled:
+            masks, _ = adaptive_lib.node_masks(sp["adaptive"], hf, acfg, deterministic=False,
+                                               draws=draws)
+            s_sum = masks.detach().float().sum()
+        log_mag, theta, sigma, _ = stlt_lib._poles(sp, scfg)
+        v = stlt_lib._split_heads(L.matmul(hf, sp["w_v"]), scfg.num_heads)
+        u_re, u_im = stlt_lib._masked_u(sp, masks)
+        z = stlt_lib._factorized(v, log_mag, theta, u_re, u_im, scfg, reverse=False)
+        m_mean = None
+        if masks is not None:   # the batch mean over the global batch
+            m_mean = (comm.all_reduce_sum(masks.sum(0), ctx.batch_group)
+                      / ctx.global_batch)[None]
+        reg = comm.reduce_from(
+            adaptive_lib.regularization(sigma, sp["nodes"]["omega"], m_mean, acfg).float(),
+            ctx.tp_group)
+        return stlt_lib._readout(sp, scfg, hf, z), (reg, s_sum)
+
+    return mixer
 
 
 def _head(ctx: ShardCtx, params, x):
@@ -242,10 +283,11 @@ def tp_lm_loss(params: dict, ctx: ShardCtx, batch: dict, draws=None, tau=None):
     rank's rows and heads."""
     cfg = ctx.cfg
     x = T._with_pe(cfg, _embed(ctx, params, batch["inputs"]))
-    block = T._maybe_remat(lambda p, li, x, d: _stlt_block(ctx, p, li, x, d, tau), cfg)
+    block = T._maybe_remat(
+        lambda p, li, x, d: _stlt_block(ctx, p, li, x, _train_mixer(ctx, d, tau)), cfg)
     reg = s_sum = torch.zeros((), device=x.device)
     for li, p in enumerate(params["layers"]):
-        x, r, s = block(p, li, x, None if draws is None else draws[li])
+        x, (r, s) = block(p, li, x, None if draws is None else draws[li])
         reg, s_sum = reg + r, s_sum + s
     nll = _nll(ctx, _head(ctx, params, x), batch["labels"])
     mask = batch.get("mask")
@@ -254,6 +296,51 @@ def tp_lm_loss(params: dict, ctx: ShardCtx, batch: dict, draws=None, tau=None):
     share = nll_sum / count + reg / ctx.n_batch
     return share, {"ce_sum": nll_sum.detach(), "count": count, "reg": reg.detach(),
                    "s_sum": s_sum}
+
+
+def _serve_logits(ctx: ShardCtx, params, x):
+    """The vocab-parallel logits of x [B_loc, d], gathered over ``model``
+    (the serving steps' out spec replicates the vocab)."""
+    logits = _head(ctx, params, x)
+    return logits if ctx.tp_group is None else comm.all_gather(logits, -1, ctx.tp_group)
+
+
+def tp_prefill(params: dict, ctx: ShardCtx, inputs):
+    """The TP prefill of the STLT LM (``transformer.prefill``) on the
+    TP-local ``params`` and the rank's rows ``inputs`` [B_loc, N]: (the last
+    token's logits [B_loc, V], the rank's rows of the decode state, its
+    heads of ``h_re``/``h_im``). Each layer's heads run
+    ``stlt.stlt_prefill`` (K1's stateful call on B_loc x H_loc rows) with
+    the serving masks: deterministic, from the rank's ``w_alpha``
+    columns."""
+    cfg = ctx.cfg
+    x = T._with_pe(cfg, _embed(ctx, params, inputs))
+    states = []
+    for li, p in enumerate(params["layers"]):
+        x, st = _stlt_block(ctx, p, li, x, lambda sp, scfg, h: stlt_lib.stlt_prefill(sp, scfg, h))
+        states.append(st)
+    B, N = x.shape[0], x.shape[1]
+    pos = torch.full((B,), N, dtype=torch.int32, device=x.device)
+    return _serve_logits(ctx, params, x[:, -1]), {"layers": states, "pos": pos}
+
+
+def tp_decode_step(params: dict, ctx: ShardCtx, token_t, state: dict):
+    """One TP decode step (``transformer.decode_step``): ``token_t``
+    [B_loc] and the rank's rows of the state (its heads of ``h_re`` and
+    ``h_im``) -> (logits [B_loc, V], the new state's rows). No K1 launch:
+    ``stlt.apply_stlt_step`` on the rank's heads."""
+    cfg = ctx.cfg
+    pos = state["pos"]
+    x_t = _embed(ctx, params, token_t)
+    if T._has_pe(cfg):
+        x_t = x_t + L.sinusoidal_pe(1, cfg.d_model, offset=pos, dtype=x_t.dtype,
+                                    device=x_t.device)[:, 0]
+    states = []
+    for li, (p, st) in enumerate(zip(params["layers"], state["layers"])):
+        x_t, st = _stlt_block(ctx, p, li, x_t,
+                              lambda sp, scfg, h, st=st: stlt_lib.apply_stlt_step(sp, scfg, h, st))
+        states.append(st)
+    return _serve_logits(ctx, params, x_t), {"layers": states, "pos": pos + 1}
 
 
 def dp_lm_loss(params: dict, ctx: ShardCtx, batch: dict, loss_fn, draws=None, tau=None):

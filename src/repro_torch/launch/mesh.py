@@ -39,10 +39,11 @@ def make_host_mesh(data: int = 2, model: int = 2, device=None) -> comm.DistMesh:
     return comm.make_mesh((data, model), ("data", "model"), device)
 
 
-def make_serve_mesh(data: int, device=None):
+def make_serve_mesh(data: int, device=None, processes: bool = False):
     """Serving mesh: 1-D ``("data",)`` over ``data`` hosts, for the
-    ShardedServeEngine. Delegates to the serving subsystem, so its checks
-    live in one place."""
+    ShardedServeEngine: with ``processes`` the process form (one rank per
+    host of a job of ``data`` ranks), else every host on one device.
+    Delegates to the serving subsystem, so its checks live in one place."""
     from repro_torch.serving.multihost import make_serve_mesh as _make
 
-    return _make(data, device)
+    return _make(data, device, processes)

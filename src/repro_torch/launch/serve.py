@@ -42,7 +42,13 @@ over a 1-D ("data",) mesh of H hosts (``--slots-per-host`` rows each,
 default ``--slots``; per-host admission queues, least-loaded routing, a
 ``ReplicatedPrefixCache``), every host on the one device; continuous mode
 with ``--prefill-chunk`` only, and not with ``--role disagg``. It prints
-the fleet's shape and the requests each host served.
+the fleet's shape and the requests each host served. Launched as a job of
+H ranks (``torchrun --nproc-per-node H -m repro_torch.launch.serve
+--mesh-data H ...``: the process group from the environment, NCCL on
+CUDA, gloo with ``--device cpu``), each rank serves its
+host through the engine's process form on its own device, with its own
+prefix-cache shard, and rank 0 prints the report; a job of another size
+than H raises.
 ``--spec-k K`` turns on speculative decoding (greedy, continuous mode; the
 ``--spec-*`` flags pick the draft and the adaptive window), ``--slo-degrade
 16,8,4`` the node-budget ladder with its triggers ``--slo-gap-ms`` and
@@ -73,16 +79,18 @@ cross the wire, weights never do):
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs as configs_lib
+from repro_torch.distributed import comm
 from repro_torch.models import transformer as T
 from repro_torch.serving import (DisaggController, FaultSchedule, PrefixCache,
                                  ReplicatedPrefixCache, Request, ServeEngine,
-                                 ShardedServeEngine)
+                                 ShardedServeEngine, make_serve_mesh)
 from repro_torch.utils import cast_params_for_compute, resolve_device, tree_leaves
 
 
@@ -211,7 +219,16 @@ def main(argv=None):
     if args.spec_k and args.temperature > 0:
         raise SystemExit("--spec-k requires greedy decoding (temperature 0): "
                          "the verify rule is exact for argmax streams only")
+    # a job (torchrun's environment) serves --mesh-data one rank per host
+    job = bool(args.mesh_data) and "WORLD_SIZE" in os.environ
+    if job:
+        comm.init_process_group("env://", int(os.environ["WORLD_SIZE"]),
+                                int(os.environ["RANK"]),
+                                "gloo" if args.device == "cpu" else "nccl")
     device = resolve_device(args.device)
+    if job and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    out = print if not job or torch.distributed.get_rank() == 0 else (lambda *a, **k: None)
     cfg = configs_lib.get_config(args.arch, args.variant)
     if args.reduced:
         cfg = cfg.reduced()
@@ -221,12 +238,12 @@ def main(argv=None):
                        device=device)
     params = cast_params_for_compute(params, cfg.act_dtype)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"[serve] {cfg.name}: {n_params / 1e6:.1f}M params on {device}")
+    out(f"[serve] {cfg.name}: {n_params / 1e6:.1f}M params on {device}")
 
     if args.mode == "wave" and (args.prefill_chunk or args.system_prompt_len):
         # the wave baseline prefills monolithically and never consults the
         # cache: warming it would waste a prefill and report nonsense
-        print("[serve] note: --prefill-chunk/--system-prompt-len apply to "
+        out("[serve] note: --prefill-chunk/--system-prompt-len apply to "
               "continuous mode only; ignored for --mode wave")
     use_cache = args.system_prompt_len and args.mode == "continuous"
     cache_kw = dict(capacity=args.prefix_cache_capacity,
@@ -268,19 +285,21 @@ def main(argv=None):
         eng = ctl.decode
         if use_cache:
             cache = ctl.prefill.caches[0]
-        print(f"[serve] disagg: {args.prefill_hosts} prefill x {args.decode_hosts} decode "
+        out(f"[serve] disagg: {args.prefill_hosts} prefill x {args.decode_hosts} decode "
               f"hosts ({args.slots} slots each), wire={args.wire_store}"
               + (f"+{args.wire_compress}" if args.wire_compress else "")
               + (f", chaos seed={args.chaos_seed}" if args.chaos_seed is not None else ""))
     elif args.mesh_data:
+        mesh = make_serve_mesh(args.mesh_data, device, processes=job)
         if use_cache:
-            cache = ReplicatedPrefixCache(args.mesh_data, **cache_kw)
-        eng = ShardedServeEngine(params, cfg, n_hosts=args.mesh_data,
+            cache = (PrefixCache(**cache_kw) if job
+                     else ReplicatedPrefixCache(args.mesh_data, **cache_kw))
+        eng = ShardedServeEngine(params, cfg, mesh=mesh,
                                  slots_per_host=args.slots_per_host or args.slots,
                                  max_len=args.max_len, temperature=args.temperature,
                                  prefill_chunk=args.prefill_chunk, prefix_cache=cache,
                                  **engine_kw)
-        print(f"[serve] sharded: {eng.n_hosts} hosts x {eng.slots_per_host} slots "
+        out(f"[serve] sharded: {eng.n_hosts} hosts x {eng.slots_per_host} slots "
               f"over mesh {dict(eng.mesh.shape)} on {eng.device}")
     else:
         if use_cache:
@@ -299,7 +318,7 @@ def main(argv=None):
     ]
     if cache is not None:
         warmed = (ctl or eng).warm_prefix(sys_prompt, chunk=args.prefill_chunk or None)
-        print(f"[serve] prefix cache warmed: {warmed} tokens")
+        out(f"[serve] prefix cache warmed: {warmed} tokens")
     t0 = time.time()
     if ctl is not None:
         results, stats = ctl.serve(reqs, return_stats=True)
@@ -315,30 +334,32 @@ def main(argv=None):
     dt = time.time() - t0
     n_tok = sum(len(v) for v in results.values())
     for rid in sorted(results):
-        print(f"  req {rid}: {results[rid][:12]}{'...' if len(results[rid]) > 12 else ''}")
+        out(f"  req {rid}: {results[rid][:12]}{'...' if len(results[rid]) > 12 else ''}")
     lat = sorted(s["finish"] - s["arrival"] for s in stats.values())
     p50 = lat[len(lat) // 2]
     p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
-    print(f"[serve] mode={args.mode}: {len(reqs)} requests, {n_tok} tokens in "
+    out(f"[serve] mode={args.mode}: {len(reqs)} requests, {n_tok} tokens in "
           f"{dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s), "
           f"latency p50={p50} p99={p99} ticks; {eng.serve_stats}")
     if ctl is not None:
         _report(ctl, args, remote)
     if args.spec_k:
-        print(f"[serve] spec: {eng.spec_stats}")
+        out(f"[serve] spec: {eng.spec_stats}")
     if eng.slo_degrade:
-        print(f"[serve] slo: {eng.node_stats}")
+        out(f"[serve] slo: {eng.node_stats}")
     if args.mesh_data:
         per_host = {h: 0 for h in range(eng.n_hosts)}
         for s in stats.values():
             per_host[s["host"]] += 1
-        print(f"[serve] per-host requests: {per_host}")
+        out(f"[serve] per-host requests: {per_host}")
     if cache is not None:
         prefilled = sum(s["prefilled_tokens"] for s in stats.values())
         total = sum(s["prompt_tokens"] for s in stats.values())
-        print(f"[serve] prefix cache: {cache.stats()}; prefilled "
+        out(f"[serve] prefix cache: {cache.stats()}; prefilled "
               f"{prefilled}/{total} prompt tokens "
               f"({100 * (1 - prefilled / max(total, 1)):.1f}% skipped)")
+    if job:
+        torch.distributed.destroy_process_group()
     return results, stats
 
 

@@ -20,9 +20,13 @@ temperature and learning rate (``train_schedules``), clip
 (``optim.clip_by_norm``) and cast rule (``utils.casts_for_compute``); its
 loss, its reductions of grads and metrics over the mesh and its global norm
 are its own, a separate path that the tests hold to ``make_step`` and to
-the JAX package's step. ``build_prefill_step``,
-``build_decode_step`` and ``lower_cell`` wait for TP serving (ROADMAP
-Queue 1 item 7) and raise until then.
+the JAX package's step. ``build_prefill_step`` and ``build_decode_step``
+give the serving cells the same way: their specs (``args``,
+``in_shardings``, ``out_shardings`` and ``donate_argnums`` equal the JAX
+package's at ``scan_layers=False``), and on a process mesh the step each
+rank calls with its shards (stlt-base's heads on ``model`` through
+``tensor_parallel.tp_prefill``/``tp_decode_step``; every arch's rows on its
+data axes). ``lower_cell`` (the dry-run) raises: ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from repro_torch.utils import (cast_params_for_compute, casts_for_compute,
                                tree_flatten_with_paths, tree_leaves, tree_map, tree_unflatten)
 
 P = sh.PartitionSpec
-ROADMAP_SERVE = "ROADMAP Queue 1 item 7: the sharded prefill and decode steps"
+ROADMAP_DRYRUN = "ROADMAP Queue 1 item 7: lower_cell and launch/dryrun.py"
 
 WHISPER_ENC_FRAMES = 1500  # fixed encoder context for whisper decode shapes
 
@@ -244,6 +248,20 @@ class CellProgram:
     opt_init: Optional[Callable] = None
 
 
+def _batch_axes(cfg: ModelConfig, mesh, global_batch: int) -> tuple:
+    """The batch axes a step splits its rows over (FSDP needs ``data``)."""
+    bax = sh.batch_axes(cfg, mesh, global_batch)
+    if cfg.fsdp and mesh.shape.get("data", 1) > 1 and "data" not in bax:
+        raise NotImplementedError(f"FSDP needs 'data' among the batch axes; a global "
+                                  f"batch of {global_batch} does not divide over it")
+    return bax
+
+
+def _process_mesh_only(*_, **__):
+    raise RuntimeError("a shape-only mesh computes specs; the step runs on a "
+                       "process mesh (comm.make_mesh, launch.mesh.make_host_mesh)")
+
+
 def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
     """The step every rank of ``mesh`` calls with its shards:
     step_fn(params, opt_state, batch, step, draws=None) -> (params,
@@ -252,13 +270,7 @@ def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
     None); each rank takes its rows and heads."""
     from repro_torch.launch import train as train_lib
 
-    if not isinstance(mesh, comm.DistMesh):
-        raise RuntimeError("a shape-only mesh computes specs; the step runs on a process "
-                           "mesh (comm.make_mesh, launch.mesh.make_host_mesh)")
-    bax = sh.batch_axes(cfg, mesh, global_batch)
-    if cfg.fsdp and mesh.shape.get("data", 1) > 1 and "data" not in bax:
-        raise NotImplementedError(f"FSDP needs 'data' among the batch axes; a global "
-                                  f"batch of {global_batch} does not divide over it")
+    bax = _batch_axes(cfg, mesh, global_batch)
     ctx = tp_lib.ShardCtx(cfg, mesh, pspecs, bax, global_batch)
     use_tp = tp_lib.tp_refusal(cfg) is None
     schedules = train_schedules(tcfg)
@@ -384,12 +396,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         "loss", "ce", "reg", "aux_loss", "router_z", "s_eff", "grad_norm", "lr")
     out_sh = (pspecs, ospecs, {k: P() for k in mkeys})
 
-    if isinstance(mesh, comm.DistMesh):
-        fn = _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, shape.global_batch)
-    else:
-        def fn(*_, **__):
-            raise RuntimeError("a shape-only mesh computes specs; the step runs on a "
-                               "process mesh (comm.make_mesh, launch.mesh.make_host_mesh)")
+    fn = (_sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, shape.global_batch)
+          if isinstance(mesh, comm.DistMesh) else _process_mesh_only)
 
     def opt_init(params):
         if cfg.optimizer == "adamw" or not isinstance(mesh, comm.DistMesh):
@@ -402,12 +410,100 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                        donate_argnums=(0, 1), opt_init=opt_init)
 
 
+def _sharded_serve(cfg: ModelConfig, mesh, pspecs, sspecs, global_batch: int,
+                   max_len: int):
+    """(prefill_fn(params, inputs), decode_fn(params, token_t, state)) that
+    every rank of ``mesh`` calls with its shards: the params (cast by
+    ``serving_params``), its rows of the inputs or tokens and its shard of
+    the decode state under ``sspecs``. The STLT LM runs the TP steps
+    (``tensor_parallel.tp_prefill``/``tp_decode_step``: its heads on
+    ``model``); every other arch its family's ``prefill_fn``/``decode_fn``
+    on the rank's rows (a ``model`` axis > 1 raises there, naming its
+    ROADMAP item). A state leaf replicated over the batch axes (``asum``,
+    ``acnt``, ``pos``) is computed by rows and gathered back
+    (``sharding.batch_gather``): one all-gather per dtype a step."""
+    bax = _batch_axes(cfg, mesh, global_batch)
+    ctx = tp_lib.ShardCtx(cfg, mesh, pspecs, bax, global_batch)
+    use_tp = tp_lib.tp_refusal(cfg) is None
+    family_prefill, family_decode = prefill_fn(cfg, max_len), decode_fn(cfg)
+
+    @torch.no_grad()
+    def prefill(params, inputs):
+        p = ctx.gather_fsdp(params)
+        out = tp_lib.tp_prefill(p, ctx, inputs) if use_tp else family_prefill(p, inputs)
+        if cfg.family == "encdec":
+            return sh.batch_gather(out, sspecs, bax, mesh)
+        return out[0], sh.batch_gather(out[1], sspecs, bax, mesh)
+
+    @torch.no_grad()
+    def decode(params, token_t, state):
+        p = ctx.gather_fsdp(params)
+        rows = sh.batch_rows(state, sspecs, bax, mesh)
+        logits, new = (tp_lib.tp_decode_step(p, ctx, token_t, rows) if use_tp
+                       else family_decode(p, token_t, rows))
+        return logits, sh.batch_gather(new, sspecs, bax, mesh)
+
+    return prefill, decode
+
+
+def _serve_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(serving param stand-ins, their specs, the batch spec's axis entry)."""
+    pshapes = serving_params(abstract_params(cfg), cfg)
+    bax = sh.batch_axes(cfg, mesh, shape.global_batch)
+    return pshapes, sh.param_specs(pshapes, cfg, mesh), (bax or None)
+
+
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh) -> CellProgram:
-    raise NotImplementedError(f"the sharded prefill step is not ported yet ({ROADMAP_SERVE})")
+    """The prefill cell, the JAX package's: fn(params, inputs) -> an LM's
+    (last logits [B, V], decode state), an enc-dec model's decode state
+    (the encode plus ``init_encdec_decode_state``). Specs from ``mesh`` (a
+    shape-only ``MeshSpec`` will do); on a process mesh ``fn`` is what every
+    rank calls with its shards (``sharding.local_slices`` of the params and
+    of the inputs under ``in_shardings``) and returns its shards under
+    ``out_shardings``."""
+    B, N = shape.global_batch, shape.seq_len
+    pshapes, pspecs, bax = _serve_specs(cfg, shape, mesh)
+    inputs = _prefill_inputs(cfg, shape)
+    if cfg.family == "encdec":
+        out_shapes = _abstract(lambda: prefill_fn(cfg, N)(
+            init_fn(cfg)(torch.Generator().manual_seed(0), "cpu"),
+            torch.zeros(inputs.shape, dtype=inputs.dtype)))
+        out_sh = decode_state_specs(out_shapes, cfg, mesh, B)
+        sspecs = out_sh
+    else:
+        out_shapes = _abstract(lambda: T.init_decode_state(cfg, B, N, device="cpu"))
+        sspecs = decode_state_specs(out_shapes, cfg, mesh, B)
+        out_sh = (P(bax, None), sspecs)
+    in_spec = P(bax, None, None) if inputs.ndim == 3 else P(bax, None)
+    fn = (_sharded_serve(cfg, mesh, pspecs, sspecs, B, N)[0]
+          if isinstance(mesh, comm.DistMesh) else _process_mesh_only)
+    return CellProgram("prefill", fn, (pshapes, inputs), (pspecs, in_spec), out_sh)
+
+
+def _decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """Stand-ins of a decode cell's state: an LM's ``init_decode_state``;
+    an enc-dec model's after encoding ``WHISPER_ENC_FRAMES`` frames."""
+    if cfg.family == "encdec":
+        return _abstract(lambda: W.init_encdec_decode_state(
+            init_fn(cfg)(torch.Generator().manual_seed(0), "cpu"), cfg,
+            torch.zeros((batch, WHISPER_ENC_FRAMES, cfg.d_model), dtype=cfg.act_dtype),
+            batch, max_len))
+    return _abstract(lambda: T.init_decode_state(cfg, batch, max_len, device="cpu"))
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh) -> CellProgram:
-    raise NotImplementedError(f"the sharded decode step is not ported yet ({ROADMAP_SERVE})")
+    """The decode cell, the JAX package's: fn(params, token_t [B], state) ->
+    (logits [B, V], new state), the state donated. Specs from ``mesh``; on
+    a process mesh every rank calls ``fn`` with its shards (the state's
+    under ``in_shardings[2]``) and gets its shards back."""
+    B, N = shape.global_batch, shape.seq_len
+    pshapes, pspecs, bax = _serve_specs(cfg, shape, mesh)
+    state_shapes = _decode_state_shapes(cfg, B, N)
+    sspecs = decode_state_specs(state_shapes, cfg, mesh, B)
+    fn = (_sharded_serve(cfg, mesh, pspecs, sspecs, B, N)[1]
+          if isinstance(mesh, comm.DistMesh) else _process_mesh_only)
+    return CellProgram("decode", fn, (pshapes, _meta((B,), torch.int32), state_shapes),
+                       (pspecs, P(bax), sspecs), (P(bax, None), sspecs), donate_argnums=(2,))
 
 
 def build_cell_program(arch: str, shape_name: str, mesh, variant: str = "native",
@@ -422,5 +518,4 @@ def build_cell_program(arch: str, shape_name: str, mesh, variant: str = "native"
 
 
 def lower_cell(prog: CellProgram, mesh):
-    raise NotImplementedError(f"lowering a cell (the dry-run) is not ported yet "
-                              f"({ROADMAP_SERVE}, then lower_cell and launch/dryrun.py)")
+    raise NotImplementedError(f"lowering a cell (the dry-run) is not ported yet ({ROADMAP_DRYRUN})")

@@ -631,15 +631,17 @@ class ServeEngine:
                 caps[h * K + local] = max(1, min(base, ladder_cap, S))
         return caps
 
-    def _slo_update(self, hosts, gap_ms: Optional[float]):
+    def _slo_update(self, hosts, gap_ms: Optional[float], qdepth: Optional[int] = None):
         """One step of the degrade/restore ladder after a tick: a breach
-        (the decode tick's wall gap, or the queue depth after admission)
+        (the decode tick's wall gap, or the queue depth after admission:
+        ``hosts``' queues, or ``qdepth`` where the caller counts them)
         steps one level down and resets the healthy streak;
         ``slo_recovery_ticks`` healthy ticks in a row step one level up."""
         if not self.slo_degrade:
             return
         ns = self.node_stats
-        qdepth = sum(len(h.queue) for h in hosts)
+        if qdepth is None:
+            qdepth = sum(len(h.queue) for h in hosts)
         gap_breach = bool(self.slo_gap_ms > 0 and gap_ms is not None
                           and gap_ms > self.slo_gap_ms)
         queue_breach = bool(self.slo_queue_depth > 0 and qdepth >= self.slo_queue_depth)

@@ -28,10 +28,25 @@ chunk]`` and ``warm_prefix``'s ``[1, chunk]``). Slot splicing goes by
 global id: host h's rows are the range h*K .. h*K + K - 1, so the id is
 its owner's row.
 
-A mesh is a list of devices, one per host. In this port every host of a
-mesh sits on ONE device (the CPU, or one GPU): its hosts' row ranges are
-ranges of one pool on that device, and the engine is one process, as the
-JAX engine is. A mesh over distinct devices is not ported yet.
+Two forms serve the same function. The one-process form (a ``ServeMesh``)
+puts every host on ONE device (the CPU, or one GPU): its hosts' row ranges
+are ranges of one pool on that device, and the engine is one process, as
+the JAX engine is. The process form (a ``comm.DistMesh`` with a
+``("data",)`` axis: ``make_serve_mesh(H, processes=True)`` in a job of H
+ranks) is the JAX engine's SPMD program as a pod runs it, one process per
+host: rank h is host h and keeps, on its own device, its ``_Host`` queue
+and Scheduler, its K-row pools (``[K, chunk]`` prefill, ``[K]`` decode or
+``[K, k+1]`` verify dispatches) and its prefix-cache shard (a
+``PrefixCache``; each rank warms the shared prompt into its own). Every rank gets the same
+requests and arrivals, and what the one-process engine decides for all
+hosts at once is decided on every rank from the same inputs: one all-gather
+of four integers a tick (each host's tick advance, queued, live and
+pending rows) feeds the least-loaded route, the idle fast-forward, the
+global tick and the end of the run, and the SLO ladder's queue depth.
+``slo_gap_ms`` reads each rank's own wall clock, so the process form
+refuses it (ROADMAP Queue 1 item 7). A spec draft and ``AdaptiveK`` are
+per row, so each rank's rows decide alone. At the end the ranks all-gather
+the streams and per-request stats.
 """
 from __future__ import annotations
 
@@ -40,8 +55,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.serving.engine import ServeEngine, _Host, _ServeRun
 from repro_torch.serving.prefix_cache import PrefixCache, ReplicatedPrefixCache
 from repro_torch.utils import resolve_device
@@ -57,12 +74,27 @@ class ServeMesh:
         return {"data": len(self.devices)}
 
 
-def make_serve_mesh(n_hosts: int, device=None) -> ServeMesh:
-    """The serving mesh: 1-D ``("data",)`` over ``n_hosts`` hosts, every one
-    on ``device`` (CUDA unless the caller names another)."""
+ROADMAP_SLO_GAP = ("ROADMAP Queue 1 item 7: the SLO ladder's wall-gap trigger in the "
+                   "process form")
+
+
+def make_serve_mesh(n_hosts: int, device=None, processes: bool = False):
+    """The serving mesh: 1-D ``("data",)`` over ``n_hosts`` hosts. With
+    ``processes`` the process form, a ``comm.DistMesh`` of one rank per host
+    on ``device`` in a job of ``n_hosts`` ranks (no process group, or a job
+    of another size, raises); otherwise the one-process ``ServeMesh``, every
+    host on ``device`` (CUDA unless the caller names another)."""
     if n_hosts < 1:
         raise ValueError(f"n_hosts must be >= 1 (got {n_hosts})")
-    return ServeMesh(devices=(resolve_device(device),) * n_hosts)
+    if not processes:
+        return ServeMesh(devices=(resolve_device(device),) * n_hosts)
+    if not dist.is_initialized():
+        raise RuntimeError(f"the process form of a {n_hosts}-host serve mesh needs a "
+                           f"job of {n_hosts} ranks (comm.init_process_group, torchrun)")
+    if dist.get_world_size() != n_hosts:
+        raise ValueError(f"a serve mesh of {n_hosts} hosts in a job of "
+                         f"{dist.get_world_size()} ranks: one rank per host")
+    return comm.make_mesh((n_hosts,), ("data",), device)
 
 
 class ShardedServeEngine(ServeEngine):
@@ -100,18 +132,33 @@ class ShardedServeEngine(ServeEngine):
                 f"path only: prefill_chunk must be >= 1 (got {prefill_chunk})")
         if slots_per_host < 1:
             raise ValueError(f"slots_per_host must be >= 1 (got {slots_per_host})")
-        if isinstance(prefix_cache, PrefixCache):
+        if isinstance(prefix_cache, PrefixCache) and not isinstance(mesh, comm.DistMesh):
             raise TypeError(
                 "ShardedServeEngine routes cache traffic per shard: pass a "
                 "ReplicatedPrefixCache (or None), not a bare PrefixCache")
         if mesh is None:
             mesh = make_serve_mesh(n_hosts if n_hosts is not None else 1, device)
-        devices = {torch.device(d) for d in mesh.devices}
-        if len(devices) > 1:
-            raise NotImplementedError(
-                f"a serve mesh over {len(devices)} distinct devices is not ported "
-                "yet: every host of the mesh must sit on one device")
-        mesh_device, = devices
+        self.group = None   # the process form's "data" group
+        if isinstance(mesh, comm.DistMesh):
+            if tuple(mesh.axis_names) != ("data",):
+                raise ValueError(f"a serve mesh has one axis, 'data' (got {mesh.axis_names})")
+            if slo_gap_ms > 0:
+                raise NotImplementedError(
+                    "slo_gap_ms reads each rank's own wall clock, which would split the "
+                    f"ranks' tick sequences: the process form refuses it ({ROADMAP_SLO_GAP})")
+            if isinstance(prefix_cache, ReplicatedPrefixCache):
+                raise TypeError("a rank of the process form keeps its own shard: pass a "
+                                "PrefixCache (or None), not a ReplicatedPrefixCache")
+            self.group = mesh.group("data")
+            mesh_device = mesh.device
+        else:
+            devices = {torch.device(d) for d in mesh.devices}
+            if len(devices) > 1:
+                raise NotImplementedError(
+                    f"a one-process serve mesh over {len(devices)} distinct devices: "
+                    "every host of it sits on one device; serve distinct devices with "
+                    "one process per host (make_serve_mesh(..., processes=True) in a job)")
+            mesh_device, = devices
         if device is not None and torch.device(device) != mesh_device:
             raise ValueError(f"device {device} differs from the mesh's {mesh_device}")
         super().__init__(params, cfg, max_len=max_len, temperature=temperature,
@@ -131,7 +178,9 @@ class ShardedServeEngine(ServeEngine):
         self.n_hosts = int(mesh.shape["data"])
         self.slots_per_host = slots_per_host
         self.n_slots = self.n_hosts * slots_per_host
-        if prefix_cache is not None and prefix_cache.n_shards != self.n_hosts:
+        self.host = mesh.coord("data") if self.group is not None else None
+        if self.group is None and prefix_cache is not None \
+                and prefix_cache.n_shards != self.n_hosts:
             raise ValueError(f"prefix cache has {prefix_cache.n_shards} shards for "
                              f"{self.n_hosts} hosts")
 
@@ -143,6 +192,8 @@ class ShardedServeEngine(ServeEngine):
     # swaps in per-shard cache routing and least-loaded arrival routing.
 
     def _ops_lookup(self, prompt, h: int):
+        if self.group is not None:       # the process form: the rank's own shard
+            return super()._ops_lookup(prompt, h)
         if self.prefix_cache is None:
             return 0, None, None
         entry = self.prefix_cache.lookup(prompt, shard=h)
@@ -151,6 +202,8 @@ class ShardedServeEngine(ServeEngine):
         return entry.n_tokens, entry.state, entry.logits
 
     def _ops_cache_insert(self, prompt, n, state, logits, h: int):
+        if self.group is not None:
+            return super()._ops_cache_insert(prompt, n, state, logits, h)
         if self.prefix_cache is not None and n > 0:
             self.prefix_cache.insert(prompt[:n], state, logits, shard=h)
 
@@ -171,7 +224,63 @@ class ShardedServeEngine(ServeEngine):
         ``host`` that served it, when ``return_stats``). Each tick: route
         arrivals, admit per host into its own rows, at most one
         ``[n_slots, chunk]`` masked prefill dispatch, one ``[n_slots]``
-        decode step (or, with ``spec_k``, one draft-verify round)."""
+        decode step (or, with ``spec_k``, one draft-verify round). In the
+        process form every rank of the mesh calls it with the same
+        requests and arrivals and gets every host's streams and stats;
+        each rank's ``serve_stats`` count its own dispatches."""
+        if self.group is not None:
+            return self._serve_ranks(requests, arrivals, rng_seed, return_stats, prompt_len)
         hosts = [_Host(self.slots_per_host) for _ in range(self.n_hosts)]
         return self._serve_ticks(hosts, requests, prompt_len, arrivals, rng_seed,
                                  return_stats, self.prefill_chunk, coalesce=True)
+
+    def _serve_ranks(self, requests, arrivals, rng_seed, return_stats, prompt_len):
+        """The process form's tick loop: this rank's host runs the tick body
+        on its K rows; ``loads`` [H, 3] (each host's queued, live and
+        pending rows at the tick's start) comes from the tick's one
+        all-gather, taken after the decode phase with each host's advance
+        flag (a live or pending row after admission: the tick counts)."""
+        run = self._serve_start([_Host(self.slots_per_host)], requests, prompt_len, arrivals,
+                                rng_seed, self.prefill_chunk, coalesce=True)
+        loads = np.zeros((self.n_hosts, 3), np.int64)
+        ticks = 0
+        while run.queue or loads.any():
+            tick_was = run.tick
+            if not loads.any() and run.queue[0][0] > run.tick:
+                run.tick = run.queue[0][0]  # idle everywhere: fast-forward
+                self._cache_tick(run.tick - tick_was)
+                tick_was = run.tick
+            self._route_ranks(run, loads.sum(1))
+            self._tick_admission(run)
+            advance = run.any_live() or run.any_pending()
+            self._tick_decode(run)
+            host = run.host
+            mine = torch.tensor([int(advance), len(host.queue), int(host.sched.live.sum()),
+                                 int(host.sched.pending.sum())], device=self.device)
+            every = comm.all_gather(mine[None], 0, self.group).cpu().numpy()
+            ticks += 1
+            run.tick = tick_was + int(every[:, 0].any())
+            loads = every[:, 1:]
+            if self.slo_degrade:
+                self._slo_update(run.hosts, None, qdepth=int(loads[:, 0].sum()))
+            self._cache_tick(run.tick - tick_was)
+        self.serve_stats["exchanges"] = ticks
+        out, stats = self._serve_finish(run, True)
+        for st in stats.values():
+            st["host"] = self.host
+        parts = [None] * self.n_hosts
+        dist.all_gather_object(parts, (out, stats), group=self.group)
+        out = {rid: toks for o, _ in parts for rid, toks in o.items()}
+        stats = {rid: st for _, s in parts for rid, st in s.items()}
+        return (out, stats) if return_stats else out
+
+    def _route_ranks(self, run: _ServeRun, load: np.ndarray):
+        """The one-process engine's least-loaded route on every rank from the
+        same loads: each arrived request goes to the least-loaded host (the
+        lowest id on ties) and adds to its load; this rank queues its own."""
+        while run.queue and run.queue[0][0] <= run.tick:
+            h = int(np.argmin(load))
+            load[h] += 1
+            arrival, req = run.queue.pop(0)
+            if h == self.host:
+                self._enqueue(run, 0, arrival, req)

@@ -923,3 +923,41 @@ def test_context_parallel_matches_serial_k1_on_the_card(dev, tmp_path):
         res = torch.load(tmp_path / f"cp{r}.pt")
         assert res["launches"] == 1
         assert res["err"] <= RTOL_SCALE * res["scale"], (r, res)
+
+
+def test_sharded_serving_on_the_card(dev, tmp_path):
+    """Phase DS at reduced width (2 layers), 4 gloo ranks sharing the card:
+    DS1's 2 x 2 prefill cell (a K1 launch per layer per rank) and decode
+    cell (none) against the single-device functions on the card (logits
+    within 1e-3, each rank's state slice within K1's gate, streams under
+    the near-tie rule); DS2's process-form engine on 2 host ranks against
+    the one-process engine (hosts and ticks equal, K1 = layers x each
+    rank's admission dispatches)."""
+    import os
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "torch_dist_worker.py"),
+                               str(tmp_path), str(r), "4", "cuda-serve"], env=env,
+                              stderr=subprocess.PIPE) for r in range(4)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err.decode()[-3000:]
+    res = [torch.load(tmp_path / f"serve{r}.pt", weights_only=False) for r in range(4)]
+    for r in res:
+        d = r["DS1"]
+        assert d["prefill_k1"] == r["layers"] and set(d["decode_k1"]) == {0}, d
+        assert d["logit_gap"] <= 1e-3 and d["prefill_state_gap_over_tol"] <= 1.0, d
+        assert d["final_state_gap_over_tol"] is None or d["final_state_gap_over_tol"] <= 1.0
+        h = r["DS2"]
+        if h["member"]:
+            assert h["k1"] == r["layers"] * h["dispatches"]["admission_dispatches"] > 0, h
+    assert res[0]["DS2"]["ticks_equal"] and set(res[0]["DS2"]["hosts"].values()) == {0, 1}
+    assert [r["DS2"]["member"] for r in res] == [True, True, False, False]

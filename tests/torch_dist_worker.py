@@ -1,14 +1,17 @@
-"""One rank of the port's multi-device CPU tests (tests/test_torch_distributed.py).
+"""One rank of the port's multi-device CPU tests (tests/test_torch_distributed.py,
+tests/test_torch_sharded_serve.py).
 
-    python tests/torch_dist_worker.py DIR RANK WORLD [cuda-cp]
+    python tests/torch_dist_worker.py DIR RANK WORLD [cuda-cp | cuda-serve | serve]
 
 Joins a gloo job through the file store ``DIR/store``, reads the inputs the
 test wrote to ``DIR/inputs.pt`` (made with numpy from a seed), runs every
 scenario in turn and, on rank 0, writes what it gathered to
 ``DIR/results.pt``. Imports torch and the port only (no JAX): the test
-holds the results to the JAX package. With ``cuda-cp`` every rank runs the
-context-parallel STLT on the card (K1) and writes its error against the
-serial K1 call to ``DIR/cp<RANK>.pt`` (tests/test_torch_cuda.py).
+holds the results to the JAX package. With ``serve`` the scenarios are the
+sharded serving cells and the process form of the sharded engine. With
+``cuda-cp`` every rank runs the context-parallel STLT on the card (K1) and
+writes its error against the serial K1 call to ``DIR/cp<RANK>.pt``
+(tests/test_torch_cuda.py).
 """
 import sys
 import traceback
@@ -107,6 +110,111 @@ def refusal(inp, cfg, mesh_shape):
     return None
 
 
+def cell_scenario(inp, case):
+    """The prefill cell on the inputs' prompts and ``D`` greedy decode-cell
+    steps from the single-device prefill's state at ``M`` positions: this
+    rank's coordinates and its shards of every output."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models import whisper as W
+
+    cfg = inp["cfgs"][case["cfg"]]
+    mesh = comm.make_mesh(case["mesh"], ("data", "model"), device="cpu")
+    B, N, M = inp["B"], inp["N"], inp["M"]
+    pre = steps.build_prefill_step(cfg, ShapeConfig("p", N, B, "prefill"), mesh)
+    dec = steps.build_decode_step(cfg, ShapeConfig("d", M, B, "decode"), mesh)
+    full = steps.serving_params(inp["params"][cfg.name], cfg)
+    params = sh.local_slices(full, pre.in_shardings[0], mesh)
+    x = inp["prompts"][case["cfg"]]
+    out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names},
+           "prefill": _np(pre.fn(params, sh.local_slices(x, pre.in_shardings[1], mesh)))}
+    if cfg.family == "encdec":
+        state = W.init_encdec_decode_state(full, cfg, x, B, M)
+        tok = inp["tok0"]
+    else:
+        logits, state = T.prefill(full, cfg, x, max_len=M)
+        tok = logits.argmax(-1).to(torch.int32)
+    state = sh.local_slices(state, dec.in_shardings[2], mesh)
+    tok = sh.local_slices(tok, dec.in_shardings[1], mesh)
+    out["tok0"] = tok.numpy()
+    out["decode"] = []
+    for _ in range(inp["D"]):
+        logits, state = dec.fn(params, tok, state)
+        tok = logits.argmax(-1).to(torch.int32)
+        out["decode"].append(_np((logits, state)))
+    return out
+
+
+def cell_refusal(inp, cfg_key, mesh_shape):
+    mesh = comm.make_mesh(mesh_shape, ("data", "model"), device="cpu")
+    try:
+        steps.build_prefill_step(inp["cfgs"][cfg_key],
+                                 ShapeConfig("p", inp["N"], inp["B"], "prefill"), mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def engine_scenario(inp):
+    """The process form of the sharded engine on ranks 0 and 1 (a
+    ``("data",)`` sub-mesh of the job, one host each, 2 rows), each with
+    its own prefix-cache shard warmed with the system prompt: every
+    host's streams and stats, the rank's dispatches and exchanged bytes."""
+    from repro_torch.serving import PrefixCache, ShardedServeEngine
+
+    e = inp["engine"]
+    mesh = comm.sub_mesh(np.arange(e["hosts"]), ("data",), device="cpu")
+    if not mesh.member:
+        return None
+    eng = ShardedServeEngine(inp["params"][inp["cfgs"][e["cfg"]].name], inp["cfgs"][e["cfg"]],
+                             mesh=mesh, slots_per_host=e["slots"], max_len=e["max_len"],
+                             prefill_chunk=e["chunk"], prefix_cache=PrefixCache(capacity=32),
+                             device="cpu")
+    warmed = eng.warm_prefix(e["sys_prompt"])
+    comm.reset_stats()
+    res, stats = eng.serve(e["requests"], arrivals=e["arrivals"], return_stats=True)
+    return {"streams": res, "stats": stats, "warmed": warmed, "host": eng.host,
+            "serve_stats": dict(eng.serve_stats), "bytes": dict(comm.STATS),
+            "cache": eng.prefix_cache.stats()}
+
+
+def cuda_serve(root: str, rank: int):
+    """Phase DS of ``tools/phase_dt.py`` at reduced width (2 layers, 64
+    nodes) on the card: DS1's
+    2 x 2 cells (200-token prefill, 8 decode steps) and DS2's process-form
+    engine on phase SH's requests; writes what each rank measured to
+    ``DIR/serve<RANK>.pt``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import phase_dt
+    from repro_torch.configs.stlt_base import CONFIG
+    from repro_torch.models import transformer as T
+
+    phase_dt.DS1_N, phase_dt.DS1_NEW = 200, 8
+    dev = torch.device("cuda")
+    # stlt-base's 64 nodes: phase SH's requests cap two of them at 16
+    cfg = CONFIG.reduced(num_layers=2, stlt_nodes=CONFIG.stlt_nodes)
+    full = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    out = {"layers": cfg.num_layers}
+    phase_dt.ds1(T, cfg, full, dev, rank, out)
+    phase_dt.ds2(T, cfg, full, dev, rank, out)
+    torch.save(out, f"{root}/serve{rank}.pt")
+
+
+def serve_main(root: str, rank: int, world: int):
+    torch.set_num_threads(1)
+    comm.init_process_group(f"file://{root}/store", world, rank, "gloo")
+    inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+    if "whisper_frames" in inp:
+        steps.WHISPER_ENC_FRAMES = inp["whisper_frames"]
+    res = {name: cell_scenario(inp, case) for name, case in inp["cells"].items()}
+    res.update({name: cell_refusal(inp, *args) for name, args in inp["refusals"].items()})
+    res["engine"] = engine_scenario(inp)
+    gathered = [None] * world
+    torch.distributed.all_gather_object(gathered, res)
+    if rank == 0:
+        torch.save(gathered, f"{root}/results.pt")
+    torch.distributed.destroy_process_group()
+
+
 def cuda_cp(root: str, rank: int, world: int):
     """K1's stateful call on each rank's slice of 4 rows x 4096 tokens, one
     exchange, against K1 over the whole sequence on the same card."""
@@ -155,12 +263,17 @@ def main(root: str, rank: int, world: int):
 
 if __name__ == "__main__":
     try:
-        if sys.argv[4:] == ["cuda-cp"]:
+        if sys.argv[4:] in (["cuda-cp"], ["cuda-serve"]):
             comm.init_process_group(f"file://{sys.argv[1]}/store", int(sys.argv[3]),
                                     int(sys.argv[2]), "gloo")
             torch.backends.cuda.matmul.allow_tf32 = False
-            cuda_cp(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+            if sys.argv[4] == "cuda-cp":
+                cuda_cp(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+            else:
+                cuda_serve(sys.argv[1], int(sys.argv[2]))
             torch.distributed.destroy_process_group()
+        elif sys.argv[4:] == ["serve"]:
+            serve_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
         else:
             main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
     except BaseException:

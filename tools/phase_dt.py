@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Phase DT: the port's multi-device training layer at stlt-base's full width.
+"""Phases DT and DS: the port's multi-device training and serving layers at
+stlt-base's full width.
 
     python3 tools/phase_dt.py                            # 4 ranks, NCCL, one card each
     python3 tools/phase_dt.py --backend gloo --cards 1   # 4 ranks sharing one card
@@ -33,6 +34,28 @@ and write their numbers there as JSON. Four checks:
 * DT4, the resilient loop: DT1's step under ``run_resilient_loop`` with a
   ``SimulatedHardwareFailure`` at step 2, restored from the step-1
   checkpoint; the final params bit for bit DT1's.
+
+Phase DS, the sharded serving layer, runs in the same rank job:
+
+* DS1, the sharded cells: stlt-base (DT1's params) on the 2 x 2 mesh,
+  ``launch.steps.build_prefill_step`` at 4 x 1000 tokens, then 32 greedy
+  steps of ``build_decode_step`` from its state, against the single-device
+  ``prefill``/``decode_step`` on the rank's card: the logits of the rank's
+  rows within 1e-3 (phases 4-5's gate), its rows and heads of ``h_re``/
+  ``h_im`` within K1's gate of the single-device state's slice after the
+  prefill and after the last step, the streams equal under the near-tie
+  rule; 6 K1 launches per rank per prefill (2 rows x 4 heads = 8 rows a
+  layer), 0 per decode step. Prefill and decode-step ms by CUDA events
+  (beside the single-device functions' on the same card) and the bytes each
+  rank hands to each collective (``comm.STATS``).
+* DS2, the process form of ``ShardedServeEngine``: phase SH's requests
+  and arrivals (``chip_smoke.serve_requests``) on ranks 0 and 1 as 2 hosts
+  x 2 slots (a ``comm.sub_mesh`` of the job), each warming the system
+  prompt into its own ``PrefixCache``; against the one-process engine of
+  phase SH (both hosts on rank 0's card) on the same requests: every
+  request's host and ticks equal, streams equal under the near-tie rule, K1
+  = 6 x each rank's admission dispatches. TTFT, gaps, wall and the bytes
+  exchanged a tick.
 """
 from __future__ import annotations
 
@@ -58,6 +81,8 @@ DT3_M, DT3_N = 4, 1000
 DT3_OUT_TOL = 1e-4            # x (1 + max |ref|)
 DT3_GRAD_TOL = 1e-3           # x max |ref grad| per leaf (chip_smoke.TRAIN_GRAD_TOL)
 DT4_FAIL_AT = 2
+DS1_B, DS1_N, DS1_NEW = 4, 1000, 32
+DS_LOGIT_TOL = 1e-3           # fp32 logits (chip_smoke.LOGIT_TOL, phases 4-5)
 
 
 def _timed(fn):
@@ -275,6 +300,152 @@ def dt4(prog, mesh, dt1_params, full, dev, rank, out):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def ds1(T, cfg, full, dev, rank, out):
+    """The sharded prefill and decode cells against the single-device
+    functions on this rank's card."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import stlt_scan as k1
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+
+    B, N, new = DS1_B, DS1_N, DS1_NEW
+    mesh = mesh_lib.make_host_mesh(2, 2, device=dev)
+    pre = steps.build_prefill_step(cfg, ShapeConfig("ds", N, B, "prefill"), mesh)
+    dec = steps.build_decode_step(cfg, ShapeConfig("ds", N + new, B, "decode"), mesh)
+    sparams = steps.serving_params(full, cfg)
+    params = sh.local_slices(sparams, pre.in_shardings[0], mesh)
+    toks = torch.randint(0, cfg.vocab, (B, N), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    x = sh.local_slices(toks, pre.in_shardings[1], mesh)
+    pre.fn(params, x)                                   # warm
+    comm.reset_stats()
+    k1.stlt_scan_kernel.launches = 0
+    (logits, pre_state), ms = _timed(lambda: pre.fn(params, x))
+    row = {"prefill_ms": ms, "prefill_k1": k1.stlt_scan_kernel.launches,
+           "prefill_bytes": dict(comm.STATS), "decode_ms": [], "decode_k1": [],
+           "decode_bytes": None}
+    got_logits, state = [logits], pre_state
+    for _ in range(new):
+        tok = got_logits[-1].argmax(-1).to(torch.int32)
+        comm.reset_stats()
+        k1.stlt_scan_kernel.launches = 0
+        (logits, state), ms = _timed(lambda: dec.fn(params, tok, state))
+        row["decode_ms"].append(ms)
+        row["decode_k1"].append(k1.stlt_scan_kernel.launches)
+        row["decode_bytes"] = dict(comm.STATS)
+        got_logits.append(logits)
+    torch.distributed.barrier()
+    # the single-device functions on this card, held on the rank's rows
+    # and heads; a row whose stream leaves the reference's at a near tie is
+    # compared no further
+    b0, b_loc = mesh.coord("data") * (B // 2), B // 2
+    h_loc = cfg.num_heads // 2
+    h0 = mesh.coord("model") * h_loc
+
+    def state_gap(got, want):
+        worst = 0.0
+        for g, w in zip(got["layers"], want["layers"]):
+            for k in ("h_re", "h_im"):
+                ws = w[k][b0:b0 + b_loc, h0:h0 + h_loc]
+                worst = max(worst, float((g[k] - ws).abs().max())
+                            / (K1_TOL * (1 + float(ws.abs().max()))))
+        return worst
+
+    with torch.no_grad():
+        T.prefill(sparams, cfg, toks, max_len=N + new)            # warm
+        (ref_logits, ref_state), row["ref_prefill_ms"] = _timed(
+            lambda: T.prefill(sparams, cfg, toks, max_len=N + new))
+        row["ref_decode_ms"] = []
+        row["prefill_state_gap_over_tol"] = state_gap(pre_state, ref_state)
+        live = [True] * b_loc
+        row["logit_gap"], row["near_ties"], row["same_tokens"] = 0.0, 0, 0
+        for step, got in enumerate(got_logits):
+            want = ref_logits[b0:b0 + b_loc]
+            for r in range(b_loc):
+                if not live[r]:
+                    continue
+                row["logit_gap"] = max(row["logit_gap"],
+                                       float((got[r] - want[r]).abs().max()))
+                g_tok, w_tok = int(got[r].argmax()), int(want[r].argmax())
+                if g_tok == w_tok:
+                    row["same_tokens"] += 1
+                    continue
+                gap = float(want[r, w_tok] - want[r, g_tok])
+                if not gap < DS_LOGIT_TOL:
+                    raise AssertionError(f"DS1 rank {rank} step {step} row {b0 + r}: token "
+                                         f"{g_tok}, single-device {w_tok}, gap {gap}")
+                row["near_ties"] += 1
+                live[r] = False
+            if step < new:
+                ref_tok = ref_logits.argmax(-1).to(torch.int32)
+                (ref_logits, ref_state), ms = _timed(
+                    lambda: T.decode_step(sparams, cfg, ref_tok, ref_state))
+                row["ref_decode_ms"].append(ms)
+        row["streams_equal"] = all(live)
+        row["final_state_gap_over_tol"] = state_gap(state, ref_state) if all(live) else None
+    out["DS1"] = row
+
+
+def ds2(T, cfg, full, dev, rank, out):
+    """The process form of the sharded engine (ranks 0 and 1) against the
+    one-process engine (rank 0's card) on phase SH's requests."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import stlt_scan as k1
+    from repro_torch.serving import (PrefixCache, ReplicatedPrefixCache, Request,
+                                     ShardedServeEngine)
+
+    mesh = comm.sub_mesh(np.arange(cs.SH_HOSTS), ("data",), device=dev)
+    sys_prompt, reqs = cs.serve_requests(cfg, Request)
+    arrivals = [spec[4] for spec in cs.SERVE_SPEC]
+    row = {"member": mesh.member}
+    if mesh.member:
+        eng = ShardedServeEngine(full, cfg, mesh=mesh, slots_per_host=cs.SH_SLOTS,
+                                 prefill_chunk=cs.SERVE_CHUNK, prefix_cache=PrefixCache(),
+                                 device=dev)
+        eng.warm_prefix(sys_prompt)
+        torch.cuda.synchronize()
+        comm.reset_stats()
+        k1.stlt_scan_kernel.launches = 0
+        t0 = time.time()
+        res, stats = eng.serve(reqs, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        row.update(k1=k1.stlt_scan_kernel.launches, dispatches=dict(eng.serve_stats),
+                   bytes=dict(comm.STATS), metrics=cs.serve_metrics(res, stats, reqs, wall),
+                   cache_hits=eng.prefix_cache.stats()["hits"],
+                   pinned=eng.prefix_cache.stats()["pinned"])
+    torch.distributed.barrier()
+    if rank == 0:
+        one = ShardedServeEngine(full, cfg, n_hosts=cs.SH_HOSTS, slots_per_host=cs.SH_SLOTS,
+                                 prefill_chunk=cs.SERVE_CHUNK,
+                                 prefix_cache=ReplicatedPrefixCache(cs.SH_HOSTS), device=dev)
+        one.warm_prefix(sys_prompt)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        one_res, one_stats = one.serve(reqs, arrivals=arrivals, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        keys = ("host", "arrival", "admit", "live", "finish", "n_tokens", "cached_tokens")
+        row["ticks_equal"] = all(tuple(stats[r.id][k] for k in keys)
+                                 == tuple(one_stats[r.id][k] for k in keys) for r in reqs)
+        row["hosts"] = {r.id: stats[r.id]["host"] for r in reqs}
+        row["one_metrics"] = cs.serve_metrics(one_res, one_stats, reqs, wall)
+        row["one_dispatches"] = dict(one.serve_stats)
+        same, ties = cs.near_tie_streams(T, cfg, full, dev, reqs, res, one_res, "DS2")
+        row.update(same=same, ties=ties, requests=len(reqs))
+    torch.distributed.barrier()
+    out["DS2"] = row
+
+
 def rank_main(rank: int, backend: str, cards: int, store: str):
     import torch
 
@@ -298,6 +469,10 @@ def rank_main(rank: int, backend: str, cards: int, store: str):
     out["t_DT3"] = time.time() - t0
     dt4(prog, mesh, params, full, dev, rank, out)
     out["t_DT4"] = time.time() - t0
+    ds1(T, cfg, full, dev, rank, out)
+    out["t_DS1"] = time.time() - t0
+    ds2(T, cfg, full, dev, rank, out)
+    out["t_DS2"] = time.time() - t0
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
     torch.distributed.barrier()
@@ -343,6 +518,10 @@ def launch(backend: str = "nccl", cards: int = WORLD, timeout: float = 600.0) ->
     return [json.loads((OUT / f"rank{r}.json").read_text()) for r in range(WORLD)]
 
 
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
 def check(res: list) -> dict:
     """Raise unless every DT check holds; returns the summary."""
     r0 = res[0]
@@ -372,7 +551,47 @@ def check(res: list) -> dict:
         d4 = r["DT4"]
         if not (d4["bitwise"] and d4["stats"]["restarts"] == 1 and d4["stats"]["completed"]):
             raise AssertionError(f"DT4 rank {r['rank']}: {d4}")
+    for r in res:
+        d = r["DS1"]
+        if not (d["prefill_k1"] == 6 and set(d["decode_k1"]) == {0}
+                and d["logit_gap"] <= DS_LOGIT_TOL and d["prefill_state_gap_over_tol"] <= 1.0
+                and (d["final_state_gap_over_tol"] is None
+                     or d["final_state_gap_over_tol"] <= 1.0)):
+            raise AssertionError(f"DS1 rank {r['rank']}: K1 {d['prefill_k1']} per prefill, "
+                                 f"{set(d['decode_k1'])} per decode step, logit gap "
+                                 f"{d['logit_gap']}, state gaps over K1's gate "
+                                 f"{d['prefill_state_gap_over_tol']}, "
+                                 f"{d['final_state_gap_over_tol']}")
+        d = r["DS2"]
+        if d["member"] and not (d["k1"] == 6 * d["dispatches"]["admission_dispatches"]
+                                and d["k1"] > 0 and d["pinned"] > 0 and d["cache_hits"] > 0):
+            raise AssertionError(f"DS2 rank {r['rank']}: {d}")
+    d2 = r0["DS2"]
+    if not (d2["ticks_equal"] and set(d2["hosts"].values()) == {0, 1}):
+        raise AssertionError(f"DS2: ticks equal {d2['ticks_equal']}, hosts {d2['hosts']}")
+    hosts = [r["DS2"] for r in res if r["DS2"]["member"]]
     return {
+        "ds1_prefill_ms": [r["DS1"]["prefill_ms"] for r in res],
+        "ds1_decode_ms_median": [_median(r["DS1"]["decode_ms"]) for r in res],
+        "ds1_ref_prefill_ms": [r["DS1"]["ref_prefill_ms"] for r in res],
+        "ds1_ref_decode_ms_median": [_median(r["DS1"]["ref_decode_ms"]) for r in res],
+        "ds1_prefill_bytes": [r["DS1"]["prefill_bytes"] for r in res],
+        "ds1_decode_bytes": [r["DS1"]["decode_bytes"] for r in res],
+        "ds1_k1": [[r["DS1"]["prefill_k1"], max(r["DS1"]["decode_k1"])] for r in res],
+        "ds1_logit_gap": max(r["DS1"]["logit_gap"] for r in res),
+        "ds1_state_gap_over_tol": max(max(r["DS1"]["prefill_state_gap_over_tol"],
+                                          r["DS1"]["final_state_gap_over_tol"] or 0.0)
+                                      for r in res),
+        "ds1_streams_equal": [r["DS1"]["streams_equal"] for r in res],
+        "ds1_near_ties": sum(r["DS1"]["near_ties"] for r in res),
+        "ds2_metrics": [h["metrics"] for h in hosts],
+        "ds2_one_metrics": d2["one_metrics"],
+        "ds2_k1": [h["k1"] for h in hosts],
+        "ds2_dispatches": [h["dispatches"] for h in hosts],
+        "ds2_one_dispatches": d2["one_dispatches"],
+        "ds2_bytes": [h["bytes"] for h in hosts],
+        "ds2_same": d2["same"], "ds2_ties": d2["ties"], "ds2_requests": d2["requests"],
+        "ds2_hosts": d2["hosts"],
         "step_ms": [[row["ms"] for row in r["DT1"]] for r in res],
         "ref_step_ms": [row["ref_ms"] for row in dt1],
         "bytes_per_step": [r["DT1"][-1]["bytes"] for r in res],
@@ -394,7 +613,8 @@ def check(res: list) -> dict:
                                        for r in res),
         "pipe_grad_gap_over_tol": max(r["DT3"]["grad_gap_over_tol"] for r in res),
         "resilient": res[0]["DT4"]["stats"], "resilient_wall_s": res[0]["DT4"]["wall_s"],
-        "phase_s": {k: res[0][k] for k in ("t_DT1", "t_DT2", "t_DT3", "t_DT4")},
+        "phase_s": {k: res[0][k] for k in ("t_DT1", "t_DT2", "t_DT3", "t_DT4", "t_DS1",
+                                           "t_DS2")},
         "peak_gib": [r["peak_gib"] for r in res],
     }
 
