@@ -77,7 +77,7 @@ compute, 5 AdamW steps (54 K1 launches each), the peak memory with remat
 on and off, one step profiled. K1 is also checked and timed at phase W's
 shapes, in both directions. Phase A runs the paper's baseline, native
 softmax attention (plain torch, no kernel of the port: K1 must make no
-launch): A1 serves native SmolLM-360M, its depth cut to 8 of 32 layers,
+launch): A1 serves native SmolLM-360M, its depth cut to 4 of 32 layers,
 in bf16 (phase P's requests, plain and the n-gram draft; streams against
 each request run alone, verify against decode dispatches, the per-slot KV
 state at full depth beside the STLT variant's), A2 holds chunked against monolithic prefill and decode against
@@ -89,11 +89,11 @@ the port never calls it), A3 trains it at 8 x 1024 in bf16 with remat (step
 steps; peak memory), A4 runs native whisper-base through phase W's checks.
 Phase H runs the hybrid family and the untied head at full width in bf16:
 H1 and H2 serve recurrentgemma-9b (d_model 4096, a 256,000-token untied
-head; its depth cut from 38 layers to two periods: 4 rg-LRU and 2
-local-attention blocks) native and as its STLT variant (the
+head; its depth cut from 38 layers to one period: 2 rg-LRU blocks and a
+local-attention block) native and as its STLT variant (the
 local-attention third through K1 at head dim 256) on phase P's requests,
 plain and with the n-gram draft, each stream against its request run
-alone under the near-tie rule, K1 launches 0 and 2 x the dispatches that
+alone under the near-tie rule, K1 launches 0 and 1 x the dispatches that
 call it, the per-slot decode state of both at full depth; H3 checks both
 forms in fp32 at one period of the pattern (chunked against monolithic
 prefill, an idle row's state bit for bit, decode against the
@@ -106,9 +106,9 @@ sLSTM; d_model 1024; no K1 launch): X1 serves it at full width, one period
 (7 mLSTM + 1 sLSTM) deep, in bf16 on phase P's requests, plain and n-gram,
 each stream against its request run alone under the near-tie rule, the
 per-slot state at full depth (88.8 MB); X2 checks that period in fp32 as
-H3 does; X3 trains that period at 8 x 1024 in bf16 with remat (against remat off and fp32 compute,
+H3 does; X3 trains that period at 8 x 512 in bf16 with remat (against remat off and fp32 compute,
 5 AdamW steps, their peak, a profile). Phase M runs the MoE family at full
-width with its depth cut: M1 serves qwen3-moe-235b-a22b at 4 of 94 layers
+width with its depth cut: M1 serves qwen3-moe-235b-a22b at 2 of 94 layers
 native and STLT (K1 at head dim 64; the choices each admission drops), M2
 holds 1 layer in fp32 to the CPU (apply_moe on a dispatch that drops, bit
 for bit on two card calls; a greedy serve's streams) and runs H3's checks
@@ -136,7 +136,15 @@ per rank) and 32 greedy decode-cell steps (0 K1) against the single-device
 ``prefill``/``decode_step`` (logits, each rank's state slice, streams),
 with the bytes each rank exchanges; DS2 serves phase SH's requests
 through the process form of the sharded engine, one rank per host, against
-the one-process engine (hosts, ticks, streams). ``tools/ab_port.py``
+the one-process engine (hosts, ticks, streams). Phase DA, in the same rank
+job, runs tensor parallelism beyond the STLT block at full width in fp32:
+DA1 chatglm3-6b (2 layers) trains on 2 x 2 at 4 x 1024 for 2 steps against
+the single-device step and runs the prefill cell and greedy decode-cell
+steps on 2 x 2 (KV heads on ``model``; 4 steps) and 1 x 4 (the cache's time
+axis on ``model``; 16 steps); DA2 recurrentgemma-9b at one period runs both
+forms' prefill and 16 decode steps and the STLT form's train cell (4 x 512)
+on 1 x 4 (K1 on each rank's heads: 3 launches per rank per step, 1 per
+prefill, 0 per decode step; 0 in the native forms). ``tools/ab_port.py``
 compares two trees of the port on one card.
 
 Output ends with three lines: the card's name and power limit (from
@@ -210,10 +218,14 @@ K1_CP = (8, 32768, 64, 64)
 # Phase DS2's admission on one host rank of the process form: [2, 512] on
 # 8 heads (DS1's prefill runs K1 at 8 x 1000, the sharded train step's)
 K1_DS2 = (16, 512, 64, 64)
+# Phase DA2's rank shape: recurrentgemma-9b-stlt's STLT layer on a rank's
+# B_loc x H_loc rows at 1024 tokens (4 rows x 4 heads in the 1 x 4 prefill
+# cell; its train cell runs the same rows at 512; S = 32, d = 256)
+K1_DA2 = (16, 1024, 32, 256)
 K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
              (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
              (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64),
-             (32, 5, 64, 64), K1_DS2, K1_CP) + K1_WHISPER \
+             (32, 5, 64, 64), K1_DS2, K1_DA2, K1_CP) + K1_WHISPER \
     + K1_HYBRID + K1_MOE
 K1_VERIFY = (60, 5, 32, 64)
 K1_TRAIN = (120, 1024, 32, 64)
@@ -2763,9 +2775,9 @@ def whisper_train_phase(W, train, k1, cfg, dev, M, B=W_TRAIN_B, N=W_TRAIN_N,
 # n-gram draft (the node draft and the SLO ladder act on STLT blocks only).
 A_RUNS = (("plain", {}), ("ngram", dict(spec_k=P_K, spec_draft="ngram")))
 # A1's depth, cut from 32 layers to fit the script's time limit (A1 took
-# 125 s at 32 layers on an H100, PERF.md, phase D); its per-slot bytes are
-# read at full depth.
-A1_LAYERS = 8
+# 125 s at 32 layers on an H100, PERF.md, phase D; 8 layers until phase DA
+# came); its per-slot bytes are read at full depth.
+A1_LAYERS = 4
 # A2: a prompt of A_PROMPT tokens (3 chunks of P_CHUNK and a tail), fp32,
 # chunked against monolithic prefill and A_NEW decode steps against the
 # teacher-forced forward; the blockwise path against the dense one on one
@@ -3091,12 +3103,12 @@ H2_GAP_CAP = 0.25
 H2_TIE_TOL = 2 * H2_GAP_CAP
 H5_GAP_CAP = 0.125
 H5_TIE_TOL = 2 * H5_GAP_CAP
-# H1 and H2 serve recurrentgemma-9b cut to H_SERVE_LAYERS layers (two
-# periods: 4 rg-LRU and 2 local-attention or STLT blocks) to fit the
-# script's time limit; at 38 layers H1 and H2 took 98 and 86 s (PERF.md,
-# phase D). The caps above were read at full depth, where the gaps are
-# largest.
-H_SERVE_LAYERS = 2 * H_PERIOD
+# H1 and H2 serve recurrentgemma-9b cut to H_SERVE_LAYERS layers (one
+# period: 2 rg-LRU blocks and a local-attention or STLT block; two periods
+# until phase DA came) to fit the script's time limit; at 38 layers H1 and
+# H2 took 98 and 86 s (PERF.md, phase D). The caps above were read at full
+# depth, where the gaps are largest.
+H_SERVE_LAYERS = H_PERIOD
 
 
 def period_cfg(cfg, layers=H_PERIOD, **kw):
@@ -3265,7 +3277,7 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
     """Phase H: recurrentgemma-9b in both forms at full width on the card.
     H1 serves the native form and H2 the STLT variant at H_SERVE_LAYERS
     layers (``spec_phase``, plain and the n-gram draft, at H1_ and
-    H2_GAP_CAP; K1 launches 0 in H1, 2 x the dispatches that call it in
+    H2_GAP_CAP; K1 launches 0 in H1, 1 x the dispatches that call it in
     H2), with the per-slot decode state of each at full depth; H3 checks both forms in fp32 at one period of the
     pattern (``hybrid_check_phase``); H4 trains that period at full width
     (``smollm_train_phase``: 3 K1 calls a step in the STLT form, none in
@@ -3347,10 +3359,12 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
 # token in every form (as JAX's lax.scan): all 24 layers took 14.5 s a
 # train step at 8 x 1024 on an H100 (PERF.md, phase X), so X3 trains one
 # period (a third of the depth) and reads the peak memory over its timed
-# steps instead of extra steps per remat mode.
+# steps instead of extra steps per remat mode; since phase DA came it trains
+# 8 x 512 (the sLSTM's loop is as long as the sequence: X3 took 65.1 s at
+# 8 x 1024, its bf16-vs-fp32 grad gap 0.106 of the 0.17 gate).
 X_ARCH, X_PERIOD = "xlstm-350m", 8
 X1_LAYERS = X_PERIOD
-X3_B, X3_N = 8, 1024
+X3_B, X3_N = 8, 512
 # The bf16 chunk-form vs recurrent-form logit gap X1 accepts, and its
 # near-tie tolerance (twice the cap), as phase P's. In bf16 the mLSTM's
 # two forms differ by more than rounding, in the JAX package as in the
@@ -3428,11 +3442,12 @@ def xlstm_phase(T, train, k1, dev, get_config) -> dict:
 
 # qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads, 4 KV heads, dh
 # 64, 128 experts of d_ff 1536, top-8, an untied 151,936-token head), its
-# depth cut from 94 layers to M1_LAYERS (2.45B params a layer, 11.05B at 4
-# layers: 22.1 GB in bf16). M1 serves it native and as its STLT variant (K1
-# at dh 64) on phase P's requests, plain, in bf16, the matrices cast as they
-# are drawn (``init_cast``). M2 runs 1 layer in fp32, the card against the
-# CPU on the same calls: apply_moe alone on 1 x M2_APPLY_N tokens (capacity
+# depth cut from 94 layers to M1_LAYERS (2.45B params a layer, 6.15B at 2
+# layers: 12.3 GB in bf16; 4 layers until phase DA came). M1 serves it
+# native and as its STLT variant (K1 at dh 64) on phase P's requests, plain,
+# in bf16, the matrices cast as they are drawn (``init_cast``). M2 runs 1
+# layer in fp32, the card against the CPU on the same calls: apply_moe
+# alone on 1 x M2_APPLY_N tokens (capacity
 # 40 for a mean load of 32: it drops), a greedy serve of phase P's requests
 # M2_REQUESTS (M2_NEW tokens each, 2 slots, streams equal), and H3's checks
 # (hybrid_check_phase) at capacity E / K, where nothing can drop. M3
@@ -3447,7 +3462,7 @@ def xlstm_phase(T, train, k1, dev, get_config) -> dict:
 # the teacher-forced forward at capacity E / K (generate_check_phase, as
 # H5), then once at the config's capacity with its drops printed.
 M_ARCH, M4_ARCH = "qwen3-moe-235b-a22b", "arctic-480b"
-M1_LAYERS = 4
+M1_LAYERS = 2
 M2_APPLY_N, M2_REQUESTS, M2_NEW = 512, (1, 2), 16
 # apply_moe alone, card vs CPU in fp32 (cuBLAS's and the CPU's summation
 # orders), where no token's choices differ: max abs error over (1 + max |y|)
@@ -3833,20 +3848,22 @@ def k1_direction_timings(k1, ops, dev, C, d) -> dict:
 
 
 def dt_phase() -> dict:
-    """Phases DT and DS: the multi-device training and serving layers
+    """Phases DT, DS and DA: the multi-device training and serving layers
     (``tools/phase_dt.py``) as 4 gloo ranks, processes sharing this card:
     DT1 the 2 x 2 sharded step of stlt-base against the single-device step,
     DT2 the context-parallel STLT against serial K1, DT3 the 2-stage
     pipeline against the serial blocks, DT4 the resilient loop bit for bit;
     DS1 the 2 x 2 prefill and decode cells against the single-device
     functions, DS2 the process form of the sharded engine against the
-    one-process engine. Every rank is stopped before this returns; any
-    failed check raises."""
+    one-process engine; DA the train, prefill and decode cells of
+    chatglm3-6b and of recurrentgemma-9b in both forms at full width
+    against the single-device functions. Every rank is stopped before this
+    returns; any failed check raises."""
     sys.path.insert(0, str(ROOT / "tools"))
     import phase_dt
 
     t0 = time.time()
-    res = phase_dt.check(phase_dt.launch("gloo", cards=1, timeout=400))
+    res = phase_dt.check(phase_dt.launch("gloo", cards=1, timeout=700))
     log(f"[DT1 sharded step] stlt-base 2 x 2 (data, model), 4 x 1000 tokens, 4 gloo ranks on "
         f"one card: step ms per rank {res['step_ms']} (single-device {res['ref_step_ms']}); "
         f"K1 per rank per step {res['k1_per_step']}; bytes per rank per step "
@@ -3881,6 +3898,34 @@ def dt_phase() -> dict:
         f"{res['ds2_one_dispatches']}); bytes per rank {res['ds2_bytes']}; per host rank "
         f"{res['ds2_metrics']}; the one-process engine {res['ds2_one_metrics']} "
         f"[{smi_line()}]")
+    smi = smi_line()
+    for tag, row in res["da"].items():
+        if tag == "laps":
+            continue
+        if "train" in tag:
+            log(f"[{tag}] {row['tokens'][0]} x {row['tokens'][1]}, steps "
+                f"{phase_dt.DA_TRAIN_STEPS} from the init: step ms "
+                f"per rank {row['step_ms']} (single-device, each rank's turn alone on the card: "
+                f"{row['ref_step_ms']}); K1 per rank per step {row['k1_per_step']} "
+                f"(single-device {row['ref_k1']}); bytes per rank per step "
+                f"{row['bytes_per_step']}; step-0 loss gap {row['loss_gap']:.3e}; worst "
+                f"relative metric gaps {row['metric_rel_gap']}; worst param gap "
+                f"{row['param_gap_over_tol']:.3f} of its gate; peak GiB per rank (its "
+                f"reference's turn included) {row['peak_gib']}; cell {row['s']:.1f} s, "
+                f"references {row['ref_s']:.1f} s [{smi}]")
+        else:
+            log(f"[{tag}] prefill {phase_dt.DA_B} x {phase_dt.DA_N} then {row['new']} "
+                f"greedy decode steps: prefill ms per rank {row['prefill_ms']} (single-device "
+                f"{row['ref_prefill_ms']}), median decode-step ms {row['decode_ms_median']} "
+                f"(single-device {row['ref_decode_ms_median']}); K1 per rank (prefill, decode "
+                f"step) {row['k1']}; bytes per rank per prefill {row['prefill_bytes']}, per "
+                f"decode step {row['decode_bytes']}; worst logit gap {row['logit_gap']:.3e} "
+                f"(gate {phase_dt.DA_LOGIT_TOL}), worst state gap "
+                f"{row['state_gap_over_tol']:.4f} of K1's gate; streams equal per rank "
+                f"{row['streams_equal']} ({row['near_ties']} near ties); peak GiB per rank "
+                f"{row['peak_gib']}; cell {row['s']:.1f} s, references {row['ref_s']:.1f} s "
+                f"[{smi}]")
+    log(f"[DA laps] {res['da']['laps']}")
     return res
 
 
@@ -4389,7 +4434,7 @@ def main(argv) -> int:
     # X. xLSTM: xlstm-350m served, checked, trained (no K1 launch)
     xl = xlstm_phase(T, train, k1, dev, get_config)
     lap("X")
-    # M. the MoE family: qwen3-moe served at 4 layers in both forms (K1 at
+    # M. the MoE family: qwen3-moe served at 2 layers in both forms (K1 at
     # head dim 64 in the STLT variant), checked against the CPU and trained
     # at 1 layer; arctic generates at 1 layer (K1 at head dim 128)
     mo = moe_phase(T, train, k1, dev, get_config)
@@ -4426,6 +4471,15 @@ def main(argv) -> int:
         f"{r['call']:.4f} ms, plain version {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
         f"({r['bound_by']})")
     del ds_args
+    da_args, _, _ = k1_case(k1, ops, dev, *K1_DA2[:2], C, *K1_DA2[2:], seed=5)
+    k1_rows[K1_DA2]["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*da_args, chunk=C),
+                                         iters=5)
+    r = k1_rows[K1_DA2]
+    log(f"[6 timing] K1 at phase DA2's rank shape BH={K1_DA2[0]} N={K1_DA2[1]} "
+        f"S={K1_DA2[2]} d={K1_DA2[3]}: kernel alone {r['alone']:.4f} ms, device time "
+        f"{r['device']} ms, call {r['call']:.4f} ms, plain version {r['plain']:.4f} ms, "
+        f"bound {r['bound']:.4f} ms ({r['bound_by']})")
+    del da_args
     lap("DT")
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s; by phase: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in laps.items()))

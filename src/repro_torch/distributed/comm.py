@@ -35,9 +35,13 @@ sum, as on the data axes. ``gather_shards`` (all-gather forward,
 reduce-scatter backward) gathers an FSDP shard; ``gather_replicated``
 (all-gather forward, own slice backward) and ``slice_replicated`` (own
 slice forward, all-gather backward) move a leaf between sharded and
-replicated under Megatron's convention. ``exchange`` is one P2P hop
-(``dist.batch_isend_irecv``); the pipeline's backward sends its grads
-back through the same hops."""
+replicated under Megatron's convention; ``partial_replicated`` (identity
+forward, all-reduce backward) marks a replicated leaf that every rank uses
+whole but only in part (the KV projections every rank computes whole when
+the KV heads do not divide over ``model``, each rank's query heads reading
+some of them), so the ranks' partial grads are summed. ``exchange`` is one
+P2P hop (``dist.batch_isend_irecv``); the pipeline's backward sends its
+grads back through the same hops."""
 from __future__ import annotations
 
 import datetime
@@ -218,21 +222,17 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Sum over the group, then this rank's 1/n of ``dim``. NCCL runs
-    ``reduce_scatter_tensor``; gloo (whose reduce-scatter older versions
-    lack) an all-reduce and a slice."""
+    """Sum over the group, then this rank's 1/n of ``dim``
+    (``reduce_scatter_tensor``; over gloo on a host copy, and only the
+    rank's slice comes back)."""
     n = dist.get_world_size(group)
     if n == 1:
         return x.detach().clone()
-    r = dist.get_rank(group)
-    if _host(group):
-        size = x.shape[dim] // n
-        return all_reduce(x, group).narrow(dim, r * size, size).contiguous()
-    w = x.detach().movedim(dim, 0).contiguous()
+    w = _wire(x.movedim(dim, 0), group)
     out = torch.empty((w.shape[0] // n,) + w.shape[1:], dtype=w.dtype, device=w.device)
     _count("reduce_scatter", w)
     dist.reduce_scatter_tensor(out, w, group=group)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).to(x.device)
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
@@ -372,6 +372,12 @@ def gather_replicated(x, dim: int, group):
     """All-gather forward, this rank's slice of the grad backward: a
     sharded leaf used whole where every rank computes the same thing."""
     return x if _trivial(group) else _GatherReplicated.apply(x, dim, group)
+
+
+def partial_replicated(x, group):
+    """Identity forward, all-reduce (sum) backward: a replicated leaf used
+    whole on every rank whose cotangent each rank holds only in part."""
+    return x if _trivial(group) else _CopyTo.apply(x, group)
 
 
 def slice_replicated(x, dim: int, group):

@@ -1,6 +1,6 @@
 """The sharded train loss and serving steps: tensor parallelism on the
-``model`` axis for the STLT-mixer LM, and the data-parallel loss of every
-arch.
+``model`` axis for the LM and hybrid families, and the data-parallel loss
+of every arch.
 
 Where the JAX package's GSPMD places collectives implicitly, the port places
 them at these points (Megatron's convention on ``model``: every rank of the
@@ -8,20 +8,47 @@ group computes the same loss; ``comm`` documents the operators):
 
 * ``_embed``: the vocab-sharded embedding (``embed/embed`` ->
   ``P("model", fsdp)``) looks up the rank's rows, masks the others and
-  all-reduces (``reduce_from``).
-* ``_stlt_block``, the one block body of the train loss, the prefill and
-  the decode step: ``copy_to`` on the normed input, then the rank's heads
-  (``_local_stlt``): the column-sharded ``w_v`` (and ``w_g``), its rows of
-  ``nodes/*``, ``adaptive/w_alpha`` and ``b_alpha``, and its slice of the
-  replicated per-head ``T_hat``; the mixer runs K1 on the rank's B_loc x
-  H_loc rows (the train loss through the scan's VJP, the prefill through
-  ``stlt.stlt_prefill``'s stateful call; the decode step through
-  ``stlt.apply_stlt_step``, no K1); the row-sharded ``w_o`` and an
-  all-reduce. In the train loss the adaptive masks' batch mean in the (Reg)
-  loss is over the global batch (``all_reduce_sum`` over the batch axes)
-  and the loss's per-head terms are summed over ``model``; the serving
-  steps' masks are the deterministic ones, from the running input mean.
-* The FFN: ``w1`` (and ``w3``) column-sharded, ``w2`` row-sharded; ``b1``,
+  all-reduces (``reduce_from``). Embedding inputs pass through.
+* ``_block``, the one block body of the train loss, the prefill and the
+  decode step: norm1, ``copy_to`` on the normed input, the mixer on the
+  rank's share giving a partial readout through its rows of the output
+  projection, the all-reduce, the residual and the FFN. The mixer's share
+  follows the rules' layout of its leaves:
+
+  - the STLT (``_local_stlt``): the column-sharded ``w_v`` (and ``w_g``),
+    its rows of ``nodes/*``, ``adaptive/w_alpha`` and ``b_alpha`` and its
+    slice of the replicated per-head ``T_hat``; K1 runs on the rank's
+    B_loc x H_loc rows (the train loss through the scan's VJP, the prefill
+    through ``stlt.stlt_prefill``'s stateful call; the decode step through
+    ``stlt.apply_stlt_step``, no K1). In the train loss the adaptive masks'
+    batch mean in the (Reg) loss is over the global batch
+    (``all_reduce_sum`` over the batch axes) and the loss's per-head terms
+    are summed over ``model``; the serving steps' masks are the
+    deterministic ones, from the running input mean.
+  - attention (``_local_attn``, ``models/attention.py``'s algebra): ``wq``
+    (and ``bq``) on the rank's query heads; ``wk``/``wv`` (``bk``/``bv``)
+    on its KV heads when they divide over ``model``, else whole on every
+    rank (``partial_replicated``: each rank's query heads read some of
+    them, so their grads are summed), the grouping contiguous (rank r's
+    query heads read KV heads [r KV / tp, (r + 1) KV / tp)). The decode
+    cache keeps the rank's KV heads; when they do not divide, the spec
+    shards the cache's time axis instead (JAX's flash-decoding layout):
+    the prefill writes each rank's time slice of the whole K/V, and a
+    decode step writes the new token on the rank owning its slot (a
+    ``local_attn`` ring: slot ``pos % W``), all-gathers q over ``model``,
+    takes every head's scores over its slice, all-reduces their max and
+    then their exp-sums and weighted values, and keeps its own heads.
+  - the rg-LRU (``_local_rglru``, ``models/rglru.py``'s algebra):
+    ``w_gate``, ``w_x``, ``w_a`` and the conv on the rank's channels,
+    ``w_i``, ``b_i``, ``b_a`` and ``lam`` sliced where the rules keep them
+    whole, the row-sharded ``w_out``. The gates' d x d products read the
+    whole conv output, so it is all-gathered over ``model``
+    (``gather_shards``: its backward reduce-scatters); the recurrence runs
+    on the rank's channels. The decode state keeps ``h`` and ``conv_buf``
+    whole on every rank (JAX's spec), so the prefill and each step gather
+    the rank's channels back.
+
+  The FFN: ``w1`` (and ``w3``) column-sharded, ``w2`` row-sharded; ``b1``,
   replicated by the rules below 4096 entries but used sliced, comes through
   ``slice_replicated``, whose backward gathers the slices' grads.
 * ``_head`` and ``_nll``: vocab-parallel logits (tied through the embedding
@@ -37,10 +64,11 @@ entropy over the global token count, plus the replicated aux terms over
 the number of batch shards), so summing grads over the batch axes gives the
 global step's.
 
-The TP path takes an LM whose every block is the factorized STLT with the
-exponential window and a dense FFN (stlt-base); ``tp_refusal`` names what
-else a ``model`` axis > 1 refuses, and the ROADMAP item that ports it. Any
-other arch runs the data axes only, through its own loss on the rank's rows
+The TP path takes the LM and hybrid families with dense FFNs over the
+``stlt`` (factorized, exponential window, a scan engine), ``attn``,
+``local_attn`` and ``rglru`` blocks; ``tp_refusal`` names what else a
+``model`` axis > 1 refuses, and the ROADMAP item that ports it. Any other
+arch runs the data axes only, through its own loss on the rank's rows
 (``dp_lm_loss``; its serving steps through the family's own prefill and
 decode, ``launch.steps``); there, a loss that couples rows (MoE's balance
 losses and capacity, the adaptive masks' batch mean) refuses more than one
@@ -49,7 +77,8 @@ batch shard.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,27 +87,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adaptive as adaptive_lib
 from repro_torch.core import stlt as stlt_lib
 from repro_torch.distributed import comm
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import transformer as T
 from repro_torch.utils import tree_flatten_with_paths, tree_map
 
-ROADMAP_TP = "ROADMAP Queue 1 item 7: TP for the other block types"
+ROADMAP_TP = ("ROADMAP Queue 1 item 7: TP for stlt_rel blocks, the hann window, the non-scan "
+              "STLT engines and the xLSTM and enc-dec families")
 ROADMAP_EP = "ROADMAP Queue 1 item 7: MoE's shard_map EP dispatch"
+TP_BLOCKS = ("stlt", "attn", "local_attn", "rglru")
 
 
 def tp_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why the TP path cannot run ``cfg`` (None when it can)."""
-    if cfg.family != "lm":
+    if cfg.family not in ("lm", "hybrid"):
         return f"the {cfg.family} family ({ROADMAP_TP})"
     if cfg.is_moe:
         return f"MoE blocks ({ROADMAP_EP})"
-    other = sorted(set(cfg.block_types()) - {"stlt"})
+    other = sorted(set(cfg.block_types()) - set(TP_BLOCKS))
     if other:
         return f"block types {other} ({ROADMAP_TP})"
-    s = cfg.stlt_config()
-    if (s.mode, s.window, s.bidirectional) != ("factorized", "exponential", False) \
-            or s.engine not in stlt_lib.SCAN_ENGINES:
-        return f"the STLT form {s.mode}/{s.window}/{s.engine} ({ROADMAP_TP})"
+    if "stlt" in cfg.block_types():
+        s = cfg.stlt_config()
+        if (s.mode, s.window, s.bidirectional) != ("factorized", "exponential", False) \
+                or s.engine not in stlt_lib.SCAN_ENGINES:
+            return f"the STLT form {s.mode}/{s.window}/{s.engine} ({ROADMAP_TP})"
     return None
 
 
@@ -104,8 +138,10 @@ class ShardCtx:
             why = tp_refusal(cfg)
             if why is not None:
                 raise NotImplementedError(f"a 'model' axis > 1 does not run {why}")
-            for what, n in (("num_heads", cfg.num_heads), ("vocab", cfg.vocab),
-                            ("d_ff", cfg.d_ff)):
+            dims = [("num_heads", cfg.num_heads), ("vocab", cfg.vocab), ("d_ff", cfg.d_ff)]
+            if "rglru" in cfg.block_types():
+                dims.append(("d_model", cfg.d_model))
+            for what, n in dims:
                 if n % self.tp_size:
                     raise NotImplementedError(f"{what} = {n} does not divide over a "
                                               f"'model' axis of {self.tp_size}")
@@ -149,7 +185,7 @@ class ShardCtx:
 
 
 # ---------------------------------------------------------------------------
-# the TP forward of the STLT LM
+# the TP forward
 # ---------------------------------------------------------------------------
 
 
@@ -189,18 +225,152 @@ def _local_stlt(ctx: ShardCtx, sp: dict, spre: str):
                                     d_model=heads * scfg.head_dim)
 
 
-def _stlt_block(ctx: ShardCtx, p: dict, li: int, x, mixer):
-    """One block on the rank's heads, the body the train loss and both
-    serving steps share: norm1, ``copy_to``, ``mixer(sp, scfg, h)`` on the
-    rank's heads (``_local_stlt``) giving (its partial readout through its
-    rows of ``w_o``, anything else), the all-reduce, the residual and the
-    FFN. Returns (x, the mixer's extra)."""
+class _AttnShard(NamedTuple):
+    """The rank's share of one attention layer: its params, the
+    ``AttentionConfig`` of its query heads over the KV heads it holds,
+    ``kv_idx`` (the held KV head each of its query heads reads when every
+    rank holds every KV head; None: GQA's own grouping over its share) and
+    ``time_parts`` (the ranks the decode cache's time axis is split over)."""
+    params: dict
+    cfg: attn_lib.AttentionConfig
+    kv_idx: Optional[tuple]
+    time_parts: int
+
+
+def _local_attn(ctx: ShardCtx, ap: dict, apre: str, btype: str,
+                max_len: Optional[int] = None) -> _AttnShard:
+    """The rank's heads of one attention layer (``max_len`` sizes the decode
+    cache, whose layout the serving steps read)."""
+    full = T._attn_cfg(ctx.cfg, btype)
+    H, KV, dh, tp = full.num_heads, full.num_kv_heads, full.dh, ctx.tp_size
+    h_loc, split = H // tp, KV % tp == 0
+    loc = {"wq": ctx.cols(ap["wq"], apre + "/wq", 1), "wo": ctx.cols(ap["wo"], apre + "/wo", 0)}
+    if full.qkv_bias:
+        loc["bq"] = ctx.cols(ap["bq"], apre + "/bq", 0)
+    for k in ("wk", "wv") + (("bk", "bv") if full.qkv_bias else ()):
+        loc[k] = (ctx.cols(ap[k], f"{apre}/{k}", ap[k].ndim - 1) if split
+                  else comm.partial_replicated(ap[k], ctx.tp_group))
+    kv_idx = None if split else tuple((ctx.tp_rank * h_loc + i) // (H // KV)
+                                      for i in range(h_loc))
+    size = 0 if max_len is None else (min(max_len, full.window) if full.window else max_len)
+    time_parts = tp if (not split and max_len is not None and size % tp == 0) else 1
+    lcfg = dataclasses.replace(full, d_model=h_loc * dh, num_heads=h_loc,
+                               num_kv_heads=KV // tp if split else KV, head_dim=dh)
+    return _AttnShard(loc, lcfg, kv_idx, time_parts)
+
+
+def _attn_forward(sh: _AttnShard, hf):
+    """The rank's query heads over the whole sequence ``hf`` (the dense or
+    blockwise core, ``attention.apply_attention``): (the partial readout
+    through its rows of ``wo``, k and v of the held KV heads)."""
+    B, N, _ = hf.shape
+    q, k, v = attn_lib._qkv(sh.params, sh.cfg, hf, torch.arange(N, device=hf.device))
+    if sh.kv_idx is None:
+        out = attn_lib._sdpa(q, k, v, sh.cfg)
+    else:
+        idx = torch.tensor(sh.kv_idx, device=hf.device)
+        out = attn_lib._sdpa(q, k[:, :, idx], v[:, :, idx],
+                             dataclasses.replace(sh.cfg, num_kv_heads=sh.cfg.num_heads))
+    return L.matmul(out.reshape(B, N, -1), sh.params["wo"]), k, v
+
+
+def _attn_prefill(ctx: ShardCtx, sh: _AttnShard, hf, max_len: int):
+    """``attention.prefill_kv_cache`` on the rank's heads: (partial readout,
+    the rank's share of the cache: its KV heads, or its time slice of every
+    KV head's)."""
+    y, k, v = _attn_forward(sh, hf)
+    cache = attn_lib.cache_from_kv(sh.cfg, k, v, max_len, hf.dtype)
+    if sh.time_parts > 1:
+        part = cache["k"].shape[1] // sh.time_parts
+        for name in ("k", "v"):
+            cache[name] = cache[name].narrow(1, ctx.tp_rank * part, part).contiguous()
+    return y, cache
+
+
+def _attn_step(ctx: ShardCtx, sh: _AttnShard, h, cache: dict):
+    """One decode step of the rank's heads (``attention.apply_attention_step``)
+    on its share of the cache: its KV heads (the step itself), or every KV
+    head over its time slice or the whole cache."""
+    if sh.kv_idx is None:
+        return attn_lib.apply_attention_step(sh.params, sh.cfg, h, cache)
+    c, B = sh.cfg, h.shape[0]
+    pos = cache["pos"]
+    q, k, v = attn_lib._qkv(sh.params, c, h[:, None, :], pos[:, None])
+    part = cache["k"].shape[1]
+    size = part * sh.time_parts
+    t0 = ctx.tp_rank * part if sh.time_parts > 1 else 0
+    slot = pos % size if c.window > 0 else pos
+    ck = attn_lib._write(cache["k"], (slot - t0)[:, None], k)     # the slot's owner writes
+    cv = attn_lib._write(cache["v"], (slot - t0)[:, None], v)
+    group = ctx.tp_group if sh.time_parts > 1 else None
+    idx = torch.tensor(sh.kv_idx, device=h.device)
+    if group is not None:      # every query head over this rank's slots
+        q = comm.all_gather(q, 2, group)
+        H = q.shape[2]
+        idx = torch.arange(H, device=h.device) // (H // c.num_kv_heads)
+    s = attn_lib._einsum("bhd,bmhd->bhm", q[:, 0], ck[:, :, idx]) / math.sqrt(c.dh)
+    j = t0 + torch.arange(part, device=h.device)[None, :]
+    if c.window > 0:   # a ring: every slot valid once it has wrapped
+        ok = (j <= slot[:, None]) | (pos[:, None] >= size)
+    else:
+        ok = j <= pos[:, None]
+    ok = ok[:, None, :]
+    s = torch.where(ok, s.to(torch.float32), attn_lib.NEG_INF)
+    top = s.amax(-1)
+    if group is not None:
+        top = comm.all_reduce(top, group, op="max")
+    p = torch.where(ok, torch.exp(s - top[..., None]), 0.0)
+    sums = torch.cat([p.sum(-1)[..., None],
+                      attn_lib._einsum("bhm,bmhd->bhd", p, cv[:, :, idx])], -1)
+    if group is not None:      # the exp-sums and weighted values; keep this rank's heads
+        h_loc = c.num_heads
+        sums = comm.all_reduce(sums, group).narrow(1, ctx.tp_rank * h_loc, h_loc)
+    o = (sums[..., 1:] / sums[..., :1]).to(h.dtype).reshape(B, 1, -1)
+    y = L.matmul(o, sh.params["wo"])[:, 0]
+    return y, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+_RGLRU_DIMS = {"w_gate": 1, "w_x": 1, "conv": 1, "w_a": 1, "b_a": 0, "w_i": 1, "b_i": 0,
+               "lam": 0, "w_out": 0}
+
+
+def _local_rglru(ctx: ShardCtx, rp: dict, rpre: str) -> dict:
+    """The rank's channels of one rg-LRU block: its columns of ``w_gate``,
+    ``w_x``, ``w_a``, ``w_i`` and of the conv, its entries of ``b_a``,
+    ``b_i`` and ``lam``, its rows of ``w_out``."""
+    return {k: ctx.cols(rp[k], f"{rpre}/{k}", dim) for k, dim in _RGLRU_DIMS.items()}
+
+
+def _gather_channels(ctx: ShardCtx):
+    """The gates' input: the whole conv output from the ranks' channels."""
+    return lambda xc: comm.gather_shards(xc, xc.ndim - 1, ctx.tp_group)
+
+
+def _whole_rglru_state(ctx: ShardCtx, st: dict) -> dict:
+    """An rg-LRU state on the rank's channels gathered whole (one
+    all-gather of ``h`` and ``conv_buf`` side by side)."""
+    if ctx.tp_group is None:
+        return st
+    both = comm.all_gather(torch.cat([st["h"][:, None], st["conv_buf"]], 1), 2, ctx.tp_group)
+    return {"h": both[:, 0], "conv_buf": both[:, 1:]}
+
+
+def _own_channels(ctx: ShardCtx, st: dict) -> dict:
+    if ctx.tp_group is None:
+        return st
+    d_loc = st["h"].shape[-1] // ctx.tp_size
+    return {k: v.narrow(-1, ctx.tp_rank * d_loc, d_loc) for k, v in st.items()}
+
+
+def _block(ctx: ShardCtx, p: dict, li: int, btype: str, x, mixer, extra=None):
+    """One block on the rank's share, the body the train loss and both
+    serving steps share: norm1, ``copy_to``, ``mixer(p, prefix, btype, h,
+    extra)`` giving (its partial readout, anything else), the all-reduce,
+    the residual and the FFN. Returns (x, the mixer's other output)."""
     cfg = ctx.cfg
     pre = f"layers/{li}"
     h = L.apply_norm(cfg.norm, ctx.whole(p["norm1"], pre + "/norm1"), x)
-    hf = comm.copy_to(h, ctx.tp_group)
-    sp, scfg = _local_stlt(ctx, p["stlt"], pre + "/stlt")
-    y, extra = mixer(sp, scfg, hf)
+    y, out = mixer(p, pre, btype, comm.copy_to(h, ctx.tp_group), extra)
     x = x + comm.reduce_from(y, ctx.tp_group).to(x.dtype)
     fpre = pre + "/ffn"
     f = p["ffn"]
@@ -215,18 +385,28 @@ def _stlt_block(ctx: ShardCtx, p: dict, li: int, x, mixer):
                    + ctx.cols(f["b1"], fpre + "/b1", 0), approximate="tanh")
         y2 = (comm.reduce_from(L.matmul(a, ctx.cols(f["w2"], fpre + "/w2", 0)), ctx.tp_group)
               + ctx.whole({"b2": f["b2"]}, fpre)["b2"])
-    return x + y2.to(x.dtype), extra
+    return x + y2.to(x.dtype), out
 
 
-def _train_mixer(ctx: ShardCtx, draws, tau):
-    """The train loss's mixer: stochastic masks from ``draws`` (the rank's
-    rows and heads), K1 through the scan's VJP; its extra is (the (Reg)
-    loss summed over every head, the masks' sum over the rank's rows and
-    heads for s_eff). The masks' batch mean in (Reg) is over the global
-    batch."""
-    def mixer(sp, scfg, hf):
+def _train_mixer(ctx: ShardCtx, tau):
+    """The train loss's mixer; its extra input is the layer's draws (the
+    rank's rows and heads), its extra output (the (Reg) loss summed over
+    every head, the masks' sum over the rank's rows and heads for s_eff),
+    zeros off the STLT. The STLT's masks are stochastic, from the draws, K1
+    runs through the scan's VJP, and the masks' batch mean in (Reg) is over
+    the global batch."""
+    def mixer(p, pre, btype, hf, draws):
+        zero = torch.zeros((), device=hf.device)
+        if btype == "rglru":
+            return (rglru_lib.apply_rglru_block(_local_rglru(ctx, p["rec"], pre + "/rec"),
+                                                ctx.cfg, hf, gather=_gather_channels(ctx)),
+                    (zero, zero))
+        if btype != "stlt":
+            return _attn_forward(_local_attn(ctx, p["attn"], pre + "/attn", btype), hf)[0], \
+                (zero, zero)
+        sp, scfg = _local_stlt(ctx, p["stlt"], pre + "/stlt")
         acfg = scfg.adaptive if tau is None else scfg.adaptive._replace(tau=tau)
-        masks, s_sum = None, torch.zeros((), device=hf.device)
+        masks, s_sum = None, zero
         if acfg.enabled:
             masks, _ = adaptive_lib.node_masks(sp["adaptive"], hf, acfg, deterministic=False,
                                                draws=draws)
@@ -243,6 +423,39 @@ def _train_mixer(ctx: ShardCtx, draws, tau):
             adaptive_lib.regularization(sigma, sp["nodes"]["omega"], m_mean, acfg).float(),
             ctx.tp_group)
         return stlt_lib._readout(sp, scfg, hf, z), (reg, s_sum)
+
+    return mixer
+
+
+def _prefill_mixer(ctx: ShardCtx, max_len: int):
+    """The prefill's mixer: (partial readout, the rank's share of the
+    layer's decode state). The STLT's serving masks are deterministic, from
+    the rank's ``w_alpha`` columns."""
+    def mixer(p, pre, btype, hf, _):
+        if btype == "stlt":
+            return stlt_lib.stlt_prefill(*_local_stlt(ctx, p["stlt"], pre + "/stlt"), hf)
+        if btype == "rglru":
+            y, st = rglru_lib.rglru_prefill(_local_rglru(ctx, p["rec"], pre + "/rec"), ctx.cfg,
+                                            hf, gather=_gather_channels(ctx))
+            return y, _whole_rglru_state(ctx, st)
+        return _attn_prefill(ctx, _local_attn(ctx, p["attn"], pre + "/attn", btype, max_len),
+                             hf, max_len)
+
+    return mixer
+
+
+def _step_mixer(ctx: ShardCtx, max_len: int):
+    """The decode step's mixer: (partial readout, the layer's new state
+    share) from its state share."""
+    def mixer(p, pre, btype, h, st):
+        if btype == "stlt":
+            return stlt_lib.apply_stlt_step(*_local_stlt(ctx, p["stlt"], pre + "/stlt"), h, st)
+        if btype == "rglru":
+            y, new = rglru_lib.apply_rglru_step(_local_rglru(ctx, p["rec"], pre + "/rec"),
+                                                ctx.cfg, h, _own_channels(ctx, st),
+                                                gather=_gather_channels(ctx))
+            return y, _whole_rglru_state(ctx, new)
+        return _attn_step(ctx, _local_attn(ctx, p["attn"], pre + "/attn", btype, max_len), h, st)
 
     return mixer
 
@@ -277,14 +490,14 @@ def _token_count(ctx: ShardCtx, mask, nll) -> torch.Tensor:
 
 
 def tp_lm_loss(params: dict, ctx: ShardCtx, batch: dict, draws=None, tau=None):
-    """(this rank's share of the loss, sums for the metrics) of the STLT LM
-    on the TP-local ``params`` (``ctx.gather_fsdp``) and the rank's rows;
-    ``draws[i]`` [B_loc, H_loc, S] are layer i's uniform draws for the
-    rank's rows and heads."""
+    """(this rank's share of the loss, sums for the metrics) of the LM on
+    the TP-local ``params`` (``ctx.gather_fsdp``) and the rank's rows;
+    ``draws[i]`` [B_loc, H_loc, S] are STLT layer i's uniform draws for the
+    rank's rows and heads (None elsewhere)."""
     cfg = ctx.cfg
     x = T._with_pe(cfg, _embed(ctx, params, batch["inputs"]))
-    block = T._maybe_remat(
-        lambda p, li, x, d: _stlt_block(ctx, p, li, x, _train_mixer(ctx, d, tau)), cfg)
+    btypes, mixer = cfg.block_types(), _train_mixer(ctx, tau)
+    block = T._maybe_remat(lambda p, li, x, d: _block(ctx, p, li, btypes[li], x, mixer, d), cfg)
     reg = s_sum = torch.zeros((), device=x.device)
     for li, p in enumerate(params["layers"]):
         x, (r, s) = block(p, li, x, None if draws is None else draws[li])
@@ -305,40 +518,42 @@ def _serve_logits(ctx: ShardCtx, params, x):
     return logits if ctx.tp_group is None else comm.all_gather(logits, -1, ctx.tp_group)
 
 
-def tp_prefill(params: dict, ctx: ShardCtx, inputs):
-    """The TP prefill of the STLT LM (``transformer.prefill``) on the
-    TP-local ``params`` and the rank's rows ``inputs`` [B_loc, N]: (the last
-    token's logits [B_loc, V], the rank's rows of the decode state, its
-    heads of ``h_re``/``h_im``). Each layer's heads run
-    ``stlt.stlt_prefill`` (K1's stateful call on B_loc x H_loc rows) with
-    the serving masks: deterministic, from the rank's ``w_alpha``
-    columns."""
+def tp_prefill(params: dict, ctx: ShardCtx, inputs, max_len: int):
+    """The TP prefill (``transformer.prefill``) on the TP-local ``params``
+    and the rank's rows ``inputs`` [B_loc, N] (or embeddings [B_loc, N,
+    d]): (the last token's logits [B_loc, V], the rank's rows of the decode
+    state, each layer's under its spec: the STLT's heads of ``h_re`` and
+    ``h_im`` (K1's stateful call on B_loc x H_loc rows), an attention
+    layer's share of its ``max_len`` cache, the rg-LRU's whole state)."""
     cfg = ctx.cfg
     x = T._with_pe(cfg, _embed(ctx, params, inputs))
+    mixer = _prefill_mixer(ctx, max_len)
     states = []
-    for li, p in enumerate(params["layers"]):
-        x, st = _stlt_block(ctx, p, li, x, lambda sp, scfg, h: stlt_lib.stlt_prefill(sp, scfg, h))
+    for li, (btype, p) in enumerate(zip(cfg.block_types(), params["layers"])):
+        x, st = _block(ctx, p, li, btype, x, mixer)
         states.append(st)
     B, N = x.shape[0], x.shape[1]
     pos = torch.full((B,), N, dtype=torch.int32, device=x.device)
     return _serve_logits(ctx, params, x[:, -1]), {"layers": states, "pos": pos}
 
 
-def tp_decode_step(params: dict, ctx: ShardCtx, token_t, state: dict):
+def tp_decode_step(params: dict, ctx: ShardCtx, token_t, state: dict, max_len: int):
     """One TP decode step (``transformer.decode_step``): ``token_t``
-    [B_loc] and the rank's rows of the state (its heads of ``h_re`` and
-    ``h_im``) -> (logits [B_loc, V], the new state's rows). No K1 launch:
-    ``stlt.apply_stlt_step`` on the rank's heads."""
+    [B_loc] and the rank's rows of the state (each layer's share, as
+    ``tp_prefill`` leaves it; ``max_len`` the cell's, which sizes the
+    attention caches) -> (logits [B_loc, V], the new state's rows). No K1
+    launch: ``stlt.apply_stlt_step`` on the rank's heads."""
     cfg = ctx.cfg
     pos = state["pos"]
     x_t = _embed(ctx, params, token_t)
     if T._has_pe(cfg):
         x_t = x_t + L.sinusoidal_pe(1, cfg.d_model, offset=pos, dtype=x_t.dtype,
                                     device=x_t.device)[:, 0]
+    mixer = _step_mixer(ctx, max_len)
     states = []
-    for li, (p, st) in enumerate(zip(params["layers"], state["layers"])):
-        x_t, st = _stlt_block(ctx, p, li, x_t,
-                              lambda sp, scfg, h, st=st: stlt_lib.apply_stlt_step(sp, scfg, h, st))
+    for li, (btype, p, st) in enumerate(zip(cfg.block_types(), params["layers"],
+                                            state["layers"])):
+        x_t, st = _block(ctx, p, li, btype, x_t, mixer, st)
         states.append(st)
     return _serve_logits(ctx, params, x_t), {"layers": states, "pos": pos + 1}
 

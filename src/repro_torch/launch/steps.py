@@ -24,9 +24,11 @@ the JAX package's step. ``build_prefill_step`` and ``build_decode_step``
 give the serving cells the same way: their specs (``args``,
 ``in_shardings``, ``out_shardings`` and ``donate_argnums`` equal the JAX
 package's at ``scan_layers=False``), and on a process mesh the step each
-rank calls with its shards (stlt-base's heads on ``model`` through
-``tensor_parallel.tp_prefill``/``tp_decode_step``; every arch's rows on its
-data axes). ``lower_cell`` (the dry-run) raises: ROADMAP Queue 1 item 7.
+rank calls with its shards (the heads and channels of the LM and hybrid
+families' ``stlt``, ``attn``, ``local_attn`` and ``rglru`` blocks on
+``model`` through ``tensor_parallel.tp_prefill``/``tp_decode_step``; every
+arch's rows on its data axes). ``lower_cell`` (the dry-run) raises: ROADMAP
+Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -291,10 +293,15 @@ def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
     b_loc = global_batch // (mesh.axis_size(bax) if bax else 1)
     b_off = (mesh.coord(bax) if bax else 0) * b_loc
     h_loc = cfg.num_heads // ctx.tp_size
+    stlt_layers = [bt == "stlt" for bt in cfg.block_types()]
 
     def local_draws(draws):
-        return [d.narrow(0, b_off, b_loc).narrow(1, ctx.tp_rank * h_loc, h_loc)
-                if ctx.tp_group is not None else d.narrow(0, b_off, b_loc) for d in draws]
+        """The rank's rows of each layer's draws, and on the TP path its
+        heads of the STLT layers' (the other layers read none)."""
+        if not use_tp:
+            return [d.narrow(0, b_off, b_loc) for d in draws]
+        return [d.narrow(0, b_off, b_loc).narrow(1, ctx.tp_rank * h_loc, h_loc) if is_stlt
+                else None for d, is_stlt in zip(draws, stlt_layers)]
 
     def reduce_grads(grads, paths):
         buckets = {}
@@ -344,6 +351,7 @@ def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
         else:
             share, m = tp_lib.dp_lm_loss(p, ctx, batch, lfn, draws, tau)
         grads = torch.autograd.grad(share, leaves, allow_unused=True, materialize_grads=True)
+        del p, share    # the gathered leaves: free before the update's new trees
         with torch.no_grad():
             grads = reduce_grads(grads, paths)
             gnorm = global_norm(grads, paths)
@@ -366,13 +374,14 @@ def _step_metrics(cfg, ctx, use_tp: bool, m: dict, global_batch: int) -> dict:
         return {k: over_batch(v) / ctx.n_batch for k, v in m.items()}
     ce = over_batch(m["ce_sum"]) / m["count"]
     zero = torch.zeros((), device=ce.device)
-    if cfg.stlt_adaptive:
+    n_stlt = sum(bt == "stlt" for bt in cfg.block_types())
+    if n_stlt and cfg.stlt_adaptive:    # the masks' mean over the STLT layers
         s = m["s_sum"]
         if ctx.tp_group is not None:
             s = comm.all_reduce(s, ctx.tp_group)
-        s_eff = over_batch(s) / (cfg.num_heads * global_batch * cfg.num_layers)
+        s_eff = over_batch(s) / (cfg.num_heads * global_batch * n_stlt)
     else:
-        s_eff = torch.tensor(float(cfg.stlt_nodes), device=ce.device)
+        s_eff = torch.tensor(float(cfg.stlt_nodes if n_stlt else 0), device=ce.device)
     return {"loss": ce + m["reg"], "ce": ce, "reg": m["reg"], "aux_loss": zero,
             "router_z": zero, "s_eff": s_eff}
 
@@ -415,8 +424,9 @@ def _sharded_serve(cfg: ModelConfig, mesh, pspecs, sspecs, global_batch: int,
     """(prefill_fn(params, inputs), decode_fn(params, token_t, state)) that
     every rank of ``mesh`` calls with its shards: the params (cast by
     ``serving_params``), its rows of the inputs or tokens and its shard of
-    the decode state under ``sspecs``. The STLT LM runs the TP steps
-    (``tensor_parallel.tp_prefill``/``tp_decode_step``: its heads on
+    the decode state under ``sspecs``. An arch that
+    ``tensor_parallel.tp_refusal`` passes runs the TP steps
+    (``tp_prefill``/``tp_decode_step``: its heads and channels on
     ``model``); every other arch its family's ``prefill_fn``/``decode_fn``
     on the rank's rows (a ``model`` axis > 1 raises there, naming its
     ROADMAP item). A state leaf replicated over the batch axes (``asum``,
@@ -430,7 +440,8 @@ def _sharded_serve(cfg: ModelConfig, mesh, pspecs, sspecs, global_batch: int,
     @torch.no_grad()
     def prefill(params, inputs):
         p = ctx.gather_fsdp(params)
-        out = tp_lib.tp_prefill(p, ctx, inputs) if use_tp else family_prefill(p, inputs)
+        out = (tp_lib.tp_prefill(p, ctx, inputs, max_len) if use_tp
+               else family_prefill(p, inputs))
         if cfg.family == "encdec":
             return sh.batch_gather(out, sspecs, bax, mesh)
         return out[0], sh.batch_gather(out[1], sspecs, bax, mesh)
@@ -439,7 +450,7 @@ def _sharded_serve(cfg: ModelConfig, mesh, pspecs, sspecs, global_batch: int,
     def decode(params, token_t, state):
         p = ctx.gather_fsdp(params)
         rows = sh.batch_rows(state, sspecs, bax, mesh)
-        logits, new = (tp_lib.tp_decode_step(p, ctx, token_t, rows) if use_tp
+        logits, new = (tp_lib.tp_decode_step(p, ctx, token_t, rows, max_len) if use_tp
                        else family_decode(p, token_t, rows))
         return logits, sh.batch_gather(new, sspecs, bax, mesh)
 

@@ -343,16 +343,25 @@ def prefill_kv_cache(params, cfg: AttentionConfig, x, max_len: int):
     positions = torch.arange(N, device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
     y = L.matmul(_sdpa(q, k, v, cfg).reshape(B, N, -1), params["wo"])
-    cache = init_kv_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
-    size = cache["k"].shape[1]
+    return y, cache_from_kv(cfg, k, v, max_len, x.dtype)
+
+
+def cache_from_kv(cfg: AttentionConfig, k, v, max_len: int, dtype) -> dict:
+    """The KV cache (in ``dtype``) a whole-prompt prefill leaves from the
+    prompt's keys and values k, v [B, N, Hkv, dh] (any number of KV heads:
+    a tensor-parallel rank's, or all of them)."""
+    B, N = k.shape[0], k.shape[1]
+    size = min(max_len, cfg.window) if cfg.window > 0 else max_len
+    cache = {name: torch.zeros((B, size) + tuple(t.shape[2:]), dtype=dtype, device=t.device)
+             for name, t in (("k", k), ("v", v))}
     if cfg.window > 0 and N > size:
         # ring layout: slot i holds position N - size + i, rotated so that
         # slot (N mod size) is the next write position
         shift = N % size
-        cache["k"] = torch.roll(k[:, -size:], shift, dims=1).to(x.dtype)
-        cache["v"] = torch.roll(v[:, -size:], shift, dims=1).to(x.dtype)
+        cache["k"] = torch.roll(k[:, -size:], shift, dims=1).to(dtype)
+        cache["v"] = torch.roll(v[:, -size:], shift, dims=1).to(dtype)
     else:
         cache["k"][:, :N] = k
         cache["v"][:, :N] = v
-    cache["pos"] = torch.full((B,), N, dtype=torch.int32, device=x.device)
-    return y, cache
+    cache["pos"] = torch.full((B,), N, dtype=torch.int32, device=k.device)
+    return cache

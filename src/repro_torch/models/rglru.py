@@ -71,21 +71,25 @@ def _conv_causal(x, w):
     return out
 
 
-def _rglru_gates(params, xc):
-    """a_t [.., d] in (0, 1) and the gated input, both fp32."""
+def _rglru_gates(params, xc, gather=None):
+    """a_t [.., d] in (0, 1) and the gated input, both fp32. ``gather``
+    (tensor parallel: ``xc`` holds the rank's channels and ``params`` its
+    columns) gives the whole conv output the gates' d x d products read."""
+    xa = xc if gather is None else gather(xc)
     log_a_param = F.logsigmoid(params["lam"].float())
-    r = torch.sigmoid((matmul(xc, params["w_a"]) + params["b_a"]).float())
-    i = torch.sigmoid((matmul(xc, params["w_i"]) + params["b_i"]).float())
+    r = torch.sigmoid((matmul(xa, params["w_a"]) + params["b_a"]).float())
+    i = torch.sigmoid((matmul(xa, params["w_i"]) + params["b_i"]).float())
     a = torch.exp(C_EXP * r * log_a_param)
     gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-8)) * (i * xc.float())
     return a, gated_in
 
 
-def apply_rglru_block(params, cfg, x):
-    """The block over a whole sequence x [B, N, d] from a zero state."""
+def apply_rglru_block(params, cfg, x, gather=None):
+    """The block over a whole sequence x [B, N, d] from a zero state
+    (``gather``: ``_rglru_gates``')."""
     gate = _gelu(matmul(x, params["w_gate"]))
     xc = _conv_causal(matmul(x, params["w_x"]), params["conv"])
-    a, b = _rglru_gates(params, xc)
+    a, b = _rglru_gates(params, xc, gather)
     h = scan_lib.scan_associative(a, b, axis=-2).to(x.dtype)   # input-dependent real poles
     return matmul(gate * h, params["w_out"])
 
@@ -97,7 +101,7 @@ def init_rglru_state(cfg, batch: int, device=None) -> dict:
                                     device=device)}
 
 
-def rglru_prefill(params, cfg, x, state=None, valid=None):
+def rglru_prefill(params, cfg, x, state=None, valid=None, gather=None):
     """Parallel prefill: outputs + final recurrent state + conv buffer.
 
     ``state`` (optional) resumes from a carried state: the conv buffer
@@ -112,7 +116,7 @@ def rglru_prefill(params, cfg, x, state=None, valid=None):
     valid[b] + j, so padded steps never enter the state. Without ``valid``,
     a chunk shorter than CONV_W - 1 keeps the old buffer's head.
     """
-    B, N, d = x.shape
+    B, N = x.shape[0], x.shape[1]
     if valid is not None and state is None:
         state = init_rglru_state(cfg, B, device=x.device)
     gate = _gelu(matmul(x, params["w_gate"]))
@@ -122,7 +126,7 @@ def rglru_prefill(params, cfg, x, state=None, valid=None):
     else:
         ext = torch.cat([state["conv_buf"].to(xr.dtype), xr], dim=1)
         xc = _conv_causal(ext, params["conv"])[:, CONV_W - 1:]
-    a, b = _rglru_gates(params, xc)
+    a, b = _rglru_gates(params, xc, gather)
     h = scan_lib.scan_associative(a, b, axis=-2)
     if state is not None:
         h = h + torch.cumprod(a, dim=-2) * state["h"][:, None, :]
@@ -137,7 +141,7 @@ def rglru_prefill(params, cfg, x, state=None, valid=None):
         extb = torch.cat([state["conv_buf"], xr.float()], dim=1)
         bidx = valid[:, None] + torch.arange(CONV_W - 1, device=x.device)[None, :]
         return y, {"h": h_last, "conv_buf": extb[rows[:, None], bidx]}
-    buf = torch.zeros((B, CONV_W - 1, d), dtype=torch.float32, device=x.device)
+    buf = torch.zeros((B, CONV_W - 1, xr.shape[-1]), dtype=torch.float32, device=x.device)
     take = min(CONV_W - 1, N)
     if take:
         buf[:, CONV_W - 1 - take:] = xr[:, N - take:].float()
@@ -147,13 +151,14 @@ def rglru_prefill(params, cfg, x, state=None, valid=None):
     return y, {"h": h[:, -1], "conv_buf": buf}
 
 
-def apply_rglru_step(params, cfg, x_t, state):
-    """One token x_t [B, d]: (y [B, d], the advanced state)."""
+def apply_rglru_step(params, cfg, x_t, state, gather=None):
+    """One token x_t [B, d]: (y [B, d], the advanced state) (``gather``:
+    ``_rglru_gates``')."""
     gate = _gelu(matmul(x_t, params["w_gate"]))
     xr = matmul(x_t, params["w_x"]).float()
     window = torch.cat([state["conv_buf"], xr[:, None]], dim=1)
     xc = torch.einsum("bwd,wd->bd", window, params["conv"].float())
-    a, b = _rglru_gates(params, xc.to(x_t.dtype))
+    a, b = _rglru_gates(params, xc.to(x_t.dtype), gather)
     h = a * state["h"] + b
     y = matmul(gate * h.to(x_t.dtype), params["w_out"])
     return y, {"h": h, "conv_buf": window[:, 1:]}

@@ -243,7 +243,8 @@ def test_rglru_bf16_prefill_and_step_split_as_jax(monkeypatch):
     assert tp["conv"].dtype == torch.float32 and tp["w_a"].dtype == torch.bfloat16
     seen = []
     gates = TR._rglru_gates
-    monkeypatch.setattr(TR, "_rglru_gates", lambda p, xc: (seen.append(xc.dtype), gates(p, xc))[1])
+    monkeypatch.setattr(TR, "_rglru_gates",
+                        lambda p, xc, *rest: (seen.append(xc.dtype), gates(p, xc, *rest))[1])
     x = np.random.default_rng(8).normal(size=(2, 5, 64)).astype(np.float32)
     xb = torch.from_numpy(x).to(torch.bfloat16)
     st = _block_state(2, 64, 9)

@@ -20,7 +20,8 @@ cells (``lower_cell(build_prefill_step(...)).compile()`` and the same for
 * the data-axis cells of qwen2-1.5b reduced and whisper-base reduced (fp32)
   on 4 x 1, the same way (whisper encodes 32 frames: both packages'
   ``WHISPER_ENC_FRAMES`` set to the prompt length);
-* the ``model`` > 1 refusal for a non-STLT block, naming its ROADMAP item;
+* the ``model`` > 1 refusal for an STLT form off the TP path (the hann
+  window), naming its ROADMAP item;
 * the process form of ``ShardedServeEngine`` on 2 host ranks x 2 slots,
   each with its own warmed prefix-cache shard: streams, per-request ticks
   and host assignment equal to the one-process engine's, and greedy streams
@@ -78,7 +79,8 @@ def _cfgs():
                                             "stlt_adaptive": True}),
             "qwen2": t_configs.get_config("qwen2-1.5b").reduced(num_layers=2,
                                                                 dtype="float32"),
-            "whisper": t_configs.get_config("whisper-base").reduced(dtype="float32")}
+            "whisper": t_configs.get_config("whisper-base").reduced(dtype="float32"),
+            "stlt-hann": ModelConfig(**{**CFG_KW, "name": "t-hann", "stlt_window": "hann"})}
 
 
 def _jax_cfg(cfg: ModelConfig) -> JModelConfig:
@@ -201,7 +203,7 @@ def job(tmp_path_factory):
         "cfgs": cfgs, "params": params, "B": B, "N": N, "M": M, "D": D, "whisper_frames": N,
         "prompts": {k: t(v) for k, v in prompts.items()}, "tok0": t(tok0),
         "cells": {name: {"cfg": key, "mesh": shape} for name, (key, shape) in CELLS.items()},
-        "refusals": {"refuse-attn-2x2": ("qwen2", (2, 2))},
+        "refusals": {"refuse-hann-2x2": ("stlt-hann", (2, 2))},
         "engine": {**ENGINE, "sys_prompt": sys_prompt, "arrivals": arrivals,
                    "requests": [Request(p, b, id=i) for i, (p, b) in
                                 enumerate(zip(eprompts, budgets))]},
@@ -410,10 +412,11 @@ def test_cell_specs_equal_jax(job, name):
 
 
 def test_model_axis_refusal_names_its_roadmap_item(job):
-    """A ``model`` axis > 1 on a non-STLT block (qwen2's attention) raises
+    """A ``model`` axis > 1 on an STLT form off the TP path (the hann
+    window; a relevance LM has no decode state to serve) raises
     NotImplementedError naming ROADMAP Queue 1 item 7, on every rank."""
     for r in job["ranks"]:
-        msg = r["refuse-attn-2x2"]
+        msg = r["refuse-hann-2x2"]
         assert msg is not None and "'model' axis > 1" in msg and "ROADMAP Queue 1 item 7" in msg
 
 

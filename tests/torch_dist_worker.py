@@ -1,14 +1,16 @@
 """One rank of the port's multi-device CPU tests (tests/test_torch_distributed.py,
-tests/test_torch_sharded_serve.py).
+tests/test_torch_sharded_serve.py, tests/test_torch_tp_blocks.py).
 
-    python tests/torch_dist_worker.py DIR RANK WORLD [cuda-cp | cuda-serve | serve]
+    python tests/torch_dist_worker.py DIR RANK WORLD [cuda-cp | cuda-serve | serve | tp]
 
 Joins a gloo job through the file store ``DIR/store``, reads the inputs the
 test wrote to ``DIR/inputs.pt`` (made with numpy from a seed), runs every
 scenario in turn and, on rank 0, writes what it gathered to
 ``DIR/results.pt``. Imports torch and the port only (no JAX): the test
 holds the results to the JAX package. With ``serve`` the scenarios are the
-sharded serving cells and the process form of the sharded engine. With
+sharded serving cells and the process form of the sharded engine; with
+``tp`` the train, prefill and decode cells of the attention and hybrid
+archs and the partial-grad sum of whole KV projections. With
 ``cuda-cp`` every rank runs the context-parallel STLT on the card (K1) and
 writes its error against the serial K1 call to ``DIR/cp<RANK>.pt``
 (tests/test_torch_cuda.py).
@@ -215,6 +217,87 @@ def serve_main(root: str, rank: int, world: int):
     torch.distributed.destroy_process_group()
 
 
+def partial_scenario(inp):
+    """One loss and grad of granite's reduced config (1 KV head: ``wk`` and
+    ``wv`` whole on every rank of a model group) on the case's mesh, with
+    ``comm.partial_replicated`` and with it made the identity: the rank's
+    grad shards of both, the single-device grad's matching slice, and the
+    spec."""
+    from repro_torch.distributed import tensor_parallel as tp_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_flatten_with_paths, tree_unflatten
+
+    c = inp["partial"]
+    cfg = inp["cfgs"][c["cfg"]]
+    mesh = comm.make_mesh(c["mesh"], ("data", "model"), device="cpu")
+    B, N = inp["B"], inp["N"]
+    prog = steps.build_train_step(cfg, ShapeConfig("t", N, B, "train"), mesh,
+                                  TrainConfig(**inp["tcfg"]))
+    pspecs, _, bspec, _ = prog.in_shardings
+    full = inp["params"][cfg.name]
+    batch = inp["batches"][c["cfg"]][0]
+    bax = steps._batch_axes(cfg, mesh, B)
+    ctx = tp_lib.ShardCtx(cfg, mesh, pspecs, bax, B)
+    names = [f"layers/0/attn/{k}" for k in ("wk", "wv")]
+
+    def grads(params):
+        paths, leaves = zip(*((k, v.detach().requires_grad_(True))
+                              for k, v in tree_flatten_with_paths(params)))
+        share, _ = tp_lib.tp_lm_loss(ctx.gather_fsdp(tree_unflatten(params, leaves)), ctx,
+                                     sh.local_slices(batch, bspec, mesh))
+        g = dict(zip(paths, torch.autograd.grad(share, leaves, allow_unused=True,
+                                                materialize_grads=True)))
+        # the batch shards' sum, as the step's reduce_grads takes it (FSDP's
+        # gather has summed over ``data`` already)
+        return {k: comm.all_reduce(g[k], mesh.group("data")) if "data" not in
+                tuple(dict(tree_flatten_with_paths(pspecs))[k]) else g[k] for k in names}
+
+    local = sh.local_slices(full, pspecs, mesh)
+    got = grads(local)
+    real = comm.partial_replicated
+    comm.partial_replicated = lambda x, group: x
+    try:
+        own = grads(local)
+    finally:
+        comm.partial_replicated = real
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in tree_flatten_with_paths(full)}
+    loss, _ = T.lm_loss(tree_unflatten(full, list(leaves.values())), cfg, batch,
+                        deterministic=False)
+    ref = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                               allow_unused=True, materialize_grads=True)))
+    specs = dict(tree_flatten_with_paths(pspecs))
+    out = {}
+    for k in names:
+        leaf = k.rsplit("/", 1)[1]
+        want = sh.local_slice(ref[k], specs[k], mesh)
+        out[f"{leaf}_spec"] = tuple(specs[k])
+        out[f"{leaf}_grad"] = got[k].numpy()
+        out[f"{leaf}_ref"] = want.numpy()
+        out[f"{leaf}_own_gap"] = float((own[k] - want).abs().max())
+    return out
+
+
+def tp_main(root: str, rank: int, world: int):
+    torch.set_num_threads(1)
+    comm.init_process_group(f"file://{root}/store", world, rank, "gloo")
+    inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+    res = {}
+    for name, case in inp["cells"].items():
+        cfg = inp["cfgs"][case["cfg"]]
+        view = {**inp, "batches": inp["batches"][case["cfg"]], "seq": inp["N"],
+                "batch": inp["B"], "draws": {}}
+        res[name] = cell_scenario(inp, case)
+        train = train_scenario(view, cfg, case["mesh"], inp["steps"])
+        res[name]["train"] = train if rank == 0 else None
+    res["partial"] = partial_scenario(inp)
+    gathered = [None] * world
+    torch.distributed.all_gather_object(gathered, res)
+    if rank == 0:
+        torch.save(gathered, f"{root}/results.pt")
+    torch.distributed.destroy_process_group()
+
+
 def cuda_cp(root: str, rank: int, world: int):
     """K1's stateful call on each rank's slice of 4 rows x 4096 tokens, one
     exchange, against K1 over the whole sequence on the same card."""
@@ -274,6 +357,8 @@ if __name__ == "__main__":
             torch.distributed.destroy_process_group()
         elif sys.argv[4:] == ["serve"]:
             serve_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+        elif sys.argv[4:] == ["tp"]:
+            tp_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
         else:
             main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
     except BaseException:

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -83,6 +84,29 @@ DT3_GRAD_TOL = 1e-3           # x max |ref grad| per leaf (chip_smoke.TRAIN_GRAD
 DT4_FAIL_AT = 2
 DS1_B, DS1_N, DS1_NEW = 4, 1000, 32
 DS_LOGIT_TOL = 1e-3           # fp32 logits (chip_smoke.LOGIT_TOL, phases 4-5)
+# Phase DA: full-width attention and hybrid archs, fp32, DA_B x DA_N tokens
+# a cell; a train cell takes the steps DA_TRAIN_STEPS from the init (lr is
+# 0 at step 0, so step 1 moves the params: AdamW's first update is about
+# lr x sign(grad), which a grad at rounding noise could flip), a serve cell
+# DA_NEW greedy decode steps; DT1's and DS1's gates. The FSDP layout
+# re-gathers every leaf over ``data`` on each call of a cell (940.9 MB per
+# rank for DA1 on 2 x 2: 4.0 s a decode step through gloo on one card), so
+# DA1's 2 x 2 serve cell takes DA_FSDP_NEW steps.
+DA1_ARCH, DA1_LAYERS = "chatglm3-6b", 2
+DA2_ARCH, DA2_LAYERS = "recurrentgemma-9b", 3       # one period: rg-LRU, rg-LRU, attn/STLT
+DA_B, DA_N, DA_NEW, DA_FSDP_NEW, DA_TRAIN_STEPS = 4, 1024, 16, 4, (0, 1)
+# DA2's train cell runs on 1 x 4 at 4 x 512. On 2 x 2 its FSDP layout moves
+# 2.9 GB of all-gather and 5.6-5.9 GB of reduction per rank per step
+# through gloo (24-42 s a step on one card: 69-104 s of the script's time
+# limit), and at 4 x 1024 its four ranks held ~19.5 GB each, over the card;
+# DA1's train cell keeps the FSDP x TP layout on 2 x 2.
+DA2_TRAIN_MESH, DA2_TRAIN_N = (1, 4), 512
+DA_PARAM_TOL = DT1_PARAM_TOL
+DA_LOGIT_TOL = DS_LOGIT_TOL
+# K1 launches per rank: the STLT layer of recurrentgemma-9b-stlt's period
+# makes 3 a train step (forward, remat recompute, dx), 1 a prefill (the
+# stateful call), none a decode step; the native forms make none.
+DA_K1 = {"train": 3, "prefill": 1, "decode": 0}
 
 
 def _timed(fn):
@@ -98,13 +122,13 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
-def _batch(step, dev, vocab):
+def _batch(step, dev, vocab, B=DT1_B, N=DT1_N):
     import torch
 
     from repro_torch.data import lm_batch_stream
 
     return {k: torch.from_numpy(v).to(dev)
-            for k, v in lm_batch_stream(0, step, DT1_B, DT1_N, vocab).items()}
+            for k, v in lm_batch_stream(0, step, B, N, vocab).items()}
 
 
 def dt1(T, cfg, dev, rank, out):
@@ -446,6 +470,259 @@ def ds2(T, cfg, full, dev, rank, out):
     out["DS2"] = row
 
 
+def _in_turns(rank: int, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier: a
+    single-device reference at full width holds the whole model (and its
+    step's grads and moments), which four ranks at once would not fit on
+    one card. Each turn frees what it made before the next begins."""
+    import torch
+
+    for turn in range(WORLD):
+        if turn == rank:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+
+
+def da_config(arch: str, variant: str, layers: int, **kw):
+    """``arch`` at full width, cut to ``layers`` layers (its layer pattern's
+    first ones), fp32 activations (the gates read fp32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, variant)
+    if cfg.layer_types:
+        kw["layer_types"] = cfg.layer_types[:layers]
+    return dataclasses.replace(cfg, num_layers=layers, dtype="float32", **kw)
+
+
+def _gap_over(got, want, tol) -> float:
+    """max |got - want| over tol x (1 + max |want|)."""
+    want = want.to(got.device)
+    return float((got.float() - want.float()).abs().max()) / (
+        tol * (1 + float(want.float().abs().max())))
+
+
+def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None):
+    """The train cell on ``mesh_shape`` against the single-device
+    ``make_step`` (run by each rank in its turn, which keeps its own slices
+    of the reference's params): the steps DA_TRAIN_STEPS of DA_B x N
+    (DA_N) tokens from the init."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import stlt_scan as k1
+    from repro_torch.launch import steps, train
+    from repro_torch.utils import tree_flatten_with_paths
+
+    t0, N = time.time(), N or DA_N
+    tcfg = TrainConfig(total_steps=100, warmup_steps=2)
+    mesh = comm.make_mesh(mesh_shape, ("data", "model"), device=dev)
+    prog = steps.build_train_step(cfg, ShapeConfig(tag, N, DA_B, "train"), mesh, tcfg)
+    pspecs, _, bspec, _ = prog.in_shardings
+    specs = dict(tree_flatten_with_paths(pspecs))
+    batches = [_batch(step, dev, cfg.vocab, DA_B, N) for step in DA_TRAIN_STEPS]
+    held, row = {}, {"mesh": list(mesh_shape), "tokens": [DA_B, N], "ref": []}
+
+    def reference():
+        full = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        held["params"] = sh.local_slices(full, pspecs, mesh)
+        opt, ref_step = train.make_step(cfg, tcfg)
+        ref, state = full, opt.init(full)
+        del full
+        for step, batch in zip(DA_TRAIN_STEPS, batches):
+            k1.stlt_scan_kernel.launches = 0
+            (ref, state, m), ms = _timed(lambda: ref_step(ref, state, batch, step))
+            row["ref"].append({"ms": ms, "k1": k1.stlt_scan_kernel.launches,
+                               "loss": float(m["loss"]),
+                               "metrics": {k: float(m[k]) for k in DT1_METRICS}})
+        held["ref"] = {path: sh.local_slice(leaf, specs[path], mesh).to("cpu", copy=True)
+                       for path, leaf in tree_flatten_with_paths(ref)}
+        del ref, state
+
+    _in_turns(rank, reference)
+    row["ref_s"] = time.time() - t0
+    params = held.pop("params")
+    state = prog.opt_init(params)
+    row["steps"] = []
+    for step, batch in zip(DA_TRAIN_STEPS, batches):
+        comm.reset_stats()
+        k1.stlt_scan_kernel.launches = 0
+        (params, state, m), ms = _timed(
+            lambda: prog.fn(params, state, sh.local_slices(batch, bspec, mesh), step))
+        row["steps"].append({"ms": ms, "k1": k1.stlt_scan_kernel.launches,
+                             "bytes": dict(comm.STATS), "loss": float(m["loss"]),
+                             "metrics": {k: float(m[k]) for k in DT1_METRICS}})
+    worst, over = 0.0, []
+    for path, got in tree_flatten_with_paths(params):
+        gap = _gap_over(got, held["ref"][path], DA_PARAM_TOL)
+        worst = max(worst, gap)
+        if gap > 1.0:
+            over.append((path, gap))
+    row["param_gap_over_tol"], row["over"] = worst, over[:8]
+    row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, state, held
+    torch.distributed.barrier()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    row["s"] = time.time() - t0
+    print(f"[{tag}] {row['s']:.1f} s (references {row['ref_s']:.1f} s), peak "
+          f"{row['peak_gib']:.2f} GiB", flush=True)
+    out[tag] = row
+
+
+def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
+    """The prefill cell (DA_B x DA_N) and ``new`` greedy decode-cell steps on
+    ``mesh_shape`` against the single-device ``prefill``/``decode_step``
+    (rank 0 runs them while the others wait, then hands them its results):
+    the decode starts from the single-device prefill's state at DA_N +
+    ``new`` positions, as the decode cell sizes its caches; the rank's rows
+    of the logits within DA_LOGIT_TOL, its state shards within K1's gate of
+    the reference's slices, the streams equal under the near-tie rule."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import stlt_scan as k1
+    from repro_torch.launch import steps
+    from repro_torch.utils import tree_flatten_with_paths, tree_map
+
+    t0, (B, N) = time.time(), (DA_B, DA_N)
+    mesh = comm.make_mesh(mesh_shape, ("data", "model"), device=dev)
+    pre = steps.build_prefill_step(cfg, ShapeConfig(tag, N, B, "prefill"), mesh)
+    dec = steps.build_decode_step(cfg, ShapeConfig(tag, N + new, B, "decode"), mesh)
+    toks = torch.randint(0, cfg.vocab, (B, N), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    row = {"mesh": list(mesh_shape), "new": new}
+    full = steps.serving_params(
+        T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg)
+    params = sh.local_slices(full, pre.in_shardings[0], mesh)
+    host = lambda tree: tree_map(lambda t: t.to("cpu"), tree)  # noqa: E731
+    ref = {}
+    if rank == 0:
+        with torch.no_grad():
+            T.prefill(full, cfg, toks, max_len=N)                 # warm
+            (logits, state), ref["prefill_ms"] = _timed(
+                lambda: T.prefill(full, cfg, toks, max_len=N))
+            ref["prefill"] = host((logits, state))
+            logits, state = T.prefill(full, cfg, toks, max_len=N + new)
+            tok = logits.argmax(-1).to(torch.int32)
+            ref["start"], ref["decode_ms"], ref["logits"] = host((state, tok)), [], []
+            for _ in range(new):
+                (logits, state), ms = _timed(lambda: T.decode_step(full, cfg, tok, state))
+                ref["decode_ms"].append(ms)
+                ref["logits"].append(logits.to("cpu"))
+                tok = logits.argmax(-1).to(torch.int32)
+            ref["final"] = host(state)
+        del logits, state, tok
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    box = [ref]
+    torch.distributed.broadcast_object_list(box, src=0)
+    ref = box[0]
+    row["ref_prefill_ms"], row["ref_decode_ms"] = ref["prefill_ms"], ref["decode_ms"]
+    rows_of = lambda t: sh.local_slices(t, pre.out_shardings[0], mesh, "cpu")  # noqa: E731
+    held = {"prefill": (rows_of(ref["prefill"][0]),
+                        sh.local_slices(ref["prefill"][1], pre.out_shardings[1], mesh, "cpu")),
+            "start": sh.local_slices(ref["start"][0], dec.in_shardings[2], mesh),
+            "tok0": sh.local_slices(ref["start"][1], dec.in_shardings[1], mesh),
+            "decode": ([rows_of(t) for t in ref["logits"]],
+                       sh.local_slices(ref["final"], dec.out_shardings[1], mesh, "cpu"))}
+    del ref, box
+    row["ref_s"] = time.time() - t0
+    x = sh.local_slices(toks, pre.in_shardings[1], mesh)
+    pre.fn(params, x)                                   # warm
+    comm.reset_stats()
+    k1.stlt_scan_kernel.launches = 0
+    (logits, pstate), row["prefill_ms"] = _timed(lambda: pre.fn(params, x))
+    row.update(prefill_k1=k1.stlt_scan_kernel.launches, prefill_bytes=dict(comm.STATS))
+    want_logits, want_state = held["prefill"]
+    row["prefill_logit_gap"] = float((logits - want_logits.to(dev)).abs().max())
+
+    def state_gap(got, want):
+        worst = 0.0
+        for (path, g), (_, w) in zip(tree_flatten_with_paths(got), tree_flatten_with_paths(want)):
+            if g.is_floating_point():
+                worst = max(worst, _gap_over(g, w, K1_TOL))
+            elif not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"{tag} rank {rank}: {path} differs")
+        return worst
+
+    row["prefill_state_gap_over_tol"] = state_gap(pstate, want_state)
+    del pstate
+    state, tok = held["start"], held["tok0"]
+    row.update(decode_ms=[], decode_k1=[], decode_bytes=None)
+    ref_logits, ref_final = held["decode"]
+    live = [True] * tok.shape[0]
+    row["logit_gap"], row["near_ties"], row["same_tokens"] = row["prefill_logit_gap"], 0, 0
+    for step in range(new):
+        comm.reset_stats()
+        k1.stlt_scan_kernel.launches = 0
+        (logits, state), ms = _timed(lambda: dec.fn(params, tok, state))
+        row["decode_ms"].append(ms)
+        row["decode_k1"].append(k1.stlt_scan_kernel.launches)
+        row["decode_bytes"] = dict(comm.STATS)
+        want = ref_logits[step].to(dev)
+        for r in range(len(live)):
+            if not live[r]:
+                continue
+            row["logit_gap"] = max(row["logit_gap"], float((logits[r] - want[r]).abs().max()))
+            g_tok, w_tok = int(logits[r].argmax()), int(want[r].argmax())
+            if g_tok == w_tok:
+                row["same_tokens"] += 1
+                continue
+            gap = float(want[r, w_tok] - want[r, g_tok])
+            if not gap < DA_LOGIT_TOL:
+                raise AssertionError(f"{tag} rank {rank} step {step} row {r}: token {g_tok}, "
+                                     f"single-device {w_tok}, gap {gap}")
+            row["near_ties"] += 1
+            live[r] = False
+        tok = logits.argmax(-1).to(torch.int32)
+    row["streams_equal"] = all(live)
+    row["final_state_gap_over_tol"] = state_gap(state, ref_final) if all(live) else None
+    row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, state, held
+    torch.distributed.barrier()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    row["s"] = time.time() - t0
+    print(f"[{tag}] {row['s']:.1f} s (references {row['ref_s']:.1f} s), peak "
+          f"{row['peak_gib']:.2f} GiB", flush=True)
+    out[tag] = row
+
+
+def da(T, dev, rank, out):
+    """Phase DA: tensor parallelism beyond the STLT block at full width.
+    DA1 chatglm3-6b native (2 layers): the 2 x 2 train cell, the prefill and
+    decode cells on 2 x 2 (KV heads on ``model``; DA_FSDP_NEW decode steps)
+    and 1 x 4 (the cache's time axis on ``model``). DA2 recurrentgemma-9b at
+    one period: the prefill and decode cells of both forms and the STLT
+    form's train cell on 1 x 4 (AdamW's moments in bf16, as phase H4 keeps
+    them: the single-device reference step's old and new moments would not
+    fit on the card in fp32)."""
+    import torch
+
+    t0 = time.time()
+    glm = da_config(DA1_ARCH, "native", DA1_LAYERS)
+    da_train(T, glm, dev, rank, (2, 2), "DA1 train 2x2", out)
+    da_serve(T, glm, dev, rank, (2, 2), "DA1 serve 2x2", out, new=DA_FSDP_NEW)
+    da_serve(T, glm, dev, rank, (1, 4), "DA1 serve 1x4", out)
+    out["t_DA1"] = time.time() - t0
+    for variant in ("native", "stlt"):
+        cfg = da_config(DA2_ARCH, variant, DA2_LAYERS)
+        da_serve(T, cfg, dev, rank, (1, 4), f"DA2 {variant} serve 1x4", out)
+    rg = da_config(DA2_ARCH, "stlt", DA2_LAYERS, opt_moment_dtype="bfloat16")
+    da_train(T, rg, dev, rank, DA2_TRAIN_MESH, "DA2 stlt train 1x4", out, N=DA2_TRAIN_N)
+    out["t_DA2"] = time.time() - t0
+    torch.cuda.empty_cache()
+
+
 def rank_main(rank: int, backend: str, cards: int, store: str):
     import torch
 
@@ -474,6 +751,11 @@ def rank_main(rank: int, backend: str, cards: int, store: str):
     ds2(T, cfg, full, dev, rank, out)
     out["t_DS2"] = time.time() - t0
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del prog, mesh, params, full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    da(T, dev, rank, out)
+    out["t_DA"] = time.time() - t0
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -495,7 +777,10 @@ def launch(backend: str = "nccl", cards: int = WORLD, timeout: float = 600.0) ->
         procs.append((subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--backend",
              backend, "--cards", str(cards), "--store", str(store)],
-            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)), log))
+            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+            # four ranks' caching allocators share one card: grow segments
+            # rather than strand them (phase DA's full-width cells)
+            env={**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}), log))
     deadline = time.time() + timeout
     try:
         while any(p.poll() is None for p, _ in procs):
@@ -520,6 +805,82 @@ def launch(backend: str = "nccl", cards: int = WORLD, timeout: float = 600.0) ->
 
 def _median(xs):
     return sorted(xs)[len(xs) // 2]
+
+
+def _da_k1(tag: str, kind: str) -> int:
+    return DA_K1[kind] if "stlt" in tag else 0
+
+
+def check_da(res: list) -> dict:
+    """Raise unless every DA gate holds; returns DA's summary, cell by cell:
+    ms per rank beside the single-device call's, bytes per collective per
+    rank, K1 launches per rank, the gaps."""
+    summary = {"laps": {k: res[0][k] for k in ("t_DA1", "t_DA2")}}
+    for tag in [k for k in res[0] if k.startswith("DA") and "train" in k]:
+        ref = res[0][tag]["ref"]
+        for r in res:
+            row = r[tag]
+            for step, (got, want) in enumerate(zip(row["steps"], ref)):
+                if step == 0 and abs(got["loss"] - want["loss"]) > DT1_LOSS_TOL:
+                    raise AssertionError(f"{tag} rank {r['rank']}: step-0 loss {got['loss']} "
+                                         f"vs {want['loss']}")
+                for k in DT1_METRICS:
+                    if not abs(got["metrics"][k] - want["metrics"][k]) \
+                            <= DT1_METRIC_RTOL * abs(want["metrics"][k]):
+                        raise AssertionError(f"{tag} rank {r['rank']} step {step}: {k} "
+                                             f"{got['metrics'][k]} vs {want['metrics'][k]}")
+                if got["k1"] != _da_k1(tag, "train"):
+                    raise AssertionError(f"{tag} rank {r['rank']} step {step}: {got['k1']} K1 "
+                                         f"launches, expected {_da_k1(tag, 'train')}")
+            if row["param_gap_over_tol"] > 1.0:
+                raise AssertionError(f"{tag} rank {r['rank']}: params off the single-device "
+                                     f"step: {row['over']}")
+        summary[tag] = {
+            "tokens": res[0][tag]["tokens"], "s": res[0][tag]["s"],
+            "ref_s": res[0][tag]["ref_s"],
+            "step_ms": [[s["ms"] for s in r[tag]["steps"]] for r in res],
+            "ref_step_ms": [[s["ms"] for s in r[tag]["ref"]] for r in res],
+            "bytes_per_step": [r[tag]["steps"][-1]["bytes"] for r in res],
+            "k1_per_step": [r[tag]["steps"][-1]["k1"] for r in res],
+            "ref_k1": ref[-1]["k1"],
+            "loss_gap": max(abs(r[tag]["steps"][0]["loss"] - ref[0]["loss"]) for r in res),
+            "metric_rel_gap": {k: max(abs(s["metrics"][k] - w["metrics"][k])
+                                      / max(abs(w["metrics"][k]), 1e-30)
+                                      for r in res for s, w in zip(r[tag]["steps"], ref))
+                               for k in DT1_METRICS},
+            "param_gap_over_tol": max(r[tag]["param_gap_over_tol"] for r in res),
+            "peak_gib": [r[tag]["peak_gib"] for r in res]}
+    for tag in [k for k in res[0] if k.startswith("DA") and "serve" in k]:
+        for r in res:
+            d = r[tag]
+            want_pre, want_dec = _da_k1(tag, "prefill"), _da_k1(tag, "decode")
+            if not (d["prefill_k1"] == want_pre and set(d["decode_k1"]) == {want_dec}
+                    and d["logit_gap"] <= DA_LOGIT_TOL
+                    and d["prefill_state_gap_over_tol"] <= 1.0
+                    and (d["final_state_gap_over_tol"] is None
+                         or d["final_state_gap_over_tol"] <= 1.0)):
+                raise AssertionError(
+                    f"{tag} rank {r['rank']}: K1 {d['prefill_k1']} per prefill (expected "
+                    f"{want_pre}), {set(d['decode_k1'])} per decode step (expected "
+                    f"{want_dec}), logit gap {d['logit_gap']}, state gaps over K1's gate "
+                    f"{d['prefill_state_gap_over_tol']}, {d['final_state_gap_over_tol']}")
+        summary[tag] = {
+            "new": res[0][tag]["new"], "s": res[0][tag]["s"], "ref_s": res[0][tag]["ref_s"],
+            "prefill_ms": [r[tag]["prefill_ms"] for r in res],
+            "ref_prefill_ms": [r[tag]["ref_prefill_ms"] for r in res],
+            "decode_ms_median": [_median(r[tag]["decode_ms"]) for r in res],
+            "ref_decode_ms_median": [_median(r[tag]["ref_decode_ms"]) for r in res],
+            "prefill_bytes": [r[tag]["prefill_bytes"] for r in res],
+            "decode_bytes": [r[tag]["decode_bytes"] for r in res],
+            "k1": [[r[tag]["prefill_k1"], max(r[tag]["decode_k1"])] for r in res],
+            "logit_gap": max(r[tag]["logit_gap"] for r in res),
+            "state_gap_over_tol": max(max(r[tag]["prefill_state_gap_over_tol"],
+                                          r[tag]["final_state_gap_over_tol"] or 0.0)
+                                      for r in res),
+            "streams_equal": [r[tag]["streams_equal"] for r in res],
+            "near_ties": sum(r[tag]["near_ties"] for r in res),
+            "peak_gib": [r[tag]["peak_gib"] for r in res]}
+    return summary
 
 
 def check(res: list) -> dict:
@@ -569,6 +930,7 @@ def check(res: list) -> dict:
     d2 = r0["DS2"]
     if not (d2["ticks_equal"] and set(d2["hosts"].values()) == {0, 1}):
         raise AssertionError(f"DS2: ticks equal {d2['ticks_equal']}, hosts {d2['hosts']}")
+    da = check_da(res)
     hosts = [r["DS2"] for r in res if r["DS2"]["member"]]
     return {
         "ds1_prefill_ms": [r["DS1"]["prefill_ms"] for r in res],
@@ -614,8 +976,9 @@ def check(res: list) -> dict:
         "pipe_grad_gap_over_tol": max(r["DT3"]["grad_gap_over_tol"] for r in res),
         "resilient": res[0]["DT4"]["stats"], "resilient_wall_s": res[0]["DT4"]["wall_s"],
         "phase_s": {k: res[0][k] for k in ("t_DT1", "t_DT2", "t_DT3", "t_DT4", "t_DS1",
-                                           "t_DS2")},
+                                           "t_DS2", "t_DA")},
         "peak_gib": [r["peak_gib"] for r in res],
+        "da": da,
     }
 
 
