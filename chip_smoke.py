@@ -108,7 +108,7 @@ each stream against its request run alone under the near-tie rule, the
 per-slot state at full depth (88.8 MB); X2 checks that period in fp32 as
 H3 does; X3 trains that period at 8 x 512 in bf16 with remat (against remat off and fp32 compute,
 5 AdamW steps, their peak, a profile). Phase M runs the MoE family at full
-width with its depth cut: M1 serves qwen3-moe-235b-a22b at 2 of 94 layers
+width with its depth cut: M1 serves qwen3-moe-235b-a22b at 1 of 94 layers
 native and STLT (K1 at head dim 64; the choices each admission drops), M2
 holds 1 layer in fp32 to the CPU (apply_moe on a dispatch that drops, bit
 for bit on two card calls; a greedy serve's streams) and runs H3's checks
@@ -140,12 +140,21 @@ the one-process engine (hosts, ticks, streams). Phase DA, in the same rank
 job, runs tensor parallelism beyond the STLT block at full width in fp32:
 DA1 chatglm3-6b (2 layers) trains on 2 x 2 at 4 x 1024 for 2 steps against
 the single-device step and runs the prefill cell and greedy decode-cell
-steps on 2 x 2 (KV heads on ``model``; 4 steps) and 1 x 4 (the cache's time
+steps on 2 x 2 (KV heads on ``model``; 1 step) and 1 x 4 (the cache's time
 axis on ``model``; 16 steps); DA2 recurrentgemma-9b at one period runs both
 forms' prefill and 16 decode steps and the STLT form's train cell (4 x 512)
 on 1 x 4 (K1 on each rank's heads: 3 launches per rank per step, 1 per
-prefill, 0 per decode step; 0 in the native forms). ``tools/ab_port.py``
-compares two trees of the port on one card.
+prefill, 0 per decode step; 0 in the native forms). Phase DM, last in the
+same rank job, runs expert parallelism: qwen3-moe-235b-a22b at full width
+cut to 1 layer, fp32, its 128 experts over ``model``: DM1 on 1 x 4 (32
+experts a rank) trains both forms at 2 x 1024 (2 adafactor steps) and runs
+their prefill cells (4 x 1024) and 4 greedy decode-cell steps; DM2 runs the
+native form's 2 x 2 prefill and decode cells without FSDP, where capacity
+and slot positions span two data shards; each against the single-device
+functions (DA's gates, K1 per rank equal to the single-device count on the
+rank's 16 heads, the drops summed over the ranks equal to the
+single-device call's). ``tools/ab_port.py`` compares two trees of the port
+on one card.
 
 Output ends with three lines: the card's name and power limit (from
 ``nvidia-smi``), a JSON ``{"kernels": [...]}`` line, and the JSON result
@@ -222,11 +231,15 @@ K1_DS2 = (16, 512, 64, 64)
 # B_loc x H_loc rows at 1024 tokens (4 rows x 4 heads in the 1 x 4 prefill
 # cell; its train cell runs the same rows at 512; S = 32, d = 256)
 K1_DA2 = (16, 1024, 32, 256)
+# Phase DM1's rank shapes: qwen3-moe-stlt's STLT layer on a rank's 16 of 64
+# heads on the 1 x 4 mesh (S = 32, d = 64): 4 rows x 16 heads in the
+# prefill cell (stateful), 2 rows x 16 heads in the 2 x 1024 train cell
+K1_DM1 = ((64, 1024, 32, 64), (32, 1024, 32, 64))
 K1_SHAPES = ((32, 1000, 64, 64), (8, 1000, 64, 64), (8, 131072, 64, 64),
              (8, 512, 64, 64), (32, 512, 64, 64), (32, 3000, 64, 64), (15, 512, 32, 64),
              (60, 512, 32, 64), (60, 5, 32, 64), (120, 1024, 32, 64),
              (32, 5, 64, 64), K1_DS2, K1_DA2, K1_CP) + K1_WHISPER \
-    + K1_HYBRID + K1_MOE
+    + K1_HYBRID + K1_MOE + K1_DM1
 K1_VERIFY = (60, 5, 32, 64)
 K1_TRAIN = (120, 1024, 32, 64)
 H_K1_VERIFY = (64, 5, 32, 256)
@@ -3359,9 +3372,10 @@ def hybrid_phase(T, train, k1, dev, get_config, k1_rows) -> dict:
 # token in every form (as JAX's lax.scan): all 24 layers took 14.5 s a
 # train step at 8 x 1024 on an H100 (PERF.md, phase X), so X3 trains one
 # period (a third of the depth) and reads the peak memory over its timed
-# steps instead of extra steps per remat mode; since phase DA came it trains
-# 8 x 512 (the sLSTM's loop is as long as the sequence: X3 took 65.1 s at
-# 8 x 1024, its bf16-vs-fp32 grad gap 0.106 of the 0.17 gate).
+# steps instead of extra steps per remat mode, at 8 x 512 (the sLSTM's loop
+# is as long as the sequence: X3 took 65.1 s at 8 x 1024, its bf16-vs-fp32
+# grad gap 0.106 of the 0.17 gate; 36-48 s at 8 x 512, 0.079; at 8 x 256
+# the gap, on the input-gate bias's rounding-noise grad, reached 0.155).
 X_ARCH, X_PERIOD = "xlstm-350m", 8
 X1_LAYERS = X_PERIOD
 X3_B, X3_N = 8, 512
@@ -3442,8 +3456,8 @@ def xlstm_phase(T, train, k1, dev, get_config) -> dict:
 
 # qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads, 4 KV heads, dh
 # 64, 128 experts of d_ff 1536, top-8, an untied 151,936-token head), its
-# depth cut from 94 layers to M1_LAYERS (2.45B params a layer, 6.15B at 2
-# layers: 12.3 GB in bf16; 4 layers until phase DA came). M1 serves it
+# depth cut from 94 layers to M1_LAYERS (2.45B params a layer, 3.7B at 1
+# layer: 7.4 GB in bf16; cut to pay for phases DA and DM). M1 serves it
 # native and as its STLT variant (K1 at dh 64) on phase P's requests, plain,
 # in bf16, the matrices cast as they are drawn (``init_cast``). M2 runs 1
 # layer in fp32, the card against the CPU on the same calls: apply_moe
@@ -3462,8 +3476,10 @@ def xlstm_phase(T, train, k1, dev, get_config) -> dict:
 # the teacher-forced forward at capacity E / K (generate_check_phase, as
 # H5), then once at the config's capacity with its drops printed.
 M_ARCH, M4_ARCH = "qwen3-moe-235b-a22b", "arctic-480b"
-M1_LAYERS = 2
-M2_APPLY_N, M2_REQUESTS, M2_NEW = 512, (1, 2), 16
+M1_LAYERS = 1
+# (one short request, few tokens: the CPU's full-width prefill and decode
+# ticks are most of M2's time)
+M2_APPLY_N, M2_REQUESTS, M2_NEW = 512, (2,), 4
 # apply_moe alone, card vs CPU in fp32 (cuBLAS's and the CPU's summation
 # orders), where no token's choices differ: max abs error over (1 + max |y|)
 M2_MOE_TOL = 1e-4
@@ -3848,7 +3864,7 @@ def k1_direction_timings(k1, ops, dev, C, d) -> dict:
 
 
 def dt_phase() -> dict:
-    """Phases DT, DS and DA: the multi-device training and serving layers
+    """Phases DT, DS, DA and DM: the multi-device training and serving layers
     (``tools/phase_dt.py``) as 4 gloo ranks, processes sharing this card:
     DT1 the 2 x 2 sharded step of stlt-base against the single-device step,
     DT2 the context-parallel STLT against serial K1, DT3 the 2-stage
@@ -3857,8 +3873,10 @@ def dt_phase() -> dict:
     functions, DS2 the process form of the sharded engine against the
     one-process engine; DA the train, prefill and decode cells of
     chatglm3-6b and of recurrentgemma-9b in both forms at full width
-    against the single-device functions. Every rank is stopped before this
-    returns; any failed check raises."""
+    against the single-device functions; DM the same of qwen3-moe-235b-a22b
+    with its experts on ``model`` (1 x 4 in both forms, the 2 x 2 serving
+    cells of the native form). Every rank is stopped before this returns;
+    any failed check raises."""
     sys.path.insert(0, str(ROOT / "tools"))
     import phase_dt
 
@@ -3899,33 +3917,40 @@ def dt_phase() -> dict:
         f"{res['ds2_metrics']}; the one-process engine {res['ds2_one_metrics']} "
         f"[{smi_line()}]")
     smi = smi_line()
-    for tag, row in res["da"].items():
+    for tag, row in [*res["da"].items(), *res["dm"].items()]:
         if tag == "laps":
             continue
+        moe = (f"; MoE drops per rank {row['drops']} (single-device {row['ref_drops']})"
+               if tag.startswith("DM") and "train" in tag else
+               f"; MoE drops per rank per prefill {row['prefill_drops']} (single-device "
+               f"{row['ref_prefill_drops']}), in the decode steps {row['decode_drops']}; "
+               f"dispatch {row['dispatch']}, fsdp {row['fsdp']}"
+               if tag.startswith("DM") else "")
         if "train" in tag:
             log(f"[{tag}] {row['tokens'][0]} x {row['tokens'][1]}, steps "
                 f"{phase_dt.DA_TRAIN_STEPS} from the init: step ms "
-                f"per rank {row['step_ms']} (single-device, each rank's turn alone on the card: "
+                f"per rank {row['step_ms']} (single-device, alone on the card: "
                 f"{row['ref_step_ms']}); K1 per rank per step {row['k1_per_step']} "
                 f"(single-device {row['ref_k1']}); bytes per rank per step "
                 f"{row['bytes_per_step']}; step-0 loss gap {row['loss_gap']:.3e}; worst "
                 f"relative metric gaps {row['metric_rel_gap']}; worst param gap "
                 f"{row['param_gap_over_tol']:.3f} of its gate; peak GiB per rank (its "
-                f"reference's turn included) {row['peak_gib']}; cell {row['s']:.1f} s, "
+                f"reference's turn included) {row['peak_gib']}{moe}; cell {row['s']:.1f} s, "
                 f"references {row['ref_s']:.1f} s [{smi}]")
         else:
             log(f"[{tag}] prefill {phase_dt.DA_B} x {phase_dt.DA_N} then {row['new']} "
                 f"greedy decode steps: prefill ms per rank {row['prefill_ms']} (single-device "
                 f"{row['ref_prefill_ms']}), median decode-step ms {row['decode_ms_median']} "
                 f"(single-device {row['ref_decode_ms_median']}); K1 per rank (prefill, decode "
-                f"step) {row['k1']}; bytes per rank per prefill {row['prefill_bytes']}, per "
+                f"step) {row['k1']} (single-device {row['ref_k1']}){moe}; bytes per rank per "
+                f"prefill {row['prefill_bytes']}, per "
                 f"decode step {row['decode_bytes']}; worst logit gap {row['logit_gap']:.3e} "
                 f"(gate {phase_dt.DA_LOGIT_TOL}), worst state gap "
                 f"{row['state_gap_over_tol']:.4f} of K1's gate; streams equal per rank "
                 f"{row['streams_equal']} ({row['near_ties']} near ties); peak GiB per rank "
                 f"{row['peak_gib']}; cell {row['s']:.1f} s, references {row['ref_s']:.1f} s "
                 f"[{smi}]")
-    log(f"[DA laps] {res['da']['laps']}")
+    log(f"[DA laps] {res['da']['laps']}; [DM laps] {res['dm']['laps']}")
     return res
 
 
@@ -4480,6 +4505,16 @@ def main(argv) -> int:
         f"{r['device']} ms, call {r['call']:.4f} ms, plain version {r['plain']:.4f} ms, "
         f"bound {r['bound']:.4f} ms ({r['bound_by']})")
     del da_args
+    for shape, what in zip(K1_DM1, ("prefill cell (stateful)", "train cell")):
+        dm_args, _, _ = k1_case(k1, ops, dev, *shape[:2], C, *shape[2:], seed=5)
+        k1_rows[shape]["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*dm_args, chunk=C),
+                                            iters=5)
+        r = k1_rows[shape]
+        log(f"[6 timing] K1 at phase DM1's rank shape BH={shape[0]} N={shape[1]} "
+            f"S={shape[2]} d={shape[3]}, the 1 x 4 {what}: kernel alone {r['alone']:.4f} ms, "
+            f"device time {r['device']} ms, call {r['call']:.4f} ms, plain version "
+            f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
+        del dm_args
     lap("DT")
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s; by phase: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in laps.items()))
@@ -4612,7 +4647,16 @@ def main(argv) -> int:
         "launches_per_process_form_serve_rank": dt["ds2_k1"],
         "ds2_shape": list(K1_DS2), "ds2_device_ms": k1_rows[K1_DS2]["device"],
         "ds2_alone_ms": k1_rows[K1_DS2]["alone"], "ds2_plain_ms": k1_rows[K1_DS2]["plain"],
-        "ds2_bound_ms": k1_rows[K1_DS2]["bound"]}, {
+        "ds2_bound_ms": k1_rows[K1_DS2]["bound"],
+        # phase DM: K1 launches per rank in qwen3-moe-stlt's 1 x 4 cells (its
+        # STLT layer on the rank's 16 heads: 3 a train step, 1 a prefill, 0 a
+        # decode step; the single-device calls' counts beside them); K1 at
+        # those rank shapes
+        "launches_per_ep_train_step_rank": dt["dm"]["DM1 stlt train 1x4"]["k1_per_step"],
+        "launches_per_ep_prefill_decode_rank": dt["dm"]["DM1 stlt serve 1x4"]["k1"],
+        "dm1_shapes": {"x".join(map(str, sh)): {
+            k: k1_rows[sh][k] for k in ("device", "alone", "call", "plain", "bound",
+                                        "bound_by")} for sh in K1_DM1}}, {
         "name": "relevance_flash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/relevance_flash.cu",
         "replaces": "src/repro/kernels/relevance_flash.py:207",

@@ -347,6 +347,17 @@ def _trivial(group) -> bool:
     return group is None or dist.get_world_size(group) == 1
 
 
+def group_size(group) -> int:
+    """The group's size (1 for None: no group)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in the group (its coordinate over the group's axes,
+    row-major; 0 for None)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
 def copy_to(x, group):
     """Identity forward, all-reduce backward (Megatron's f)."""
     return x if _trivial(group) else _CopyTo.apply(x, group)

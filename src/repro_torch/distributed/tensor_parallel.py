@@ -50,7 +50,15 @@ group computes the same loss; ``comm`` documents the operators):
 
   The FFN: ``w1`` (and ``w3``) column-sharded, ``w2`` row-sharded; ``b1``,
   replicated by the rules below 4096 entries but used sliced, comes through
-  ``slice_replicated``, whose backward gathers the slices' grads.
+  ``slice_replicated``, whose backward gathers the slices' grads. A MoE
+  block (``_local_moe``, ``apply_moe_ep``) holds its E / tp experts
+  (expert parallelism on ``model``, JAX's ``P("model", fsdp, None)``), the
+  whole router and Arctic's dense branch column- and row-sharded; the
+  router reads the normed activation whole (its aux losses, equal on every
+  rank, are counted once) and the experts through ``copy_to``; the
+  all-reduce of the combine is the block's second. The block's aux losses
+  enter the train loss as the STLT's (Reg) does: replicated on the TP
+  group, over the number of batch shards.
 * ``_head`` and ``_nll``: vocab-parallel logits (tied through the embedding
   shard, or an ``lm_head`` shard), then cross entropy with the max and the
   sum of exp taken over ``model`` and the label's logit from the rank that
@@ -64,8 +72,8 @@ entropy over the global token count, plus the replicated aux terms over
 the number of batch shards), so summing grads over the batch axes gives the
 global step's.
 
-The TP path takes the LM and hybrid families with dense FFNs over the
-``stlt`` (factorized, exponential window, a scan engine), ``attn``,
+The TP path takes the LM and hybrid families with dense FFNs or MoEs over
+the ``stlt`` (factorized, exponential window, a scan engine), ``attn``,
 ``local_attn`` and ``rglru`` blocks; ``tp_refusal`` names what else a
 ``model`` axis > 1 refuses, and the ROADMAP item that ports it. Any other
 arch runs the data axes only, through its own loss on the rank's rows
@@ -89,13 +97,13 @@ from repro_torch.core import stlt as stlt_lib
 from repro_torch.distributed import comm
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import transformer as T
 from repro_torch.utils import tree_flatten_with_paths, tree_map
 
 ROADMAP_TP = ("ROADMAP Queue 1 item 7: TP for stlt_rel blocks, the hann window, the non-scan "
               "STLT engines and the xLSTM and enc-dec families")
-ROADMAP_EP = "ROADMAP Queue 1 item 7: MoE's shard_map EP dispatch"
 TP_BLOCKS = ("stlt", "attn", "local_attn", "rglru")
 
 
@@ -103,8 +111,8 @@ def tp_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why the TP path cannot run ``cfg`` (None when it can)."""
     if cfg.family not in ("lm", "hybrid"):
         return f"the {cfg.family} family ({ROADMAP_TP})"
-    if cfg.is_moe:
-        return f"MoE blocks ({ROADMAP_EP})"
+    if cfg.is_moe and cfg.dense_residual and cfg.act != "swiglu":
+        return f"a {cfg.act} MoE dense branch ({ROADMAP_TP})"
     other = sorted(set(cfg.block_types()) - set(TP_BLOCKS))
     if other:
         return f"block types {other} ({ROADMAP_TP})"
@@ -138,7 +146,13 @@ class ShardCtx:
             why = tp_refusal(cfg)
             if why is not None:
                 raise NotImplementedError(f"a 'model' axis > 1 does not run {why}")
-            dims = [("num_heads", cfg.num_heads), ("vocab", cfg.vocab), ("d_ff", cfg.d_ff)]
+            dims = [("num_heads", cfg.num_heads), ("vocab", cfg.vocab)]
+            if cfg.is_moe:
+                dims.append(("num_experts", cfg.num_experts))
+                if cfg.dense_residual:
+                    dims.append(("dense_ff", cfg.dense_ff or cfg.d_ff))
+            else:
+                dims.append(("d_ff", cfg.d_ff))
             if "rglru" in cfg.block_types():
                 dims.append(("d_model", cfg.d_model))
             for what, n in dims:
@@ -362,20 +376,106 @@ def _own_channels(ctx: ShardCtx, st: dict) -> dict:
     return {k: v.narrow(-1, ctx.tp_rank * d_loc, d_loc) for k, v in st.items()}
 
 
+def _local_moe(ctx: ShardCtx, mp: dict, mpre: str) -> dict:
+    """The rank's share of one MoE block: its experts (the rules shard the
+    expert dim on ``model``), the whole router, the dense branch's
+    columns of ``w1``/``w3`` and rows of ``w2``."""
+    loc = {"router": mp["router"],
+           **{k: ctx.cols(mp[k], f"{mpre}/{k}", 0) for k in ("w1", "w3", "w2")}}
+    if "dense" in mp:
+        dp, dpre = mp["dense"], mpre + "/dense"
+        loc["dense"] = {"w1": ctx.cols(dp["w1"], dpre + "/w1", 1),
+                        "w3": ctx.cols(dp["w3"], dpre + "/w3", 1),
+                        "w2": ctx.cols(dp["w2"], dpre + "/w2", 0)}
+    return loc
+
+
+def apply_moe_ep(params, cfg: moe_lib.MoEConfig, x: torch.Tensor, ep_group=None,
+                 batch_group=None, rank: int = 0):
+    """The expert-parallel MoE on one rank, after the JAX package's
+    ``_apply_moe_shardmap``: x [B_loc, N, d] (or a decode step's [B_loc, d])
+    is the rank's rows, whole on every rank of ``ep_group`` (the ``model``
+    axis); ``params`` the whole ``router``, the rank's experts
+    ``w1``/``w3``/``w2`` [E_loc, ...] (experts [rank E_loc, (rank + 1)
+    E_loc)) and its ``dense_ff`` columns of ``dense``'s ``w1``/``w3`` and
+    rows of ``w2`` (``_local_moe``). ``cfg.dispatch == "gather"`` is the
+    global view over the batch shards of ``batch_group``: capacity from the
+    global token count, each expert's slot positions after the choices of
+    the shards before this one (one all-gather of the rank's E_loc counts;
+    the rows are in rank order), the balance losses from sums over the
+    global batch (one all-reduce of 2E + 1 floats); ``"shard_map"`` each
+    shard's own capacity and positions, the aux losses the shards' mean (as
+    JAX's ``pmean``). Returns (y, whole on every rank, aux {aux_loss,
+    router_z}, equal on every rank of the mesh); ``moe.DROPS`` counts the
+    rank's own experts' drops.
+
+    The gather path's slot table holds only what this rank can keep: E_loc x
+    the most any of its experts keeps here (at most the global capacity; a
+    shard fills about 1 / n_batch of it), read on the host once a call.
+
+    Autograd follows the TP convention (every rank of ``ep_group`` computes
+    the same loss): the experts read x through ``copy_to``, the gates'
+    cotangent, which comes from the rank's experts only, is summed over
+    ``ep_group`` (``partial_replicated``) and the router reads x directly,
+    so the aux losses' grads, whole on every rank, are counted once. The
+    aux sums over ``batch_group`` go through ``all_reduce_sum``: each rank's
+    loss adds its share of them."""
+    squeeze = x.ndim == 2               # a decode step's [B, d]
+    if squeeze:
+        x = x[:, None]
+    B, N, d = x.shape
+    T, E, E_loc = B * N, cfg.num_experts, params["w1"].shape[0]
+    n_batch = comm.group_size(batch_group)
+    xt = x.reshape(T, d)
+    r = moe_lib.route(params, cfg, xt, rank * E_loc)
+    gates = comm.partial_replicated(r.gates, ep_group)
+    if cfg.dispatch == "gather" and n_batch > 1:
+        t_all = T * n_batch
+        sums = comm.all_reduce_sum(torch.cat([r.probs.sum(0), r.top1.sum(0), r.lse2.sum()[None]]),
+                                   batch_group) / t_all
+        aux_loss = cfg.aux_loss_weight * E * torch.sum(sums[:E] * sums[E:2 * E])
+        router_z = cfg.router_z_weight * sums[2 * E]
+        C = moe_lib._capacity(t_all, cfg)
+        counts = comm.all_gather(r.counts[None], 0, batch_group)
+        before = counts[:comm.group_rank(batch_group)].sum(0)
+        glob = r.pos + torch.cat([before, before.new_zeros(1)])[r.local]
+        width = max(1, int(torch.clamp(torch.minimum(r.counts, C - before), min=0).max()))
+    else:
+        C = width = moe_lib._capacity(T, cfg)
+        glob = r.pos
+        aux_loss, router_z = moe_lib.balance_losses(cfg, r.probs, r.top1, r.lse2)
+        if n_batch > 1:                 # JAX's pmean over the batch axes
+            aux_loss = comm.all_reduce_sum(aux_loss, batch_group) / n_batch
+            router_z = comm.all_reduce_sum(router_z, batch_group) / n_batch
+    mine = r.local < E_loc
+    keep = mine & (glob < C)
+    moe_lib.DROPS.add((mine & ~keep).sum())
+    y = moe_lib.experts_combine(params, cfg, comm.copy_to(xt, ep_group), r.local, r.pos, keep,
+                                gates, width, x.dtype)
+    y = comm.reduce_from(y, ep_group).reshape(B, N, d)
+    return (y[:, 0] if squeeze else y), {"aux_loss": aux_loss, "router_z": router_z}
+
+
 def _block(ctx: ShardCtx, p: dict, li: int, btype: str, x, mixer, extra=None):
     """One block on the rank's share, the body the train loss and both
     serving steps share: norm1, ``copy_to``, ``mixer(p, prefix, btype, h,
     extra)`` giving (its partial readout, anything else), the all-reduce,
-    the residual and the FFN. Returns (x, the mixer's other output)."""
+    the residual and the FFN or the MoE. Returns (x, the mixer's other
+    output, the MoE's (aux_loss, router_z): zeros for an FFN)."""
     cfg = ctx.cfg
     pre = f"layers/{li}"
     h = L.apply_norm(cfg.norm, ctx.whole(p["norm1"], pre + "/norm1"), x)
     y, out = mixer(p, pre, btype, comm.copy_to(h, ctx.tp_group), extra)
     x = x + comm.reduce_from(y, ctx.tp_group).to(x.dtype)
+    h2 = L.apply_norm(cfg.norm, ctx.whole(p["norm2"], pre + "/norm2"), x)
+    if cfg.is_moe:
+        y2, aux = apply_moe_ep(_local_moe(ctx, p["moe"], pre + "/moe"), cfg.moe_config(), h2,
+                               ctx.tp_group, ctx.batch_group, ctx.tp_rank)
+        return x + y2.to(x.dtype), out, (aux["aux_loss"], aux["router_z"])
+    zero = torch.zeros((), device=x.device)
     fpre = pre + "/ffn"
     f = p["ffn"]
-    h2 = comm.copy_to(L.apply_norm(cfg.norm, ctx.whole(p["norm2"], pre + "/norm2"), x),
-                      ctx.tp_group)
+    h2 = comm.copy_to(h2, ctx.tp_group)
     if cfg.act == "swiglu":
         a = (F.silu(L.matmul(h2, ctx.cols(f["w1"], fpre + "/w1", 1)))
              * L.matmul(h2, ctx.cols(f["w3"], fpre + "/w3", 1)))
@@ -385,7 +485,7 @@ def _block(ctx: ShardCtx, p: dict, li: int, btype: str, x, mixer, extra=None):
                    + ctx.cols(f["b1"], fpre + "/b1", 0), approximate="tanh")
         y2 = (comm.reduce_from(L.matmul(a, ctx.cols(f["w2"], fpre + "/w2", 0)), ctx.tp_group)
               + ctx.whole({"b2": f["b2"]}, fpre)["b2"])
-    return x + y2.to(x.dtype), out
+    return x + y2.to(x.dtype), out, (zero, zero)
 
 
 def _train_mixer(ctx: ShardCtx, tau):
@@ -498,17 +598,19 @@ def tp_lm_loss(params: dict, ctx: ShardCtx, batch: dict, draws=None, tau=None):
     x = T._with_pe(cfg, _embed(ctx, params, batch["inputs"]))
     btypes, mixer = cfg.block_types(), _train_mixer(ctx, tau)
     block = T._maybe_remat(lambda p, li, x, d: _block(ctx, p, li, btypes[li], x, mixer, d), cfg)
-    reg = s_sum = torch.zeros((), device=x.device)
+    reg = s_sum = aux_loss = router_z = torch.zeros((), device=x.device)
     for li, p in enumerate(params["layers"]):
-        x, (r, s) = block(p, li, x, None if draws is None else draws[li])
+        x, (r, s), (a, z) = block(p, li, x, None if draws is None else draws[li])
         reg, s_sum = reg + r, s_sum + s
+        aux_loss, router_z = aux_loss + a.float(), router_z + z.float()
     nll = _nll(ctx, _head(ctx, params, x), batch["labels"])
     mask = batch.get("mask")
     nll_sum = (nll * mask).sum() if mask is not None else nll.sum()
     count = _token_count(ctx, mask, nll)
-    share = nll_sum / count + reg / ctx.n_batch
+    share = nll_sum / count + (reg + aux_loss + router_z) / ctx.n_batch
     return share, {"ce_sum": nll_sum.detach(), "count": count, "reg": reg.detach(),
-                   "s_sum": s_sum}
+                   "s_sum": s_sum, "aux_loss": aux_loss.detach(),
+                   "router_z": router_z.detach()}
 
 
 def _serve_logits(ctx: ShardCtx, params, x):
@@ -530,7 +632,7 @@ def tp_prefill(params: dict, ctx: ShardCtx, inputs, max_len: int):
     mixer = _prefill_mixer(ctx, max_len)
     states = []
     for li, (btype, p) in enumerate(zip(cfg.block_types(), params["layers"])):
-        x, st = _block(ctx, p, li, btype, x, mixer)
+        x, st, _ = _block(ctx, p, li, btype, x, mixer)
         states.append(st)
     B, N = x.shape[0], x.shape[1]
     pos = torch.full((B,), N, dtype=torch.int32, device=x.device)
@@ -553,7 +655,7 @@ def tp_decode_step(params: dict, ctx: ShardCtx, token_t, state: dict, max_len: i
     states = []
     for li, (btype, p, st) in enumerate(zip(cfg.block_types(), params["layers"],
                                             state["layers"])):
-        x_t, st = _block(ctx, p, li, btype, x_t, mixer, st)
+        x_t, st, _ = _block(ctx, p, li, btype, x_t, mixer, st)
         states.append(st)
     return _serve_logits(ctx, params, x_t), {"layers": states, "pos": pos + 1}
 
@@ -565,7 +667,8 @@ def dp_lm_loss(params: dict, ctx: ShardCtx, batch: dict, loss_fn, draws=None, ta
     cfg = ctx.cfg
     if ctx.n_batch > 1:
         if cfg.is_moe:
-            raise NotImplementedError(f"MoE over more than one batch shard ({ROADMAP_EP})")
+            raise NotImplementedError("MoE over more than one batch shard off the TP path "
+                                      f"({tp_refusal(cfg) or ROADMAP_TP})")
         if cfg.family == "lm" and cfg.stlt_adaptive:
             raise NotImplementedError("adaptive masks over more than one batch shard need "
                                       f"the TP path's global batch mean ({ROADMAP_TP})")

@@ -25,14 +25,16 @@ give the serving cells the same way: their specs (``args``,
 ``in_shardings``, ``out_shardings`` and ``donate_argnums`` equal the JAX
 package's at ``scan_layers=False``), and on a process mesh the step each
 rank calls with its shards (the heads and channels of the LM and hybrid
-families' ``stlt``, ``attn``, ``local_attn`` and ``rglru`` blocks on
-``model`` through ``tensor_parallel.tp_prefill``/``tp_decode_step``; every
-arch's rows on its data axes). ``lower_cell`` (the dry-run) raises: ROADMAP
+families' ``stlt``, ``attn``, ``local_attn`` and ``rglru`` blocks and the
+experts of their MoEs on ``model`` through
+``tensor_parallel.tp_prefill``/``tp_decode_step``; every arch's rows on its
+data axes). ``lower_cell`` (the dry-run) raises: ROADMAP
 Queue 1 item 7.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Callable, Optional
 from unittest import mock
 
@@ -289,7 +291,6 @@ def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
     counted = {k: all(mesh.coord(a) == 0 for a in mesh.axis_names if a not in sp.mesh_axes())
                for k, sp in specs.items()}
     cast = {k: casts_for_compute(s) for k, s in shapes.items()}
-    sharded = any(sp.mesh_axes() for sp in specs.values())
     b_loc = global_batch // (mesh.axis_size(bax) if bax else 1)
     b_off = (mesh.coord(bax) if bax else 0) * b_loc
     h_loc = cfg.num_heads // ctx.tp_size
@@ -324,16 +325,26 @@ def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
                 sq = sq + torch.sum(torch.square(g.float()))
         return torch.sqrt(comm.all_reduce(sq, mesh.group(mesh.axis_names)))
 
+    # adafactor's factored moments and its update's RMS are means over whole
+    # rows, columns and leaves: over a sharded dim, the shard's sum
+    # all-reduced over the dim's axes (each rank updates its shards only).
+    # The update reads a factored moment laid out as its leaf's dims are;
+    # the rules lay some out otherwise (a square matrix's ``vc`` takes
+    # ``vr``'s spec), and those are moved there and back
+    means = {k: _sharded_mean(specs[k], shapes[k], mesh) for k in specs}
+    moved = _moment_layouts(ospecs, specs, shapes)
+
+    def relayout(state, back: bool):
+        return tree_unflatten(state, [
+            _relayout(x, *(moved[k][::-1] if back else moved[k]), mesh) if k in moved else x
+            for k, x in tree_flatten_with_paths(state)])
+
     def optimizer_update(grads, opt_state, params, lr):
-        if cfg.optimizer == "adamw" or not sharded:
+        if cfg.optimizer == "adamw":
             return opt.update(grads, opt_state, params, lr, default_wd_mask(params, cfg))
-        # adafactor's factored moments read whole rows and columns: the
-        # update runs on the gathered leaves, each rank keeps its shards
-        full = [sh.gather_full(t, s, mesh) for t, s in ((grads, pspecs), (opt_state, ospecs),
-                                                         (params, pspecs))]
-        updates, state = opt.update(full[0], full[1], full[2], lr, None)
-        return (sh.local_slices(updates, pspecs, mesh),
-                sh.local_slices(state, ospecs, mesh))
+        updates, state = opt.update(grads, relayout(opt_state, False), params, lr, None,
+                                    means=[means[k] for k, _ in tree_flatten_with_paths(params)])
+        return updates, relayout(state, True)
 
     def step_fn(params, opt_state, batch, step: int, draws=None):
         tau, lr = schedules(step)
@@ -365,6 +376,57 @@ def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
     return step_fn
 
 
+def _sharded_mean(spec, shape: tuple, mesh) -> Callable:
+    """mean(x, dims) -> the mean over ``dims`` (dims kept) of the whole leaf
+    of ``shape`` whose shard under ``spec`` x is (or a tensor of its rank
+    reduced along other dims): over a dim the spec shards, the shard's sum
+    all-reduced over that dim's axes."""
+    axes_of = dict(sh._entries(spec, len(shape)))
+
+    def mean(x, dims):
+        dims = tuple(d % x.ndim for d in dims)
+        axes = tuple(a for d in dims for a in axes_of.get(d, ()))
+        if not axes:
+            return x.mean(dims, keepdim=True)
+        n = 1
+        for d in dims:
+            n *= shape[d]
+        return comm.all_reduce(x.sum(dims, keepdim=True), mesh.group(axes)) / n
+
+    return mean
+
+
+def _moment_layouts(ospecs, specs: dict, shapes: dict) -> dict:
+    """{state path: (its spec, the spec of its leaf's dims)} for each
+    factored moment whose spec is not the one its leaf's dims give (``vr``
+    drops the leaf's last dim, ``vc`` its second last)."""
+    out = {}
+    for path, spec in tree_flatten_with_paths(ospecs):
+        m = re.match(r"^v/(.*)/(vr|vc)$", path)
+        if not m or m.group(1) not in specs:
+            continue
+        nd = len(shapes[m.group(1)])
+        sp = tuple(specs[m.group(1)]) + (None,) * (nd - len(specs[m.group(1)]))
+        own = P(*(sp[:-1] if m.group(2) == "vr" else sp[:-2] + sp[-1:]))
+        if tuple(own) != tuple(spec) + (None,) * (len(own) - len(spec)):
+            out[path] = (spec, own)
+    return out
+
+
+def _relayout(x, src, dst, mesh):
+    """x, this rank's shard under ``src``, as its shard under ``dst``."""
+    have, want = dict(sh._entries(src, x.ndim)), dict(sh._entries(dst, x.ndim))
+    for dim in range(x.ndim):
+        a, b = have.get(dim, ()), want.get(dim, ())
+        if a == b:
+            continue
+        if a:
+            x = comm.all_gather(x, dim, mesh.group(a))
+        if b:
+            x = sh.local_slice(x, P(*([None] * dim), b), mesh).contiguous()
+    return x
+
+
 def _step_metrics(cfg, ctx, use_tp: bool, m: dict, global_batch: int) -> dict:
     """The global step's metrics on every rank."""
     def over_batch(v):
@@ -373,7 +435,6 @@ def _step_metrics(cfg, ctx, use_tp: bool, m: dict, global_batch: int) -> dict:
     if not use_tp:
         return {k: over_batch(v) / ctx.n_batch for k, v in m.items()}
     ce = over_batch(m["ce_sum"]) / m["count"]
-    zero = torch.zeros((), device=ce.device)
     n_stlt = sum(bt == "stlt" for bt in cfg.block_types())
     if n_stlt and cfg.stlt_adaptive:    # the masks' mean over the STLT layers
         s = m["s_sum"]
@@ -382,8 +443,8 @@ def _step_metrics(cfg, ctx, use_tp: bool, m: dict, global_batch: int) -> dict:
         s_eff = over_batch(s) / (cfg.num_heads * global_batch * n_stlt)
     else:
         s_eff = torch.tensor(float(cfg.stlt_nodes if n_stlt else 0), device=ce.device)
-    return {"loss": ce + m["reg"], "ce": ce, "reg": m["reg"], "aux_loss": zero,
-            "router_z": zero, "s_eff": s_eff}
+    return {"loss": ce + m["reg"] + m["aux_loss"] + m["router_z"], "ce": ce, "reg": m["reg"],
+            "aux_loss": m["aux_loss"], "router_z": m["router_z"], "s_eff": s_eff}
 
 
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -411,8 +472,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def opt_init(params):
         if cfg.optimizer == "adamw" or not isinstance(mesh, comm.DistMesh):
             return opt.init(params)
-        full = sh.gather_full(params, pspecs, mesh)     # factored on the whole shapes
-        return sh.local_slices(opt.init(full), ospecs, mesh)
+        # factored on the whole shapes: the rank's shards of zeros
+        return tree_map(lambda t, sp: (torch.zeros(sh.local_slice(t, sp, mesh).shape,
+                                                   dtype=t.dtype, device=mesh.device)
+                                       if isinstance(t, torch.Tensor) else t), oshapes, ospecs)
 
     args = (pshapes, oshapes, batch_shapes, _meta((), torch.int32))
     return CellProgram("train", fn, args, (pspecs, ospecs, batch_spec, P()), out_sh,

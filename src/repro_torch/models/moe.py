@@ -21,9 +21,15 @@ Three places where the frameworks differ and the port follows JAX:
 - the combine adds each token's K contributions one after another in the
   activation dtype, in slot order, as JAX's scatter-add does, never by an
   atomic ``index_add_`` (unordered on the card in bf16);
-- ``dispatch="shard_map"`` is the JAX package's explicit expert-parallel
-  path; without a mesh it runs the gather path, which is all the port has
-  (multi-device serving, ROADMAP Queue 1 item 7).
+- without a mesh ``apply_moe`` runs the gather path whatever ``dispatch``
+  says, as the JAX package's does outside a mesh.
+
+``route`` (the router over every expert, each choice's slot among the
+experts a call holds) and ``experts_combine`` (the slot table, the stacked
+products, the combine and the dense branch) are the local steps that
+``apply_moe`` and the expert-parallel form on a (``data``, ``model``) mesh,
+``distributed/tensor_parallel.apply_moe_ep``, share; the mesh's capacity,
+slot offsets and balance sums are that module's.
 
 ``DROPS`` counts the dropped (token, expert) choices of every call since its
 last ``reset``, on each device without a host sync (tests and
@@ -32,7 +38,7 @@ last ``reset``, on each device without a host sync (tests and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +60,7 @@ class MoEConfig:
     router_z_weight: float = 1e-3
     act: str = "swiglu"
     param_dtype: Any = torch.float32
-    dispatch: str = "gather"      # gather | shard_map (the gather path here)
+    dispatch: str = "gather"      # gather | shard_map (on a mesh: tensor_parallel.apply_moe_ep)
 
 
 class DropCounter:
@@ -101,9 +107,19 @@ def _capacity(tokens: int, cfg: MoEConfig) -> int:
 
 
 def apply_moe(params, cfg: MoEConfig, x: torch.Tensor):
-    """x [B, N, d] -> (y [B, N, d], aux {aux_loss, router_z}). Every
-    ``dispatch`` runs the gather path (one device, no mesh)."""
-    return _apply_moe_gather(params, cfg, x)
+    """x [B, N, d] -> (y [B, N, d], aux {aux_loss, router_z}) on one device:
+    every ``dispatch`` runs the gather path (``tensor_parallel.apply_moe_ep``
+    is the mesh's form, over the same ``route`` and ``experts_combine``)."""
+    B, N, d = x.shape
+    T = B * N
+    xt = x.reshape(T, d)
+    r = route(params, cfg, xt)
+    aux_loss, router_z = balance_losses(cfg, r.probs, r.top1, r.lse2)
+    C = _capacity(T, cfg)
+    keep = r.pos < C
+    DROPS.add((~keep).sum())
+    y = experts_combine(params, cfg, xt, r.local, r.pos, keep, r.gates, C, x.dtype)
+    return y.reshape(B, N, d), {"aux_loss": aux_loss, "router_z": router_z}
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -120,58 +136,70 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _apply_moe_gather(params, cfg: MoEConfig, x: torch.Tensor):
-    B, N, d = x.shape
-    T = B * N
-    E, K = cfg.num_experts, cfg.top_k
-    xt = x.reshape(T, d)
+class Routing(NamedTuple):
+    """``route``'s result for T tokens and K choices each (K fastest)."""
+    probs: torch.Tensor      # [T, E] fp32, every expert
+    top1: torch.Tensor       # [T, E] the top-1 one-hots
+    lse2: torch.Tensor       # [T] the logits' squared log-sum-exp
+    gates: torch.Tensor      # [T, K] the top-K probs renormalized
+    local: torch.Tensor      # [T*K] the choice's expert among the held ones; n: none
+    pos: torch.Tensor        # [T*K] its position among this call's choices of it
+    counts: torch.Tensor     # [n] int32: this call's choices of each held expert
 
-    logits = L.matmul(xt, params["router"]).float()       # [T, E]
+
+def route(params, cfg: MoEConfig, xt: torch.Tensor, first: int = 0) -> Routing:
+    """The router over every expert for xt [T, d], and the slots of the
+    choices of the n experts ``params`` hold, [first, first + n): each
+    choice's expert among them (the others go to the drop bin n) and its
+    position among this call's choices of that expert, in token order."""
+    n = params["w1"].shape[0]
+    logits = L.matmul(xt, params["router"]).float()
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, exp_idx = _top_k(probs, K)                 # [T, K]
+    gate_vals, exp_idx = _top_k(probs, cfg.top_k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    flat_e = exp_idx.reshape(-1) - first                  # [T*K], K fastest
+    local = torch.where((flat_e >= 0) & (flat_e < n), flat_e, n)
+    onehot = F.one_hot(local, n + 1)                      # [T*K, n + 1]
+    pos = torch.gather(torch.cumsum(onehot, dim=0) - onehot, 1, local[:, None])[:, 0]
+    return Routing(probs, F.one_hot(exp_idx[:, 0], cfg.num_experts).float(),
+                   torch.square(torch.logsumexp(logits, -1)), gate_vals, local, pos,
+                   onehot[:, :n].sum(0, dtype=torch.int32))
 
-    # --- load-balancing aux losses (Switch/GShard) --------------------------
-    me = probs.mean(0)                                    # mean router prob per expert
-    ce = F.one_hot(exp_idx[:, 0], E).float().mean(0)      # fraction routed (top-1)
-    aux_loss = cfg.aux_loss_weight * E * torch.sum(me * ce)
-    router_z = cfg.router_z_weight * torch.mean(torch.square(torch.logsumexp(logits, -1)))
 
-    # --- slot assignment -----------------------------------------------------
-    C = _capacity(T, cfg)
-    flat_e = exp_idx.reshape(-1)                          # [T*K], K fastest
-    onehot = F.one_hot(flat_e, E)                         # [T*K, E]
-    pos_in_e = torch.cumsum(onehot, dim=0) - onehot       # position BEFORE this choice
-    pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
-    keep = pos < C
-    DROPS.add((~keep).sum())
-    # the [E, C] slot table (sentinel T: the zero row); a dropped choice
-    # writes to the extra column C, which is cut away
-    src_tok = torch.arange(T, device=x.device).repeat_interleave(K)
-    slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=x.device)
-    slot_tok[flat_e, torch.where(keep, pos, C)] = src_tok
-    slot_tok = slot_tok[:, :C]
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    x_e = xt_pad[slot_tok]                                # [E, C, d]
+def balance_losses(cfg: MoEConfig, probs, top1, lse2):
+    """aux_loss and router_z (Switch/GShard) from the mean router prob per
+    expert, the top-1 one-hots and the logits' squared log-sum-exp."""
+    aux_loss = cfg.aux_loss_weight * cfg.num_experts * torch.sum(probs.mean(0) * top1.mean(0))
+    return aux_loss, cfg.router_z_weight * torch.mean(lse2)
 
-    # --- expert computation -------------------------------------------------
+
+def experts_combine(params, cfg: MoEConfig, xt, rows, pos, keep, gate_vals, C: int, dtype):
+    """The slot table [n, C] of the kept choices (expert ``rows``, position
+    ``pos``; sentinel T: the zero row; the others write to an extra row and
+    column, which are cut away), the n stacked expert FFNs on it, and each
+    token's K contributions summed in slot order in ``dtype``, never by an
+    atomic ``index_add_``; plus Arctic's dense branch on ``params["dense"]``:
+    y [T, d]."""
+    T, d = xt.shape
+    K, n = cfg.top_k, params["w1"].shape[0]
+    src_tok = torch.arange(T, device=xt.device).repeat_interleave(K)
+    slot_tok = torch.full((n + 1, C + 1), T, dtype=torch.long, device=xt.device)
+    slot_tok[torch.where(keep, rows, n), torch.where(keep, pos, C)] = src_tok
+    x_e = torch.cat([xt, xt.new_zeros((1, d))], dim=0)[slot_tok[:n, :C]]   # [n, C, d]
+
     h1 = _bmm(x_e, params["w1"])
     if cfg.act == "swiglu":
         h = F.silu(h1) * _bmm(x_e, params["w3"])
     else:
         h = F.gelu(h1, approximate="tanh")
-    y_e = _bmm(h, params["w2"])                           # [E, C, d]
+    y_e = _bmm(h, params["w2"])                           # [n, C, d]
 
-    # --- combine: each token's K contributions summed in slot order, in x's
-    # dtype ------------------------------------------------------------------
-    gate_flat = (gate_vals.reshape(-1) * keep).to(x.dtype)
-    y_slots = y_e[flat_e, torch.clamp(pos, max=C - 1)]   # [T*K, d]
-    contrib = (y_slots * gate_flat[:, None]).to(x.dtype).reshape(T, K, d)
+    gate_flat = (gate_vals.reshape(-1) * keep).to(dtype)
+    y_slots = y_e[torch.clamp(rows, max=n - 1), torch.clamp(pos, max=C - 1)]   # [T*K, d]
+    contrib = (y_slots * gate_flat[:, None]).to(dtype).reshape(T, K, d)
     y = contrib[:, 0]
     for j in range(1, K):
         y = y + contrib[:, j]
-
     if cfg.dense_residual:
         y = y + L.ffn(params["dense"], xt, act=cfg.act)
-
-    return y.reshape(B, N, d), {"aux_loss": aux_loss, "router_z": router_z}
+    return y

@@ -6,6 +6,9 @@ column vector [m] instead of [n, m]; beta1 = 0 (no first moment). Leaves
 with fewer than 2 dims, or a trailing dim under 8, keep a full second
 moment. Update clipping at d = 1 and beta2 = 1 - t^-0.8, as in the paper.
 The state's ``count`` is a Python int, as the port's AdamW keeps it.
+Whether a leaf is factored is read from its state (``init`` decides by the
+whole shape), so ``update`` runs on a rank's shards too, given each
+leaf's ``mean`` over the whole leaf (``launch.steps``' sharded step).
 """
 from __future__ import annotations
 
@@ -22,6 +25,10 @@ CLIP_D = 1.0
 
 def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 8 and shape[-2] >= 8
+
+
+def _whole_mean(x, dims):
+    return x.mean(dims, keepdim=True)
 
 
 def _leaf_states(params, v_tree) -> list:
@@ -49,20 +56,23 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
 
         return {"v": tree_map(per_leaf, params), "count": 0}
 
-    def update(grads, state, params, lr: float, wd_mask=None):
+    def update(grads, state, params, lr: float, wd_mask=None, means=None):
+        """``means`` (None: the leaves are whole) gives each leaf, in the
+        params' leaf order, its ``mean(x, dims)``: the mean over ``dims``
+        (kept) of the whole leaf, of which x is the caller's shard."""
         del wd_mask                      # decay, if any, applies to every leaf
         count = state["count"] + 1
         # in float32, as the JAX package computes them
         beta2 = np.float32(1) - np.float32(count) ** np.float32(-decay_rate)
         b2, one_minus_b2 = float(beta2), float(np.float32(1) - beta2)
 
-        def upd(g, v, p):
+        def upd(g, v, p, mean):
             g = g.float()
             g2 = g * g + EPS1
-            if _factored(p.shape):
-                vr = b2 * v["vr"] + one_minus_b2 * g2.mean(-1)
-                vc = b2 * v["vc"] + one_minus_b2 * g2.mean(-2)
-                denom = vr.mean(-1, keepdim=True)[..., None]
+            if "vr" in v:
+                vr = b2 * v["vr"] + one_minus_b2 * mean(g2, (-1,))[..., 0]
+                vc = b2 * v["vc"] + one_minus_b2 * mean(g2, (-2,))[..., 0, :]
+                denom = mean(vr[..., None], (-2,))
                 vhat = (vr[..., None] * vc[..., None, :]) / torch.clamp(denom, min=EPS1)
                 new_v = {"vr": vr, "vc": vc}
             else:
@@ -70,14 +80,16 @@ def adafactor(learning_rate=None, weight_decay: float = 0.0,
                 new_v = {"v": vhat}
             u = g / torch.sqrt(torch.clamp(vhat, min=EPS1))
             # update clipping: RMS(u) <= d
-            rms_u = torch.sqrt(torch.mean(u * u) + EPS1)
+            rms_u = torch.sqrt(mean(u * u, tuple(range(u.ndim))).reshape(()) + EPS1)
             u = u / torch.clamp(rms_u / CLIP_D, min=1.0)
             step = u + weight_decay * p.float()
             return (-lr * step).to(p.dtype), new_v
 
-        out = [upd(g, v, p) for g, v, p in zip(tree_leaves(grads),
-                                                _leaf_states(params, state["v"]),
-                                                tree_leaves(params))]
+        leaves = tree_leaves(params)
+        means = means or [_whole_mean] * len(leaves)
+        out = [upd(g, v, p, m) for g, v, p, m in zip(tree_leaves(grads),
+                                                      _leaf_states(params, state["v"]),
+                                                      leaves, means)]
         updates = tree_unflatten(params, [o[0] for o in out])
         new_v = tree_unflatten(params, [o[1] for o in out])
         return updates, {"v": new_v, "count": count}

@@ -4,7 +4,8 @@ anti-causal) against float64 autograd through the plain version, and
 continuous serve on the card against the same serve on the CPU (stlt-base,
 each arch added with the untied head and the hybrid family, and the xLSTM
 and MoE archs, whose train step is also held to the CPU's; the MoE
-combine gives the same output on two calls, bit for bit), the
+combine gives the same output on two calls, bit for bit, and the
+expert-parallel form on one rank is the gather path bit for bit), the
 disaggregated fleets' and the sharded engine's serves against the
 colocated single-host card serve, the hann window's forward and decode step
 on the card against the CPU, and ``param_grads="recompute"`` against the
@@ -895,6 +896,35 @@ def test_moe_combine_is_deterministic_on_the_card(dev):
     y, _ = moe.apply_moe(p, cfg, x)
     y_card, _ = moe.apply_moe({k: v.to(dev) for k, v in p.items()}, cfg, x.to(dev))
     _assert_close(y_card.cpu(), y)
+
+
+@pytest.mark.parametrize("dispatch", ["gather", "shard_map"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_apply_moe_ep_on_one_rank_equals_apply_moe_on_the_card(dev, arch, dtype, dispatch):
+    """The expert-parallel MoE with no group (every expert on the rank, one
+    batch shard) is the gather path on the card bit for bit, in either
+    dispatch (one shard's capacity is the global one): y, aux_loss,
+    router_z, and the dropped choices it counts, at reduced widths
+    (capacity factor 0.5, arctic with its dense branch) on 4 x 64 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as tp_lib
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch).reduced().moe_config(), capacity_factor=0.5)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    p = {k: ({n: t.to(dev, dtype) for n, t in v.items()} if isinstance(v, dict)
+             else v.to(dev, dtype)) for k, v in p.items()}
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    moe.DROPS.reset()
+    y, aux = moe.apply_moe(p, cfg, x)
+    drops = moe.DROPS.read()["dropped"]
+    moe.DROPS.reset()
+    y_ep, aux_ep = tp_lib.apply_moe_ep(p, dataclasses.replace(cfg, dispatch=dispatch), x)
+    assert drops > 0 and moe.DROPS.read()["dropped"] == drops
+    assert torch.equal(y_ep, y)
+    for k in ("aux_loss", "router_z"):
+        assert torch.equal(aux_ep[k], aux[k]), k
 
 
 def test_context_parallel_matches_serial_k1_on_the_card(dev, tmp_path):

@@ -24,7 +24,8 @@ once for the module and writes its results; the tests below read them:
   pipeline grads are 1/D of the gradient: ``test_pipeline_matches_jax``);
 * ``remesh`` from 2 x 2 to 1 x 2 against the unsharded tree;
 * the refusals: a ``model`` axis > 1 on a block off the TP path (the
-  relevance readout, ``stlt_rel``), MoE over more than one batch shard.
+  relevance readout, ``stlt_rel``) and on the hann window, a MoE off the TP
+  path over more than one batch shard.
 """
 import dataclasses
 import os
@@ -71,7 +72,8 @@ TRAIN = {"2x2": ("stlt", (2, 2)), "4x1": ("stlt", (4, 1)), "1x4": ("stlt", (1, 4
 JAX_INIT = ("stlt", "stlt-fsdp", "stlt-adaptive")    # params converted from the JAX init
 DP = {"dp-qwen2-4x1": ("qwen2-fsdp", (4, 1)), "dp-qwen2-adafactor-4x1": ("qwen2-adafactor", (4, 1)),
       "tp-wide-1x4": ("stlt-wide", (1, 4))}
-REFUSALS = {"refuse-rel-2x2": ("stlt-rel", (2, 2)), "refuse-moe-4x1": ("moe", (4, 1))}
+REFUSALS = {"refuse-rel-2x2": ("stlt-rel", (2, 2)), "refuse-hann-2x2": ("stlt-hann", (2, 2)),
+            "refuse-moe-4x1": ("moe-hann", (4, 1))}
 
 
 def _cfgs():
@@ -84,7 +86,10 @@ def _cfgs():
             "qwen2-fsdp": dataclasses.replace(qwen2, name="q-fsdp", fsdp=True),
             "qwen2-adafactor": dataclasses.replace(qwen2, name="q-ada", fsdp=True,
                                                    optimizer="adafactor"),
-            "moe": t_configs.get_config("qwen3-moe-235b-a22b").reduced(num_layers=1),
+            "stlt-hann": ModelConfig(**{**CFG_KW, "name": "t-hann", "stlt_window": "hann"}),
+            # MoE off the TP path (the hann window): its data axes run dp_lm_loss
+            "moe-hann": ModelConfig(**{**CFG_KW, "name": "t-moe-hann", "stlt_window": "hann",
+                                       "num_experts": 4, "top_k": 2}),
             "stlt-rel": ModelConfig(**{**CFG_KW, "name": "t-rel", "mixer": "stlt_relevance"}),
             # d_model 4096: the rules shard the norm scales (1-D, >= 4096) on model
             "stlt-wide": ModelConfig(**{**CFG_KW, "name": "t-wide", "num_layers": 1,
@@ -363,10 +368,12 @@ def test_remesh_two_by_two_to_one_by_two(job):
 
 
 @pytest.mark.parametrize("name,what", [("refuse-rel-2x2", "'model' axis > 1"),
+                                       ("refuse-hann-2x2", "/hann/"),
                                        ("refuse-moe-4x1", "MoE over more than one batch")])
 def test_unported_layouts_raise(job, name, what):
-    """A ``model`` axis > 1 on a relevance block (``stlt_rel``) and MoE over
-    several batch shards raise NotImplementedError naming the ROADMAP
-    item."""
+    """A ``model`` axis > 1 on a relevance block (``stlt_rel``) and on the
+    hann window, and a MoE off the TP path (its balance losses and capacity
+    would be per shard) over several batch shards, raise
+    NotImplementedError naming the ROADMAP item."""
     msg = job["res"][name]
     assert msg is not None and what in msg and "ROADMAP Queue 1 item 7" in msg

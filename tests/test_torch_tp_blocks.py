@@ -28,8 +28,8 @@ rank's heads.
   state shards within 1e-4 (1 + max |ref|) of both references, greedy
   tokens equal;
 * the cells' spec trees equal to JAX's, and ``tp_refusal`` passing these
-  configs while it still refuses MoE, ``stlt_rel``, the hann window and a
-  non-scan engine, each naming its ROADMAP item;
+  configs and the MoE archs while it still refuses ``stlt_rel``, the hann
+  window and a non-scan engine, each naming its ROADMAP item;
 * ``comm.partial_replicated``: granite's MQA projections, whole on every
   rank, get the sum of the ranks' partial grads.
 """
@@ -424,14 +424,16 @@ def test_partial_replicated_sums_the_ranks_grads(job):
 
 
 def test_refusals_name_their_roadmap_item():
-    """The five configs pass ``tp_refusal``; MoE, a relevance block, the
-    hann window and a non-scan engine still refuse a ``model`` axis > 1,
-    each naming its ROADMAP Queue 1 item 7 entry."""
-    for cfg in _cfgs().values():
+    """The five configs and the MoE archs (expert parallelism) pass
+    ``tp_refusal``; a relevance block, the hann window and a non-scan engine
+    still refuse a ``model`` axis > 1, each naming its ROADMAP Queue 1 item
+    7 entry."""
+    moe = [t_configs.get_config("qwen3-moe-235b-a22b").reduced(num_layers=1),
+           t_configs.get_config("arctic-480b", "native").reduced(num_layers=1)]
+    for cfg in list(_cfgs().values()) + moe:
         assert tp_lib.tp_refusal(cfg) is None, cfg.name
     base = t_configs.get_config("stlt-base").reduced()
     refused = {
-        "MoE": t_configs.get_config("qwen3-moe-235b-a22b").reduced(num_layers=1),
         "stlt_rel": dataclasses.replace(base, mixer="stlt_relevance"),
         "hann": dataclasses.replace(base, stlt_window="hann"),
         "engine": dataclasses.replace(base, stlt_engine="sequential"),
@@ -439,5 +441,4 @@ def test_refusals_name_their_roadmap_item():
     for what, cfg in refused.items():
         why = tp_lib.tp_refusal(cfg)
         assert why is not None and "ROADMAP Queue 1 item 7" in why, what
-    assert "EP dispatch" in tp_lib.tp_refusal(refused["MoE"])
     assert "stlt_rel" in tp_lib.tp_refusal(refused["stlt_rel"])

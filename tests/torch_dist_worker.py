@@ -1,7 +1,7 @@
 """One rank of the port's multi-device CPU tests (tests/test_torch_distributed.py,
 tests/test_torch_sharded_serve.py, tests/test_torch_tp_blocks.py).
 
-    python tests/torch_dist_worker.py DIR RANK WORLD [cuda-cp | cuda-serve | serve | tp]
+    python tests/torch_dist_worker.py DIR RANK WORLD [cuda-cp | cuda-serve | serve | tp | ep]
 
 Joins a gloo job through the file store ``DIR/store``, reads the inputs the
 test wrote to ``DIR/inputs.pt`` (made with numpy from a seed), runs every
@@ -10,7 +10,9 @@ scenario in turn and, on rank 0, writes what it gathered to
 holds the results to the JAX package. With ``serve`` the scenarios are the
 sharded serving cells and the process form of the sharded engine; with
 ``tp`` the train, prefill and decode cells of the attention and hybrid
-archs and the partial-grad sum of whole KV projections. With
+archs and the partial-grad sum of whole KV projections; with ``ep`` the
+MoE archs' cells in both dispatches, ``tensor_parallel.apply_moe_ep``'s
+forward and grads, and the router's grad summed over ``model``. With
 ``cuda-cp`` every rank runs the context-parallel STLT on the card (K1) and
 writes its error against the serial K1 call to ``DIR/cp<RANK>.pt``
 (tests/test_torch_cuda.py).
@@ -31,6 +33,7 @@ from repro_torch.distributed.context_parallel import stlt_context_parallel  # no
 from repro_torch.distributed.fault_tolerance import remesh  # noqa: E402
 from repro_torch.distributed.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 
@@ -127,8 +130,10 @@ def cell_scenario(inp, case):
     full = steps.serving_params(inp["params"][cfg.name], cfg)
     params = sh.local_slices(full, pre.in_shardings[0], mesh)
     x = inp["prompts"][case["cfg"]]
+    moe.DROPS.reset()
     out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names},
-           "prefill": _np(pre.fn(params, sh.local_slices(x, pre.in_shardings[1], mesh)))}
+           "prefill": _np(pre.fn(params, sh.local_slices(x, pre.in_shardings[1], mesh))),
+           "prefill_drops": moe.DROPS.read()["dropped"]}
     if cfg.family == "encdec":
         state = W.init_encdec_decode_state(full, cfg, x, B, M)
         tok = inp["tok0"]
@@ -217,17 +222,16 @@ def serve_main(root: str, rank: int, world: int):
     torch.distributed.destroy_process_group()
 
 
-def partial_scenario(inp):
-    """One loss and grad of granite's reduced config (1 KV head: ``wk`` and
-    ``wv`` whole on every rank of a model group) on the case's mesh, with
+def partial_scenario(inp, c, names):
+    """One loss and grad of the case's config on its mesh, with
     ``comm.partial_replicated`` and with it made the identity: the rank's
-    grad shards of both, the single-device grad's matching slice, and the
-    spec."""
+    grad shards of the leaves ``names`` (whole on every rank of a model
+    group: granite's one KV head's ``wk`` and ``wv``, a MoE's router) under
+    both, the single-device grad's matching slice, and the spec."""
     from repro_torch.distributed import tensor_parallel as tp_lib
     from repro_torch.models import transformer as T
     from repro_torch.utils import tree_flatten_with_paths, tree_unflatten
 
-    c = inp["partial"]
     cfg = inp["cfgs"][c["cfg"]]
     mesh = comm.make_mesh(c["mesh"], ("data", "model"), device="cpu")
     B, N = inp["B"], inp["N"]
@@ -238,7 +242,6 @@ def partial_scenario(inp):
     batch = inp["batches"][c["cfg"]][0]
     bax = steps._batch_axes(cfg, mesh, B)
     ctx = tp_lib.ShardCtx(cfg, mesh, pspecs, bax, B)
-    names = [f"layers/0/attn/{k}" for k in ("wk", "wv")]
 
     def grads(params):
         paths, leaves = zip(*((k, v.detach().requires_grad_(True))
@@ -290,7 +293,73 @@ def tp_main(root: str, rank: int, world: int):
         res[name] = cell_scenario(inp, case)
         train = train_scenario(view, cfg, case["mesh"], inp["steps"])
         res[name]["train"] = train if rank == 0 else None
-    res["partial"] = partial_scenario(inp)
+    res["partial"] = partial_scenario(inp, inp["partial"],
+                                      [f"layers/0/attn/{k}" for k in ("wk", "wv")])
+    gathered = [None] * world
+    torch.distributed.all_gather_object(gathered, res)
+    if rank == 0:
+        torch.save(gathered, f"{root}/results.pt")
+    torch.distributed.destroy_process_group()
+
+
+def ep_apply_scenario(inp, case):
+    """``tensor_parallel.apply_moe_ep`` alone on layer 0's MoE of the case's
+    config (its dispatch) on the case's mesh, on the rank's rows of
+    ``moe_x``: the rank's y and aux, and the grads of 1e-3 sum(y^2) +
+    aux_loss + router_z (each rank's share: its rows' sum, the aux over the
+    batch shards) gathered whole."""
+    from repro_torch.distributed import tensor_parallel as tp_lib
+    from repro_torch.utils import tree_flatten_with_paths, tree_unflatten
+
+    cfg = inp["cfgs"][case["cfg"]]
+    mesh = comm.make_mesh(case["mesh"], ("data", "model"), device="cpu")
+    full = inp["params"][cfg.name]
+    B = inp["moe_x"].shape[0]
+    pspecs = sh.param_specs(full, cfg, mesh)
+    bax = steps._batch_axes(cfg, mesh, B)
+    ctx = tp_lib.ShardCtx(cfg, mesh, pspecs, bax, B)
+    paths, leaves = zip(*((k, v.detach().requires_grad_(True)) for k, v in
+                          tree_flatten_with_paths(sh.local_slices(full, pspecs, mesh))))
+    p = ctx.gather_fsdp(tree_unflatten(full, leaves))
+    loc = tp_lib._local_moe(ctx, p["layers"][0]["moe"], "layers/0/moe")
+    x = sh.local_slice(inp["moe_x"], sh.P(bax or None), mesh)
+    y, aux = tp_lib.apply_moe_ep(loc, cfg.moe_config(), x, ctx.tp_group, ctx.batch_group,
+                                 ctx.tp_rank)
+    share = 1e-3 * (y ** 2).sum() + (aux["aux_loss"] + aux["router_z"]) / ctx.n_batch
+    idx = [i for i, k in enumerate(paths) if k.startswith("layers/0/moe/")]
+    g = torch.autograd.grad(share, [leaves[i] for i in idx])
+    specs = dict(tree_flatten_with_paths(pspecs))
+    grads = {}
+    for i, gi in zip(idx, g):
+        axes = tuple(a for a in bax if a not in specs[paths[i]].mesh_axes())
+        gi = comm.all_reduce(gi, mesh.group(axes)) if axes else gi
+        grads[paths[i][len("layers/0/moe/"):]] = _np(sh.gather_leaf(gi, specs[paths[i]], mesh))
+    return {"coords": {a: mesh.coord(a) for a in mesh.axis_names}, "y": _np(y),
+            "aux": {k: float(v.detach()) for k, v in aux.items()}, "grads": grads}
+
+
+def ep_main(root: str, rank: int, world: int):
+    torch.set_num_threads(1)
+    comm.init_process_group(f"file://{root}/store", world, rank, "gloo")
+    inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+    from repro_torch.models import transformer as T
+
+    res = {"single_drops": {}}
+    for key, cfg in inp["cfgs"].items():
+        moe.DROPS.reset()
+        T.prefill(inp["params"][cfg.name], cfg, inp["prompts"][key], max_len=inp["N"])
+        res["single_drops"][key] = moe.DROPS.read()["dropped"]
+    for name, case in inp["cells"].items():
+        res[name] = cell_scenario(inp, case)
+        if case.get("train"):
+            cfg = inp["cfgs"][case["cfg"]]
+            view = {**inp, "batches": inp["batches"][case["cfg"]], "seq": inp["N"],
+                    "batch": inp["B"], "draws": {}}
+            train = train_scenario(view, cfg, case["mesh"], inp["steps"])
+            res[name]["train"] = train if rank == 0 else None
+    for name, case in inp["apply"].items():
+        res[name] = ep_apply_scenario(inp, case)
+    res["router"] = partial_scenario(inp, inp["router"], ["layers/0/moe/router"])
     gathered = [None] * world
     torch.distributed.all_gather_object(gathered, res)
     if rank == 0:
@@ -359,6 +428,8 @@ if __name__ == "__main__":
             serve_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
         elif sys.argv[4:] == ["tp"]:
             tp_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+        elif sys.argv[4:] == ["ep"]:
+            ep_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
         else:
             main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
     except BaseException:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Phases DT and DS: the port's multi-device training and serving layers at
-stlt-base's full width.
+"""Phases DT, DS, DA and DM: the port's multi-device training and serving
+layers at full width.
 
     python3 tools/phase_dt.py                            # 4 ranks, NCCL, one card each
     python3 tools/phase_dt.py --backend gloo --cards 1   # 4 ranks sharing one card
@@ -56,6 +56,16 @@ Phase DS, the sharded serving layer, runs in the same rank job:
   request's host and ticks equal, streams equal under the near-tie rule, K1
   = 6 x each rank's admission dispatches. TTFT, gaps, wall and the bytes
   exchanged a tick.
+
+Phases DA (tensor parallelism beyond the STLT block: chatglm3-6b,
+recurrentgemma-9b) and DM (expert parallelism: qwen3-moe-235b-a22b at 1
+layer, its experts on ``model``; DM1 the 1 x 4 train, prefill and decode
+cells of both forms, DM2 the native form's 2 x 2 prefill and decode cells,
+whose capacity and slot positions span two data shards) run the same rank
+job's last, at full width in fp32, against the single-device functions,
+each reference alone on the card (``_in_turns``): DT1's train gates, DS1's
+serving gates, K1 per rank, and for DM the drops summed over the ranks
+equal to the single-device call's.
 """
 from __future__ import annotations
 
@@ -94,7 +104,7 @@ DS_LOGIT_TOL = 1e-3           # fp32 logits (chip_smoke.LOGIT_TOL, phases 4-5)
 # DA1's 2 x 2 serve cell takes DA_FSDP_NEW steps.
 DA1_ARCH, DA1_LAYERS = "chatglm3-6b", 2
 DA2_ARCH, DA2_LAYERS = "recurrentgemma-9b", 3       # one period: rg-LRU, rg-LRU, attn/STLT
-DA_B, DA_N, DA_NEW, DA_FSDP_NEW, DA_TRAIN_STEPS = 4, 1024, 16, 4, (0, 1)
+DA_B, DA_N, DA_NEW, DA_FSDP_NEW, DA_TRAIN_STEPS = 4, 1024, 16, 1, (0, 1)
 # DA2's train cell runs on 1 x 4 at 4 x 512. On 2 x 2 its FSDP layout moves
 # 2.9 GB of all-gather and 5.6-5.9 GB of reduction per rank per step
 # through gloo (24-42 s a step on one card: 69-104 s of the script's time
@@ -107,6 +117,22 @@ DA_LOGIT_TOL = DS_LOGIT_TOL
 # makes 3 a train step (forward, remat recompute, dx), 1 a prefill (the
 # stateful call), none a decode step; the native forms make none.
 DA_K1 = {"train": 3, "prefill": 1, "decode": 0}
+# Phase DM: expert parallelism, qwen3-moe-235b-a22b at full width (d_model
+# 4096, 64 heads, 4 KV heads, 128 experts of 1,536, top-8, vocab 151,936)
+# cut to 1 of 94 layers, fp32, random weights from seed 0 (3.7B params,
+# 14.9 GB). DM1 on 1 x 4 (EP 4: 32 experts a rank; ``data`` has size 1, so
+# FSDP moves nothing), both forms: the train cell at M3's 2 x 1024 (2
+# adafactor steps), the prefill cell at 4 x 1024 and DM_NEW decode-cell
+# steps (a step routes its 4 tokens alone, far under capacity: more steps
+# add time, not routing cases). DM2 the native form's 2 x 2 prefill and decode cells with
+# ``fsdp=False`` (FSDP over gloo on one card would move ~2.4 GB of expert
+# shards per rank per call): the global view's capacity and slot offsets
+# across two data shards. DA's gates; the drops summed over the ranks equal
+# the single-device call's, and DM2's prefill must drop; K1 per rank equals
+# the single-device count (3 a train step, 1 a prefill, 0 a decode step in
+# the STLT form, on 2 x 16 and 4 x 16 rows), 0 in the native form.
+DM_ARCH, DM_LAYERS = "qwen3-moe-235b-a22b", 1
+DM_TRAIN_B, DM_TRAIN_N, DM_NEW = 2, 1024, 4
 
 
 def _timed(fn):
@@ -505,11 +531,56 @@ def _gap_over(got, want, tol) -> float:
         tol * (1 + float(want.float().abs().max())))
 
 
-def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None):
+class _RankView:
+    """``mesh`` seen from global rank ``r`` (its coordinates, row-major over
+    the axis names), as ``sharding.local_slice`` reads a mesh."""
+
+    def __init__(self, mesh, r: int):
+        self.mesh, self._coords = mesh, {}
+        for a in reversed(mesh.axis_names):
+            self._coords[a], r = r % mesh.shape[a], r // mesh.shape[a]
+
+    def axis_size(self, axes) -> int:
+        return self.mesh.axis_size(axes)
+
+    def coord(self, axes) -> int:
+        idx = 0
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx = idx * self.mesh.shape[a] + self._coords[a]
+        return idx
+
+
+def _hand_out(full, shards, specs, mesh, rank) -> dict:
+    """Each rank's slices of rank 0's whole tree ``full`` (None elsewhere),
+    shaped as the rank's ``shards``, on the host: rank 0 sends the other
+    ranks their slices of each leaf at once (point to point over the job's
+    group, host copies), which keeps one leaf on the host at a time."""
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.utils import tree_flatten_with_paths
+
+    want = dict(tree_flatten_with_paths(full)) if rank == 0 else None
+    out = {}
+    for path, shard in tree_flatten_with_paths(shards):
+        if rank == 0:
+            parts = [sh.local_slice(want[path], specs[path], _RankView(mesh, r)).to("cpu")
+                     .contiguous() for r in range(1, WORLD)]
+            for req in [torch.distributed.isend(t, r) for r, t in enumerate(parts, 1)]:
+                req.wait()
+            out[path] = sh.local_slice(want[path], specs[path], mesh).to("cpu", copy=True)
+        else:
+            out[path] = torch.empty(shard.shape, dtype=shard.dtype)
+            torch.distributed.recv(out[path], 0)
+    return out
+
+
+def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None, B=DA_B):
     """The train cell on ``mesh_shape`` against the single-device
-    ``make_step`` (run by each rank in its turn, which keeps its own slices
-    of the reference's params): the steps DA_TRAIN_STEPS of DA_B x N
-    (DA_N) tokens from the init."""
+    ``make_step`` (rank 0 runs it alone on the card, then hands each rank
+    its slices of the final params, ``_hand_out``): the steps
+    DA_TRAIN_STEPS of B x N (DA_N) tokens from the init;
+    each call's K1 launches and MoE drops beside the reference's."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -517,34 +588,45 @@ def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None):
     from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import stlt_scan as k1
     from repro_torch.launch import steps, train
+    from repro_torch.models import moe
     from repro_torch.utils import tree_flatten_with_paths
 
     t0, N = time.time(), N or DA_N
     tcfg = TrainConfig(total_steps=100, warmup_steps=2)
     mesh = comm.make_mesh(mesh_shape, ("data", "model"), device=dev)
-    prog = steps.build_train_step(cfg, ShapeConfig(tag, N, DA_B, "train"), mesh, tcfg)
+    prog = steps.build_train_step(cfg, ShapeConfig(tag, N, B, "train"), mesh, tcfg)
     pspecs, _, bspec, _ = prog.in_shardings
     specs = dict(tree_flatten_with_paths(pspecs))
-    batches = [_batch(step, dev, cfg.vocab, DA_B, N) for step in DA_TRAIN_STEPS]
-    held, row = {}, {"mesh": list(mesh_shape), "tokens": [DA_B, N], "ref": []}
+    batches = [_batch(step, dev, cfg.vocab, B, N) for step in DA_TRAIN_STEPS]
+    held, row = {}, {"mesh": list(mesh_shape), "tokens": [B, N], "ref": []}
 
-    def reference():
+    def draw():
         full = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         held["params"] = sh.local_slices(full, pspecs, mesh)
+
+    _in_turns(rank, draw)
+    ref = None
+    if rank == 0:       # alone on the card: the other ranks wait at the barrier
         opt, ref_step = train.make_step(cfg, tcfg)
-        ref, state = full, opt.init(full)
-        del full
+        ref = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        state = opt.init(ref)
         for step, batch in zip(DA_TRAIN_STEPS, batches):
             k1.stlt_scan_kernel.launches = 0
+            moe.DROPS.reset()
             (ref, state, m), ms = _timed(lambda: ref_step(ref, state, batch, step))
             row["ref"].append({"ms": ms, "k1": k1.stlt_scan_kernel.launches,
+                               "drops": moe.DROPS.read()["dropped"],
                                "loss": float(m["loss"]),
                                "metrics": {k: float(m[k]) for k in DT1_METRICS}})
-        held["ref"] = {path: sh.local_slice(leaf, specs[path], mesh).to("cpu", copy=True)
-                       for path, leaf in tree_flatten_with_paths(ref)}
-        del ref, state
-
-    _in_turns(rank, reference)
+        del state
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    box = [row["ref"]]
+    torch.distributed.broadcast_object_list(box, src=0)
+    row["ref"] = box[0]
+    held["ref"] = _hand_out(ref, held["params"], specs, mesh, rank)
+    del ref
+    torch.cuda.empty_cache()
     row["ref_s"] = time.time() - t0
     params = held.pop("params")
     state = prog.opt_init(params)
@@ -552,9 +634,11 @@ def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None):
     for step, batch in zip(DA_TRAIN_STEPS, batches):
         comm.reset_stats()
         k1.stlt_scan_kernel.launches = 0
+        moe.DROPS.reset()
         (params, state, m), ms = _timed(
             lambda: prog.fn(params, state, sh.local_slices(batch, bspec, mesh), step))
         row["steps"].append({"ms": ms, "k1": k1.stlt_scan_kernel.launches,
+                             "drops": moe.DROPS.read()["dropped"],
                              "bytes": dict(comm.STATS), "loss": float(m["loss"]),
                              "metrics": {k: float(m[k]) for k in DT1_METRICS}})
     worst, over = 0.0, []
@@ -578,11 +662,13 @@ def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None):
 def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
     """The prefill cell (DA_B x DA_N) and ``new`` greedy decode-cell steps on
     ``mesh_shape`` against the single-device ``prefill``/``decode_step``
-    (rank 0 runs them while the others wait, then hands them its results):
+    (each rank in its turn draws the params and keeps its shards; rank 0
+    runs the reference in its turn, then hands the others its results):
     the decode starts from the single-device prefill's state at DA_N +
     ``new`` positions, as the decode cell sizes its caches; the rank's rows
     of the logits within DA_LOGIT_TOL, its state shards within K1's gate of
-    the reference's slices, the streams equal under the near-tie rule."""
+    the reference's slices, the streams equal under the near-tie rule. K1
+    launches and MoE drops per call beside the reference's."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -590,6 +676,7 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
     from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import stlt_scan as k1
     from repro_torch.launch import steps
+    from repro_torch.models import moe
     from repro_torch.utils import tree_flatten_with_paths, tree_map
 
     t0, (B, N) = time.time(), (DA_B, DA_N)
@@ -598,35 +685,48 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
     dec = steps.build_decode_step(cfg, ShapeConfig(tag, N + new, B, "decode"), mesh)
     toks = torch.randint(0, cfg.vocab, (B, N), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(4))
-    row = {"mesh": list(mesh_shape), "new": new}
-    full = steps.serving_params(
-        T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg)
-    params = sh.local_slices(full, pre.in_shardings[0], mesh)
+    row = {"mesh": list(mesh_shape), "new": new, "fsdp": cfg.fsdp,
+           "dispatch": cfg.moe_dispatch}
     host = lambda tree: tree_map(lambda t: t.to("cpu"), tree)  # noqa: E731
-    ref = {}
-    if rank == 0:
-        with torch.no_grad():
-            T.prefill(full, cfg, toks, max_len=N)                 # warm
-            (logits, state), ref["prefill_ms"] = _timed(
-                lambda: T.prefill(full, cfg, toks, max_len=N))
-            ref["prefill"] = host((logits, state))
-            logits, state = T.prefill(full, cfg, toks, max_len=N + new)
-            tok = logits.argmax(-1).to(torch.int32)
-            ref["start"], ref["decode_ms"], ref["logits"] = host((state, tok)), [], []
-            for _ in range(new):
-                (logits, state), ms = _timed(lambda: T.decode_step(full, cfg, tok, state))
-                ref["decode_ms"].append(ms)
-                ref["logits"].append(logits.to("cpu"))
+    ref, held = {}, {}
+
+    def draw():
+        full = steps.serving_params(
+            T.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), cfg)
+        held["params"] = sh.local_slices(full, pre.in_shardings[0], mesh)
+        if rank == 0:
+            with torch.no_grad():
+                T.prefill(full, cfg, toks, max_len=N)                 # warm
+                k1.stlt_scan_kernel.launches = 0
+                moe.DROPS.reset()
+                (logits, state), ref["prefill_ms"] = _timed(
+                    lambda: T.prefill(full, cfg, toks, max_len=N))
+                ref["prefill_k1"] = k1.stlt_scan_kernel.launches
+                ref["prefill_drops"] = moe.DROPS.read()["dropped"]
+                ref["prefill"] = host((logits, state))
+                logits, state = T.prefill(full, cfg, toks, max_len=N + new)
                 tok = logits.argmax(-1).to(torch.int32)
-            ref["final"] = host(state)
-        del logits, state, tok
-    del full
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+                ref["start"], ref["decode_ms"], ref["logits"] = host((state, tok)), [], []
+                ref["decode_k1"], ref["decode_drops"] = [], []
+                for _ in range(new):
+                    k1.stlt_scan_kernel.launches = 0
+                    moe.DROPS.reset()
+                    (logits, state), ms = _timed(lambda: T.decode_step(full, cfg, tok, state))
+                    ref["decode_k1"].append(k1.stlt_scan_kernel.launches)
+                    ref["decode_drops"].append(moe.DROPS.read()["dropped"])
+                    ref["decode_ms"].append(ms)
+                    ref["logits"].append(logits.to("cpu"))
+                    tok = logits.argmax(-1).to(torch.int32)
+                ref["final"] = host(state)
+
+    _in_turns(rank, draw)
+    params = held.pop("params")
     box = [ref]
     torch.distributed.broadcast_object_list(box, src=0)
     ref = box[0]
-    row["ref_prefill_ms"], row["ref_decode_ms"] = ref["prefill_ms"], ref["decode_ms"]
+    for k in ("prefill_ms", "decode_ms", "prefill_k1", "decode_k1", "prefill_drops",
+              "decode_drops"):
+        row[f"ref_{k}"] = ref[k]
     rows_of = lambda t: sh.local_slices(t, pre.out_shardings[0], mesh, "cpu")  # noqa: E731
     held = {"prefill": (rows_of(ref["prefill"][0]),
                         sh.local_slices(ref["prefill"][1], pre.out_shardings[1], mesh, "cpu")),
@@ -640,8 +740,10 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
     pre.fn(params, x)                                   # warm
     comm.reset_stats()
     k1.stlt_scan_kernel.launches = 0
+    moe.DROPS.reset()
     (logits, pstate), row["prefill_ms"] = _timed(lambda: pre.fn(params, x))
-    row.update(prefill_k1=k1.stlt_scan_kernel.launches, prefill_bytes=dict(comm.STATS))
+    row.update(prefill_k1=k1.stlt_scan_kernel.launches, prefill_bytes=dict(comm.STATS),
+               prefill_drops=moe.DROPS.read()["dropped"])
     want_logits, want_state = held["prefill"]
     row["prefill_logit_gap"] = float((logits - want_logits.to(dev)).abs().max())
 
@@ -657,16 +759,18 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
     row["prefill_state_gap_over_tol"] = state_gap(pstate, want_state)
     del pstate
     state, tok = held["start"], held["tok0"]
-    row.update(decode_ms=[], decode_k1=[], decode_bytes=None)
+    row.update(decode_ms=[], decode_k1=[], decode_drops=[], decode_bytes=None)
     ref_logits, ref_final = held["decode"]
     live = [True] * tok.shape[0]
     row["logit_gap"], row["near_ties"], row["same_tokens"] = row["prefill_logit_gap"], 0, 0
     for step in range(new):
         comm.reset_stats()
         k1.stlt_scan_kernel.launches = 0
+        moe.DROPS.reset()
         (logits, state), ms = _timed(lambda: dec.fn(params, tok, state))
         row["decode_ms"].append(ms)
         row["decode_k1"].append(k1.stlt_scan_kernel.launches)
+        row["decode_drops"].append(moe.DROPS.read()["dropped"])
         row["decode_bytes"] = dict(comm.STATS)
         want = ref_logits[step].to(dev)
         for r in range(len(live)):
@@ -723,6 +827,27 @@ def da(T, dev, rank, out):
     torch.cuda.empty_cache()
 
 
+def dm(T, dev, rank, out):
+    """Phase DM: expert parallelism at full width (DM_ARCH at DM_LAYERS
+    layers, fp32). DM1 on 1 x 4, both forms: the train cell at DM_TRAIN_B x
+    DM_TRAIN_N (adafactor), the prefill cell at DA_B x DA_N and DM_NEW
+    decode-cell steps; DM2 the native form's 2 x 2 prefill and decode cells
+    without FSDP (the config's ``fsdp`` replaced: the log says so)."""
+    import torch
+
+    t0 = time.time()
+    for variant in ("native", "stlt"):
+        cfg = da_config(DM_ARCH, variant, DM_LAYERS)
+        da_train(T, cfg, dev, rank, (1, 4), f"DM1 {variant} train 1x4", out, N=DM_TRAIN_N,
+                 B=DM_TRAIN_B)
+        da_serve(T, cfg, dev, rank, (1, 4), f"DM1 {variant} serve 1x4", out, new=DM_NEW)
+    out["t_DM1"] = time.time() - t0
+    cfg = da_config(DM_ARCH, "native", DM_LAYERS, fsdp=False)
+    da_serve(T, cfg, dev, rank, (2, 2), "DM2 native serve 2x2", out, new=DM_NEW)
+    out["t_DM2"] = time.time() - t0
+    torch.cuda.empty_cache()
+
+
 def rank_main(rank: int, backend: str, cards: int, store: str):
     import torch
 
@@ -756,6 +881,8 @@ def rank_main(rank: int, backend: str, cards: int, store: str):
     torch.cuda.reset_peak_memory_stats(dev)
     da(T, dev, rank, out)
     out["t_DA"] = time.time() - t0
+    dm(T, dev, rank, out)
+    out["t_DM"] = time.time() - t0
     (OUT / f"rank{rank}.json").write_text(json.dumps(out))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -811,13 +938,22 @@ def _da_k1(tag: str, kind: str) -> int:
     return DA_K1[kind] if "stlt" in tag else 0
 
 
-def check_da(res: list) -> dict:
-    """Raise unless every DA gate holds; returns DA's summary, cell by cell:
-    ms per rank beside the single-device call's, bytes per collective per
-    rank, K1 launches per rank, the gaps."""
-    summary = {"laps": {k: res[0][k] for k in ("t_DA1", "t_DA2")}}
-    for tag in [k for k in res[0] if k.startswith("DA") and "train" in k]:
+def check_da(res: list, phase: str = "DA") -> dict:
+    """Raise unless every gate of phase DA (or DM) holds; returns its
+    summary, cell by cell: ms per rank beside the single-device call's,
+    bytes per collective per rank, K1 launches per rank, MoE drops, the
+    gaps. A cell's K1 launches per rank equal the single-device call's and
+    DA_K1's count (its one STLT layer); its drops summed over the ranks
+    equal the single-device call's."""
+    summary = {"laps": {k: v for k, v in res[0].items() if k.startswith(f"t_{phase}")
+                        and k != f"t_{phase}"}}
+    for tag in [k for k in res[0] if k.startswith(phase) and "train" in k]:
         ref = res[0][tag]["ref"]
+        for step, want in enumerate(ref):
+            drops = sum(r[tag]["steps"][step]["drops"] for r in res)
+            if drops != want["drops"]:
+                raise AssertionError(f"{tag} step {step}: {drops} drops over the ranks, "
+                                     f"single-device {want['drops']}")
         for r in res:
             row = r[tag]
             for step, (got, want) in enumerate(zip(row["steps"], ref)):
@@ -829,9 +965,10 @@ def check_da(res: list) -> dict:
                             <= DT1_METRIC_RTOL * abs(want["metrics"][k]):
                         raise AssertionError(f"{tag} rank {r['rank']} step {step}: {k} "
                                              f"{got['metrics'][k]} vs {want['metrics'][k]}")
-                if got["k1"] != _da_k1(tag, "train"):
+                if not got["k1"] == want["k1"] == _da_k1(tag, "train"):
                     raise AssertionError(f"{tag} rank {r['rank']} step {step}: {got['k1']} K1 "
-                                         f"launches, expected {_da_k1(tag, 'train')}")
+                                         f"launches (single-device {want['k1']}), expected "
+                                         f"{_da_k1(tag, 'train')}")
             if row["param_gap_over_tol"] > 1.0:
                 raise AssertionError(f"{tag} rank {r['rank']}: params off the single-device "
                                      f"step: {row['over']}")
@@ -843,6 +980,8 @@ def check_da(res: list) -> dict:
             "bytes_per_step": [r[tag]["steps"][-1]["bytes"] for r in res],
             "k1_per_step": [r[tag]["steps"][-1]["k1"] for r in res],
             "ref_k1": ref[-1]["k1"],
+            "drops": [[s["drops"] for s in r[tag]["steps"]] for r in res],
+            "ref_drops": [s["drops"] for s in ref],
             "loss_gap": max(abs(r[tag]["steps"][0]["loss"] - ref[0]["loss"]) for r in res),
             "metric_rel_gap": {k: max(abs(s["metrics"][k] - w["metrics"][k])
                                       / max(abs(w["metrics"][k]), 1e-30)
@@ -850,11 +989,21 @@ def check_da(res: list) -> dict:
                                for k in DT1_METRICS},
             "param_gap_over_tol": max(r[tag]["param_gap_over_tol"] for r in res),
             "peak_gib": [r[tag]["peak_gib"] for r in res]}
-    for tag in [k for k in res[0] if k.startswith("DA") and "serve" in k]:
+    for tag in [k for k in res[0] if k.startswith(phase) and "serve" in k]:
+        d0 = res[0][tag]
+        drops = [sum(r[tag]["prefill_drops"] for r in res)]
+        want_drops = [d0["ref_prefill_drops"]]
+        if all(r[tag]["streams_equal"] for r in res):    # the same tokens route
+            drops += [sum(r[tag]["decode_drops"][i] for r in res) for i in range(d0["new"])]
+            want_drops += d0["ref_decode_drops"]
+        if drops != want_drops:
+            raise AssertionError(f"{tag}: drops over the ranks {drops} (prefill, then each "
+                                 f"decode step), single-device {want_drops}")
         for r in res:
             d = r[tag]
             want_pre, want_dec = _da_k1(tag, "prefill"), _da_k1(tag, "decode")
-            if not (d["prefill_k1"] == want_pre and set(d["decode_k1"]) == {want_dec}
+            if not (d["prefill_k1"] == d["ref_prefill_k1"] == want_pre
+                    and set(d["decode_k1"]) == set(d["ref_decode_k1"]) == {want_dec}
                     and d["logit_gap"] <= DA_LOGIT_TOL
                     and d["prefill_state_gap_over_tol"] <= 1.0
                     and (d["final_state_gap_over_tol"] is None
@@ -873,6 +1022,11 @@ def check_da(res: list) -> dict:
             "prefill_bytes": [r[tag]["prefill_bytes"] for r in res],
             "decode_bytes": [r[tag]["decode_bytes"] for r in res],
             "k1": [[r[tag]["prefill_k1"], max(r[tag]["decode_k1"])] for r in res],
+            "ref_k1": [d0["ref_prefill_k1"], max(d0["ref_decode_k1"])],
+            "prefill_drops": [r[tag]["prefill_drops"] for r in res],
+            "ref_prefill_drops": d0["ref_prefill_drops"],
+            "decode_drops": sum(sum(r[tag]["decode_drops"]) for r in res),
+            "fsdp": d0["fsdp"], "dispatch": d0["dispatch"],
             "logit_gap": max(r[tag]["logit_gap"] for r in res),
             "state_gap_over_tol": max(max(r[tag]["prefill_state_gap_over_tol"],
                                           r[tag]["final_state_gap_over_tol"] or 0.0)
@@ -931,6 +1085,10 @@ def check(res: list) -> dict:
     if not (d2["ticks_equal"] and set(d2["hosts"].values()) == {0, 1}):
         raise AssertionError(f"DS2: ticks equal {d2['ticks_equal']}, hosts {d2['hosts']}")
     da = check_da(res)
+    dm = check_da(res, "DM")
+    if not dm["DM2 native serve 2x2"]["ref_prefill_drops"] > 0:
+        raise AssertionError("DM2: the prefill dropped no choice, so the global slot "
+                             "offsets went unchecked")
     hosts = [r["DS2"] for r in res if r["DS2"]["member"]]
     return {
         "ds1_prefill_ms": [r["DS1"]["prefill_ms"] for r in res],
@@ -976,9 +1134,9 @@ def check(res: list) -> dict:
         "pipe_grad_gap_over_tol": max(r["DT3"]["grad_gap_over_tol"] for r in res),
         "resilient": res[0]["DT4"]["stats"], "resilient_wall_s": res[0]["DT4"]["wall_s"],
         "phase_s": {k: res[0][k] for k in ("t_DT1", "t_DT2", "t_DT3", "t_DT4", "t_DS1",
-                                           "t_DS2", "t_DA")},
+                                           "t_DS2", "t_DA", "t_DM")},
         "peak_gib": [r["peak_gib"] for r in res],
-        "da": da,
+        "da": da, "dm": dm,
     }
 
 
