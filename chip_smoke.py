@@ -111,8 +111,8 @@ H3 does; X3 trains that period at 8 x 512 in bf16 with remat (against remat off 
 width with its depth cut: M1 serves qwen3-moe-235b-a22b at 1 of 94 layers
 native and STLT (K1 at head dim 64; the choices each admission drops), M2
 holds 1 layer in fp32 to the CPU (apply_moe on a dispatch that drops, bit
-for bit on two card calls; a greedy serve's streams) and runs H3's checks
-at capacity E / K (nothing drops), M3 trains 1 layer at 2 x 1024 with
+for bit on two card calls), serves greedily on the card and runs H3's
+checks at capacity E / K (nothing drops), M3 trains 1 layer at 2 x 1024 with
 adafactor, M4 builds arctic-480b at 1 of 35 layers leaf by leaf (each
 matrix cast as drawn) and generates 2 x (512 + 16) in both forms (K1 at
 head dim 128), held to the teacher-forced forward at capacity E / K. It
@@ -122,15 +122,20 @@ without its host work; K1 at each of its phase 2 shapes, K2 at
 batch 1 and at N = 8192; each beside its fp32 and 3xTF32 tensor-core
 bounds), their plain versions and the library yardstick, times a batch-1
 prefill of a 131,072-token prompt, and profiles it, one ``generate`` and
-one relevance forward. Phase DT (last; ``tools/phase_dt.py``) runs the
+one relevance forward. Phase E runs the port's examples on the card in
+this process: the quickstart (3 K1 launches) and the long-context stream
+over 2,000 tokens (decode only), whose decode state keeps its bytes from
+report to report. Phase DT (last; ``tools/phase_dt.py``) runs the
 multi-device training layer as 4 gloo ranks, processes sharing the card:
 DT1 trains stlt-base on a 2 x 2 (data, model) mesh at 4 x 1000 tokens for 3
 AdamW steps against the single-device step (loss, every param, 18 K1
 launches per rank per step), DT2 runs the context-parallel STLT over 8 x
 131,072 tokens against serial K1 (K1 is also checked and timed at its
-8 x 32,768 shard), DT3 pipelines the 6 blocks as 2 stages against the
-serial blocks (outputs, grads), DT4 crashes and restores the sharded loop
-and gets DT1's params bit for bit. Phase DS, in the same rank job, serves
+8 x 32,768 shard), forward and backward (dx and the pole and mixer grads
+against the serial training call's, 2 K1 launches per rank), DT3 pipelines
+the 6 blocks as 2 stages against the serial blocks (outputs, grads), DT4
+crashes and restores the sharded loop and gets DT1's params bit for bit.
+Phase DS, in the same rank job, serves
 sharded: DS1 runs the 2 x 2 prefill cell (4 x 1000 tokens, 6 K1 launches
 per rank) and 32 greedy decode-cell steps (0 K1) against the single-device
 ``prefill``/``decode_step`` (logits, each rank's state slice, streams),
@@ -3462,9 +3467,11 @@ def xlstm_phase(T, train, k1, dev, get_config) -> dict:
 # in bf16, the matrices cast as they are drawn (``init_cast``). M2 runs 1
 # layer in fp32, the card against the CPU on the same calls: apply_moe
 # alone on 1 x M2_APPLY_N tokens (capacity
-# 40 for a mean load of 32: it drops), a greedy serve of phase P's requests
-# M2_REQUESTS (M2_NEW tokens each, 2 slots, streams equal), and H3's checks
-# (hybrid_check_phase) at capacity E / K, where nothing can drop. M3
+# 40 for a mean load of 32: it drops), and H3's checks (hybrid_check_phase)
+# at capacity E / K, where nothing can drop; between them a greedy serve of
+# phase P's requests M2_REQUESTS (M2_NEW tokens each, 2 slots) on the card,
+# its drops printed (its full-width CPU twin is gone: ~27 s a form, and the
+# two CPU checks around it hold the MoE under drops and the model). M3
 # trains 1 layer at M3_B x M3_N in bf16 with adafactor (its config's
 # optimizer) and remat. M4 runs arctic-480b (d_model 7168, 56 heads, 8 KV
 # heads, dh 128, 128 experts of d_ff 4864, top-2 and the dense residual
@@ -3646,9 +3653,9 @@ def moe_check_phase(T, k1, moe, cfg, dev, tag) -> dict:
     (bit for bit) and once on the CPU (max abs error within M2_MOE_TOL of
     1 + max |y| where no token's choices differ; the routing flips and the
     drops of each side printed); (b) a greedy serve of phase P's requests
-    M2_REQUESTS, M2_NEW tokens each on 2 slots, on the card and the CPU
-    (streams equal; each admission's drops at the config's capacity
-    printed); (c) ``hybrid_check_phase`` at capacity E / K, where no call
+    M2_REQUESTS, M2_NEW tokens each on 2 slots, on the card (each
+    admission's drops at the config's capacity printed, the streams' length
+    and range checked); (c) ``hybrid_check_phase`` at capacity E / K, where no call
     can drop (asserted): chunked vs monolithic prefill, the idle row's state
     bit for bit, decode vs the teacher-forced forward, the card against the
     CPU, K1 launches in the STLT form."""
@@ -3658,14 +3665,14 @@ def moe_check_phase(T, k1, moe, cfg, dev, tag) -> dict:
     smi = smi_line()
     c = dataclasses.replace(cfg, num_layers=1, dtype="float32")
     params = T.init_lm(c, torch.Generator(device=dev).manual_seed(0), device=dev)
-    cpu = tree_map(torch.Tensor.cpu, params)
     out = {}
     mc = c.moe_config()
     with torch.no_grad():
         # (a) apply_moe alone
         g = torch.Generator(device=dev).manual_seed(12)
         x = torch.randn(1, M2_APPLY_N, c.d_model, generator=g, device=dev)
-        pm, pc = params["layers"][0]["moe"], cpu["layers"][0]["moe"]
+        pm = params["layers"][0]["moe"]
+        pc = tree_map(torch.Tensor.cpu, pm)
         moe.DROPS.reset()
         y1, a1 = moe.apply_moe(pm, mc, x)
         y2, _ = moe.apply_moe(pm, mc, x)
@@ -3696,23 +3703,21 @@ def moe_check_phase(T, k1, moe, cfg, dev, tag) -> dict:
                                  f"{card_drops} / {cpu_drops}")
         del x, y1, y2, yc
 
-    # (b) a short greedy serve on both
+    # (b) a short greedy serve on the card
     reqs = spec_requests(c, Request)
     picked = [dataclasses.replace(reqs[i], max_new_tokens=M2_NEW) for i in M2_REQUESTS]
-    streams = {}
-    for where, p, d in (("card", params, dev), ("cpu", cpu, torch.device("cpu"))):
-        eng = ServeEngine(p, c, max_len=P_MAX_LEN, prefill_chunk=P_CHUNK, device=d)
-        with DropLog(T, moe) as dl:
-            streams[where] = eng.serve(picked, slots=2)
-        streams[where + " drops"] = [dd for name, _, dd in dl.calls if name == "prefill_chunk"]
-    same = all(np.array_equal(streams["card"][r.id], streams["cpu"][r.id]) for r in picked)
+    eng = ServeEngine(params, c, max_len=P_MAX_LEN, prefill_chunk=P_CHUNK, device=dev)
+    with DropLog(T, moe) as dl:
+        streams = eng.serve(picked, slots=2)
+    drops = [dd for name, _, dd in dl.calls if name == "prefill_chunk"]
+    ok = all(len(streams[r.id]) == M2_NEW and 0 <= min(streams[r.id])
+             and max(streams[r.id]) < c.vocab for r in picked)
     log(f"[{tag} serve] phase P's requests {list(M2_REQUESTS)} ({[len(r.prompt) for r in picked]} "
-        f"prompt tokens, {M2_NEW} new each, 2 slots), fp32, 1 layer: card and CPU streams "
-        f"equal {same}; admission drops card {streams['card drops']}, CPU "
-        f"{streams['cpu drops']} [{smi}]")
-    if not same:
-        raise AssertionError(f"{tag}: card and CPU serve streams differ: {streams}")
-    del params, cpu, eng
+        f"prompt tokens, {M2_NEW} new each, 2 slots), fp32, 1 layer, on the card: streams "
+        f"{[list(map(int, streams[r.id])) for r in picked]}; admission drops {drops} [{smi}]")
+    if not ok:
+        raise AssertionError(f"{tag}: bad serve streams {streams}")
+    del params, pc, eng
     free_cuda()
 
     # (c) the forms and the CPU at capacity E / K: no call drops
@@ -3863,6 +3868,68 @@ def k1_direction_timings(k1, ops, dev, C, d) -> dict:
     return out
 
 
+E_STREAM_TOKENS, E_STREAM_REPORT = 2000, 500
+# K1 calls in the quickstart: the layer's forward, then the LM's 2 STLT layers
+E_QUICKSTART_K1 = 3
+
+
+def example_main(name: str):
+    """``main`` of ``examples/torch_<name>.py``, loaded from the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def examples_phase(k1, k2, dev) -> dict:
+    """Phase E: the port's examples in this process on the card, at their
+    own widths: the quickstart (the layer's forward, the half-lives, five
+    decode steps, a small LM's logits; E_QUICKSTART_K1 K1 launches) and the
+    long-context stream at E_STREAM_TOKENS tokens (decode steps only: no
+    kernel launch), whose decode state must keep its bytes from the first
+    report to the last. Every tensor they return must be on the card and
+    finite."""
+    from repro_torch.utils import tree_leaves
+
+    out = {}
+    for name, argv in (("quickstart", []),
+                       ("long_context_stream", ["--tokens", str(E_STREAM_TOKENS),
+                                                "--report-every", str(E_STREAM_REPORT)])):
+        main = example_main(name)
+        k1.stlt_scan_kernel.launches = k2.relevance_flash_kernel.launches = 0
+        t0 = time.time()
+        res = main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"stlt_scan": k1.stlt_scan_kernel.launches,
+                    "relevance_flash": k2.relevance_flash_kernel.launches}
+        tensors = [t for t in tree_leaves(res) if isinstance(t, torch.Tensor)]
+        on_card = all(t.device.type == "cuda" for t in tensors)
+        finite = all(bool(torch.isfinite(t).all()) for t in tensors if t.is_floating_point())
+        out[name] = {"wall_s": wall, "launches": launches, "tensors": len(tensors)}
+        log(f"[E {name}] {' '.join(argv) or 'defaults'}: {wall:.2f} s, kernel launches "
+            f"{launches}; {len(tensors)} tensors returned, all on the card {on_card}, finite "
+            f"{finite}" + (f"; decode state bytes at each report {res['state_bytes']}"
+                           if "state_bytes" in res else ""))
+        if not (on_card and finite and tensors):
+            raise AssertionError(f"example {name}: tensors on the card {on_card}, finite "
+                                 f"{finite}")
+        want_k1 = E_QUICKSTART_K1 if name == "quickstart" else 0
+        if launches != {"stlt_scan": want_k1, "relevance_flash": 0}:
+            raise AssertionError(f"example {name}: kernel launches {launches}, expected "
+                                 f"{want_k1} K1 and no K2")
+        if "state_bytes" in res:
+            sizes = res["state_bytes"]
+            if not (len(sizes) == 1 + E_STREAM_TOKENS // E_STREAM_REPORT
+                    and len(set(sizes)) == 1):
+                raise AssertionError(f"the stream's decode state changed size: {sizes}")
+            out[name]["state_bytes"] = sizes[-1]
+    return out
+
+
 def dt_phase() -> dict:
     """Phases DT, DS, DA and DM: the multi-device training and serving layers
     (``tools/phase_dt.py``) as 4 gloo ranks, processes sharing this card:
@@ -3892,6 +3959,12 @@ def dt_phase() -> dict:
         f"K1 {res['cp_serial_ms']}); K1 per shard {res['cp_k1']}; exchanged "
         f"{res['cp_bytes']}; error "
         f"{res['cp_err_over_scale']:.3e} of the scale (gate {phase_dt.K1_TOL})")
+    log(f"[DT2 backward] forward + backward ms per rank {res['cp_bwd_ms']} (the serial "
+        f"training call's forward + backward over 131,072 tokens {res['cp_serial_bwd_ms']}); "
+        f"K1 per rank {res['cp_bwd_k1']} (predicted 2); bytes per rank {res['cp_bwd_bytes']} "
+        f"(predicted {phase_dt.DT2_BWD_BYTES}); dx error {res['cp_dx_err_over_scale']:.3e} "
+        f"of the scale, pole and mixer grads {res['cp_pole_gaps_over_tol']} of K1's gate "
+        f"[{smi_line()}]")
     log(f"[DT3 pipeline] 2 stages x 3 blocks, 4 microbatches of 1 x 1000: ms per rank "
         f"{res['pipe_ms']} (serial {res['pipe_serial_ms']}); K1 {res['pipe_k1']}; outputs "
         f"{res['pipe_out_err_over_scale']:.3e} of the scale, worst grad gap "
@@ -4474,6 +4547,9 @@ def main(argv) -> int:
             f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
         del m_args
     lap("M")
+    # E. the port's examples on the card: the quickstart, the long stream
+    examples = examples_phase(k1, k2, dev)
+    lap("E")
     # DT. the multi-device training and serving layers: 4 gloo ranks sharing
     # the card (sharded step, context parallel, pipeline, resilient loop;
     # the sharded serving cells, the process-form engine)
@@ -4483,10 +4559,15 @@ def main(argv) -> int:
     k1_rows[K1_CP]["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*cp_args, chunk=C),
                                         iters=3)
     r = k1_rows[K1_CP]
+    # the CP backward's dx pass at the shard: K1 anti-causal (flip, K1, flip)
+    x, lm, th, ur, ui, dz = vjp_case(dev, 1, *K1_CP, C, seed=13)
+    operators = ops._operators(lm, th, ur, ui, C)
+    r["rev_ms"] = time_cuda(lambda: ops._pass(dz, operators, C, True, k1.stlt_scan_kernel), 20)
     log(f"[6 timing] K1 at phase DT's CP shard BH={K1_CP[0]} N={K1_CP[1]}: kernel alone "
         f"{r['alone']:.4f} ms, device time {r['device']} ms, call {r['call']:.4f} ms, plain "
-        f"version {r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
-    del cp_args
+        f"version {r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']}); the "
+        f"backward's anti-causal pass over dz {r['rev_ms']:.4f} ms")
+    del cp_args, x, lm, th, ur, ui, dz, operators
     ds_args, _, _ = k1_case(k1, ops, dev, *K1_DS2[:2], C, *K1_DS2[2:], seed=5)
     k1_rows[K1_DS2]["plain"] = time_cuda(lambda: k1.stlt_scan_reference(*ds_args, chunk=C),
                                          iters=5)
@@ -4631,13 +4712,22 @@ def main(argv) -> int:
         # context-parallel shard (1, stateful, 8 x 32,768) and per pipeline
         # stage's forward + backward (3 blocks x 4 microbatches x 2); K1 at
         # the CP shard's shape
+        # phase E: K1 launches in the quickstart example (the layer's
+        # forward and the small LM's 2 layers) and in the stream (0: decode)
+        "launches_per_quickstart": examples["quickstart"]["launches"]["stlt_scan"],
+        "launches_per_stream": examples["long_context_stream"]["launches"]["stlt_scan"],
         "launches_per_sharded_train_step_rank": dt["k1_per_step"][0],
         "launches_per_cp_shard": dt["cp_k1"][0],
+        # and per rank in the context-parallel forward + backward (the
+        # stateful forward, the anti-causal dx pass), with its ms per rank
+        "launches_per_cp_shard_fwd_bwd": dt["cp_bwd_k1"][0],
+        "cp_fwd_bwd_ms": dt["cp_bwd_ms"], "cp_serial_fwd_bwd_ms": dt["cp_serial_bwd_ms"],
         "launches_per_pipeline_stage": dt["pipe_k1"][0],
         "cp_shard_shape": list(K1_CP), "cp_shard_device_ms": k1_rows[K1_CP]["device"],
         "cp_shard_alone_ms": k1_rows[K1_CP]["alone"], "cp_shard_call_ms": k1_rows[K1_CP]["call"],
         "cp_shard_plain_ms": k1_rows[K1_CP]["plain"],
         "cp_shard_bound_ms": k1_rows[K1_CP]["bound"],
+        "cp_shard_rev_ms": k1_rows[K1_CP]["rev_ms"],
         # phase DS: K1 launches per rank in one sharded prefill cell (6
         # layers on 2 rows x 4 heads) and in one decode-cell step (0), and
         # per host rank in the process-form serve (6 x its [2, 512]

@@ -62,8 +62,21 @@ def node_poles(params: dict, delta: float = 1.0, fold_window: bool = True, *,
     return log_mag, theta, sigma, T
 
 
+def half_lives(params: dict) -> torch.Tensor:
+    """Interpretability: the learned token-relevance half-lives ln2/sigma_k
+    [H, S], in tokens (sigma without the window's 1/T)."""
+    _, _, sigma, _ = node_poles(params, fold_window=False)
+    return math.log(2.0) / sigma
+
+
 def hann_window(t: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Symmetric Hann taper w(t;T) = 0.5*(1+cos(pi t / T)) for |t| <= T, zero
     outside; T is clamped at 1e-6."""
     inside = (t.abs() <= T).to(t.dtype)
     return 0.5 * (1.0 + torch.cos(math.pi * t / torch.clamp(T, min=1e-6))) * inside
+
+
+def exponential_window(t: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """w(t;T) = exp(-|t|/T), the streaming-exact window; T is clamped at
+    1e-6."""
+    return torch.exp(-t.abs() / torch.clamp(T, min=1e-6))

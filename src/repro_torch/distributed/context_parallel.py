@@ -18,9 +18,14 @@ give the same term, at the price of a second K1 pass over the shard: the
 closed form costs one K1 launch per shard and a product of 2 x N_loc x S x
 B x d multiply-adds.
 
-This is the forward (long-context prefill), as the JAX package uses it.
-K1's stateful call is forward-only in the port, so this function takes no
-gradient (ROADMAP Queue 1 item 7).
+It is differentiable, as the JAX package's is by autodiff. The stateful
+call from a zero carry is an autograd function (``ops._StltScanState``): its
+backward runs K1 anti-causally over the shard's dz and adds the end state's
+cotangent, which the exchange hands back (``comm.gather_shards``: all-gather
+forward, reduce-scatter sum backward). The poles and mixers are replicated
+and each rank's loss reads them only through its shard, so they enter
+through ``comm.partial_replicated``: every rank's grads are the whole
+gradient, as JAX's are.
 """
 from __future__ import annotations
 
@@ -30,7 +35,6 @@ from repro_torch.distributed import comm
 from repro_torch.kernels import ops as kernel_ops
 
 
-@torch.no_grad()
 def stlt_context_parallel(x: torch.Tensor, log_mag: torch.Tensor, theta: torch.Tensor,
                           u_re: torch.Tensor, u_im: torch.Tensor, mesh, axis: str = "data",
                           chunk: int = 128) -> torch.Tensor:
@@ -41,12 +45,15 @@ def stlt_context_parallel(x: torch.Tensor, log_mag: torch.Tensor, theta: torch.T
     of z [B, N_loc, d]."""
     B, n_loc, d = x.shape
     S = log_mag.shape[0]
+    group = mesh.group(axis)
+    log_mag, theta, u_re, u_im = (comm.partial_replicated(t, group)
+                                  for t in (log_mag, theta, u_re, u_im))
     lm, th, ur, ui = (t.float()[None].expand(B, S).contiguous()
                       for t in (log_mag, theta, u_re, u_im))
     z, (h_re, h_im) = kernel_ops.stlt_scan(x, lm, th, ur, ui, chunk=chunk,
                                            return_state=True)
     # the one exchange: every rank's end state [B, S, d], re and im together
-    g = comm.all_gather(torch.stack([h_re, h_im])[None], 0, mesh.group(axis))
+    g = comm.gather_shards(torch.stack([h_re, h_im])[None], 0, group)
     g_re, g_im = g[:, 0], g[:, 1]                                # [D, B, S, d]
     D, i = g.shape[0], mesh.coord(axis)
     lm, th = log_mag.float(), theta.float()

@@ -16,7 +16,10 @@ the carry after ``valid[row]`` tokens (default N) comes back from the same
 pass, through the gated in-chunk snapshot operators (``_snapshot_ops``).
 
 Training (no carry in, no state out) goes through ``_StltScan``, the port of
-the JAX package's custom VJP, on both devices. z is a causal convolution
+the JAX package's custom VJP, on both devices; the causal call from a zero
+carry that also returns the end state through ``_StltScanState``, whose
+backward adds the end state's cotangent (the context-parallel STLT's
+path). z is a causal convolution
 with the combined filter g[t] = Re(sum_k u_k lambda_k^t), so
 
   dL/dx               = the SAME pass run anti-causally over dz (K1 on the
@@ -146,7 +149,7 @@ def _pass(x, operators, chunk: int, reverse: bool, run, h0=None, snapshot=None):
 
 
 def _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
-                          reverse: bool):
+                          reverse: bool, dh=None):
     """dL/d(log_mag, theta, u_re, u_im) [BH, S] through the chunk operators,
     the port of the JAX package's analytic kernel path. In x's precision
     (float32, or float64 for float64 inputs).
@@ -159,7 +162,13 @@ def _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
       * dPre/dPim = sum_c G_c X_c^T (re / im), ddec from G_c and h_c;
       * the operator cotangents chain through autograd of ``_filter_ops``.
     Only the two carry recurrences run chunk by chunk; every contraction is
-    one batched product over all chunks."""
+    one batched product over all chunks.
+
+    ``dh`` (dh_re, dh_im) [BH, S, d] is the cotangent of the causal carry
+    after all N tokens (the stateful call's end state): it seeds the adjoint
+    recurrence, G_{nc-1} = dh. For that the tokens are padded at the FRONT
+    to whole chunks: from a zero carry, leading zeros change neither z nor
+    the end state, which then is the carry after the last chunk."""
     BH, N, d = x.shape
     C = chunk
     dt = torch.promote_types(x.dtype, torch.float32)
@@ -167,8 +176,9 @@ def _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
     if reverse:
         xf, dzf = xf.flip(1), dzf.flip(1)
     nc = -(-N // C)
-    xc = F.pad(xf, (0, 0, 0, nc * C - N)).reshape(BH, nc, C, d)
-    dzc = F.pad(dzf, (0, 0, 0, nc * C - N)).reshape(BH, nc, C, d)
+    pad = (0, 0, nc * C - N, 0) if dh is not None else (0, 0, 0, nc * C - N)
+    xc = F.pad(xf, pad).reshape(BH, nc, C, d)
+    dzc = F.pad(dzf, pad).reshape(BH, nc, C, d)
 
     with torch.enable_grad():
         poles = [t.detach().to(dt).requires_grad_(True)
@@ -194,6 +204,8 @@ def _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im, chunk: int,
     v_re = A.transpose(1, 2)[:, None] @ dzc                       # [BH, nc, S, d]
     v_im = B.transpose(1, 2)[:, None] @ dzc
     gr = gi = torch.zeros((BH, S, d), dtype=dt, device=x.device)
+    if dh is not None:
+        gr, gi = (g.to(dt) for g in dh)
     Gr, Gi = [None] * nc, [None] * nc
     for c in range(nc - 1, -1, -1):
         Gr[c], Gi[c] = gr, gi
@@ -276,6 +288,69 @@ class _StltScan(torch.autograd.Function):
         return (dx, *(dparams or (None,) * 4), None, None, None)
 
 
+def _end_state_dx(log_mag, theta, dh_re, dh_im, n_tokens: int):
+    """dL/dx [BH, N, d] through the causal end state alone. From a zero
+    carry h_end = sum_n lambda^(N-1-n) x[n], so
+
+      dx[n] = sum_k Re(lambda_k^(N-1-n)) dh_re[k] + Im(lambda_k^(N-1-n)) dh_im[k]:
+
+    one [BH, N, S] x [BH, S, d] product per part (the transpose of the kind
+    of product the context-parallel carry-in term is), in log space."""
+    p = torch.arange(n_tokens - 1, -1, -1, device=log_mag.device,
+                     dtype=log_mag.dtype)[None, :, None]          # N-1-n
+    mag = torch.exp(p * log_mag[:, None, :])                      # [BH, N, S]
+    ang = p * theta[:, None, :]
+    return (torch.einsum("bns,bsd->bnd", mag * torch.cos(ang), dh_re)
+            + torch.einsum("bns,bsd->bnd", mag * torch.sin(ang), dh_im))
+
+
+class _StltScanState(torch.autograd.Function):
+    """The stateful call from a zero carry, differentiable: z = pass(x) and
+    the carry (h_re, h_im) after all N tokens, from ONE pass (K1 on the
+    card). Backward, given (dz, dh_re, dh_im): dx is the anti-causal pass
+    over dz (K1 again on the card) plus the end state's term
+    (``_end_state_dx``); the pole and mixer grads are
+    ``_analytic_param_grads`` with the adjoint recurrence seeded by dh. The
+    context-parallel STLT differentiates through it."""
+
+    @staticmethod
+    def forward(ctx, x, log_mag, theta, u_re, u_im, chunk: int):
+        f32 = torch.float32
+        lm, th = log_mag.to(f32), theta.to(f32)
+        operators = _operators(lm, th, u_re.to(f32), u_im.to(f32), chunk)
+        N = x.shape[1]
+        z, h_re, h_im = _pass(x.to(f32), operators, chunk, False, _runner(x),
+                              snapshot=_snapshot_ops(lm, th, None, N, chunk, -(-N // chunk)))
+        ctx.save_for_backward(x, log_mag, theta, u_re, u_im, *operators)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return z.to(x.dtype), h_re, h_im
+
+    @staticmethod
+    def backward(ctx, dz, dh_re, dh_im):
+        x, log_mag, theta, u_re, u_im, *operators = ctx.saved_tensors
+        chunk, f32 = ctx.chunk, torch.float32
+        BH, N, d = x.shape
+        if dz is None:
+            dz = torch.zeros_like(x)
+        dh = None
+        if dh_re is not None or dh_im is not None:
+            zero = torch.zeros((BH, log_mag.shape[1], d), dtype=f32, device=x.device)
+            dh = (zero if dh_re is None else dh_re.to(f32),
+                  zero if dh_im is None else dh_im.to(f32))
+        dx = dparams = None
+        if ctx.needs_input_grad[0]:
+            dx = _pass(dz.to(f32), operators, chunk, True, _runner(dz))[0]
+            if dh is not None:
+                dx = dx + _end_state_dx(log_mag.to(f32), theta.to(f32), *dh, N)
+            dx = dx.to(x.dtype)
+        if any(ctx.needs_input_grad[1:5]):
+            with torch.profiler.record_function("stlt_scan.param_grads"):
+                dparams = _analytic_param_grads(x, dz, log_mag, theta, u_re, u_im,
+                                                chunk, False, dh=dh)
+        return (dx, *(dparams or (None,) * 4), None)
+
+
 def stlt_scan(
     x: torch.Tensor,          # [BH, N, d]
     log_mag: torch.Tensor,    # [BH, S]
@@ -297,10 +372,12 @@ def stlt_scan(
     Returns z [BH, N, d] in x's dtype, and with ``return_state`` also
     (h_re, h_im) [BH, S, d] fp32: the carry after ``valid[row]`` tokens.
     The training call (no h0, valid or state) is differentiable through
-    ``_StltScan``; the stateful serving call is not differentiated. Carry
-    resume and per-row valid snapshots are forward-only, as the JAX package
-    asserts; ``reverse`` with ``return_state`` returns the anti-causal
-    carry after all N tokens (the snapshot at N of the flipped pass).
+    ``_StltScan``, and the causal call from a zero carry with
+    ``return_state`` (z and the end state) through ``_StltScanState``, on
+    both devices. Carry resume and per-row valid snapshots are forward-only,
+    as the JAX package asserts; ``reverse`` with ``return_state`` returns
+    the anti-causal carry after all N tokens (the snapshot at N of the
+    flipped pass), forward-only too.
     ``param_grads`` picks the training call's pole and mixer grads: the
     analytic adjoints (default) or ``"recompute"``, the legacy baseline."""
     if param_grads not in PARAM_GRADS:
@@ -313,6 +390,9 @@ def stlt_scan(
     if not stateful:
         return _StltScan.apply(x, log_mag, theta, u_re, u_im, chunk, reverse,
                                param_grads)
+    if not reverse and h0_re is None and valid is None:
+        z, h_re, h_im = _StltScanState.apply(x, log_mag, theta, u_re, u_im, chunk)
+        return z, (h_re, h_im)
     f32 = torch.float32
     lm, th = log_mag.to(f32), theta.to(f32)
     operators = _operators(lm, th, u_re.to(f32), u_im.to(f32), chunk)

@@ -67,6 +67,12 @@ def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_paths(tree)]
 
 
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor leaf of ``tree`` (numel x element size)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
 def tree_unflatten(tree, leaves):
     """A tree of ``tree``'s structure holding ``leaves`` in ``tree_map``'s
     order."""

@@ -35,7 +35,7 @@ from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 RTOL, ATOL = 2e-4, 1e-5
 NEW_ARCHS = ("chatglm3-6b", "granite-20b", "internvl2-76b", "recurrentgemma-9b",

@@ -32,7 +32,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.serving import (DisaggController, FaultSchedule,  # noqa: E402
                                  LoopbackTransport, Outbox, Request)
 from repro_torch.serving.disagg.transport import Message  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 STLT_KW = dict(mixer="stlt", stlt_nodes=4, stlt_chunk=8)
 SMALL = dict(name="t", family="lm", vocab=64, num_layers=2, d_model=32, num_heads=4,

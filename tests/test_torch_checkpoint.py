@@ -24,7 +24,7 @@ from repro_torch.checkpoint import (CheckpointManager, load_checkpoint,  # noqa:
 from repro_torch.checkpoint.checkpointer import SHARD_LEAVES, latest_step  # noqa: E402
 from repro_torch.convert import _nest  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths, tree_map  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 
 @pytest.fixture

@@ -197,6 +197,40 @@ def test_scan_vjp_on_the_card_matches_float64_autograd(dev, BH, N, d, S, C, reve
         _assert_close(a.double(), b)
 
 
+@pytest.mark.parametrize("BH,N,d,S,C", [
+    (4, 37, 16, 8, 16),        # odd N: the end state is a mid-chunk snapshot
+    (8, 1037, 64, 64, 128),    # stlt-base rows, a partial last chunk
+    (8, 4096, 64, 64, 128),    # a context-parallel shard, whole chunks
+])
+def test_stateful_scan_vjp_on_the_card_matches_float64_autograd(dev, BH, N, d, S, C):
+    """``ops._StltScanState`` on the card (K1's stateful forward, K1
+    anti-causal over dz plus the end state's term for dx, the analytic
+    grads seeded with the end state's cotangent) against torch autograd
+    through the plain version with its snapshot at N in float64: z, both
+    carries and every input's grad within K1's 2e-4 of the scale; two K1
+    launches per forward + backward."""
+    x, lm, th, ur, ui, _, _, _ = _operands(dev, BH, N, d, S, C, seed=5)
+    g = torch.Generator().manual_seed(6)
+    dz = torch.randn(BH, N, d, generator=g).to(dev)
+    dh = [torch.randn(BH, S, d, generator=g).to(dev) for _ in range(2)]
+    ins = [t.clone().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+    before = k1.stlt_scan_kernel.launches
+    z, (h_re, h_im) = ops.stlt_scan(*ins, chunk=C, return_state=True)
+    got = torch.autograd.grad((z * dz).sum() + (h_re * dh[0]).sum() + (h_im * dh[1]).sum(),
+                              ins)
+    torch.cuda.synchronize()
+    assert k1.stlt_scan_kernel.launches == before + 2
+    ref = [t.double().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+    nc = -(-N // C)
+    z64, hr64, hi64 = ops._pass(ref[0], ops._operators(*ref[1:], C), C, False,
+                                k1.stlt_scan_reference,
+                                snapshot=ops._snapshot_ops(ref[1], ref[2], None, N, C, nc))
+    want = torch.autograd.grad((z64 * dz.double()).sum() + (hr64 * dh[0].double()).sum()
+                               + (hi64 * dh[1].double()).sum(), ref)
+    for a, b in ((z, z64), (h_re, hr64), (h_im, hi64), *zip(got, want)):
+        _assert_close(a.detach().double(), b.detach())
+
+
 def test_factorized_lm_loss_gives_every_leaf_a_grad_on_the_card(dev):
     """Every parameter of a small factorized model gets a finite, non-zero
     grad from ``lm_loss`` on the card (the scan's output was once filled

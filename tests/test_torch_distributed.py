@@ -17,11 +17,13 @@ once for the module and writes its results; the tests below read them:
 * the data axes of an arch off the TP path (qwen2-1.5b reduced, FSDP, AdamW
   and adafactor) on 4 x 1, and a d_model-4096 STLT LM on 1 x 4 (norm scales
   sharded on ``model``), against ``make_step``;
-* ``stlt_context_parallel`` (forward) and ``pipeline_apply`` (forward and
+* ``stlt_context_parallel`` (forward, and grads of x and the poles and
+  mixers at 4 x 16 and 4 x 24 tokens) and ``pipeline_apply`` (forward and
   grads) against the JAX package's own functions on a forced 4-device mesh
   (one subprocess, ``--xla_force_host_platform_device_count=4``, as
-  tests/test_distributed.py runs them), within 1e-5 relative (JAX's
-  pipeline grads are 1/D of the gradient: ``test_pipeline_matches_jax``);
+  tests/test_distributed.py runs them; ``jax.grad`` through JAX's CP),
+  within 1e-5 relative (JAX's pipeline grads are 1/D of the gradient:
+  ``test_pipeline_matches_jax``);
 * ``remesh`` from 2 x 2 to 1 x 2 against the unsharded tree;
 * the refusals: a ``model`` axis > 1 on a block off the TP path (the
   relevance readout, ``stlt_rel``) and on the hann window, a MoE off the TP
@@ -56,7 +58,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import JAX_ENV, cpu_test_settings  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG_KW = dict(name="t", family="lm", vocab=64, num_layers=2, d_model=32, num_heads=4,
@@ -113,13 +115,22 @@ def _batches(vocab):
             for _ in range(STEPS)]
 
 
+# the backward's cases: 4 shards of 16 tokens (one chunk each), and of 24
+# (not a multiple of the chunk: the end state is a mid-chunk snapshot)
+CP_GRAD_N = {"4x16": 64, "4x24": 96}
+
+
 def _cp_inputs():
     rng = np.random.default_rng(0)
     S = 6
-    return {"x": rng.normal(size=(2, 64, 16)).astype(np.float32),
-            "lm": (-rng.uniform(0.01, 0.5, S)).astype(np.float32),
-            "th": (-rng.uniform(0, 1, S)).astype(np.float32),
-            "u": (rng.normal(size=(2, S)) / S).astype(np.float32), "chunk": 16}
+    out = {"x": rng.normal(size=(2, 64, 16)).astype(np.float32),
+           "lm": (-rng.uniform(0.01, 0.5, S)).astype(np.float32),
+           "th": (-rng.uniform(0, 1, S)).astype(np.float32),
+           "u": (rng.normal(size=(2, S)) / S).astype(np.float32), "chunk": 16}
+    for case, n in CP_GRAD_N.items():
+        xs = out["x"] if n == 64 else rng.normal(size=(2, n, 16)).astype(np.float32)
+        out["grad_" + case] = (xs, rng.normal(size=(2, n, 16)).astype(np.float32))
+    return out
 
 
 def _pipe_inputs():
@@ -138,6 +149,19 @@ JAX_REFS = """
     mesh = jax.make_mesh((4,), ("data",))
     z = stlt_context_parallel(jnp.asarray(d["x"]), jnp.asarray(d["lm"]), jnp.asarray(d["th"]),
                               jnp.asarray(d["u"][0]), jnp.asarray(d["u"][1]), mesh, chunk=16)
+    from repro.core.scan import stlt_chunked
+    poles = tuple(jnp.asarray(a) for a in (d["lm"], d["th"], d["u"][0], d["u"][1]))
+    cp_grads = {}
+    for case in ("4x16", "4x24"):
+        w = jnp.asarray(d["w_" + case])
+        cp = lambda x, *p: (stlt_context_parallel(x, *p, mesh, chunk=16) * w).sum()
+        serial = lambda x, *p: (stlt_chunked(x, *p, chunk=16) * w).sum()
+        for name, f in (("cp", cp), ("serial", serial)):
+            with jax.set_mesh(mesh):   # jitted: op by op the grads take ~25x longer
+                g = jax.jit(jax.grad(f, argnums=tuple(range(5))))(jnp.asarray(d["x_" + case]),
+                                                                  *poles)
+            for k, a in zip(("dx", "lm", "th", "ur", "ui"), g):
+                cp_grads[f"{name}_{case}_{k}"] = np.asarray(a)
     pmesh = jax.make_mesh((4,), ("pipe",))
     stage = lambda W, x: jnp.tanh(x @ W)
     def loss(W, x):
@@ -152,7 +176,8 @@ JAX_REFS = """
         (_, y), (dW, dx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(W, x)
     sW, sx = jax.grad(serial, argnums=(0, 1))(W, x)
     np.savez(sys.argv[2], z=np.asarray(z), y=np.asarray(y), dW=np.asarray(dW),
-             dx=np.asarray(dx), serial_dW=np.asarray(sW), serial_dx=np.asarray(sx))
+             dx=np.asarray(dx), serial_dW=np.asarray(sW), serial_dx=np.asarray(sx),
+             **cp_grads)
 """
 
 
@@ -214,7 +239,9 @@ def job(tmp_path_factory):
                              for step in range(STEPS)]}
     cp, pipe = _cp_inputs(), _pipe_inputs()
     np.savez(root / "jax_in.npz", x=cp["x"], lm=cp["lm"], th=cp["th"], u=cp["u"],
-             W=pipe["W"], pW_x=pipe["x"], cot=pipe["cot"])
+             W=pipe["W"], pW_x=pipe["x"], cot=pipe["cot"],
+             **{f"{k}_{case}": cp["grad_" + case][i] for case in CP_GRAD_N
+                for i, k in enumerate(("x", "w"))})
     t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
     torch.save({
         "cfgs": cfgs, "params": params, "draws": draws, "tcfg": TCFG, "seq": N, "batch": B,
@@ -223,12 +250,13 @@ def job(tmp_path_factory):
                   **{k: (c, m, 2) for k, (c, m) in DP.items()}},
         "refusals": REFUSALS,
         "cp": {"x": t(cp["x"]), "lm": t(cp["lm"]), "th": t(cp["th"]), "ur": t(cp["u"][0]),
-               "ui": t(cp["u"][1]), "chunk": cp["chunk"]},
+               "ui": t(cp["u"][1]), "chunk": cp["chunk"],
+               "grad": {case: tuple(map(t, cp["grad_" + case])) for case in CP_GRAD_N}},
         "pipe": {k: t(v) for k, v in pipe.items()},
     }, root / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                JAX_PLATFORMS="cpu")
+                JAX_PLATFORMS="cpu", **JAX_ENV)
     procs = [subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_REFS),
                                str(root / "jax_in.npz"), str(root / "jax_out.npz")],
                               env=jenv, stdout=subprocess.PIPE, stderr=subprocess.PIPE)]
@@ -327,6 +355,62 @@ def test_context_parallel_matches_serial(job):
     rows = [t(np.broadcast_to(a, (2, S))) for a in (c["lm"], c["th"], c["u"][0], c["u"][1])]
     want = ops.stlt_scan(t(c["x"]), *rows, chunk=c["chunk"]).numpy()
     assert _rel(job["res"]["cp"], want) <= REL_TOL
+
+
+CP_GRADS = ("dx", "lm", "th", "ur", "ui")
+# The backward's gate, relative to each grad's largest entry: JAX's own
+# context-parallel grads sit within 5e-7 of its serial scan's here (the test
+# reads that gap too), the port's within 5.4e-7 of both; 1e-5 leaves room
+# for the port's other fp32 rounding order (K1's plain version, the
+# analytic pole grads), ~20x that gap.
+CP_GRAD_TOL = 1e-5
+
+
+def _serial_cp_grads(c, case):
+    """The port's serial training call (``ops.stlt_scan`` over all tokens, the
+    poles repeated over the rows) differentiated by autograd: (dx, dlm, dth,
+    dur, dui)."""
+    from repro_torch.kernels import ops
+
+    x, w = (torch.from_numpy(a) for a in c["grad_" + case])
+    x.requires_grad_(True)
+    poles = [torch.from_numpy(c[k]).requires_grad_(True) for k in ("lm", "th")]
+    poles += [torch.from_numpy(np.ascontiguousarray(u)).requires_grad_(True) for u in c["u"]]
+    rows = [p[None].expand(x.shape[0], -1) for p in poles]
+    z = ops.stlt_scan(x, *rows, chunk=c["chunk"])
+    return [g.numpy() for g in torch.autograd.grad((z * w).sum(), [x, *poles])]
+
+
+@pytest.mark.parametrize("ref", ["jax", "serial"])
+@pytest.mark.parametrize("case", list(CP_GRAD_N))
+def test_context_parallel_grads(job, case, ref):
+    """The backward: sum(w z) through ``stlt_context_parallel`` on 4 ranks,
+    dx gathered over the ranks and every rank's grads of log_mag, theta,
+    u_re and u_im, against ``jax.grad`` through the JAX package's function
+    on 4 devices and against the port's serial training call, within
+    ``CP_GRAD_TOL`` of each grad's largest entry; 4 x 24 tokens is not a
+    multiple of the chunk. JAX's own CP-vs-serial gap is held to a tenth of
+    the gate."""
+    res, j = job["res"]["cp_grad"][case], job["jax"]
+    if ref == "jax":
+        want = [j[f"cp_{case}_{k}"] for k in CP_GRADS]
+        for k, w in zip(CP_GRADS, want):
+            assert _rel(w, j[f"serial_{case}_{k}"]) <= CP_GRAD_TOL / 10, k
+    else:
+        want = _serial_cp_grads(job["cp"], case)
+    assert _rel(res["dx"], want[0]) <= CP_GRAD_TOL
+    for r in range(WORLD):
+        for k, got, w in zip(CP_GRADS[1:], res["poles"][r], want[1:]):
+            assert _rel(got, w) <= CP_GRAD_TOL, (r, k)
+
+
+def test_context_parallel_backward_runs_two_passes_per_rank(job):
+    """Each rank's forward + backward runs the scan's pass twice (K1's
+    stateful forward and its anti-causal dx pass on the card), and every
+    rank holds the whole pole and mixer gradient."""
+    for res in job["res"]["cp_grad"].values():
+        assert res["passes"] == [2] * WORLD
+        assert all(np.array_equal(res["poles"][r], res["poles"][0]) for r in range(WORLD))
 
 
 @pytest.mark.parametrize("what", ["y", "dW", "dx"])

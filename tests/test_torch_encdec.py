@@ -50,7 +50,7 @@ from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import whisper as TW  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 j_adamw = importlib.import_module("repro.optim.adamw")  # the module (repro.optim re-exports)
 ROOT = Path(__file__).resolve().parents[1]

@@ -20,7 +20,7 @@ from repro.distributed import fault_tolerance as j_ft  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import lm_batch_stream  # noqa: E402
 from repro_torch.distributed import fault_tolerance as t_ft  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 
 def _step(state, step):

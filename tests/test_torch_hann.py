@@ -35,7 +35,7 @@ from repro_torch.configs.stlt_base import CONFIG as T_CONFIG  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import PrefixCache, Request, ServeEngine  # noqa: E402
 from repro_torch.serving.prefix_cache import state_digest  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-5
 V, MAX_LEN, CHUNK, SLOTS = 64, 64, 8, 3

@@ -36,7 +36,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro.kernels import ops as j_ops  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import stlt_scan as t_k1  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 _TESTS = Path(__file__).resolve().parent
 

@@ -41,7 +41,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.scan import _chunk_powers  # noqa: E402
 from repro_torch.kernels import relevance_flash as t_rf  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

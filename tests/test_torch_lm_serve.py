@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.configs.stlt_base import CONFIG as T_CONFIG  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 LOGIT_ATOL = 1e-4
 B, PROMPT, NEW = 2, 24, 12

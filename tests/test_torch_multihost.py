@@ -37,7 +37,7 @@ from repro_torch.serving import (PrefixCache, ReplicatedPrefixCache, Request,  #
                                  ShardedServeEngine, make_serve_mesh)
 from repro_torch.serving.engine import _Host  # noqa: E402
 from repro_torch.serving.multihost import ServeMesh  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 V, MAX_LEN, CHUNK = 64, 128, 8
 SMALL = dict(name="t", family="lm", vocab=V, num_layers=2, d_model=32, num_heads=4,

@@ -26,7 +26,7 @@ from repro_torch.core import nodes as t_nodes  # noqa: E402
 from repro_torch.core import scan as t_scan  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import stlt_scan as t_k1  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 ATOL = 3e-5
 
@@ -200,6 +200,30 @@ def test_node_poles_match_jax():
     for a, b in zip(t_nodes.node_poles(pt, fold_window=False, delta=0.5),
                     j_nodes.node_poles(p, fold_window=False, delta=0.5)):
         _close(a, b, atol=1e-6)
+
+
+def test_half_lives_match_jax():
+    """The interpretability readout ln2/sigma on nodes converted from the
+    JAX package's ``init_nodes``, and after the nodes move: within 1e-6
+    relative (sigma down to 1e-3 gives half-lives up to ~690 tokens)."""
+    p = j_nodes.init_nodes(jax.random.key(5), 4, 16)
+    p = {**p, "sigma_hat": p["sigma_hat"] + 0.3 * jax.random.normal(jax.random.key(6), (4, 16))}
+    got = t_nodes.half_lives({k: _t(v) for k, v in p.items()})
+    want = j_nodes.half_lives(p)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=0)
+    from repro_torch.core import half_lives
+    assert half_lives is t_nodes.half_lives
+
+
+def test_exponential_window_matches_jax():
+    """exp(-|t|/T) on both sides of 0, T per head and a T below the 1e-6
+    clamp."""
+    t = np.arange(-40, 41, dtype=np.float32)[:, None]
+    T = np.array([1e-8, 0.5, 3.0, 32.0, 700.0], np.float32)[None, :]
+    got = t_nodes.exponential_window(_t(t), _t(T))
+    want = j_nodes.exponential_window(jnp.asarray(t), jnp.asarray(T))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=0)
 
 
 def test_init_nodes_layout_and_range():

@@ -32,7 +32,7 @@ from repro_torch.launch import serve as t_serve_cli  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import PrefixCache, Request, ServeEngine  # noqa: E402
 from repro_torch.serving import sampler as t_sampler  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 MAX_LEN, CHUNK, SLOTS, V = 256, 16, 3, 256
 STAT_KEYS = ("arrival", "admit", "live", "finish", "n_tokens", "prompt_tokens",

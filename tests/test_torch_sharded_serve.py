@@ -57,7 +57,7 @@ from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.serving import (ReplicatedPrefixCache, Request,  # noqa: E402
                                  ShardedServeEngine, make_serve_mesh)
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import JAX_ENV, cpu_test_settings  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG_KW = dict(name="t", family="lm", vocab=64, num_layers=2, d_model=32, num_heads=4,
@@ -210,7 +210,7 @@ def job(tmp_path_factory):
     }, root / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                JAX_PLATFORMS="cpu")
+                JAX_PLATFORMS="cpu", **JAX_ENV)
     procs = [subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_CELLS),
                                str(root / "jax_in.pkl"), str(root / "jax_out.pkl")],
                               env=jenv, stdout=subprocess.PIPE, stderr=subprocess.PIPE)]

@@ -33,7 +33,7 @@ from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim import make_optimizer as t_make_optimizer  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 MESHES = {"1x1": ((1, 1), ("data", "model")), "2x2": ((2, 2), ("data", "model")),
           "4x2": ((4, 2), ("data", "model")), "16x16": ((16, 16), ("data", "model")),

@@ -46,7 +46,7 @@ from repro_torch.core import stlt as t_stlt  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.serving import speculative as t_spec  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 MAX_LEN, CHUNK, V = 96, 8, 64
 BASE = dict(name="t", family="lm", vocab=V, num_layers=2, d_model=32, num_heads=4,

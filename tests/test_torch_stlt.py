@@ -30,7 +30,7 @@ from repro.models import layers as j_layers  # noqa: E402
 from repro_torch.core import adaptive as t_adaptive  # noqa: E402
 from repro_torch.core import stlt as t_stlt  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-5
 B, N, D, H, S, C = 3, 40, 32, 4, 8, 16

@@ -57,7 +57,7 @@ from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp_lib  # noqa: E402
 from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import JAX_ENV, cpu_test_settings  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, M, D, STEPS = 4, 72, 80, 3, 2   # batch, prompt, decode cell's positions, steps
@@ -215,7 +215,7 @@ def job(tmp_path_factory):
     }, root / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                JAX_PLATFORMS="cpu")
+                JAX_PLATFORMS="cpu", **JAX_ENV)
     procs = []
     for key in ARCHS:
         with open(root / f"jax_in_{key}.pkl", "wb") as f:

@@ -55,7 +55,7 @@ from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.utils import (cast_params_for_compute, tree_flatten_with_paths,  # noqa: E402
                                tree_leaves, tree_unflatten)
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 # the modules (``repro.optim`` re-exports their functions under the same names)
 j_adamw = importlib.import_module("repro.optim.adamw")
@@ -96,6 +96,7 @@ def _scan_inputs(seed, BH, N, d, S, dtype=np.float32):
 def test_port_imports_no_jax_and_nothing_of_repro():
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     sources += [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    sources += sorted((ROOT / "examples").glob("torch_*.py"))
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
     found = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
              for p in sources
@@ -227,6 +228,85 @@ def test_training_call_goes_through_the_vjp_function():
         want = torch.autograd.grad(z, ins, torch.ones_like(z))
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _state_loss_inputs(seed, BH, N, d, S, dtype):
+    """The scan inputs, dz, and the end state's cotangents (dh_re, dh_im)."""
+    x, lm, th, ur, ui, dz = map(torch.from_numpy, _scan_inputs(seed, BH, N, d, S, dtype))
+    r = np.random.default_rng(seed + 1)
+    dh = [torch.from_numpy(r.normal(size=(BH, S, d)).astype(dtype)) for _ in range(2)]
+    return (x, lm, th, ur, ui), dz, dh
+
+
+@pytest.mark.parametrize("N,chunk", [(48, 16), (37, 16), (5, 8)])
+def test_stateful_grads_match_autograd_float64(N, chunk):
+    """The stateful call's backward in float64: the anti-causal pass over dz
+    plus ``_end_state_dx`` for dx, ``_analytic_param_grads`` seeded with the
+    end state's cotangent for the poles and mixers, against torch autograd
+    through the plain pass with its snapshot at N (z and both carries in the
+    loss): within 1e-9 of each grad's largest entry, with N a multiple of
+    the chunk and not."""
+    ins, dz, dh = _state_loss_inputs(N + 2, 3, N, 8, 8, np.float64)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    nc = -(-N // chunk)
+    z, h_re, h_im = t_ops._pass(leaves[0], t_ops._operators(*leaves[1:], chunk), chunk, False,
+                                t_ops.stlt_scan_reference,
+                                snapshot=t_ops._snapshot_ops(leaves[1], leaves[2], None, N,
+                                                             chunk, nc))
+    want = torch.autograd.grad((z * dz).sum() + (h_re * dh[0]).sum() + (h_im * dh[1]).sum(),
+                               leaves)
+    x, lm, th, ur, ui = ins
+    dx = (t_ops._pass(dz, t_ops._operators(lm, th, ur, ui, chunk), chunk, True,
+                      t_ops.stlt_scan_reference)[0]
+          + t_ops._end_state_dx(lm, th, *dh, N))
+    got = (dx, *t_ops._analytic_param_grads(x, dz, lm, th, ur, ui, chunk, False, dh=dh))
+    for name, g, w in zip(("dx", "dlog_mag", "dtheta", "du_re", "du_im"), got, want):
+        assert g.dtype == torch.float64
+        assert _rel_err(g, w) <= 1e-9, (name, _rel_err(g, w))
+
+
+def test_stateful_call_goes_through_its_vjp_function():
+    """The causal call from a zero carry with ``return_state`` is
+    ``_StltScanState`` on the CPU as on the card, not autograd through the
+    plain version: z and both carries hang off its backward, which runs the
+    scan's pass once (anti-causally, over dz: K1 on the card) after the one
+    forward pass; its z and carries equal the forward-only call's, and its
+    grads are within fp32 rounding (1e-5 of each grad's largest entry) of
+    autograd through the plain version in float64."""
+    ins, dz, dh = _state_loss_inputs(5, 2, 37, 8, 8, np.float32)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    runner, passes = t_ops._runner, []
+
+    def counting(t):
+        passes.append(t.requires_grad)
+        return runner(t)
+
+    t_ops._runner = counting
+    try:
+        z, (h_re, h_im) = t_ops.stlt_scan(*leaves, chunk=16, return_state=True)
+        assert {type(t.grad_fn).__name__ for t in (z, h_re, h_im)} == {
+            "_StltScanStateBackward"}
+        assert len(passes) == 1
+        got = torch.autograd.grad((z * dz).sum() + (h_re * dh[0]).sum()
+                                  + (h_im * dh[1]).sum(), leaves)
+        assert len(passes) == 2
+    finally:
+        t_ops._runner = runner
+    with torch.no_grad():
+        z2, (hr2, hi2) = t_ops.stlt_scan(*ins, chunk=16, h0_re=torch.zeros_like(dh[0]),
+                                         h0_im=torch.zeros_like(dh[1]), return_state=True)
+    for a, b in ((z, z2), (h_re, hr2), (h_im, hi2)):
+        torch.testing.assert_close(a.detach(), b, rtol=0, atol=0)
+    ins64, dz64, dh64 = _state_loss_inputs(5, 2, 37, 8, 8, np.float64)
+    leaves64 = [t.clone().requires_grad_(True) for t in ins64]
+    z, h_re, h_im = t_ops._pass(leaves64[0], t_ops._operators(*leaves64[1:], 16), 16, False,
+                                t_ops.stlt_scan_reference,
+                                snapshot=t_ops._snapshot_ops(leaves64[1], leaves64[2], None,
+                                                             37, 16, 3))
+    want = torch.autograd.grad((z * dz64).sum() + (h_re * dh64[0]).sum()
+                               + (h_im * dh64[1]).sum(), leaves64)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= REL_F32
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ from repro_torch.serving.disagg import wire  # noqa: E402
 from repro_torch.serving.disagg.failover import corrupt_blob  # noqa: E402
 from repro_torch.serving.prefix_cache import state_digest  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 # the layer kinds the port serves, as tests/test_wire.py builds them
 KINDS = {

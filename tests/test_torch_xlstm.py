@@ -46,7 +46,7 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models import xlstm as TX  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.utils import cast_params_for_compute, tree_flatten_with_paths  # noqa: E402
-from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
+from torch_threads import cpu_test_settings  # noqa: E402,F401  (autouse)
 
 RTOL, ATOL = 2e-4, 1e-5
 STATE_TOL = 2e-5

@@ -72,6 +72,34 @@ def cp_scenario(inp):
     return comm.all_gather(z, 1, mesh.group("data")).numpy()
 
 
+def cp_grad_scenario(inp, case):
+    """jax.grad's counterpart: the loss sum(w z) through the context-parallel
+    STLT on the case's x [B, 4 N_loc, d], backward from every rank. Returns
+    dx gathered over the ranks, each rank's grads of the poles and mixers
+    (each the whole gradient), and the passes the scan ran per rank
+    (``ops._runner``'s calls: the stateful forward, the anti-causal dx)."""
+    from repro_torch.kernels import ops
+
+    mesh = comm.make_mesh((4,), ("data",), device="cpu")
+    group, r = mesh.group("data"), mesh.coord("data")
+    c = inp["cp"]
+    x_all, w_all = c["grad"][case]
+    n_loc = x_all.shape[1] // 4
+    x = x_all[:, r * n_loc:(r + 1) * n_loc].clone().requires_grad_(True)
+    poles = [c[k].clone().requires_grad_(True) for k in ("lm", "th", "ur", "ui")]
+    runner, passes = ops._runner, []
+    ops._runner = lambda t: passes.append(1) or runner(t)  # noqa: E731
+    try:
+        z = stlt_context_parallel(x, *poles, mesh, chunk=c["chunk"])
+        (z * w_all[:, r * n_loc:(r + 1) * n_loc]).sum().backward()
+    finally:
+        ops._runner = runner
+    return {"dx": comm.all_gather(x.grad, 1, group).numpy(),
+            "poles": comm.all_gather(torch.stack([p.grad for p in poles])[None], 0,
+                                     group).numpy(),
+            "passes": comm.all_gather(torch.tensor([len(passes)]), 0, group).tolist()}
+
+
 def pipe_scenario(inp):
     mesh = comm.make_mesh((4,), ("pipe",), device="cpu")
     c = inp["pipe"]
@@ -401,6 +429,7 @@ def main(root: str, rank: int, world: int):
     for name, (cfg_key, mesh_shape, n) in inp["train"].items():
         res[name] = train_scenario(inp, inp["cfgs"][cfg_key], mesh_shape, n)
     res["cp"] = cp_scenario(inp)
+    res["cp_grad"] = {case: cp_grad_scenario(inp, case) for case in inp["cp"]["grad"]}
     res["pipe"] = pipe_scenario(inp)
     res["remesh"] = {rank: remesh_scenario(inp)}
     for name, (cfg_key, mesh_shape) in inp["refusals"].items():

@@ -26,7 +26,12 @@ and write their numbers there as JSON. Four checks:
 * DT2, the context-parallel STLT: 8 rows x 131,072 tokens over the 4 ranks
   (32,768 each; d = 64, S = 64), held to the serial K1 call over all 131,072
   tokens within K1's gate 2e-4 (1 + max |ref|); ms per rank and the bytes
-  exchanged (2 x 8 x 64 x 64 x 4 = 262,144 per rank).
+  exchanged (2 x 8 x 64 x 64 x 4 = 262,144 per rank). Then its backward
+  from a seeded cotangent: dx per rank and each pole and mixer grad (whole
+  on every rank) against the serial training call's (K1 forward, K1
+  anti-causal, the analytic grads; run once, on rank 0, which hands each
+  rank its slices) within K1's gate, 2 K1 launches per rank (the stateful
+  forward, the anti-causal dx pass) and the bytes ``DT2_BWD_BYTES``.
 * DT3, the pipeline: stlt-base's 6 blocks as 2 stages of 3 on 2-rank
   ``pipe`` groups (the 4 ranks as 2 x 2 (``data``, ``pipe``)), 4 microbatches
   of 1 x 1000: outputs and every stage param's grad against the 6 blocks run
@@ -88,6 +93,12 @@ DT1_METRIC_RTOL = 1e-4
 DT1_METRICS = ("grad_norm", "ce", "reg", "s_eff")
 DT2_B, DT2_N, DT2_D, DT2_S = 8, 131072, 64, 64
 K1_TOL = 2e-4                 # x (1 + max |ref|): K1's gate (chip_smoke.K1_TOL)
+# what a rank hands to each collective in DT2's forward + backward: the end
+# states' all-gather [1, 2, B, S, d] fp32, the reduce-scatter of their
+# cotangent [4, 2, B, S, d], and the 4 pole and mixer grads' all-reduces [S]
+DT2_BWD_BYTES = {"all_gather": 2 * DT2_B * DT2_S * DT2_D * 4,
+                 "reduce_scatter": WORLD * 2 * DT2_B * DT2_S * DT2_D * 4,
+                 "all_reduce": 4 * DT2_S * 4}
 DT3_M, DT3_N = 4, 1000
 DT3_OUT_TOL = 1e-4            # x (1 + max |ref|)
 DT3_GRAD_TOL = 1e-3           # x max |ref grad| per leaf (chip_smoke.TRAIN_GRAD_TOL)
@@ -216,9 +227,13 @@ def dt1(T, cfg, dev, rank, out):
 
 
 def dt2(dev, rank, out):
+    """The context-parallel STLT, forward and backward, against the serial
+    training call over all DT2_N tokens (run once, on rank 0, which hands
+    each rank its slices)."""
     import torch
 
     from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as sh
     from repro_torch.distributed.context_parallel import stlt_context_parallel
     from repro_torch.kernels import ops
     from repro_torch.kernels import stlt_scan as k1
@@ -230,19 +245,62 @@ def dt2(dev, rank, out):
     lm = -(0.0005 + 0.05 * torch.rand(S, generator=g, device=dev))
     th = (torch.pi / 4) * (2 * torch.rand(S, generator=g, device=dev) - 1)
     ur, ui = (torch.randn(S, generator=g, device=dev) / S for _ in range(2))
+    w = torch.randn(B, N, d, generator=g, device=dev)      # the backward's cotangent
     n_loc = N // WORLD
     x_loc = x[:, rank * n_loc:(rank + 1) * n_loc].contiguous()
+    w_loc = w[:, rank * n_loc:(rank + 1) * n_loc].contiguous()
     run = lambda: stlt_context_parallel(x_loc, lm, th, ur, ui, mesh)  # noqa: E731
-    run()                                           # warm
+    with torch.no_grad():
+        run()                                       # warm
+        comm.reset_stats()
+        k1.stlt_scan_kernel.launches = 0
+        z, ms = _timed(run)
+    row = {"ms": ms, "k1": k1.stlt_scan_kernel.launches, "bytes": dict(comm.STATS)}
+    leaves = [t.clone().requires_grad_(True) for t in (x_loc, lm, th, ur, ui)]
+
+    def fwd_bwd():
+        zl = stlt_context_parallel(*leaves, mesh)
+        return torch.autograd.grad((zl * w_loc).sum(), leaves)
+
+    fwd_bwd()                                       # warm
     comm.reset_stats()
     k1.stlt_scan_kernel.launches = 0
-    z, ms = _timed(run)
-    row = {"ms": ms, "k1": k1.stlt_scan_kernel.launches, "bytes": dict(comm.STATS)}
-    rows = [t[None].expand(B, S).contiguous() for t in (lm, th, ur, ui)]
-    want, row["serial_ms"] = _timed(lambda: ops.stlt_scan(x, *rows))
-    want = want[:, rank * n_loc:(rank + 1) * n_loc]
-    row["err"] = float((z - want).abs().max())
-    row["scale"] = 1.0 + float(want.abs().max())
+    grads, row["bwd_ms"] = _timed(fwd_bwd)
+    row["bwd_k1"] = k1.stlt_scan_kernel.launches
+    row["bwd_bytes"] = dict(comm.STATS)
+    del x_loc, leaves
+    # the serial reference: the training call over all N tokens, z and its
+    # grads (K1 forward, K1 anti-causal, the analytic param grads), rank 0 only
+    full = None
+    if rank == 0:
+        ref = [t.clone().requires_grad_(True) for t in (x, lm, th, ur, ui)]
+        rows = [t[None].expand(B, S).contiguous() for t in ref[1:]]
+        with torch.no_grad():
+            _, row["serial_ms"] = _timed(lambda: ops.stlt_scan(x, *rows))
+
+        def serial():
+            zs = ops.stlt_scan(ref[0], *rows)
+            return zs, torch.autograd.grad((zs * w).sum(), ref)
+
+        (zs, sg), row["serial_bwd_ms"] = _timed(serial)
+        full = {"z": zs.detach(), "dx": sg[0], "poles": torch.stack(sg[1:])}
+        del ref, rows, zs, sg
+    del x, w
+    shards = {"z": z, "dx": grads[0], "poles": torch.stack(grads[1:])}
+    specs = {"z": sh.P(None, "data", None), "dx": sh.P(None, "data", None),
+             "poles": sh.P(None, None)}
+    want = _hand_out(full, shards, specs, mesh, rank)
+    del full
+    torch.cuda.empty_cache()
+    for name, key in (("z", ""), ("dx", "dx_")):
+        ref = want[name].to(dev)
+        row[f"{key}err"] = float((shards[name] - ref).abs().max())
+        row[f"{key}scale"] = 1.0 + float(ref.abs().max())
+    # each pole and mixer grad against its own scale
+    ref = want["poles"].to(dev)
+    row["pole_gaps_over_tol"] = [
+        float((a - b).abs().max()) / (K1_TOL * (1.0 + float(b.abs().max())))
+        for a, b in zip(shards["poles"], ref)]
     out["DT2"] = row
 
 
@@ -1060,6 +1118,14 @@ def check(res: list) -> dict:
         d2 = r["DT2"]
         if not (d2["err"] <= K1_TOL * d2["scale"] and d2["k1"] == 1):
             raise AssertionError(f"DT2 rank {r['rank']}: {d2}")
+        if not (d2["dx_err"] <= K1_TOL * d2["dx_scale"]
+                and max(d2["pole_gaps_over_tol"]) <= 1.0 and d2["bwd_k1"] == 2
+                and d2["bwd_bytes"] == DT2_BWD_BYTES):
+            raise AssertionError(f"DT2 backward rank {r['rank']}: dx err {d2['dx_err']} "
+                                 f"(scale {d2['dx_scale']}), pole and mixer grads "
+                                 f"{d2['pole_gaps_over_tol']} of K1's gate, K1 "
+                                 f"{d2['bwd_k1']} (expected 2), bytes {d2['bwd_bytes']} "
+                                 f"(expected {DT2_BWD_BYTES})")
         d3 = r["DT3"]
         if not (d3["out_err"] <= DT3_OUT_TOL * d3["out_scale"] and d3["grad_gap_over_tol"] <= 1.0):
             raise AssertionError(f"DT3 rank {r['rank']}: {d3}")
@@ -1121,11 +1187,16 @@ def check(res: list) -> dict:
         "metric_rel_gap": {k: max(abs(row["metrics"][k] - row["ref_metrics"][k])
                                   / abs(row["ref_metrics"][k]) for row in dt1)
                            for k in DT1_METRICS},
-        "cp_ms": [r["DT2"]["ms"] for r in res], "cp_serial_ms": [r["DT2"]["serial_ms"]
-                                                                for r in res],
+        "cp_ms": [r["DT2"]["ms"] for r in res], "cp_serial_ms": r0["DT2"]["serial_ms"],
         "cp_bytes": [r["DT2"]["bytes"] for r in res],
         "cp_k1": [r["DT2"]["k1"] for r in res],
         "cp_err_over_scale": max(r["DT2"]["err"] / r["DT2"]["scale"] for r in res),
+        "cp_bwd_ms": [r["DT2"]["bwd_ms"] for r in res],
+        "cp_serial_bwd_ms": r0["DT2"]["serial_bwd_ms"],
+        "cp_bwd_k1": [r["DT2"]["bwd_k1"] for r in res],
+        "cp_bwd_bytes": [r["DT2"]["bwd_bytes"] for r in res],
+        "cp_dx_err_over_scale": max(r["DT2"]["dx_err"] / r["DT2"]["dx_scale"] for r in res),
+        "cp_pole_gaps_over_tol": [r["DT2"]["pole_gaps_over_tol"] for r in res],
         "pipe_ms": [r["DT3"]["ms"] for r in res],
         "pipe_serial_ms": [r["DT3"]["serial_ms"] for r in res],
         "pipe_k1": [r["DT3"]["k1"] for r in res],
