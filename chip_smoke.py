@@ -432,32 +432,17 @@ def log_top_kernels(tag: str, top: list, busy_ms: float):
 
 def k1_bound(BH, N, d, C, S, valid):
     """(bound_ms, bound_fp32_ms, bound_by, flops, bytes) of one K1 call on
-    this call's data. ``bound_ms`` is the least time for the work as the
-    kernel does it: its products as 3xTF32 on the tensor cores (three TF32
-    products for each fp32 one, at the TF32 peak) and the carries' decay at
-    the fp32 rate, or the bytes it must move (inputs read once, outputs
-    written once) over HBM if they take longer; ``bound_by`` names which.
-    ``bound_fp32_ms`` is the same with every flop as fp32 FMA."""
-    nc = -(-N // C)
-    n_local = np.arange(N) % C
-    # z row n: the lower-triangular Toeplitz row (n mod C + 1 taps) plus the
-    # carry injection A h_re + B h_im (2S taps), d columns, 2 flops a tap
-    prods = BH * d * 2.0 * float((n_local + 1 + 2 * S).sum())
-    # carry into chunks 1..nc-1: [Pre; Pim] X_c (2S x C) and the decay
-    prods += BH * (nc - 1) * d * 2.0 * 2 * S * C
-    decay = BH * (nc - 1) * d * 8.0 * S
-    # the gated snapshot: 2S x r taps with r the live in-chunk offset
-    q = valid.astype(np.int64)
-    r = np.where(q > 0, q - np.maximum(q - 1, 0) // C * C, 0)
-    prods += float((d * 2.0 * 2 * S * r).sum())
-    decay += float((d * 8.0 * S * (q > 0)).sum())
+    this call's data (its work: ``stlt_scan.work``). ``bound_ms`` is the
+    least time for the work as the kernel does it: its products as 3xTF32 on
+    the tensor cores (three TF32 products for each fp32 one, at the TF32
+    peak) and the carries' decay at the fp32 rate, or the bytes it must move
+    (inputs read once, outputs written once) over HBM if they take longer;
+    ``bound_by`` names which. ``bound_fp32_ms`` is the same with every flop
+    as fp32 FMA."""
+    from repro_torch.kernels import stlt_scan
+
+    prods, decay, nbytes = stlt_scan.work(BH, N, d, C, S, valid)
     flops = prods + decay
-    # operators: M [C, C], A, B [C, S], Pre, Pim, Spre, Spim [S, C], decays;
-    # a window shorter than a chunk (verify, commit) needs only their first
-    # c = min(C, N) rows or columns
-    c = min(C, N)
-    nbytes = 4 * BH * (2 * N * d + 4 * S * d) + 4 * BH * (c * c + 6 * c * S + 4 * S) \
-        + 4 * BH * nc
     t_tc = 3 * prods / PEAK_TF32_FLOPS + decay / PEAK_FP32_FLOPS
     t_fp32, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_tc, t_bytes), 1e3 * max(t_fp32, t_bytes),
@@ -597,24 +582,16 @@ def k2_max_score(k2, x, lm, th, mk, km, causal):
 
 def k2_bound(mk, km, dh, causal):
     """(bound_ms, fp32_bound_ms, bound_by, flops, bytes) of one K2 call on
-    these inputs: per (query, valid key) pair, 2 * 2 * dh flops for each node
-    whose mask is not 0 (the kernel skips the others) and 2 * dh for P.v;
-    bytes: x, v read, z written, and the [BH, S] / [BH, N] side inputs.
-    ``bound_ms`` is the least time for the work as the kernel does it: the
-    score contraction and P.v both as 3xTF32 on the tensor cores (three TF32
-    products for each fp32 one, at the TF32 peak), or the bytes if they take
-    longer; ``fp32_bound_ms`` the same with every flop as fp32 FMA."""
+    these inputs (its work: ``relevance_flash.work``, which counts only the
+    nodes whose mask is not 0 and the valid keys). ``bound_ms`` is the least
+    time for the work as the kernel does it: the score contraction and P.v
+    both as 3xTF32 on the tensor cores (three TF32 products for each fp32
+    one, at the TF32 peak), or the bytes if they take longer;
+    ``fp32_bound_ms`` the same with every flop as fp32 FMA."""
+    from repro_torch.kernels import relevance_flash
+
     BH, N = km.shape
-    S = mk.shape[-1]
-    valid = (km > 0).double()
-    if causal:   # keys m <= n: sum_n (valid keys in [0, n])
-        pairs = valid.cumsum(-1).sum(-1)
-    else:
-        pairs = valid.sum(-1) * N
-    active = (mk != 0).double().sum(-1)
-    score = float((pairs * 4.0 * dh * active).sum())
-    pv = float((pairs * 2.0 * dh).sum())
-    nbytes = 4 * (3 * BH * N * dh + 3 * BH * S + BH * N)
+    score, pv, nbytes = relevance_flash.work(BH, N, mk.shape[-1], dh, causal, mk, km)
     t_tc = 3 * (score + pv) / PEAK_TF32_FLOPS
     t_fp32 = (score + pv) / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -3948,7 +3925,9 @@ def dt_phase() -> dict:
     import phase_dt
 
     t0 = time.time()
-    res = phase_dt.check(phase_dt.launch("gloo", cards=1, timeout=700))
+    ranks = phase_dt.launch("gloo", cards=1, timeout=700)
+    res = phase_dt.check(ranks)
+    res["ranks"] = ranks
     log(f"[DT1 sharded step] stlt-base 2 x 2 (data, model), 4 x 1000 tokens, 4 gloo ranks on "
         f"one card: step ms per rank {res['step_ms']} (single-device {res['ref_step_ms']}); "
         f"K1 per rank per step {res['k1_per_step']}; bytes per rank per step "
@@ -4025,6 +4004,119 @@ def dt_phase() -> dict:
                 f"[{smi}]")
     log(f"[DA laps] {res['da']['laps']}; [DM laps] {res['dm']['laps']}")
     return res
+
+
+# Phase LC: the dry-run (``launch.steps.lower_cell``) of the cells phases DT,
+# DS and DM ran on the card, built in this process for each of their 4 ranks
+# and run on the meta device. Exact gates: each rank's bytes handed to each
+# kind of collective and its calls of each kind (``comm.STATS``,
+# ``comm.CALLS``) and its K1 launches (the dry-run's dispatches of K1's op)
+# equal what the rank measured. Memory: the dry-run's peak (its arguments
+# plus the step's live bytes above them) within LC_PEAK_BANDS[kind] of the
+# card's (the bytes the rank was handed plus the allocator's rise over the
+# step, its peak reset before it). A step without a backward is held
+# tightly; a train step's dry-run peak is an upper bound (its counter's
+# dispatch mode makes autograd sum grads out of place:
+# ``launch/lowering.py``), 1.2039 of the card's at DT1 and 1.0000 at DM1 on
+# an H100 (PERF.md, where the bands are stated before each run).
+# Then one production cell at full size.
+LC_PEAK_BANDS = {"train": (0.97, 1.25), "prefill": (0.97, 1.05), "decode": (0.97, 1.05)}
+LC_FULL_CELL = ("qwen3-moe-235b-a22b", "train_4k", "native")   # on 2 x 16 x 16
+
+
+def lc_cells(res: list) -> list:
+    """(tag, fn(mesh) -> the cell's program, its mesh, fn(rank result) ->
+    what the rank measured: bytes, calls, k1, held, grown) for every cell
+    phase LC compares."""
+    import phase_dt
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.stlt_base import CONFIG
+    from repro_torch.launch import steps
+
+    tcfg = TrainConfig(total_steps=100, warmup_steps=2)
+    dm = phase_dt.da_config(phase_dt.DM_ARCH, "stlt", phase_dt.DM_LAYERS)
+    B, N, new = phase_dt.DS1_B, phase_dt.DS1_N, phase_dt.DS1_NEW
+    dB, dN = phase_dt.DA_B, phase_dt.DA_N
+
+    def served(tag, kind):
+        def read(r):
+            row = r[tag]
+            k1 = row[f"{kind}_k1"]
+            return {"bytes": row[f"{kind}_bytes"], "calls": row[f"{kind}_calls"],
+                    "k1": k1[-1] if isinstance(k1, list) else k1,
+                    "held": row[f"{kind}_held"], "grown": row[f"{kind}_grown"]}
+        return read
+
+    return [
+        ("DT1 train 2x2", lambda m: steps.build_train_step(
+            CONFIG, ShapeConfig("dt", phase_dt.DT1_N, phase_dt.DT1_B, "train"), m, tcfg),
+         (2, 2), lambda r: r["DT1"][-1]),
+        ("DS1 prefill 2x2", lambda m: steps.build_prefill_step(
+            CONFIG, ShapeConfig("ds", N, B, "prefill"), m), (2, 2), served("DS1", "prefill")),
+        ("DS1 decode 2x2", lambda m: steps.build_decode_step(
+            CONFIG, ShapeConfig("ds", N + new, B, "decode"), m), (2, 2), served("DS1", "decode")),
+        ("DM1 stlt train 1x4", lambda m: steps.build_train_step(
+            dm, ShapeConfig("dm", phase_dt.DM_TRAIN_N, phase_dt.DM_TRAIN_B, "train"), m, tcfg),
+         (1, 4), lambda r: r["DM1 stlt train 1x4"]["steps"][-1]),
+        ("DM1 stlt prefill 1x4", lambda m: steps.build_prefill_step(
+            dm, ShapeConfig("dm", dN, dB, "prefill"), m), (1, 4),
+         served("DM1 stlt serve 1x4", "prefill")),
+        ("DM1 stlt decode 1x4", lambda m: steps.build_decode_step(
+            dm, ShapeConfig("dm", dN + phase_dt.DM_NEW, dB, "decode"), m), (1, 4),
+         served("DM1 stlt serve 1x4", "decode"))]
+
+
+def lc_phase(res: list) -> dict:
+    """Phase LC on the rank results of phase DT's job (``res``): every
+    compared cell on every rank, then LC_FULL_CELL's dry-run (no depth
+    probes) timed. Raises on a failed gate."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch import dryrun, steps
+
+    t0 = time.time()
+    out, failed = {"cells": {}}, []
+    for tag, build, shape, measured in lc_cells(res):
+        rows = []
+        for r in res:
+            mesh = comm.RankMesh(shape, ("data", "model"), r["rank"])
+            prog = build(mesh)
+            c, band = steps.lower_cell(prog, mesh).compile(), LC_PEAK_BANDS[prog.kind]
+            want, mem = measured(r), c.memory_analysis()
+            row = {"bytes": c.handed_in, "calls": c.calls, "k1": c.launches["stlt_scan"],
+                   "peak": mem.peak_memory_in_bytes, "args": mem.argument_size_in_bytes,
+                   "temp": mem.temp_size_in_bytes, "card_held": want["held"],
+                   "card_grown": want["grown"], "s": c.seconds}
+            row["peak_ratio"] = row["peak"] / (want["held"] + want["grown"])
+            failed += [f"LC {tag} rank {r['rank']}: the dry-run's {k} {row[k]}, the card's "
+                       f"{want[k]}" for k in ("bytes", "calls", "k1") if row[k] != want[k]]
+            if not band[0] <= row["peak_ratio"] <= band[1]:
+                failed.append(f"LC {tag} rank {r['rank']}: the dry-run's peak {row['peak']} B "
+                              f"is {row['peak_ratio']:.4f} of the card's {want['held']} + "
+                              f"{want['grown']} B (band {band})")
+            rows.append(row)
+        out["cells"][tag] = rows
+        log(f"[LC {tag}] per rank: bytes {[r['bytes'] for r in rows]}, calls "
+            f"{[r['calls'] for r in rows]}, K1 {[r['k1'] for r in rows]}; peak B "
+            f"{[r['peak'] for r in rows]} (args {[r['args'] for r in rows]}, "
+            f"temp {[r['temp'] for r in rows]}) against the card's held + grown "
+            f"{[(r['card_held'], r['card_grown']) for r in rows]}: ratio "
+            f"{[round(r['peak_ratio'], 4) for r in rows]} (band {band}); dry-run s "
+            f"{[round(r['s'], 2) for r in rows]}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    arch, shape_name, variant = LC_FULL_CELL
+    rec = dryrun.run_cell(arch, shape_name, variant, True, str(ROOT / "build" / "lc"),
+                          verbose=False, depth_probe=False)
+    if not rec["ok"]:
+        raise AssertionError(f"LC full-size cell {LC_FULL_CELL}: {rec['error']}")
+    out["full"] = {"s": rec["wall_s"], "peak": rec["memory"]["peak_memory_in_bytes"],
+                   "flops": rec["cost_raw"]["flops"],
+                   "collective_bytes": rec["cost_raw"]["collective_bytes"]}
+    log(f"[LC full size] {arch} {shape_name} {variant} on 2 x 16 x 16, rank 0: "
+        f"{rec['wall_s']} s; peak {out['full']['peak']} B, flops {out['full']['flops']:.6e}, "
+        f"collective bytes {out['full']['collective_bytes']:.6e}; phase LC "
+        f"{time.time() - t0:.1f} s")
+    return out
 
 
 def main(argv) -> int:
@@ -4597,6 +4689,10 @@ def main(argv) -> int:
             f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['bound_by']})")
         del dm_args
     lap("DT")
+    # LC. the dry-run of DT's, DS's and DM's cells against what their ranks
+    # measured, and one production cell at full size
+    lc_phase(dt["ranks"])
+    lap("LC")
     log(f"[6 timing] whole script {time.time() - t_all:.1f} s; by phase: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in laps.items()))
 

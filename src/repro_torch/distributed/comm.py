@@ -23,7 +23,15 @@ nothing switches it silently:
 A failed ``init_process_group`` raises. ``STATS`` counts the bytes each rank
 hands to each kind of collective (a tensor's ``numel * element_size`` per
 call; an all-gather hands in its shard and gets the group's size times as
-much back), for the step's byte budget (``chip_smoke.py``, phase DT).
+much back), for the step's byte budget (``chip_smoke.py``, phase DT);
+``CALLS`` counts the calls of each kind and ``RESULT_BYTES`` the bytes of
+their results (the all-gather's n shards, the reduce-scatter's 1/n: the JAX
+dry-run's per-device convention). A ``RankMesh`` is one rank of a
+shape-only mesh: its groups (``ShapeGroup``) have a size and the rank's
+index and no processes, and a collective on one exchanges nothing, returns
+a tensor of the result's shape and dtype on the input's device and counts
+through the same ``_count`` as the transports, so ``STATS`` means the same
+on both paths (``launch.steps.lower_cell``, the dry-run).
 
 Autograd operators. A replicated value on the ``model`` axis follows
 Megatron's convention: every rank of the group computes the same loss, so
@@ -55,14 +63,22 @@ import torch.distributed as dist
 from repro_torch.utils import resolve_device
 
 STATS: dict = {}
+CALLS: dict = {}
+RESULT_BYTES: dict = {}
 
 
 def reset_stats():
-    STATS.clear()
+    for d in (STATS, CALLS, RESULT_BYTES):
+        d.clear()
 
 
-def _count(kind: str, t: torch.Tensor):
-    STATS[kind] = STATS.get(kind, 0) + t.numel() * t.element_size()
+def _count(kind: str, t: torch.Tensor, result_bytes: Optional[int] = None):
+    """Count one call of ``kind`` handing in ``t`` (its result's bytes
+    ``result_bytes``, t's own unless given)."""
+    n = t.numel() * t.element_size()
+    STATS[kind] = STATS.get(kind, 0) + n
+    CALLS[kind] = CALLS.get(kind, 0) + 1
+    RESULT_BYTES[kind] = RESULT_BYTES.get(kind, 0) + (n if result_bytes is None else result_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +170,47 @@ class DistMesh(MeshSpec):
         return self._groups[axes]
 
 
+class ShapeGroup:
+    """A group of a ``RankMesh``: its size and this rank's index in it."""
+
+    __slots__ = ("size", "rank")
+
+    def __init__(self, size: int, rank: int):
+        self.size, self.rank = size, rank
+
+    def __repr__(self):
+        return f"ShapeGroup(size={self.size}, rank={self.rank})"
+
+
+class RankMesh(MeshSpec):
+    """Rank ``rank`` of a shape-only mesh (ranks row-major over the axis
+    names, as ``DistMesh`` lays them out), its tensors on ``meta``:
+    ``coord``, ``axis_size``, ``group`` and ``member`` answer as a
+    ``DistMesh``'s do, with no process group. A step built on it runs this
+    rank's ops, its collectives shape-only."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], rank: int = 0):
+        super().__init__(shape, axis_names)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is outside a mesh of {self.size}")
+        self.rank, self.device, self.member = rank, torch.device("meta"), True
+        self._coords = {}
+        for a in reversed(self.axis_names):
+            self._coords[a], rank = rank % self.shape[a], rank // self.shape[a]
+
+    coord = DistMesh.coord
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    def group(self, axes) -> ShapeGroup:
+        axes = tuple(a for a in self.axis_names if a in _axes(axes))
+        return ShapeGroup(self.axis_size(axes), self.coord(axes))
+
+
+RANK_MESHES = (DistMesh, RankMesh)   # the meshes a step runs on, seen from one rank
+
+
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], device=None) -> DistMesh:
     """The process mesh over the whole job (``init_device_mesh``; the world
     size must equal the mesh's size). Tensors live on ``device`` (CUDA
@@ -186,8 +243,12 @@ def sub_mesh(ranks, axis_names: Sequence[str], device=None) -> DistMesh:
 # ---------------------------------------------------------------------------
 
 
+def _shape_only(group) -> bool:
+    return isinstance(group, ShapeGroup)
+
+
 def _host(group) -> bool:
-    return dist.get_backend(group) == "gloo"
+    return not _shape_only(group) and dist.get_backend(group) == "gloo"
 
 
 def _wire(x: torch.Tensor, group) -> torch.Tensor:
@@ -202,20 +263,23 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    if dist.get_world_size(group) == 1:
+    if group_size(group) == 1:
         return x.detach().clone()
     w = _wire(x, group)
     _count("all_reduce", w)
-    dist.all_reduce(w, op=_OPS[op], group=group)
+    if not _shape_only(group):
+        dist.all_reduce(w, op=_OPS[op], group=group)
     return w.to(x.device)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
+    n = group_size(group)
     if n == 1:
         return x.detach().clone()
     w = _wire(x, group)
-    _count("all_gather", w)
+    _count("all_gather", w, n * w.numel() * w.element_size())
+    if _shape_only(group):
+        return torch.cat([w] * n, dim)
     parts = [torch.empty_like(w) for _ in range(n)]
     dist.all_gather(parts, w, group=group)
     return torch.cat(parts, dim).to(x.device)
@@ -225,24 +289,26 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Sum over the group, then this rank's 1/n of ``dim``
     (``reduce_scatter_tensor``; over gloo on a host copy, and only the
     rank's slice comes back)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     if n == 1:
         return x.detach().clone()
     w = _wire(x.movedim(dim, 0), group)
     out = torch.empty((w.shape[0] // n,) + w.shape[1:], dtype=w.dtype, device=w.device)
-    _count("reduce_scatter", w)
-    dist.reduce_scatter_tensor(out, w, group=group)
+    _count("reduce_scatter", w, out.numel() * out.element_size())
+    if not _shape_only(group):
+        dist.reduce_scatter_tensor(out, w, group=group)
     return out.movedim(0, dim).to(x.device)
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     """x from the group's rank ``src`` on every rank (x gives the shape and
     dtype elsewhere)."""
-    if dist.get_world_size(group) == 1:
+    if group_size(group) == 1:
         return x.detach().clone()
     w = _wire(x, group)
     _count("broadcast", w)
-    dist.broadcast(w, src=dist.get_global_rank(group, src), group=group)
+    if not _shape_only(group):
+        dist.broadcast(w, src=dist.get_global_rank(group, src), group=group)
     return w.to(x.device)
 
 
@@ -252,13 +318,16 @@ def exchange(send: Optional[torch.Tensor], to: Optional[int], recv_like: Optiona
     receive a tensor shaped like ``recv_like`` from group rank ``frm``
     (either may be None), in one ``batch_isend_irecv``."""
     ops, out, buf = [], None, None
+    real = not _shape_only(group)
     if send is not None:
         w = _wire(send, group)
         _count("p2p", w)
-        ops.append(dist.P2POp(dist.isend, w, dist.get_global_rank(group, to), group))
+        if real:
+            ops.append(dist.P2POp(dist.isend, w, dist.get_global_rank(group, to), group))
     if recv_like is not None:
         buf = torch.empty_like(_wire(recv_like, group))
-        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, frm), group))
+        if real:
+            ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, frm), group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -273,7 +342,7 @@ def exchange(send: Optional[torch.Tensor], to: Optional[int], recv_like: Optiona
 
 
 def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n, r = dist.get_world_size(group), dist.get_rank(group)
+    n, r = group_size(group), group_rank(group)
     size = x.shape[dim] // n
     return x.narrow(dim, r * size, size)
 
@@ -344,18 +413,22 @@ class _SliceReplicated(torch.autograd.Function):
 
 
 def _trivial(group) -> bool:
-    return group is None or dist.get_world_size(group) == 1
+    return group_size(group) == 1
 
 
 def group_size(group) -> int:
     """The group's size (1 for None: no group)."""
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    return group.size if _shape_only(group) else dist.get_world_size(group)
 
 
 def group_rank(group) -> int:
     """This rank's index in the group (its coordinate over the group's axes,
     row-major; 0 for None)."""
-    return 0 if group is None else dist.get_rank(group)
+    if group is None:
+        return 0
+    return group.rank if _shape_only(group) else dist.get_rank(group)
 
 
 def copy_to(x, group):

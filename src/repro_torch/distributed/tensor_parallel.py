@@ -411,7 +411,8 @@ def apply_moe_ep(params, cfg: moe_lib.MoEConfig, x: torch.Tensor, ep_group=None,
 
     The gather path's slot table holds only what this rank can keep: E_loc x
     the most any of its experts keeps here (at most the global capacity; a
-    shard fills about 1 / n_batch of it), read on the host once a call.
+    shard fills about 1 / n_batch of it), read on the host once a call; a
+    shape-only call (``meta``) takes the global capacity.
 
     Autograd follows the TP convention (every rank of ``ep_group`` computes
     the same loss): the experts read x through ``copy_to``, the gates'
@@ -439,7 +440,9 @@ def apply_moe_ep(params, cfg: moe_lib.MoEConfig, x: torch.Tensor, ep_group=None,
         counts = comm.all_gather(r.counts[None], 0, batch_group)
         before = counts[:comm.group_rank(batch_group)].sum(0)
         glob = r.pos + torch.cat([before, before.new_zeros(1)])[r.local]
-        width = max(1, int(torch.clamp(torch.minimum(r.counts, C - before), min=0).max()))
+        kept = torch.clamp(torch.minimum(r.counts, C - before), min=0)
+        # shape-only (meta, the dry-run): the most a call can keep, C
+        width = C if kept.device.type == "meta" else max(1, int(kept.max()))
     else:
         C = width = moe_lib._capacity(T, cfg)
         glob = r.pos

@@ -4,8 +4,9 @@ scan's custom VJP.
 ``stlt_scan`` builds K1's per-row chunk operators from the poles and mixers
 (plain torch, tiny and N-independent), then runs the scan in ONE pass: the
 Hopper kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor.
-There is no fallback: a CUDA tensor launches the kernel or raises. Kernel
-launches are counted in ``stlt_scan_kernel.launches``.
+There is no fallback: a CUDA tensor launches the kernel or raises; a
+``meta`` tensor (the dry-run) takes the kernel's op in its shape-only form.
+Kernel launches are counted in ``stlt_scan_kernel.launches``.
 
 Unlike the JAX package's ``_run_kernel``, nothing is padded here: the
 kernel reads rows past N as zeros and takes any d without padding it to a
@@ -98,12 +99,13 @@ def _snapshot_ops(log_mag, theta, valid, n_tokens: int, chunk: int, nc: int):
 
 
 def _runner(x: torch.Tensor):
-    """The one causal pass for x's device: K1 or its plain version."""
-    if x.device.type == "cuda":
+    """The one causal pass for x's device: K1 (on ``meta``, the dry-run, its
+    shape-only form) or its plain version."""
+    if x.device.type in ("cuda", "meta"):
         return stlt_scan_kernel
     if x.device.type == "cpu":
         return stlt_scan_reference
-    raise ValueError(f"stlt_scan runs on cuda or cpu, not {x.device}")
+    raise ValueError(f"stlt_scan runs on cuda or cpu (meta: shape only), not {x.device}")
 
 
 def _operators(log_mag, theta, u_re, u_im, chunk: int):

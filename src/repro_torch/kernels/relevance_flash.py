@@ -19,10 +19,13 @@ row returns 0, not NaN.
   ``torch.utils.checkpoint`` per query tile so its autograd is the
   recompute-per-tile backward. Causal mode skips key tiles above the
   diagonal; every score there is masked, so skipping them changes nothing.
-* ``relevance_flash_kernel`` launches ``csrc/relevance_flash.cu`` (CUDA
-  tensors only) after computing the tile-boundary carries on the host every
+* ``relevance_flash_kernel`` launches ``csrc/relevance_flash.cu`` through
+  the op ``repro_torch::relevance_flash`` (CUDA tensors; on ``meta``
+  tensors, the dry-run, the op's shape-only form gives z and nothing
+  launches) after computing the tile-boundary carries on the host every
   ``KERNEL_CARRY`` rows, where the kernel's recurrence segments start; it
-  counts its launches in ``relevance_flash_kernel.launches``. The kernel
+  counts its launches in ``relevance_flash_kernel.launches``.
+  ``work`` counts one call's flops and bytes. The kernel
   replaces the JAX package's Pallas kernel
   ``repro/kernels/relevance_flash.py::_flash_body``: warp-specialized, the
   recurrence in two producer warpgroups and the score contraction as
@@ -263,7 +266,7 @@ def _load():
     return _launch_fn
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, aligned: bool = True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -272,16 +275,13 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _kernel_args(x, v, log_mag, theta, mk, km, causal: bool):
-    """K2's launch arguments: (tensors, sizes) after checking the inputs,
-    zeroing x's masked keys and computing the host carries; the last tensor
-    is z, allocated here."""
-    if x.device.type != "cuda":
-        raise ValueError(f"relevance_flash_kernel needs CUDA tensors, got {x.device}")
+def _sizes(x, v, log_mag, theta, mk, km, aligned: bool = True) -> tuple:
+    """(BH, N, S, dh) after checking every input's shape, dtype, device and
+    layout (with ``aligned``, its address too)."""
     BH, N, dh = x.shape
     S = log_mag.shape[-1]
     T = KERNEL_BLOCK
@@ -291,11 +291,22 @@ def _kernel_args(x, v, log_mag, theta, mk, km, causal: bool):
         raise ValueError(f"K2 needs N >= 1, nodes >= 1, 1 <= dh <= {KERNEL_MAX_DH} "
                          f"and at most 65535 blocks of {T} rows (got N={N}, "
                          f"nodes={S}, dh={dh}, rows={BH})")
-    dev = x.device
     for name, t, shape in (("x", x, (BH, N, dh)), ("v", v, (BH, N, dh)),
                            ("log_mag", log_mag, (BH, S)), ("theta", theta, (BH, S)),
                            ("mk", mk, (BH, S)), ("km", km, (BH, N))):
-        _check(name, t, shape, dev)
+        _check(name, t, shape, x.device, aligned)
+    return BH, N, S, dh
+
+
+def _kernel_args(x, v, log_mag, theta, mk, km, causal: bool):
+    """K2's launch arguments: (tensors, sizes) after checking the inputs,
+    zeroing x's masked keys and computing the host carries; the last tensor
+    is z, allocated here."""
+    if x.device.type != "cuda":
+        raise ValueError(f"relevance_flash_kernel needs CUDA tensors, got {x.device}")
+    BH, N, S, dh = _sizes(x, v, log_mag, theta, mk, km)
+    T, dev = KERNEL_BLOCK, x.device
+    nt = -(-N // T)
     xk = x * km[:, :, None]
     pw_re, pw_im = _chunk_powers(log_mag, theta, KERNEL_CARRY)
     (hre, him), gc = _tile_carries(F.pad(xk, (0, 0, 0, nt * T - N)), pw_re, pw_im,
@@ -319,6 +330,29 @@ def _launch(tensors, sizes):
         raise RuntimeError(f"relevance_flash kernel launch failed: CUDA error {err}")
 
 
+# K2 as the op ``repro_torch::relevance_flash``: the launch is its CUDA
+# kernel and ``_relevance_flash_fake`` its shape-only form on ``meta``
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("relevance_flash(Tensor x, Tensor v, Tensor log_mag, Tensor theta, Tensor mk, "
+            "Tensor km, bool causal) -> Tensor")
+
+
+def _relevance_flash_cuda(x, v, log_mag, theta, mk, km, causal):
+    tensors, sizes = _kernel_args(x, v, log_mag, theta, mk, km, causal)
+    _launch(tensors, sizes)
+    relevance_flash_kernel.launches += 1
+    return tensors[-1]
+
+
+_LIB.impl("relevance_flash", _relevance_flash_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::relevance_flash", lib=_LIB)
+def _relevance_flash_fake(x, v, log_mag, theta, mk, km, causal):
+    BH, N, _, dh = _sizes(x, v, log_mag, theta, mk, km, aligned=False)
+    return x.new_empty((BH, N, dh))
+
+
 def relevance_flash_kernel(x, v, log_mag, theta, mk, km, *, causal: bool):
     """Launch K2 on the current CUDA stream.
 
@@ -328,14 +362,40 @@ def relevance_flash_kernel(x, v, log_mag, theta, mk, km, *, causal: bool):
     host every ``KERNEL_CARRY`` rows, where the kernel's recurrence segments
     start (x is padded to the kernel's block of ``KERNEL_BLOCK`` rows for the
     carries only; the kernel reads rows past N as zeros).
-    Returns z [BH, N, dh] fp32."""
-    tensors, sizes = _kernel_args(x, v, log_mag, theta, mk, km, causal)
-    _launch(tensors, sizes)
-    relevance_flash_kernel.launches += 1
-    return tensors[-1]
+    Returns z [BH, N, dh] fp32. On ``meta`` tensors nothing runs and
+    nothing counts: the op's shape-only form gives z."""
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"relevance_flash_kernel needs CUDA tensors, got {x.device}")
+    with torch.no_grad():
+        return torch.ops.repro_torch.relevance_flash.default(x, v, log_mag, theta, mk, km,
+                                                             causal)
 
 
 relevance_flash_kernel.launches = 0
+
+
+def work(BH: int, N: int, S: int, dh: int, causal: bool, mk: Optional[torch.Tensor] = None,
+         km: Optional[torch.Tensor] = None) -> tuple:
+    """(score flops, P.v flops, bytes) of one K2 call on [BH, N, dh] rows
+    over S nodes: per (query, valid key) pair, 2 * 2 * dh flops for each
+    node whose mask ``mk`` [BH, S] is not 0 (the kernel skips the others)
+    and 2 * dh for P.v; bytes: x, v read, z written, and the [BH, S] /
+    [BH, N] side inputs. Every node and key is live where ``mk`` or the key
+    mask ``km`` [BH, N] is None (the most a call can take)."""
+    if km is None:
+        pairs = torch.full((BH,), N * (N + 1) / 2 if causal else N * N, dtype=torch.float64)
+    else:
+        valid = (km > 0).double()
+        if causal:   # keys m <= n: sum_n (valid keys in [0, n])
+            pairs = valid.cumsum(-1).sum(-1)
+        else:
+            pairs = valid.sum(-1) * N
+    active = (torch.full((BH,), float(S), dtype=torch.float64) if mk is None
+              else (mk != 0).double().sum(-1))
+    pairs, active = pairs.cpu(), active.cpu()
+    score = float((pairs * 4.0 * dh * active).sum())
+    pv = float((pairs * 2.0 * dh).sum())
+    return score, pv, 4 * (3 * BH * N * dh + 3 * BH * S + BH * N)
 
 
 # ---------------------------------------------------------------------------
@@ -344,14 +404,14 @@ relevance_flash_kernel.launches = 0
 
 
 def _run_flash(x, v, log_mag, theta, mk, km, tile: int, causal: bool):
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         return relevance_flash_kernel(*(t.contiguous() for t in (x, v, log_mag,
                                                                   theta, mk, km)),
                                       causal=causal)
     if x.device.type == "cpu":
         return relevance_flash_reference(x, v, log_mag, theta, mk, km,
                                          tile=tile, causal=causal)
-    raise ValueError(f"relevance_flash runs on cuda or cpu, not {x.device}")
+    raise ValueError(f"relevance_flash runs on cuda or cpu (meta: shape only), not {x.device}")
 
 
 class _RelFlash(torch.autograd.Function):

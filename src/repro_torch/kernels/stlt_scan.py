@@ -13,20 +13,26 @@ state, and rows whose gate never fires (valid == 0) return h0. The
 operators come from ``ops.py``. The kernel is ``csrc/stlt_scan.cu``; it
 replaces the JAX package's Pallas kernel ``repro/kernels/stlt_scan.py::_kernel``.
 
-``stlt_scan_kernel`` launches the kernel (CUDA tensors only) and counts one
-launch per call in ``stlt_scan_kernel.launches``. A call issues four CUDA
-launches on the current stream: the operators packed into the kernel's mma
-fragment order, the chunks' carry contributions (and the snapshot's
-product), the carry recurrence across chunks, and the readout. The host
-only checks the inputs and allocates the outputs and one scratch buffer. A
-row's gate fires in one chunk at most, as ``ops._snapshot_ops`` builds it.
-``stlt_scan_reference`` does the same chunk algebra with torch matmuls, one
-chunk at a time, on any device.
+``stlt_scan_kernel`` launches the kernel through the op
+``repro_torch::stlt_scan`` (CUDA tensors; on ``meta`` tensors, the dry-run,
+the op's shape-only form gives the outputs' shapes and nothing launches)
+and counts one launch per CUDA call in ``stlt_scan_kernel.launches``.
+A call issues four CUDA launches on the current stream: the operators
+packed into the kernel's mma fragment order, the chunks' carry
+contributions (and the snapshot's product), the carry recurrence across
+chunks, and the readout. The host only checks the inputs and allocates the
+outputs and one scratch buffer. A row's gate fires in one chunk at most, as
+``ops._snapshot_ops`` builds it. ``stlt_scan_reference`` does the same
+chunk algebra with torch matmuls, one chunk at a time, on any device.
+``work`` counts one call's flops and bytes (``chip_smoke.k1_bound``, the
+dry-run's cost of the op).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -51,7 +57,7 @@ def _load():
     return _launch_fn
 
 
-def _check(name, t, shape, dtype, device):
+def _check(name, t, shape, dtype, device, aligned: bool = True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -60,17 +66,14 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec,
-                 chunk: int):
-    """K1's launch arguments: (tensors, sizes) after checking the inputs; the
-    scratch buffer (packed operators, carries) and the outputs (the last
-    three tensors: z, h_re, h_im) are allocated here."""
-    if x.device.type != "cuda":
-        raise ValueError(f"stlt_scan_kernel needs CUDA tensors, got {x.device}")
+def _sizes(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec, chunk: int,
+           aligned: bool = True) -> tuple:
+    """(BH, N, d, C, S) after checking every input's shape, dtype, device and
+    layout (with ``aligned``, its address too)."""
     BH, N, d = x.shape
     S, C = pre.shape[1], chunk
     nc = -(-N // C)
@@ -85,9 +88,21 @@ def _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec
             ("pim", pim, (BH, S, C)), ("dec", dec, (BH, 2, S)),
             ("h0_re", h0_re, (BH, S, d)), ("h0_im", h0_im, (BH, S, d)),
             ("spre", spre, (BH, S, C)), ("spim", spim, (BH, S, C)),
-            ("sdec", sdec, (BH, 2, S))):
-        _check(name, t, shape, f32, dev)
-    _check("gate", gate, (BH, nc), torch.int32, dev)
+            ("sdec", sdec, (BH, 2, S)), ("gate", gate, (BH, nc))):
+        _check(name, t, shape, torch.int32 if name == "gate" else f32, dev, aligned)
+    return BH, N, d, C, S
+
+
+def _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec,
+                 chunk: int):
+    """K1's launch arguments: (tensors, sizes) after checking the inputs; the
+    scratch buffer (packed operators, carries) and the outputs (the last
+    three tensors: z, h_re, h_im) are allocated here."""
+    if x.device.type != "cuda":
+        raise ValueError(f"stlt_scan_kernel needs CUDA tensors, got {x.device}")
+    BH, N, d, C, S = _sizes(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec,
+                            chunk)
+    f32, dev = torch.float32, x.device
     _, smem_bytes, scratch_bytes = _load()
     smem = smem_bytes(C, S)
     if smem > _SMEM_LIMIT:
@@ -111,6 +126,34 @@ def _launch(tensors, sizes):
         raise RuntimeError(f"stlt_scan kernel launch failed: CUDA error {err}")
 
 
+# K1 as the op ``repro_torch::stlt_scan``: the launch is its CUDA kernel and
+# ``_stlt_scan_fake`` its shape-only form on ``meta`` (a plain ``Library``
+# op: its dispatch adds a few microseconds a call, ``custom_op``'s several
+# times that)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("stlt_scan(Tensor gate, Tensor x, Tensor m, Tensor a, Tensor b, Tensor pre, "
+            "Tensor pim, Tensor dec, Tensor h0_re, Tensor h0_im, Tensor spre, Tensor spim, "
+            "Tensor sdec, int chunk) -> (Tensor, Tensor, Tensor)")
+
+
+def _stlt_scan_cuda(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec, chunk):
+    tensors, sizes = _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
+                                  spre, spim, sdec, chunk)
+    _launch(tensors, sizes)
+    stlt_scan_kernel.launches += 1
+    return tuple(tensors[-3:])
+
+
+_LIB.impl("stlt_scan", _stlt_scan_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::stlt_scan", lib=_LIB)
+def _stlt_scan_fake(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec, chunk):
+    BH, N, d, C, S = _sizes(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im, spre, spim, sdec,
+                            chunk, aligned=False)
+    return (x.new_empty((BH, N, d)), x.new_empty((BH, S, d)), x.new_empty((BH, S, d)))
+
+
 def stlt_scan_kernel(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
                      spre, spim, sdec, *, chunk: int):
     """Launch K1 on the current CUDA stream.
@@ -119,15 +162,43 @@ def stlt_scan_kernel(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
     a, b [BH, C, S]; pre, pim, spre, spim [BH, S, C]; dec, sdec [BH, 2, S];
     h0_re, h0_im [BH, S, d]; all fp32 and contiguous on one CUDA device.
     Returns (z [BH, N, d], h_re, h_im [BH, S, d]) fp32. One call is four
-    CUDA launches, counted as one."""
-    tensors, sizes = _kernel_args(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,
-                                  spre, spim, sdec, chunk)
-    _launch(tensors, sizes)
-    stlt_scan_kernel.launches += 1
-    return tensors[-3:]
+    CUDA launches, counted as one. On ``meta`` tensors nothing runs and
+    nothing counts: the op's shape-only form gives the outputs."""
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"stlt_scan_kernel needs CUDA tensors, got {x.device}")
+    with torch.no_grad():
+        return torch.ops.repro_torch.stlt_scan.default(gate, x, m, a, b, pre, pim, dec, h0_re,
+                                                       h0_im, spre, spim, sdec, chunk)
 
 
 stlt_scan_kernel.launches = 0
+
+
+def work(BH: int, N: int, d: int, C: int, S: int, valid: Optional[np.ndarray] = None) -> tuple:
+    """(product flops, decay flops, bytes) of one K1 call: x [BH, N, d] at
+    chunk C over S nodes, the carry snapshot at ``valid[row]`` tokens
+    (every row's at N when None, the most a call can take). Bytes: each
+    input read once, each output written once."""
+    nc = -(-N // C)
+    n_local = np.arange(N) % C
+    # z row n: the lower-triangular Toeplitz row (n mod C + 1 taps) plus the
+    # carry injection A h_re + B h_im (2S taps), d columns, 2 flops a tap
+    prods = BH * d * 2.0 * float((n_local + 1 + 2 * S).sum())
+    # carry into chunks 1..nc-1: [Pre; Pim] X_c (2S x C) and the decay
+    prods += BH * (nc - 1) * d * 2.0 * 2 * S * C
+    decay = BH * (nc - 1) * d * 8.0 * S
+    # the gated snapshot: 2S x r taps with r the live in-chunk offset
+    q = np.full(BH, N, np.int64) if valid is None else valid.astype(np.int64)
+    r = np.where(q > 0, q - np.maximum(q - 1, 0) // C * C, 0)
+    prods += float((d * 2.0 * 2 * S * r).sum())
+    decay += float((d * 8.0 * S * (q > 0)).sum())
+    # operators: M [C, C], A, B [C, S], Pre, Pim, Spre, Spim [S, C], decays;
+    # a window shorter than a chunk (verify, commit) needs only their first
+    # c = min(C, N) rows or columns
+    c = min(C, N)
+    nbytes = 4 * BH * (2 * N * d + 4 * S * d) + 4 * BH * (c * c + 6 * c * S + 4 * S) \
+        + 4 * BH * nc
+    return prods, decay, nbytes
 
 
 def stlt_scan_reference(gate, x, m, a, b, pre, pim, dec, h0_re, h0_im,

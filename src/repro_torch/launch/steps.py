@@ -28,8 +28,10 @@ rank calls with its shards (the heads and channels of the LM and hybrid
 families' ``stlt``, ``attn``, ``local_attn`` and ``rglru`` blocks and the
 experts of their MoEs on ``model`` through
 ``tensor_parallel.tp_prefill``/``tp_decode_step``; every arch's rows on its
-data axes). ``lower_cell`` (the dry-run) raises: ROADMAP
-Queue 1 item 7.
+data axes). ``lower_cell`` lowers a cell for one rank of a shape-only
+mesh: it runs that rank's step once on the ``meta`` device over a
+``comm.RankMesh`` under counters (``launch/lowering.py``); the dry-run
+(``launch/dryrun.py``) reads it.
 """
 from __future__ import annotations
 
@@ -54,7 +56,6 @@ from repro_torch.utils import (cast_params_for_compute, casts_for_compute,
                                tree_flatten_with_paths, tree_leaves, tree_map, tree_unflatten)
 
 P = sh.PartitionSpec
-ROADMAP_DRYRUN = "ROADMAP Queue 1 item 7: lower_cell and launch/dryrun.py"
 
 WHISPER_ENC_FRAMES = 1500  # fixed encoder context for whisper decode shapes
 
@@ -242,7 +243,8 @@ def decode_state_specs(state_shapes, cfg: ModelConfig, mesh, batch: int):
 class CellProgram:
     """A cell's step: ``fn``, its arguments' meta stand-ins (``args``, the
     global shapes), their specs and the outputs'. ``opt_init`` makes a
-    train step's optimizer state from the rank's params."""
+    train step's optimizer state from the rank's params; ``mesh`` is the
+    mesh it was built on and ``on(mesh)`` builds the same cell on another."""
     kind: str
     fn: Callable
     args: tuple
@@ -250,6 +252,8 @@ class CellProgram:
     out_shardings: Any
     donate_argnums: tuple = ()
     opt_init: Optional[Callable] = None
+    mesh: Any = None
+    on: Optional[Callable] = None
 
 
 def _batch_axes(cfg: ModelConfig, mesh, global_batch: int) -> tuple:
@@ -263,7 +267,8 @@ def _batch_axes(cfg: ModelConfig, mesh, global_batch: int) -> tuple:
 
 def _process_mesh_only(*_, **__):
     raise RuntimeError("a shape-only mesh computes specs; the step runs on a "
-                       "process mesh (comm.make_mesh, launch.mesh.make_host_mesh)")
+                       "process mesh (comm.make_mesh, launch.mesh.make_host_mesh), or on "
+                       "one rank's comm.RankMesh in the dry-run (lower_cell)")
 
 
 def _sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, global_batch):
@@ -467,10 +472,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     out_sh = (pspecs, ospecs, {k: P() for k in mkeys})
 
     fn = (_sharded_step(cfg, tcfg, mesh, opt, pspecs, ospecs, pshapes, shape.global_batch)
-          if isinstance(mesh, comm.DistMesh) else _process_mesh_only)
+          if isinstance(mesh, comm.RANK_MESHES) else _process_mesh_only)
 
     def opt_init(params):
-        if cfg.optimizer == "adamw" or not isinstance(mesh, comm.DistMesh):
+        if cfg.optimizer == "adamw" or not isinstance(mesh, comm.RANK_MESHES):
             return opt.init(params)
         # factored on the whole shapes: the rank's shards of zeros
         return tree_map(lambda t, sp: (torch.zeros(sh.local_slice(t, sp, mesh).shape,
@@ -479,7 +484,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     args = (pshapes, oshapes, batch_shapes, _meta((), torch.int32))
     return CellProgram("train", fn, args, (pspecs, ospecs, batch_spec, P()), out_sh,
-                       donate_argnums=(0, 1), opt_init=opt_init)
+                       donate_argnums=(0, 1), opt_init=opt_init, mesh=mesh,
+                       on=lambda m: build_train_step(cfg, shape, m, tcfg))
 
 
 def _sharded_serve(cfg: ModelConfig, mesh, pspecs, sspecs, global_batch: int,
@@ -550,8 +556,9 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh) -> CellProgra
         out_sh = (P(bax, None), sspecs)
     in_spec = P(bax, None, None) if inputs.ndim == 3 else P(bax, None)
     fn = (_sharded_serve(cfg, mesh, pspecs, sspecs, B, N)[0]
-          if isinstance(mesh, comm.DistMesh) else _process_mesh_only)
-    return CellProgram("prefill", fn, (pshapes, inputs), (pspecs, in_spec), out_sh)
+          if isinstance(mesh, comm.RANK_MESHES) else _process_mesh_only)
+    return CellProgram("prefill", fn, (pshapes, inputs), (pspecs, in_spec), out_sh, mesh=mesh,
+                       on=lambda m: build_prefill_step(cfg, shape, m))
 
 
 def _decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int):
@@ -575,9 +582,10 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh) -> CellProgram
     state_shapes = _decode_state_shapes(cfg, B, N)
     sspecs = decode_state_specs(state_shapes, cfg, mesh, B)
     fn = (_sharded_serve(cfg, mesh, pspecs, sspecs, B, N)[1]
-          if isinstance(mesh, comm.DistMesh) else _process_mesh_only)
+          if isinstance(mesh, comm.RANK_MESHES) else _process_mesh_only)
     return CellProgram("decode", fn, (pshapes, _meta((B,), torch.int32), state_shapes),
-                       (pspecs, P(bax), sspecs), (P(bax, None), sspecs), donate_argnums=(2,))
+                       (pspecs, P(bax), sspecs), (P(bax, None), sspecs), donate_argnums=(2,),
+                       mesh=mesh, on=lambda m: build_decode_step(cfg, shape, m))
 
 
 def build_cell_program(arch: str, shape_name: str, mesh, variant: str = "native",
@@ -592,4 +600,13 @@ def build_cell_program(arch: str, shape_name: str, mesh, variant: str = "native"
 
 
 def lower_cell(prog: CellProgram, mesh):
-    raise NotImplementedError(f"lowering a cell (the dry-run) is not ported yet ({ROADMAP_DRYRUN})")
+    """The cell lowered for one rank (``lowering.Lowered``; its
+    ``compile()`` runs the rank's step once on ``meta`` under counters).
+    ``mesh`` is a ``comm.RankMesh``, or a shape-only mesh whose rank 0 is
+    taken; a program built on another mesh is built again on the rank's
+    (``prog.on``)."""
+    from repro_torch.launch import lowering
+
+    if not isinstance(mesh, comm.RankMesh):
+        mesh = comm.RankMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    return lowering.Lowered(prog if prog.mesh is mesh else prog.on(mesh), mesh)

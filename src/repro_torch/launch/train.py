@@ -89,9 +89,11 @@ def step_draws(seed: int, step: int, cfg: ModelConfig, batch_size: int,
     """The adaptive masks' uniform draws of one step, [B, H, S] per layer
     in (1e-6, 1 - 1e-6): a pure function of (seed, step), as the JAX package
     folds the step into its key."""
+    shape = (batch_size, cfg.num_heads, cfg.stlt_nodes)
+    if torch.device(device).type == "meta":     # a shape-only step (the dry-run)
+        return [torch.empty(shape, device=device) for _ in cfg.block_types()]
     mixed = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
     gen = torch.Generator(device=device).manual_seed(mixed)
-    shape = (batch_size, cfg.num_heads, cfg.stlt_nodes)
     return [torch.rand(shape, generator=gen, device=device) * (1 - 2e-6) + 1e-6
             for _ in cfg.block_types()]
 

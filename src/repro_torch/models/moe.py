@@ -75,6 +75,8 @@ class DropCounter:
         self.calls, self._dropped = 0, {}
 
     def add(self, dropped: torch.Tensor):
+        if dropped.device.type == "meta":   # a shape-only step has no count to keep
+            return
         prev = self._dropped.get(dropped.device)
         self._dropped[dropped.device] = dropped if prev is None else prev + dropped
         self.calls += 1

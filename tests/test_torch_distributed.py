@@ -27,10 +27,17 @@ once for the module and writes its results; the tests below read them:
 * ``remesh`` from 2 x 2 to 1 x 2 against the unsharded tree;
 * the refusals: a ``model`` axis > 1 on a block off the TP path (the
   relevance readout, ``stlt_rel``) and on the hann window, a MoE off the TP
-  path over more than one batch shard.
+  path over more than one batch shard;
+* the dry-run (``launch.steps.lower_cell`` on a ``comm.RankMesh``) of every
+  train cell on every rank: the bytes it hands to each kind of collective,
+  its calls and its scan passes equal what the rank's first real step did,
+  and its ``analytic_arg_bytes`` the JAX dry-run's (computed in the JAX
+  subprocess, where ``repro.launch.dryrun`` is imported after JAX's backend
+  is up: its import sets ``XLA_FLAGS``).
 """
 import dataclasses
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
@@ -54,7 +61,10 @@ from repro.utils import fold_key  # noqa: E402
 from repro.utils import tree_flatten_with_paths as j_flatten  # noqa: E402
 from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig  # noqa: E402
+from repro_torch.distributed import comm  # noqa: E402
+from repro_torch.launch import dryrun as t_dryrun  # noqa: E402
+from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
@@ -178,6 +188,20 @@ JAX_REFS = """
     np.savez(sys.argv[2], z=np.asarray(z), y=np.asarray(y), dW=np.asarray(dW),
              dx=np.asarray(dx), serial_dW=np.asarray(sW), serial_dx=np.asarray(sx),
              **cp_grads)
+    import os, pickle
+    from repro.configs.base import ShapeConfig, TrainConfig
+    from repro.launch import steps as S
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun as JD    # its import sets XLA_FLAGS; the backend is up
+    os.environ["XLA_FLAGS"] = flags
+    cells = pickle.load(open(sys.argv[3], "rb"))
+    arg_bytes = {}
+    for name, (jcfg, shape) in cells["train"].items():
+        m = jax.make_mesh(shape, ("data", "model"))
+        prog = S.build_train_step(jcfg, ShapeConfig("t", cells["N"], cells["B"], "train"), m,
+                                  TrainConfig(**cells["tcfg"]))
+        arg_bytes[name] = JD.analytic_arg_bytes(prog, m)
+    pickle.dump(arg_bytes, open(sys.argv[4], "wb"))
 """
 
 
@@ -248,7 +272,7 @@ def job(tmp_path_factory):
         "batches": [{k: t(v) for k, v in b.items()} for b in batches],
         "train": {**{k: (c, m, STEPS) for k, (c, m) in TRAIN.items()},
                   **{k: (c, m, 2) for k, (c, m) in DP.items()}},
-        "refusals": REFUSALS,
+        "refusals": REFUSALS, "dry": True,
         "cp": {"x": t(cp["x"]), "lm": t(cp["lm"]), "th": t(cp["th"]), "ur": t(cp["u"][0]),
                "ui": t(cp["u"][1]), "chunk": cp["chunk"],
                "grad": {case: tuple(map(t, cp["grad_" + case])) for case in CP_GRAD_N}},
@@ -257,8 +281,12 @@ def job(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                 JAX_PLATFORMS="cpu", **JAX_ENV)
+    with open(root / "jax_cells.pkl", "wb") as f:
+        pickle.dump({"train": {k: (jcfgs[c], m) for k, (c, m) in TRAIN.items()}, "N": N,
+                     "B": B, "tcfg": TCFG}, f)
     procs = [subprocess.Popen([sys.executable, "-c", textwrap.dedent(JAX_REFS),
-                               str(root / "jax_in.npz"), str(root / "jax_out.npz")],
+                               str(root / "jax_in.npz"), str(root / "jax_out.npz"),
+                               str(root / "jax_cells.pkl"), str(root / "jax_arg_bytes.pkl")],
                               env=jenv, stdout=subprocess.PIPE, stderr=subprocess.PIPE)]
     procs += [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_dist_worker.py"),
                                 str(root), str(r), str(WORLD)], env=env,
@@ -282,8 +310,11 @@ def job(tmp_path_factory):
                 p.wait()
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err.decode()[-4000:]
+    with open(root / "jax_arg_bytes.pkl", "rb") as f:
+        arg_bytes = pickle.load(f)
     return {"res": torch.load(root / "results.pt", weights_only=False), "refs": refs,
-            "jax": dict(np.load(root / "jax_out.npz")), "cp": cp, "pipe": pipe}
+            "jax": dict(np.load(root / "jax_out.npz")), "cp": cp, "pipe": pipe,
+            "arg_bytes": arg_bytes, "cfgs": cfgs}
 
 
 def _param_gap(got: dict, want: dict) -> float:
@@ -461,3 +492,32 @@ def test_unported_layouts_raise(job, name, what):
     NotImplementedError naming the ROADMAP item."""
     msg = job["res"][name]
     assert msg is not None and what in msg and "ROADMAP Queue 1 item 7" in msg
+
+
+@pytest.mark.parametrize("name", [*TRAIN, *DP])
+def test_dry_run_counts_equal_each_ranks(job, name):
+    """On every rank, the dry-run of the train cell (``lower_cell`` on the
+    rank's ``comm.RankMesh``, on ``meta``) hands each kind of collective
+    the bytes the rank's first real step handed it (``comm.STATS``), makes
+    as many calls of each kind (``comm.CALLS``) and as many scan passes."""
+    for rank, counts in enumerate(job["res"]["counts"]):
+        c = counts[name]
+        assert c["dry"] == c["real"], (name, rank, c)
+        assert c["real"]["bytes"], name     # every cell here exchanges something
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_analytic_arg_bytes_equal_jax(job, name):
+    """The port's ``dryrun.analytic_arg_bytes`` of the train cell (params,
+    AdamW state, batch, step: shapes over their specs) equals the JAX
+    dry-run's, byte for byte, but for AdamW's step count: an int32 on the
+    device in the JAX package, a Python int on the host in the port (4
+    bytes less in ``opt_state`` and the total)."""
+    key, shape = TRAIN[name]
+    mesh = comm.MeshSpec(shape, ("data", "model"))
+    prog = t_steps.build_train_step(job["cfgs"][key], ShapeConfig("t", N, B, "train"), mesh,
+                                    TrainConfig(**TCFG))
+    want = dict(job["arg_bytes"][name])
+    want["opt_state"] -= 4
+    want["total"] -= 4
+    assert t_dryrun.analytic_arg_bytes(prog, mesh) == want

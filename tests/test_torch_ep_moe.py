@@ -37,6 +37,11 @@ capacity factor 1.25, so a 4 x 72 prompt or batch drops choices.
   form, "Splitting on more than 1 axis" in the native forms), nor do the
   native forms' prefill cell ("Splitting on more than 1 axis") and decode
   cell (a scatter asking for its ``out_sharding``): no oracle there.
+* The dry-run (``launch.steps.lower_cell`` on each rank's
+  ``comm.RankMesh``) of every cell's first train step, prefill and first
+  decode step hands each kind of collective the bytes the rank's real call
+  handed it, with as many calls and scan passes; its
+  ``analytic_arg_bytes`` equal the JAX dry-run's (in the JAX subprocess).
 * The router's grad at 1 x 4: each rank's gates' cotangent comes from its
   own expert, so it is summed over ``model`` (``partial_replicated``)
   while the aux losses' grads, whole on every rank, are counted once; the
@@ -63,6 +68,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed import comm  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp_lib  # noqa: E402
+from repro_torch.launch import dryrun as t_dryrun  # noqa: E402
 from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.utils import tree_flatten_with_paths  # noqa: E402
 from test_torch_tp_blocks import (JAX_CELLS, TCFG, _check_state, _close, _Coords,  # noqa: E402
@@ -117,6 +123,21 @@ JAX_EP = textwrap.dedent(JAX_CELLS).rsplit("pickle.dump", 1)[0] + textwrap.deden
             tok = jnp.argmax(logits, -1).astype(jnp.int32)
             steps_out.append((np.asarray(logits), st))
         res["sm"][mname] = {"prefill": np_tree(got), "decode": steps_out}
+    import os
+    from repro.configs.base import TrainConfig
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun as JD    # its import sets XLA_FLAGS; the backend is up
+    os.environ["XLA_FLAGS"] = flags
+    res["arg_bytes"] = {}
+    for mname, shape in inp["meshes"].items():
+        mesh = jax.make_mesh(shape, ("data", "model"))
+        res["arg_bytes"][mname] = {
+            "train": JD.analytic_arg_bytes(S.build_train_step(
+                jcfg, ShapeConfig("t", N, B, "train"), mesh, TrainConfig(**inp["tcfg"])), mesh),
+            "prefill": JD.analytic_arg_bytes(S.build_prefill_step(
+                jcfg, ShapeConfig("p", N, B, "prefill"), mesh), mesh),
+            "decode": JD.analytic_arg_bytes(S.build_decode_step(
+                jcfg, ShapeConfig("d", M, B, "decode"), mesh), mesh)}
     pickle.dump(res, open(sys.argv[2], "wb"))
 """)
 
@@ -165,7 +186,7 @@ def job(tmp_path_factory):
         "cells": cells, "moe_x": t(moe_x),
         "apply": {f"apply-{k}-{m}": {"cfg": f"{k}:sm", "mesh": MESHES[m]}
                   for k in ARCHS for m in APPLY_MESHES},
-        "router": {"cfg": "qwen3", "mesh": (1, 4)},
+        "router": {"cfg": "qwen3", "mesh": (1, 4)}, "dry": True,
     }, root / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -386,3 +407,39 @@ def test_tp_refusal_passes_the_moe_archs():
             cfg = t_configs.get_config(arch, variant)
             assert tp_lib.tp_refusal(cfg) is None, (arch, variant)
             assert cfg.num_experts % 4 == 0
+
+
+@pytest.mark.parametrize("name", CELLS + SM_CELLS)
+def test_dry_run_counts_equal_each_ranks(job, name):
+    """On every rank, the dry-run of the cell's first train step (the
+    gather dispatch's cells), its prefill and its first decode step hands
+    each kind of collective the bytes the rank's real call handed it
+    (``comm.STATS``), makes as many calls of each kind (``comm.CALLS``) and
+    as many scan passes: the shape-only MoE (its slot table at capacity)
+    exchanges what the real one does."""
+    _, _, ranks, _, _ = _cell(job, name)
+    for r in ranks:
+        for kind, c in r["counts"].items():
+            assert c["dry"] == c["real"], (name, kind, r["coords"], c)
+    assert sorted(ranks[0]["counts"]) == (["decode", "prefill"] if name in SM_CELLS
+                                          else ["decode", "prefill", "train"])
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_analytic_arg_bytes_equal_jax(job, name):
+    """The port's ``dryrun.analytic_arg_bytes`` of the train, prefill and
+    decode cells (the experts' shards over ``model``, FSDP over ``data``)
+    equals the JAX dry-run's, byte for byte, but for adafactor's step
+    count: an int32 on the device in the JAX package, a Python int on the
+    host in the port (4 bytes less in ``opt_state`` and the total)."""
+    cfg, shape, _, j, mname = _cell(job, name)
+    mesh = comm.MeshSpec(shape, ("data", "model"))
+    cells = {"train": t_steps.build_train_step(cfg, ShapeConfig("t", N, B, "train"), mesh),
+             "prefill": t_steps.build_prefill_step(cfg, ShapeConfig("p", N, B, "prefill"), mesh),
+             "decode": t_steps.build_decode_step(cfg, ShapeConfig("d", M, B, "decode"), mesh)}
+    for kind, prog in cells.items():
+        want = dict(j["arg_bytes"][mname][kind])
+        if kind == "train":
+            want["opt_state"] -= 4
+            want["total"] -= 4
+        assert t_dryrun.analytic_arg_bytes(prog, mesh) == want, kind

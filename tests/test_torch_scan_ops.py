@@ -303,11 +303,20 @@ def test_cpu_dispatch_counts_no_kernel_launch():
 
 
 def test_kernel_wrapper_rejects_cpu_tensors_and_other_devices():
+    """K1's wrapper refuses CPU tensors; the scan refuses a device other
+    than cuda and cpu (fake tensors on ``lazy``, a device this build has no
+    kernels for), but for ``meta`` (the dry-run), which takes the kernel's
+    op in its shape-only form."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     x, lm, th, ur, ui, _, _ = _scan_inputs(0, 2, 20, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         t_k1.stlt_scan_kernel(*(torch.zeros(1) for _ in range(13)), chunk=8)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        t_ops.stlt_scan(*(_t(a).to("meta") for a in (x, lm, th, ur, ui)), chunk=8)
+    with FakeTensorMode(), pytest.raises(ValueError, match="cuda or cpu"):
+        t_ops.stlt_scan(*(torch.empty(a.shape, device="lazy") for a in (x, lm, th, ur, ui)),
+                        chunk=8)
+    z = t_ops.stlt_scan(*(_t(a).to("meta") for a in (x, lm, th, ur, ui)), chunk=8)
+    assert z.shape == x.shape and z.device.type == "meta"
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,13 @@ cells (``lower_cell(build_prefill_step(...)).compile()`` and the same for
   ``WHISPER_ENC_FRAMES`` set to the prompt length);
 * the ``model`` > 1 refusal for an STLT form off the TP path (the hann
   window), naming its ROADMAP item;
+* the dry-run (``launch.steps.lower_cell`` on each rank's
+  ``comm.RankMesh``) of every cell's prefill and decode step: its bytes
+  handed to each kind of collective, its calls and its scan passes equal
+  the rank's real call's, and its ``analytic_arg_bytes`` the JAX
+  dry-run's (in the JAX subprocess, ``repro.launch.dryrun`` imported after
+  JAX's backend is up: its import sets ``XLA_FLAGS``); ``lower_cell`` of a
+  cell built on a shape-only ``MeshSpec`` compiles and counts;
 * the process form of ``ShardedServeEngine`` on 2 host ranks x 2 slots,
   each with its own warmed prefix-cache shard: streams, per-request ticks
   and host assignment equal to the one-process engine's, and greedy streams
@@ -53,6 +60,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: E402
 from repro_torch.distributed import comm  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.launch import dryrun as t_dryrun  # noqa: E402
 from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.serving import (ReplicatedPrefixCache, Request,  # noqa: E402
                                  ShardedServeEngine, make_serve_mesh)
@@ -100,6 +108,11 @@ JAX_CELLS = """
     inp = pickle.load(open(sys.argv[1], "rb"))
     B, N, M, D = inp["B"], inp["N"], inp["M"], inp["D"]
     S.WHISPER_ENC_FRAMES = N
+    import os
+    jax.devices()
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun as JD    # its import sets XLA_FLAGS; the backend is up
+    os.environ["XLA_FLAGS"] = flags
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
 
     def specs(tree):
@@ -151,6 +164,8 @@ JAX_CELLS = """
                 tok = jnp.argmax(logits, -1).astype(jnp.int32)
                 steps_out.append((np.asarray(logits), st))
             res[mname] = {"prefill": np_tree(got), "decode": steps_out,
+                          "arg_bytes": {"prefill": JD.analytic_arg_bytes(pre, mesh),
+                                        "decode": JD.analytic_arg_bytes(dec, mesh)},
                           "specs": {"prefill_in": specs(pre.in_shardings),
                                     "prefill_out": specs(pre.out_shardings),
                                     "decode_in": specs(dec.in_shardings),
@@ -203,7 +218,7 @@ def job(tmp_path_factory):
         "cfgs": cfgs, "params": params, "B": B, "N": N, "M": M, "D": D, "whisper_frames": N,
         "prompts": {k: t(v) for k, v in prompts.items()}, "tok0": t(tok0),
         "cells": {name: {"cfg": key, "mesh": shape} for name, (key, shape) in CELLS.items()},
-        "refusals": {"refuse-hann-2x2": ("stlt-hann", (2, 2))},
+        "refusals": {"refuse-hann-2x2": ("stlt-hann", (2, 2))}, "dry": True,
         "engine": {**ENGINE, "sys_prompt": sys_prompt, "arrivals": arrivals,
                    "requests": [Request(p, b, id=i) for i, (p, b) in
                                 enumerate(zip(eprompts, budgets))]},
@@ -420,13 +435,50 @@ def test_model_axis_refusal_names_its_roadmap_item(job):
         assert msg is not None and "'model' axis > 1" in msg and "ROADMAP Queue 1 item 7" in msg
 
 
-def test_lower_cell_names_the_dry_run_item():
-    prog = t_steps.build_prefill_step(_cfgs()["stlt"], ShapeConfig("p", N, B, "prefill"),
-                                      comm.MeshSpec((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="lower_cell and launch/dryrun.py"):
-        t_steps.lower_cell(prog, None)
+def test_lower_cell_compiles_and_counts():
+    """``lower_cell`` of a prefill cell built on a shape-only ``MeshSpec``
+    builds it again on rank 0's ``comm.RankMesh`` and runs that rank's step
+    on ``meta``: K1 once a layer on its 2 rows x 2 heads, the model-axis
+    all-reduces and the last logits' all-gather counted, the arguments'
+    bytes the rank's shards; the program's own ``fn`` still raises."""
+    mesh = comm.MeshSpec((2, 2), ("data", "model"))
+    prog = t_steps.build_prefill_step(_cfgs()["stlt"], ShapeConfig("p", N, B, "prefill"), mesh)
+    c = t_steps.lower_cell(prog, mesh).compile()
+    assert c.launches == {"stlt_scan": 2, "relevance_flash": 0}
+    assert c.calls["all_reduce"] > 0 and c.calls["all_gather"] > 0
+    assert c.cost_analysis()["flops"] > 0 and c.cost_analysis()["bytes accessed"] > 0
+    mem = c.memory_analysis()
+    assert mem.argument_size_in_bytes == t_dryrun.analytic_arg_bytes(prog, mesh)["total"]
+    assert mem.peak_memory_in_bytes > mem.argument_size_in_bytes
     with pytest.raises(RuntimeError, match="shape-only mesh"):
         prog.fn(None, None)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name", list(CELLS))
+def test_dry_run_counts_equal_each_ranks(job, name, kind):
+    """On every rank, the dry-run of the cell's prefill and of its decode
+    step hands each kind of collective the bytes the rank's real call
+    handed it (``comm.STATS``), makes as many calls of each kind
+    (``comm.CALLS``) and as many scan passes."""
+    for r in job["ranks"]:
+        c = r[name]["counts"][kind]
+        assert c["dry"] == c["real"], (name, kind, r[name]["coords"], c)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name", list(CELLS))
+def test_analytic_arg_bytes_equal_jax(job, name, kind, monkeypatch):
+    """The port's ``dryrun.analytic_arg_bytes`` of the cell (params, inputs
+    or token and state: shapes over their specs) equals the JAX dry-run's,
+    byte for byte."""
+    cfg, shape, _, j = _cell(job, name)
+    monkeypatch.setattr(t_steps, "WHISPER_ENC_FRAMES", N)
+    mesh = comm.MeshSpec(shape, ("data", "model"))
+    prog = (t_steps.build_prefill_step(cfg, ShapeConfig("p", N, B, "prefill"), mesh)
+            if kind == "prefill" else
+            t_steps.build_decode_step(cfg, ShapeConfig("d", M, B, "decode"), mesh))
+    assert t_dryrun.analytic_arg_bytes(prog, mesh) == j[name.split("-")[-1]]["arg_bytes"][kind]
 
 
 # ---------------------------------------------------------------------------

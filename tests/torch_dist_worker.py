@@ -15,7 +15,11 @@ MoE archs' cells in both dispatches, ``tensor_parallel.apply_moe_ep``'s
 forward and grads, and the router's grad summed over ``model``. With
 ``cuda-cp`` every rank runs the context-parallel STLT on the card (K1) and
 writes its error against the serial K1 call to ``DIR/cp<RANK>.pt``
-(tests/test_torch_cuda.py).
+(tests/test_torch_cuda.py). Where the inputs ask (``dry``), a train step's
+first call and a cell's prefill and first decode step also record what the
+rank handed to each kind of collective, its calls of each kind and its
+scan passes, beside the dry-run of the same cell on this rank
+(``launch.steps.lower_cell`` on a ``comm.RankMesh``): ``counts(...)``.
 """
 import sys
 import traceback
@@ -42,6 +46,30 @@ def _np(tree):
                     tree)
 
 
+def _measured(fn):
+    """(fn(), what it handed to each kind of collective, its calls of each
+    kind and its scan passes: ``ops._runner``'s calls, K1's launches on the
+    card)."""
+    from repro_torch.kernels import ops
+
+    runner, passes = ops._runner, []
+    ops._runner = lambda t: passes.append(1) or runner(t)  # noqa: E731
+    comm.reset_stats()
+    try:
+        out = fn()
+    finally:
+        ops._runner = runner
+    return out, {"bytes": dict(comm.STATS), "calls": dict(comm.CALLS), "k1": len(passes)}
+
+
+def _dry(prog, mesh):
+    """The dry-run of ``prog``'s cell on this rank of ``mesh``: its counts as
+    ``_measured`` gives them."""
+    c = steps.lower_cell(prog, comm.RankMesh(tuple(mesh.shape.values()), mesh.axis_names,
+                                             torch.distributed.get_rank())).compile()
+    return {"bytes": c.handed_in, "calls": c.calls, "k1": c.launches["stlt_scan"]}
+
+
 def train_scenario(inp, cfg, mesh_shape, n_steps):
     """``n_steps`` sharded steps from the inputs' params, with the inputs'
     global draws where it has them: (the gathered params and the metrics
@@ -56,10 +84,12 @@ def train_scenario(inp, cfg, mesh_shape, n_steps):
     out = []
     for step in range(n_steps):
         batch = sh.local_slices(inp["batches"][step], bspec, mesh)
-        params, state, metrics = prog.fn(params, state, batch, step,
-                                         draws=draws[step] if draws else None)
+        (params, state, metrics), counts = _measured(lambda: prog.fn(
+            params, state, batch, step, draws=draws[step] if draws else None))
         out.append({"params": _np(sh.gather_full(params, pspecs, mesh)),
                     "metrics": {k: float(v) for k, v in metrics.items()}})
+        if step == 0 and inp.get("dry"):
+            out[0]["counts"] = {"real": counts, "dry": _dry(prog, mesh)}
     return out
 
 
@@ -159,9 +189,12 @@ def cell_scenario(inp, case):
     params = sh.local_slices(full, pre.in_shardings[0], mesh)
     x = inp["prompts"][case["cfg"]]
     moe.DROPS.reset()
-    out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names},
-           "prefill": _np(pre.fn(params, sh.local_slices(x, pre.in_shardings[1], mesh))),
+    prefill, counts = _measured(lambda: pre.fn(params, sh.local_slices(x, pre.in_shardings[1],
+                                                                       mesh)))
+    out = {"coords": {a: mesh.coord(a) for a in mesh.axis_names}, "prefill": _np(prefill),
            "prefill_drops": moe.DROPS.read()["dropped"]}
+    if inp.get("dry"):
+        out["counts"] = {"prefill": {"real": counts, "dry": _dry(pre, mesh)}}
     if cfg.family == "encdec":
         state = W.init_encdec_decode_state(full, cfg, x, B, M)
         tok = inp["tok0"]
@@ -172,8 +205,10 @@ def cell_scenario(inp, case):
     tok = sh.local_slices(tok, dec.in_shardings[1], mesh)
     out["tok0"] = tok.numpy()
     out["decode"] = []
-    for _ in range(inp["D"]):
-        logits, state = dec.fn(params, tok, state)
+    for i in range(inp["D"]):
+        (logits, state), counts = _measured(lambda: dec.fn(params, tok, state))
+        if i == 0 and inp.get("dry"):
+            out["counts"]["decode"] = {"real": counts, "dry": _dry(dec, mesh)}
         tok = logits.argmax(-1).to(torch.int32)
         out["decode"].append(_np((logits, state)))
     return out
@@ -384,6 +419,7 @@ def ep_main(root: str, rank: int, world: int):
             view = {**inp, "batches": inp["batches"][case["cfg"]], "seq": inp["N"],
                     "batch": inp["B"], "draws": {}}
             train = train_scenario(view, cfg, case["mesh"], inp["steps"])
+            res[name]["counts"]["train"] = train[0].pop("counts")
             res[name]["train"] = train if rank == 0 else None
     for name, case in inp["apply"].items():
         res[name] = ep_apply_scenario(inp, case)
@@ -426,8 +462,10 @@ def main(root: str, rank: int, world: int):
     comm.init_process_group(f"file://{root}/store", world, rank, "gloo")
     inp = torch.load(f"{root}/inputs.pt", weights_only=False)
     res = {}
+    counts = {}
     for name, (cfg_key, mesh_shape, n) in inp["train"].items():
         res[name] = train_scenario(inp, inp["cfgs"][cfg_key], mesh_shape, n)
+        counts[name] = res[name][0].pop("counts", None)
     res["cp"] = cp_scenario(inp)
     res["cp_grad"] = {case: cp_grad_scenario(inp, case) for case in inp["cp"]["grad"]}
     res["pipe"] = pipe_scenario(inp)
@@ -437,6 +475,9 @@ def main(root: str, rank: int, world: int):
     gathered = [None] * world
     torch.distributed.all_gather_object(gathered, res["remesh"])
     res["remesh"] = {k: v for part in gathered for k, v in part.items()}
+    gathered = [None] * world
+    torch.distributed.all_gather_object(gathered, counts)
+    res["counts"] = gathered
     if rank == 0:
         torch.save(res, f"{root}/results.pt")
     torch.distributed.destroy_process_group()

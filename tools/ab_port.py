@@ -13,7 +13,11 @@ turns as P C C P P C ... (``--pairs`` pairs), and each turn measures, on
 
 - K1 (``stlt_scan_kernel``) at ``chip_smoke.K1_SHAPES``: its device time
   per call (profiler: every kernel the call launches, gaps excluded), the
-  wrapper's call and the whole ``ops.stlt_scan`` call by CUDA events;
+  wrapper's call and the whole ``ops.stlt_scan`` call by CUDA events, and
+  the wrapper's host time (from a synchronized start to its return);
+- K2 (``relevance_flash_kernel``, causal) at the relevance path's shape
+  (4 x 8 heads x 1000 tokens): the wrapper's call by CUDA events and its
+  host time;
 - ``T.prefill`` of 4 x 1000 tokens and one decode step at batch 4, by
   events, and ``ServeEngine.generate`` of 4 x (1000 + 32) tokens, by the
   host's clock, twice;
@@ -65,6 +69,7 @@ class Tree:
             build = importlib.import_module("repro_torch.kernels.build")
             self.ops = importlib.import_module("repro_torch.kernels.ops")
             self.k1 = importlib.import_module("repro_torch.kernels.stlt_scan")
+            self.k2 = importlib.import_module("repro_torch.kernels.relevance_flash")
             self.T = importlib.import_module("repro_torch.models.transformer")
             engine = importlib.import_module("repro_torch.serving").ServeEngine
         finally:
@@ -79,6 +84,19 @@ class Tree:
     def activate(self):
         _drop_port_modules()
         sys.modules.update(self.modules)
+
+
+def host_ms(fn, iters: int = 100) -> float:
+    """Mean ms of the host's side of one call of ``fn``: from a
+    synchronized start to the call's return."""
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * total / iters
 
 
 def measure(tree: Tree, dev, prompts, long_toks) -> dict:
@@ -98,10 +116,19 @@ def measure(tree: Tree, dev, prompts, long_toks) -> dict:
         kernels = cs.device_ms(call, 10)
         out[f"K1 {BH}x{n} S={S} device ms"] = sum(kernels.values()) if kernels else float("nan")
         out[f"K1 {BH}x{n} S={S} call ms"] = cs.time_cuda(call, iters)
+        out[f"K1 {BH}x{n} S={S} call host ms"] = host_ms(call)
         out[f"K1 {BH}x{n} S={S} ops.stlt_scan ms"] = cs.time_cuda(lambda: ops.stlt_scan(
             x, lm, th, ur, ui, chunk=C, h0_re=h0r, h0_im=h0i, valid=valid,
             return_state=True), iters)
         del args, raw
+    a = cs.k2_inputs(dev, B * cfg.num_heads, N, cfg.dh, cfg.stlt_nodes, 3, adversarial=False)
+
+    def k2_call():
+        tree.k2.relevance_flash_kernel(*a, causal=True)
+
+    out["K2 causal call ms"] = cs.time_cuda(k2_call, 10)
+    out["K2 causal call host ms"] = host_ms(k2_call)
+    del a
     with torch.no_grad():
         tok = torch.from_numpy(prompts).to(dev)
         out["prefill 4x1000 ms"] = cs.time_cuda(

@@ -159,6 +159,47 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
+_SEEN_PEAK = [0]   # the allocator's peak before the last reset by _grown
+
+
+def _grown(fn, dev):
+    """(fn(), its ms by CUDA events, how far the rank's allocated bytes rose
+    above their level at the call's start): the allocator's peak is reset
+    before the call (``_peak_gib`` keeps the peak before it)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    _SEEN_PEAK[0] = max(_SEEN_PEAK[0], torch.cuda.max_memory_allocated(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out, ms = _timed(fn)
+    return out, ms, torch.cuda.max_memory_allocated(dev) - base
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return max(_SEEN_PEAK[0], torch.cuda.max_memory_allocated(dev)) / 2**30
+
+
+def _reset_peak(dev):
+    import torch
+
+    _SEEN_PEAK[0] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _held(*trees) -> int:
+    """The bytes of the distinct storages under ``trees`` (what a step is
+    handed)."""
+    import torch
+
+    from repro_torch.utils import tree_leaves
+
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tree_leaves(list(trees)) if isinstance(t, torch.Tensor)}.values())
+
+
 def _batch(step, dev, vocab, B=DT1_B, N=DT1_N):
     import torch
 
@@ -195,12 +236,15 @@ def dt1(T, cfg, dev, rank, out):
     rows = []
     for step in range(DT1_STEPS):
         batch = _batch(step, dev, cfg.vocab)
+        local = sh.local_slices(batch, bspec, mesh)
+        given = _held(params, state, local)
         comm.reset_stats()
         k1.stlt_scan_kernel.launches = 0
-        (params, state, m), ms = _timed(
-            lambda: prog.fn(params, state, sh.local_slices(batch, bspec, mesh), step))
+        (params, state, m), ms, grown = _grown(
+            lambda: prog.fn(params, state, local, step), dev)
         row = {"step": step, "ms": ms, "k1": k1.stlt_scan_kernel.launches,
-               "bytes": dict(comm.STATS), "loss": float(m["loss"]),
+               "bytes": dict(comm.STATS), "calls": dict(comm.CALLS), "held": given,
+               "grown": grown, "loss": float(m["loss"]),
                "metrics": {k: float(m[k]) for k in DT1_METRICS}}
         gathered = sh.gather_full(params, pspecs, mesh)
         if rank == 0:
@@ -432,19 +476,23 @@ def ds1(T, cfg, full, dev, rank, out):
     pre.fn(params, x)                                   # warm
     comm.reset_stats()
     k1.stlt_scan_kernel.launches = 0
-    (logits, pre_state), ms = _timed(lambda: pre.fn(params, x))
+    given = _held(params, x)
+    (logits, pre_state), ms, grown = _grown(lambda: pre.fn(params, x), dev)
     row = {"prefill_ms": ms, "prefill_k1": k1.stlt_scan_kernel.launches,
-           "prefill_bytes": dict(comm.STATS), "decode_ms": [], "decode_k1": [],
+           "prefill_bytes": dict(comm.STATS), "prefill_calls": dict(comm.CALLS),
+           "prefill_held": given, "prefill_grown": grown, "decode_ms": [], "decode_k1": [],
            "decode_bytes": None}
     got_logits, state = [logits], pre_state
     for _ in range(new):
         tok = got_logits[-1].argmax(-1).to(torch.int32)
         comm.reset_stats()
         k1.stlt_scan_kernel.launches = 0
-        (logits, state), ms = _timed(lambda: dec.fn(params, tok, state))
+        given = _held(params, tok, state)
+        (logits, state), ms, grown = _grown(lambda: dec.fn(params, tok, state), dev)
         row["decode_ms"].append(ms)
         row["decode_k1"].append(k1.stlt_scan_kernel.launches)
-        row["decode_bytes"] = dict(comm.STATS)
+        row.update(decode_bytes=dict(comm.STATS), decode_calls=dict(comm.CALLS),
+                   decode_held=given, decode_grown=grown)
         got_logits.append(logits)
     torch.distributed.barrier()
     # the single-device functions on this card, held on the rank's rows
@@ -690,14 +738,17 @@ def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None, B=DA_B):
     state = prog.opt_init(params)
     row["steps"] = []
     for step, batch in zip(DA_TRAIN_STEPS, batches):
+        local = sh.local_slices(batch, bspec, mesh)
+        given = _held(params, state, local)
         comm.reset_stats()
         k1.stlt_scan_kernel.launches = 0
         moe.DROPS.reset()
-        (params, state, m), ms = _timed(
-            lambda: prog.fn(params, state, sh.local_slices(batch, bspec, mesh), step))
+        (params, state, m), ms, grown = _grown(
+            lambda: prog.fn(params, state, local, step), dev)
         row["steps"].append({"ms": ms, "k1": k1.stlt_scan_kernel.launches,
                              "drops": moe.DROPS.read()["dropped"],
-                             "bytes": dict(comm.STATS), "loss": float(m["loss"]),
+                             "bytes": dict(comm.STATS), "calls": dict(comm.CALLS),
+                             "held": given, "grown": grown, "loss": float(m["loss"]),
                              "metrics": {k: float(m[k]) for k in DT1_METRICS}})
     worst, over = 0.0, []
     for path, got in tree_flatten_with_paths(params):
@@ -706,11 +757,11 @@ def da_train(T, cfg, dev, rank, mesh_shape, tag, out, N=None, B=DA_B):
         if gap > 1.0:
             over.append((path, gap))
     row["param_gap_over_tol"], row["over"] = worst, over[:8]
-    row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    row["peak_gib"] = _peak_gib(dev)
     del params, state, held
     torch.distributed.barrier()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_peak(dev)
     row["s"] = time.time() - t0
     print(f"[{tag}] {row['s']:.1f} s (references {row['ref_s']:.1f} s), peak "
           f"{row['peak_gib']:.2f} GiB", flush=True)
@@ -799,9 +850,11 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
     comm.reset_stats()
     k1.stlt_scan_kernel.launches = 0
     moe.DROPS.reset()
-    (logits, pstate), row["prefill_ms"] = _timed(lambda: pre.fn(params, x))
+    row["prefill_held"] = _held(params, x)
+    (logits, pstate), row["prefill_ms"], row["prefill_grown"] = _grown(
+        lambda: pre.fn(params, x), dev)
     row.update(prefill_k1=k1.stlt_scan_kernel.launches, prefill_bytes=dict(comm.STATS),
-               prefill_drops=moe.DROPS.read()["dropped"])
+               prefill_calls=dict(comm.CALLS), prefill_drops=moe.DROPS.read()["dropped"])
     want_logits, want_state = held["prefill"]
     row["prefill_logit_gap"] = float((logits - want_logits.to(dev)).abs().max())
 
@@ -825,11 +878,13 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
         comm.reset_stats()
         k1.stlt_scan_kernel.launches = 0
         moe.DROPS.reset()
-        (logits, state), ms = _timed(lambda: dec.fn(params, tok, state))
+        given = _held(params, tok, state)
+        (logits, state), ms, grown = _grown(lambda: dec.fn(params, tok, state), dev)
         row["decode_ms"].append(ms)
         row["decode_k1"].append(k1.stlt_scan_kernel.launches)
         row["decode_drops"].append(moe.DROPS.read()["dropped"])
-        row["decode_bytes"] = dict(comm.STATS)
+        row.update(decode_bytes=dict(comm.STATS), decode_calls=dict(comm.CALLS),
+                   decode_held=given, decode_grown=grown)
         want = ref_logits[step].to(dev)
         for r in range(len(live)):
             if not live[r]:
@@ -848,11 +903,11 @@ def da_serve(T, cfg, dev, rank, mesh_shape, tag, out, new=DA_NEW):
         tok = logits.argmax(-1).to(torch.int32)
     row["streams_equal"] = all(live)
     row["final_state_gap_over_tol"] = state_gap(state, ref_final) if all(live) else None
-    row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    row["peak_gib"] = _peak_gib(dev)
     del params, state, held
     torch.distributed.barrier()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_peak(dev)
     row["s"] = time.time() - t0
     print(f"[{tag}] {row['s']:.1f} s (references {row['ref_s']:.1f} s), peak "
           f"{row['peak_gib']:.2f} GiB", flush=True)
@@ -933,10 +988,10 @@ def rank_main(rank: int, backend: str, cards: int, store: str):
     out["t_DS1"] = time.time() - t0
     ds2(T, cfg, full, dev, rank, out)
     out["t_DS2"] = time.time() - t0
-    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["peak_gib"] = _peak_gib(dev)
     del prog, mesh, params, full
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_peak(dev)
     da(T, dev, rank, out)
     out["t_DA"] = time.time() - t0
     dm(T, dev, rank, out)
